@@ -5,16 +5,28 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. card: the card's name and power limit, as nvidia-smi reports them;
-  2. build: every kernel of the slice, compiled from this checkout's sources;
+  2. build: every kernel of the port (the fused-QKV attention forward and
+     backward, one source), compiled from this checkout's sources;
   3. kernels: each kernel against its plain PyTorch version on the card, in
      fp32 (TF32 off) and bf16, with its time beside the plain version's and
-     one PyTorch library call's (a yardstick the port never calls);
-  4. slice: CLIP ViT-B/32 anomaly scoring at full width with random weights
-     from seed 0: the CIFAR-10 one-vs-rest prompt centre, then three requests
-     (256, 100 and 37 raw 32x32 uint8 images) through ``AnomalyScorer``, held
-     against the same model run through the kernel's plain version; one
-     request again with the HSC objective in bf16. The kernels' launch counts
-     are set to 0 just before this phase's main path and read just after.
+     one PyTorch library call's (a yardstick the port never calls): SDPA's
+     forward, and SDPA's backward through a retained forward;
+  4. serving (the first slice): CLIP ViT-B/32 anomaly scoring at full width
+     with random weights from seed 0: the CIFAR-10 one-vs-rest prompt
+     centre, then three requests (256, 100 and 37 raw 32x32 uint8 images)
+     through ``AnomalyScorer``, held against the same model run through the
+     kernels' plain versions; one request again with the HSC objective in
+     bf16;
+  5. training (the second slice): ``Trainer`` on a full-width ViT-B/32 in
+     bf16 with the HSC objective and the acceptance augmentation stack, on
+     seeded uint8 256x256 sets of 512 normal, 512 OE and 256 test images: two
+     epochs of 4 steps of 128 + 128 images, ``eval_cls`` and a snapshot; the
+     launch counts must be 12 forward and 12 backward per step plus 12
+     forward per eval batch. Then 3 fp32 steps (TF32 off, deterministic
+     pipeline) twice, through the kernels and through their plain versions
+     (``fused_qkv_attention_ref``), held against each other; and the
+     snapshot served through ``AnomalyScorer``, held against ``eval_cls``.
+Each path's launch counts are set to 0 just before it and read just after.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or eoe_tpu.
@@ -60,13 +72,16 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def attention_bound_ms(n, s, heads, d, causal, dtype) -> tuple:
-    """Least time for the function: read qkv once and write the output once,
-    and the two products' operations (causal rows need only their prefix)."""
+def attention_bound_ms(n, s, heads, d, causal, dtype, backward=False) -> tuple:
+    """Least time for the function. Forward: read qkv (3 H d per row) once
+    and write the output (H d) once; two products of 2 s^2 d operations per
+    image and head. Backward: read qkv and dout, write d(qkv): 7 H d per row;
+    five products (QK^T recomputed, dV, dP, dQ, dK). Causal rows need only
+    their prefix of keys."""
     elem = 2 if str(dtype) == "torch.bfloat16" else 4
-    nbytes = n * s * 4 * heads * d * elem
+    nbytes = n * s * (7 if backward else 4) * heads * d * elem
     pairs = s * (s + 1) // 2 if causal else s * s
-    ops = 4 * n * heads * pairs * d
+    ops = (10 if backward else 4) * n * heads * pairs * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[str(dtype)]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -83,27 +98,31 @@ def phase_card() -> str:
 def phase_build():
     from eoe_tpu_torch.ops import _build, attention
     t0 = time.perf_counter()
-    attention._library()  # builds csrc/fused_qkv_attention.cu with nvcc, then loads it
+    attention._library()  # builds csrc/fused_qkv_attention.cu (forward and backward), then loads it
     print(f"build: {attention.SOURCE} in {time.perf_counter() - t0:.1f} s")
     for line in _build.build_log(attention.SOURCE).splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"  ptxas: {line.strip()}")
 
 
+# (n, s, heads, d, causal): the ViT-B/32 image tower at the training and
+# serving batch (n = 256 images), the text tower, a ragged causal case, d=128
+SHAPES = [(256, 50, 12, 64, False), (64, 77, 8, 64, True),
+          (3, 21, 4, 64, True), (2, 10, 2, 128, True)]
+
+
 def phase_kernels(card: str) -> dict:
     import torch
     import torch.nn.functional as F
-    from eoe_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_ref
+    from eoe_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_fwd_ref
 
-    shapes = [(256, 50, 12, 64, False), (64, 77, 8, 64, True),
-              (3, 21, 4, 64, True), (2, 10, 2, 128, True)]
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
-    for n, s, h, d, causal in shapes:
+    for n, s, h, d, causal in SHAPES:
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
             qkv = torch.randn(n, s, 3 * h * d, generator=g, device="cuda").to(dtype)
             out = fused_qkv_attention(qkv, h, causal)
-            ref = fused_qkv_attention_ref(qkv, h, causal)
+            ref = fused_qkv_attention_fwd_ref(qkv, h, causal)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             tag = f"n={n} s={s} H={h} d={d} {'causal' if causal else 'full'} {str(dtype)[6:]}"
@@ -114,7 +133,7 @@ def phase_kernels(card: str) -> dict:
             sdpa_err = (sdpa_out.transpose(1, 2).reshape(out.shape).float()
                         - out.float()).abs().max().item()
             ms = time_ms(lambda: fused_qkv_attention(qkv, h, causal))
-            plain_ms = time_ms(lambda: fused_qkv_attention_ref(qkv, h, causal))
+            plain_ms = time_ms(lambda: fused_qkv_attention_fwd_ref(qkv, h, causal))
             sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
             bound, by = attention_bound_ms(n, s, h, d, causal, dtype)
             rows[(n, s, h, d, causal, str(dtype))] = dict(
@@ -123,6 +142,47 @@ def phase_kernels(card: str) -> dict:
             print(f"kernel fused_qkv_attention {tag}: max_abs_err {err:.3g} (tol {tol}; "
                   f"vs sdpa {sdpa_err:.3g}) "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({by}) [{card}]")
+    return rows
+
+
+def phase_kernels_bwd(card: str) -> dict:
+    """The backward kernel against ``fused_qkv_attention_bwd_ref``. fp32: the
+    two differ in summation order only, 2e-5 of the largest gradient. bf16:
+    an order flip can move dS across a rounding boundary before the second
+    products, and the output is rounded once more: 2^-5 of the largest."""
+    import torch
+    import torch.nn.functional as F
+    from eoe_tpu_torch.ops.attention import _bwd_kernel, fused_qkv_attention_bwd_ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = {}
+    for n, s, h, d, causal in SHAPES:
+        for dtype, rel in ((torch.float32, 2e-5), (torch.bfloat16, 2 ** -5)):
+            qkv = torch.randn(n, s, 3 * h * d, generator=g, device="cuda").to(dtype)
+            dout = torch.randn(n, s, h * d, generator=g, device="cuda").to(dtype)
+            dqkv = _bwd_kernel(qkv, dout, h, causal)
+            ref = fused_qkv_attention_bwd_ref(qkv, dout, h, causal)
+            torch.cuda.synchronize()
+            err = (dqkv.float() - ref.float()).abs().max().item()
+            tol = rel * ref.float().abs().max().item()
+            tag = f"n={n} s={s} H={h} d={d} {'causal' if causal else 'full'} {str(dtype)[6:]}"
+            check(err <= tol, f"fused_qkv_attention backward {tag}: max abs err {err} > {tol}")
+            # the library yardstick: SDPA's backward through a retained forward
+            q, k, v = (t.view(n, s, h, d).transpose(1, 2).detach().requires_grad_()
+                       for t in qkv.chunk(3, dim=-1))
+            sdpa_out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            g_sdpa = dout.view(n, s, h, d).transpose(1, 2)
+            ms = time_ms(lambda: _bwd_kernel(qkv, dout, h, causal))
+            plain_ms = time_ms(lambda: fused_qkv_attention_bwd_ref(qkv, dout, h, causal))
+            sdpa_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (q, k, v), g_sdpa,
+                                                          retain_graph=True))
+            bound, by = attention_bound_ms(n, s, h, d, causal, dtype, backward=True)
+            rows[(n, s, h, d, causal, str(dtype))] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=sdpa_ms, shape=tag)
+            print(f"kernel fused_qkv_attention_bwd {tag}: max_abs_err {err:.3g} (tol {tol:.3g}) "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bwd {sdpa_ms:.4f} ms, "
                   f"bound {bound:.4f} ms ({by}) [{card}]")
     return rows
 
@@ -226,6 +286,158 @@ def phase_slice(card: str) -> int:
     return launches
 
 
+# the acceptance augmentation stack of the JAX package's training benchmark
+# (bench.py:60-68: the reference CLIP fine-tune stack)
+ACCEPTANCE_SPECS = [
+    {"op": "resize", "size": 256},
+    {"op": "color_jitter", "brightness": 0.01, "contrast": 0.01, "saturation": 0.01,
+     "hue": 0.01},
+    {"op": "random_crop", "size": 224, "resample_degenerate": True},
+    {"op": "random_hflip", "p": 0.5},
+    {"op": "clip_pil_preprocessing"},
+    {"op": "gaussian_noise", "std": 0.001},
+    {"op": "clip_tensor_preprocessing"}]
+CLIP_TEST_SPECS = [{"op": "clip_pil_preprocessing"}, {"op": "clip_tensor_preprocessing"}]
+TRAIN_N, TRAIN_OE, TRAIN_TEST, TRAIN_HW, TRAIN_EPOCHS = 512, 512, 256, 256, 2
+
+
+def _combined(rng, train_specs):
+    """512 normal + 512 OE + 256 test raw uint8 images; test labels alternate
+    normal / anomalous (synthetic: they check the plumbing only)."""
+    import numpy as np
+    from eoe_tpu_torch.datasets.bases import ArraySource, CombinedDataset, GenericADDataset
+    hw = TRAIN_HW
+    x = rng.integers(0, 256, (TRAIN_N, hw, hw, 3), dtype=np.uint8)
+    xo = rng.integers(0, 256, (TRAIN_OE, hw, hw, 3), dtype=np.uint8)
+    xt = rng.integers(0, 256, (TRAIN_TEST, hw, hw, 3), dtype=np.uint8)
+    kw = dict(root="", train_specs=train_specs, test_specs=CLIP_TEST_SPECS, n_classes=2,
+              raw_shape=(hw, hw, 3))
+    normal = GenericADDataset(ArraySource(x, np.zeros(TRAIN_N)),
+                              ArraySource(xt, np.arange(TRAIN_TEST) % 2),
+                              normal_classes=(0,), nominal_label=0, **kw)
+    oe = GenericADDataset(ArraySource(xo, np.ones(TRAIN_OE)), None,
+                          normal_classes=(1,), nominal_label=1, **kw)
+    return CombinedDataset(normal, oe), xt
+
+
+def _trainer(model, train_specs, logger, dtype):
+    """The JAX package's benchmark trainer (bench.py:123-127)."""
+    from eoe_tpu_torch.training import TRAINER
+    return TRAINER["hsc"](model=model, train_specs=train_specs, test_specs=CLIP_TEST_SPECS,
+                          dataset="cifar10", oe_dataset="cifar100", datapath="", logger=logger,
+                          epochs=TRAIN_EPOCHS, lr=1e-4, wdk=1e-3, milestones=[],
+                          batch_size=BATCH, compute_dtype=dtype)
+
+
+def phase_train(card: str) -> tuple:
+    import tempfile
+
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.inference import AnomalyScorer
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32
+    from eoe_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_ref
+    from eoe_tpu_torch.utils.logger import Logger
+
+    layers = VIT_B32.vision_layers
+    rng = np.random.default_rng(SEED)
+    ds, x_test = _combined(rng, ACCEPTANCE_SPECS)
+    steps = TRAIN_EPOCHS * (TRAIN_N // BATCH)
+    eval_batches = -(-TRAIN_TEST // BATCH)
+    with tempfile.TemporaryDirectory() as logdir:
+        logger = Logger(logdir, noname=True)
+        trainer = _trainer(CLIP(VIT_B32, dtype=torch.bfloat16), ACCEPTANCE_SPECS, logger,
+                           torch.bfloat16)
+        trainer.ds = ds
+
+        # ---- the main path, counted: train_cls, eval_cls, snapshot
+        fused_qkv_attention.launches = fused_qkv_attention.bwd_launches = 0
+        t0 = time.perf_counter()
+        state, roc = trainer.train_cls(ds, 0, "airplane", 0, seed=SEED)
+        t_train = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eroc, _ = trainer.eval_cls(state, ds, 0, "airplane", 0)
+        t_eval = time.perf_counter() - t0
+        path = trainer.snapshot("snapshot_cls0_it0", state, TRAIN_EPOCHS, ds.ds_statistics)
+        fwd, bwd = fused_qkv_attention.launches, fused_qkv_attention.bwd_launches
+        # ---- end of the counted run
+
+        losses = trainer.step_losses
+        check(len(losses) == steps and np.isfinite(losses).all(),
+              f"training: expected {steps} finite losses, got {losses}")
+        check(fwd == layers * (steps + eval_batches),
+              f"training: {fwd} forward launches, expected {layers} x ({steps} steps + "
+              f"{eval_batches} eval batches)")
+        check(bwd == layers * steps, f"training: {bwd} backward launches, expected "
+              f"{layers} x {steps} steps")
+        eval_scores = np.array([v for _, v in sorted(
+            (int(k), v) for k, v in _read_json(logdir, "eval_cls0_it0_anomaly_scores").items())])
+        check(eval_scores.shape == (TRAIN_TEST,) and np.isfinite(eval_scores).all(),
+              "eval_cls: bad scores")
+        rates = [round(r, 1) for r in trainer.epoch_rates]
+        print(f"train hsc bf16 ViT-B/32: {steps} steps of {BATCH}+{BATCH} images in "
+              f"{t_train:.2f} s; img/s per epoch {rates}; losses "
+              f"{[round(x, 5) for x in losses]}; train AUROC {roc.auc:.4f}, eval of "
+              f"{TRAIN_TEST} in {t_eval:.2f} s, synthetic AUROC {eroc.auc:.4f}; launches "
+              f"fwd {fwd} bwd {bwd} [{card}]")
+
+        # the snapshot, served back through the first slice's scorer
+        scorer = AnomalyScorer(path, CLIP(VIT_B32, dtype=torch.bfloat16), objective="hsc",
+                               batch_size=BATCH, compute_dtype=torch.bfloat16)
+        served = scorer.score(x_test)
+        serve_err = float(np.abs(served - eval_scores).max())
+        check(serve_err <= 1e-4, f"served snapshot differs from eval_cls by {serve_err}")
+        print(f"train: snapshot served through AnomalyScorer, max score difference to "
+              f"eval_cls {serve_err:.3g} (tol 1e-4)")
+    del trainer, state, scorer
+    torch.cuda.empty_cache()
+
+    # fp32, deterministic pipeline: the kernels against their plain versions
+    ds32, _ = _combined(np.random.default_rng(SEED + 1), CLIP_TEST_SPECS)
+    runs = []
+    for attention in ("kernels", "plain"):
+        kw = {"qkv_attention": fused_qkv_attention_ref} if attention == "plain" else {}
+        tr = _trainer(CLIP(VIT_B32, **kw), CLIP_TEST_SPECS, None, torch.float32)
+        st = tr.init_state(SEED, ds32, 1)
+        dev = tr.device
+        xn = torch.from_numpy(ds32.train_set.gather_all()).to(dev)
+        xo = torch.from_numpy(ds32.oe.train_set.gather_all()).to(dev)
+        ln = torch.zeros(TRAIN_N, dtype=torch.int64, device=dev)
+        lo = torch.ones(TRAIN_OE, dtype=torch.int64, device=dev)
+        w = torch.ones(BATCH, device=dev)
+        visual = [p for p in st.model.visual.parameters()]
+        fused_qkv_attention.launches = fused_qkv_attention.bwd_launches = 0
+        losses, grads = [], None
+        for i in range(3):
+            sl = slice(i * BATCH, (i + 1) * BATCH)
+            loss, *_ = tr.train_step(st, ds32, xn[sl], ln[sl], xo[sl], lo[sl], w, None)
+            losses.append(loss.item())
+            if i == 0:
+                grads = [p.grad.clone() for p in visual]
+        launches = (fused_qkv_attention.launches, fused_qkv_attention.bwd_launches)
+        check(launches == ((3 * layers, 3 * layers) if attention == "kernels" else (0, 0)),
+              f"fp32 {attention} run launched {launches}")
+        runs.append((losses, grads, [p.detach().clone() for p in visual]))
+        del tr, st, visual
+    (lk, gk, pk), (lp, gp, pp) = runs
+    g_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(gk, gp))
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    p_err = max((a - b).abs().max().item() for a, b in zip(pk, pp))
+    check(g_err <= 1e-4, f"fp32 first-step gradients differ by {g_err} of their max")
+    check(l_err <= 1e-5, f"fp32 losses differ by {l_err} (relative)")
+    check(p_err <= 1e-5, f"fp32 visual parameters differ by {p_err} after 3 steps")
+    print(f"train hsc fp32 kernels vs plain, 3 steps: gradient err {g_err:.3g} of max "
+          f"(tol 1e-4), loss err {l_err:.3g} rel (tol 1e-5), parameter err {p_err:.3g} "
+          f"(tol 1e-5); losses {[round(x, 6) for x in lk]} [{card}]")
+    return fwd, bwd
+
+
+def _read_json(logdir: str, name: str) -> dict:
+    with open(os.path.join(logdir, f"{name}.json")) as f:
+        return json.load(f)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -242,15 +454,24 @@ def main():
     card = phase_card()
     phase_build()
     rows = phase_kernels(card)
-    launches = phase_slice(card)
+    bwd_rows = phase_kernels_bwd(card)
+    serve_launches = phase_slice(card)
+    train_fwd, train_bwd = phase_train(card)
 
-    main_row = rows[(256, 50, 12, 64, False, "torch.bfloat16")]
-    kernel = {"name": "fused_qkv_attention", "route": "cuda",
-              "source": "eoe_tpu_torch/csrc/fused_qkv_attention.cu",
-              "replaces": "eoe_tpu/ops/attention.py:216",
-              "launches": launches, **main_row}
+    main_shape = (256, 50, 12, 64, False, "torch.bfloat16")  # the training shape
+    source = "eoe_tpu_torch/csrc/fused_qkv_attention.cu"
+    kernels = [
+        {"name": "fused_qkv_attention", "route": "cuda", "source": source,
+         "replaces": "eoe_tpu/ops/attention.py:216", "launches": train_fwd,
+         "launches_by_path": {"serving": serve_launches, "training": train_fwd},
+         **rows[main_shape]},
+        {"name": "fused_qkv_attention_bwd", "route": "cuda", "source": source,
+         "replaces": "eoe_tpu/ops/attention.py:294", "launches": train_bwd,
+         "launches_by_path": {"serving": 0, "training": train_bwd},
+         **bwd_rows[main_shape]},
+    ]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -2,10 +2,11 @@
 
 It grows slice by slice beside ``eoe_tpu``, which stays the unchanged JAX
 reference. This package imports ``torch`` and never ``jax`` or ``eoe_tpu``.
-The first slice is CLIP ViT-B/32 anomaly scoring (``inference.AnomalyScorer``)
-with the fused-QKV attention forward as a hand-written CUDA kernel
-(``ops.attention``). Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+The first slice is CLIP ViT-B/32 anomaly scoring (``inference.AnomalyScorer``),
+the second HSC and CLIP fine-tuning (``training.Trainer``,
+``training.clip.ClipTrainer``); the fused-QKV attention forward and backward
+are hand-written CUDA kernels (``ops.attention``). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -7,11 +7,13 @@ ViT. Images are NHWC, as in the JAX package.
 
 Parameters stay fp32; ``dtype`` is the compute dtype. Every dense layer casts
 its input, weight and bias to ``dtype`` explicitly, as Flax ``nn.Dense(dtype=)``
-does (no autocast). Attention runs through the fused-QKV CUDA kernel when it
-applies (``fused_qkv_ok``) and the mask is none or causal, else through
-``default_attention``; ``qkv_attention`` replaces the kernel by another
-function of the same signature, e.g. its plain version
-``fused_qkv_attention_ref``. ``ModifiedResNet`` is not ported yet.
+does (no autocast). Attention runs through the fused-QKV CUDA kernels when
+they apply (``fused_qkv_ok``: on the card) and the mask is none or causal,
+forward and, in training, backward (``fused_qkv_attention`` is an autograd
+Function); else, as on the CPU, through ``default_attention``.
+``qkv_attention`` replaces the kernels by another function of the same
+signature, e.g. their plain versions ``fused_qkv_attention_ref``.
+``ModifiedResNet`` is not ported yet.
 """
 
 import dataclasses

@@ -1,14 +1,17 @@
-"""Fused QKV self-attention for the CLIP encoders: the CUDA kernel and its
-plain PyTorch version.
+"""Fused QKV self-attention for the CLIP encoders: the CUDA kernels and
+their plain PyTorch versions.
 
 ``fused_qkv_attention`` is the port of eoe_tpu/ops/attention.py's
-``fused_qkv_attention`` forward (the Pallas kernel ``_fwd_compute``). It
-consumes the un-transposed joint projection ``(n, s, 3*H*d)`` and returns
-``(n, s, H*d)``. On a CUDA tensor it launches the hand-written kernel in
-``csrc/fused_qkv_attention.cu`` (built at first use, see ``_build``) or
-raises; on a CPU tensor it computes the same function with
-``fused_qkv_attention_ref``. Gradients are not ported yet: the CUDA path is
-for inference.
+``fused_qkv_attention`` with its custom VJP: the forward is the Pallas kernel
+``_fwd_compute``, the backward ``_bwd_compute``. It consumes the
+un-transposed joint projection ``(n, s, 3*H*d)`` and returns ``(n, s, H*d)``.
+It is a ``torch.autograd.Function`` that saves only ``qkv``, as ``_fused_fwd``
+saves ``qkv_p``. On a CUDA tensor its forward and backward launch the
+hand-written kernels in ``csrc/fused_qkv_attention.cu`` (built at first use,
+see ``_build``) or raise; on a CPU tensor they compute the same functions
+with the plain versions ``fused_qkv_attention_fwd_ref`` and
+``fused_qkv_attention_bwd_ref``. ``fused_qkv_attention_ref`` is the plain
+pair as one differentiable function, on any device.
 """
 
 import ctypes
@@ -53,7 +56,7 @@ def _check_fused_shape(heads: int, d: int, s: int):
 
 def fused_qkv_ok(n: int, s: int, heads: int, d: int,
                  sample: Optional[torch.Tensor] = None) -> bool:
-    """Whether the CUDA kernel applies: ``sample`` (the projection) lies on a
+    """Whether the CUDA kernels apply: ``sample`` (the projection) lies on a
     CUDA device and the shape passes the gate. The dtype is not consulted: on
     the card a dtype the kernel does not take raises in
     ``fused_qkv_attention`` rather than running the plain version."""
@@ -63,79 +66,185 @@ def fused_qkv_ok(n: int, s: int, heads: int, d: int,
     return aligned and s <= MAX_SEQ and n >= 1
 
 
-def fused_qkv_attention_ref(qkv: torch.Tensor, heads: int,
-                            causal: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, with the numerics of
-    ``_fwd_group_math`` (eoe_tpu/ops/attention.py:184): for d=64, q is
-    pre-scaled by 2^-3 in the input dtype; for d=128 the fp32 logits are
-    scaled. Masked logits get -1e30, the softmax is fp32, P is rounded to the
-    input dtype, and P.V accumulates in fp32."""
+def _split_heads(qkv: torch.Tensor, heads: int):
     n, s, F = qkv.shape
-    D = F // 3
-    d = D // heads
-    _check_fused_shape(heads, d, s)
-    q, k, v = qkv.reshape(n, s, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    d = F // 3 // heads
+    return qkv.reshape(n, s, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)  # (n, h, s, d)
+
+
+def _probs_f32(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """fp32 attention probabilities as ``_fwd_group_math`` computes them: for
+    d=64, q is pre-scaled by 2^-3 in the input dtype; for d=128 the fp32
+    logits are scaled. Masked logits get -1e30."""
+    d, s = q.shape[-1], q.shape[-2]
     scale = d ** -0.5
     if d == 64:
         logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     else:
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
-        future = torch.ones(s, s, dtype=torch.bool, device=qkv.device).triu(1)
+        future = torch.ones(s, s, dtype=torch.bool, device=q.device).triu(1)
         logits = logits.masked_fill(future, -1e30)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
-    p = (p / p.sum(dim=-1, keepdim=True)).to(qkv.dtype)
+    return p / p.sum(dim=-1, keepdim=True)
+
+
+def fused_qkv_attention_fwd_ref(qkv: torch.Tensor, heads: int,
+                                causal: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernel, with the numerics of
+    ``_fwd_group_math`` (eoe_tpu/ops/attention.py:184): the fp32 softmax of
+    ``_probs_f32``, P rounded to the input dtype, P.V accumulated in fp32."""
+    n, s, F = qkv.shape
+    D = F // 3
+    _check_fused_shape(heads, D // heads, s)
+    q, k, v = _split_heads(qkv, heads)
+    p = _probs_f32(q, k, causal).to(qkv.dtype)
     out = torch.matmul(p.float(), v.float()).to(qkv.dtype)  # (n, h, s, d)
     return out.transpose(1, 2).reshape(n, s, D)
+
+
+def fused_qkv_attention_bwd_ref(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
+                                causal: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel: ``d(qkv)`` of shape
+    ``(n, s, 3*H*d)``, packed [dq | dk | dv], with the numerics of
+    ``_bwd_group_math`` (eoe_tpu/ops/attention.py:234), not those of autograd
+    through the plain forward: P is recomputed in fp32; dv = round(P).dout;
+    dp = dout.v^T in fp32; dS = (dp - rowsum(dp*P)) * P with the fp32 P,
+    rounded to the input dtype before dq = dS.k and dk = dS^T.q. The d^-1/2
+    scale sits inside dS for d=128 and on dq and dk after the products for
+    d=64, as the JAX kernel puts it."""
+    n, s, F = qkv.shape
+    D = F // 3
+    d = D // heads
+    _check_fused_shape(heads, d, s)
+    scale = d ** -0.5
+    q, k, v = _split_heads(qkv, heads)
+    g = dout.reshape(n, s, heads, d).transpose(1, 2).float()
+    p = _probs_f32(q, k, causal)
+    dv = torch.matmul(p.to(qkv.dtype).float().transpose(-1, -2), g)
+    dp = torch.matmul(g, v.float().transpose(-1, -2))
+    ds = (dp - (dp * p).sum(dim=-1, keepdim=True)) * p
+    if d == 128:
+        ds = ds * scale
+    ds = ds.to(qkv.dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    if d == 64:
+        dq, dk = dq * scale, dk * scale
+    dqkv = torch.stack([dq, dk, dv])                      # (3, n, h, s, d)
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(n, s, F).to(qkv.dtype)
+
+
+class _QkvAttention(torch.autograd.Function):
+    """One forward and one backward function; saves only ``qkv``."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, causal, fwd, bwd):
+        ctx.save_for_backward(qkv)
+        ctx.heads, ctx.causal, ctx.bwd = heads, causal, bwd
+        return fwd(qkv, heads, causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (qkv,) = ctx.saved_tensors
+        return ctx.bwd(qkv, dout.contiguous(), ctx.heads, ctx.causal), None, None, None, None
+
+
+def fused_qkv_attention_ref(qkv: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
+    """The kernels' plain versions as one differentiable function, on any
+    device: ``fused_qkv_attention_fwd_ref`` forward,
+    ``fused_qkv_attention_bwd_ref`` backward. ``CLIP(qkv_attention=...)``
+    takes it as a like-for-like control for the kernels on the card."""
+    return _QkvAttention.apply(qkv, heads, causal, fused_qkv_attention_fwd_ref,
+                               fused_qkv_attention_bwd_ref)
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    lib.eoe_fused_qkv_attention_fwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    lib.eoe_fused_qkv_attention_fwd.restype = ctypes.c_int
-    lib.eoe_cuda_error_string.argtypes = [ctypes.c_int]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.eoe_fused_qkv_attention_fwd.argtypes = [P, P, I, I, I, I, I, I, ctypes.c_float, P]
+    lib.eoe_fused_qkv_attention_fwd.restype = I
+    lib.eoe_fused_qkv_attention_bwd.argtypes = [P, P, P, I, I, I, I, I, I, ctypes.c_float, P]
+    lib.eoe_fused_qkv_attention_bwd.restype = I
+    lib.eoe_cuda_error_string.argtypes = [I]
     lib.eoe_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def fused_qkv_attention(qkv: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
-    """Multi-head self-attention fused over the concatenated projection.
+def _check_card_tensor(t: torch.Tensor, name: str):
+    """What the kernels take: a contiguous fp32 or bf16 CUDA tensor whose
+    data is 4-byte aligned (they read it in 32-bit words)."""
+    if not t.is_cuda:
+        raise ValueError(f"fused_qkv_attention runs on CUDA or CPU tensors, got {t.device}")
+    if t.dtype not in _DTYPE_CODES:
+        raise ValueError(f"fused_qkv_attention takes float32 or bfloat16, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"fused_qkv_attention needs a contiguous {name}")
+    if t.data_ptr() % 4:
+        raise ValueError(f"fused_qkv_attention reads {name} in 4-byte words; it is misaligned")
 
-    ``qkv``: (n, s, 3*D), features ordered [q | k | v] with heads contiguous
-    inside each. Returns (n, s, D), heads concatenated, un-transposed.
-    ``causal`` applies the upper-triangular mask of the CLIP text encoder.
-    ``fused_qkv_attention.launches`` counts the kernel's launches."""
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + _library().eoe_cuda_error_string(err).decode())
+
+
+def _fwd_kernel(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
     n, s, F = qkv.shape
     D = F // 3
     d = D // heads
-    _check_fused_shape(heads, d, s)
-    if qkv.device.type == "cpu":
-        return fused_qkv_attention_ref(qkv, heads, causal)
-    if not qkv.is_cuda:
-        raise ValueError(f"fused_qkv_attention runs on CUDA or CPU tensors, got {qkv.device}")
-    if qkv.dtype not in _DTYPE_CODES:
-        raise ValueError(f"fused_qkv_attention takes float32 or bfloat16, got {qkv.dtype}")
-    if not qkv.is_contiguous():
-        raise ValueError("fused_qkv_attention needs a contiguous qkv")
-    if qkv.data_ptr() % 4:
-        raise ValueError("fused_qkv_attention reads qkv in 4-byte words; it is misaligned")
-    if qkv.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("the fused attention backward is not ported yet")
+    _check_card_tensor(qkv, "qkv")
     out = torch.empty((n, s, D), dtype=qkv.dtype, device=qkv.device)
-    lib = _library()
     with torch.cuda.device(qkv.device):  # the launcher uses the current device
-        err = lib.eoe_fused_qkv_attention_fwd(
+        err = _library().eoe_fused_qkv_attention_fwd(
             qkv.data_ptr(), out.data_ptr(), n, s, heads, d, _DTYPE_CODES[qkv.dtype],
             int(causal), d ** -0.5, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError("fused_qkv_attention launch failed: "
-                           + lib.eoe_cuda_error_string(err).decode())
+    _raise_on(err, "fused_qkv_attention")
     fused_qkv_attention.launches += 1
     return out
 
 
+def _bwd_kernel(qkv: torch.Tensor, dout: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+    n, s, F = qkv.shape
+    D = F // 3
+    d = D // heads
+    _check_card_tensor(qkv, "qkv")
+    _check_card_tensor(dout, "dout")
+    if dout.shape != (n, s, D) or dout.dtype != qkv.dtype or dout.device != qkv.device:
+        raise ValueError(f"dout must be {(n, s, D)} {qkv.dtype} on {qkv.device}, got "
+                         f"{tuple(dout.shape)} {dout.dtype} on {dout.device}")
+    dqkv = torch.empty_like(qkv)
+    with torch.cuda.device(qkv.device):
+        err = _library().eoe_fused_qkv_attention_bwd(
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), n, s, heads, d,
+            _DTYPE_CODES[qkv.dtype], int(causal), d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "fused_qkv_attention backward")
+    fused_qkv_attention.bwd_launches += 1
+    return dqkv
+
+
+def fused_qkv_attention(qkv: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
+    """Multi-head self-attention fused over the concatenated projection,
+    differentiable in ``qkv``.
+
+    ``qkv``: (n, s, 3*D), features ordered [q | k | v] with heads contiguous
+    inside each. Returns (n, s, D), heads concatenated, un-transposed.
+    ``causal`` applies the upper-triangular mask of the CLIP text encoder.
+    On a CUDA tensor the forward and the backward launch their kernels; on a
+    CPU tensor they run the plain versions. ``fused_qkv_attention.launches``
+    counts forward kernel launches, ``fused_qkv_attention.bwd_launches``
+    backward kernel launches."""
+    n, s, F = qkv.shape
+    _check_fused_shape(heads, F // 3 // heads, s)
+    if qkv.device.type == "cpu":
+        return _QkvAttention.apply(qkv, heads, causal, fused_qkv_attention_fwd_ref,
+                                   fused_qkv_attention_bwd_ref)
+    return _QkvAttention.apply(qkv, heads, causal, _fwd_kernel, _bwd_kernel)
+
+
 fused_qkv_attention.launches = 0
+fused_qkv_attention.bwd_launches = 0

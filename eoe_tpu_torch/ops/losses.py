@@ -1,14 +1,30 @@
-"""Anomaly scores of the ported objectives: the score half of
-eoe_tpu/ops/losses.py for HSC and CLIP. The losses come with the training
-slice.
+"""Anomaly-detection objectives of the ported trainers: the port of
+eoe_tpu/ops/losses.py for HSC and CLIP.
 
-``score(features, center, *, nominal_label=0)`` returns per-sample anomaly
-scores of shape ``(n,)``; larger is more anomalous.
+Each objective provides
+  * ``loss(features, labels, center, *, nominal_label=0, weights=None)`` -- the
+    scalar training loss over a batch of model outputs,
+  * ``score(features, center, *, nominal_label=0)`` -- per-sample anomaly
+    scores of shape ``(n,)``; larger is more anomalous.
+
+Every loss takes an optional 0/1 ``weights`` mask per sample (padding slots
+of a ragged batch, unlabeled samples) and averages over the kept samples, as
+the JAX package does. bce, focal, dsvdd, dsad and ae come with the models
+that use them.
 """
 
 from typing import Optional
 
 import torch
+
+_EPS = 1e-9
+
+
+def _masked_mean(x: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
+    if weights is None:
+        return x.mean()
+    weights = weights.to(x.dtype)
+    return (x * weights).sum() / weights.sum().clamp(min=1.0)
 
 
 def _pseudo_huber(features: torch.Tensor) -> torch.Tensor:
@@ -22,6 +38,15 @@ def hsc_score(features: torch.Tensor, center: Optional[torch.Tensor] = None, *,
     return 1.0 - torch.exp(-_pseudo_huber(features))
 
 
+def hsc_loss(features: torch.Tensor, labels: torch.Tensor,
+             center: Optional[torch.Tensor] = None, *, nominal_label: int = 0,
+             weights: Optional[torch.Tensor] = None, **_) -> torch.Tensor:
+    dists = _pseudo_huber(features)
+    scores = 1.0 - torch.exp(-dists)
+    losses = torch.where(labels == nominal_label, dists, -torch.log(scores + _EPS))
+    return _masked_mean(losses, weights)
+
+
 def clip_score(image_features: torch.Tensor, text_features: torch.Tensor, *,
                nominal_label: int = 0, **_) -> torch.Tensor:
     """Softmax over 100 x cosine similarity to the prompts; the probability of
@@ -31,19 +56,47 @@ def clip_score(image_features: torch.Tensor, text_features: torch.Tensor, *,
     return torch.softmax(100.0 * v @ t.T, dim=-1)[:, -1]
 
 
-class Objective:
-    """The score of one AD objective and what it needs."""
+def clip_loss(image_features: torch.Tensor, labels: torch.Tensor,
+              text_features: torch.Tensor, *, nominal_label: int = 0,
+              ad_mode: str = "one_vs_rest", weights: Optional[torch.Tensor] = None,
+              **_) -> torch.Tensor:
+    """Prompt-contrastive AD loss. one_vs_rest: normal samples maximise the
+    log-softmax of prompt 0, anomalous (OE) samples that of the last (anomaly)
+    prompt; leave_one_out: normal samples maximise the best non-anomaly
+    prompt. ``text_features`` are used as they are (normalised once by the
+    prompt centre)."""
+    anom_label = 1 - nominal_label
+    v = image_features / image_features.norm(dim=-1, keepdim=True)
+    logp = torch.log_softmax(100.0 * v @ text_features.T, dim=-1)
+    aloss = logp[:, -1]
+    if ad_mode == "one_vs_rest":
+        nloss = logp[:, 0]
+    elif ad_mode == "leave_one_out":
+        nloss = logp[:, :-1].amax(dim=-1)
+    else:
+        raise NotImplementedError(f"ad_mode {ad_mode} unknown")
+    losses = -torch.where(labels == anom_label, aloss, nloss)
+    return _masked_mean(losses, weights)
 
-    def __init__(self, name: str, score_fn, *, needs_center: bool = False):
+
+class Objective:
+    """The loss and score of one AD objective and what they need."""
+
+    def __init__(self, name: str, loss_fn, score_fn, *, needs_center: bool = False,
+                 clf_head: bool = False, uses_inputs: bool = False, is_clip: bool = False):
         self.name = name
+        self.loss = loss_fn
         self.score = score_fn
         self.needs_center = needs_center  # DSVDD center / CLIP text-feature matrix
+        self.clf_head = clf_head          # the model needs a one-neuron head
+        self.uses_inputs = uses_inputs    # loss and score need the raw inputs (AE)
+        self.is_clip = is_clip
 
     def __repr__(self):
         return f"Objective({self.name})"
 
 
 OBJECTIVES = {
-    "hsc": Objective("hsc", hsc_score),
-    "clip": Objective("clip", clip_score, needs_center=True),
+    "hsc": Objective("hsc", hsc_loss, hsc_score),
+    "clip": Objective("clip", clip_loss, clip_score, needs_center=True, is_clip=True),
 }

@@ -1,21 +1,31 @@
-"""Evaluation preprocessing: the deterministic part of
+"""Preprocessing and augmentation pipelines: the port of
 eoe_tpu/ops/preprocess.py.
 
 A pipeline is the same declarative list of specs (plain dicts / strings) the
 JAX package records in setup.json and snapshots; ``compile_pipeline(specs,
-stats)`` turns it into one batched function ``fn(images) -> images`` over
-NHWC tensors, on whatever device the images lie on. uint8 inputs follow the
-JAX order: an identity resize passes the bytes through, a real resize
-converts to float (/255) first, every op that is not uint8-safe converts
-first, and the result is converted once more at the end.
+stats)`` turns it into one batched function
+``fn(images, rt_stats=None, *, generator=None, draws=None) -> images`` over
+NHWC tensors, on whatever device the images lie on. uint8 inputs follow the JAX
+order: index-only ops (crops, flips, identity resizes) run on the bytes, a
+real resize converts to float (/255) first, every other op converts first,
+and the result is converted once more at the end.
+
+Each random op is a draw and an apply. The draws (jitter factors, crop
+offsets, flip bits, the noise tensor) come from ``generator``, a
+``torch.Generator`` on the images' device, in spec order, as the JAX pipeline
+hands ``keys[i]`` to its i-th random op; ``draws`` replaces them by given
+tensors (one dict per random op, see ``fn.random_ops``), so a test can inject
+the JAX package's draws. The JAX peepholes ``random_crop_hflip`` and
+``color_jitter_crop_flip`` are bit-identical to the unfused ops; the port
+computes the unfused composition.
 
 Resizes use ``F.interpolate`` with ``antialias=True``: that matches
 ``jax.image.resize`` ("cubic" -> bicubic, "linear" -> bilinear) to ~1e-6
 for both up- and downscaling, where ``antialias=False`` misses by 0.1-0.2
 (tests/test_torch_preprocess.py).
 
-The random specs (crops, flips, jitter, noise) and the filters come with the
-training slice; they raise ``PipelineError`` until then.
+The filters (grayscale, blur, sharpen, hpf, lpf, minmax_norm, gcn) and
+label-conditional pipelines are not ported yet; they raise ``PipelineError``.
 """
 
 import dataclasses
@@ -32,9 +42,9 @@ CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 NORM_PLACEHOLDERS = ("norm", "normalise", "normalize")
-NOT_PORTED = ("random_crop", "random_hflip", "random_horizontal_flip", "color_jitter",
-              "gaussian_noise", "grayscale", "blur", "sharpen", "hpf", "lpf", "minmax_norm",
+NOT_PORTED = ("grayscale", "blur", "sharpen", "hpf", "lpf", "minmax_norm",
               "gcn", "gcn-norm", "gcn-normalize", "gcn-normalise")
+HFLIP_OPS = ("random_hflip", "random_horizontal_flip")
 _MODES = {"linear": "bilinear", "bilinear": "bilinear", "cubic": "bicubic", "bicubic": "bicubic"}
 
 
@@ -97,6 +107,156 @@ def center_crop(images: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return images[:, i:i + th, j:j + tw, :]
 
 
+# ---------------------------------------------------------------- color ops
+
+
+def _rgb_to_hsv(img: torch.Tensor) -> torch.Tensor:
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    v = maxc
+    deltac = maxc - minc
+    zero = torch.zeros_like(maxc)
+    s = torch.where(maxc > 0, deltac / maxc.clamp(min=1e-12), zero)
+    dc = deltac.clamp(min=1e-12)
+    rc = (maxc - r) / dc
+    gc = (maxc - g) / dc
+    bc = (maxc - b) / dc
+    h = torch.where(r == maxc, bc - gc, torch.where(g == maxc, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(deltac > 0, torch.remainder(h / 6.0, 1.0), zero)
+    return torch.stack([h, s, v], dim=-1)
+
+
+def _hsv_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    h, s, v = img[..., 0], img[..., 1], img[..., 2]
+
+    def channel(n):
+        k = torch.remainder(n + h * 6.0, 6.0)
+        return v - v * s * torch.minimum(k, 4.0 - k).clamp(0.0, 1.0)
+
+    return torch.stack([channel(5.0), channel(3.0), channel(1.0)], dim=-1)
+
+
+def _luma(img: torch.Tensor) -> torch.Tensor:
+    if img.shape[-1] == 1:
+        return img[..., 0]
+    return 0.299 * img[..., 0] + 0.587 * img[..., 1] + 0.114 * img[..., 2]
+
+
+def _uniform(n: int, shape, lo: float, hi: float, like: torch.Tensor,
+             g: torch.Generator) -> torch.Tensor:
+    u = torch.rand((n, *shape), generator=g, device=like.device, dtype=torch.float32)
+    return u * (hi - lo) + lo
+
+
+def draw_color_jitter(images: torch.Tensor, g: torch.Generator, brightness: float = 0.0,
+                      contrast: float = 0.0, saturation: float = 0.0,
+                      hue: float = 0.0) -> Dict[str, torch.Tensor]:
+    """Per-sample factors, sampled like torchvision: (n,1,1,1) brightness,
+    contrast and saturation factors, an (n,1,1) hue shift; only those > 0."""
+    n, color = images.shape[0], images.shape[-1] == 3
+    out = {}
+    if brightness > 0:
+        out["brightness"] = _uniform(n, (1, 1, 1), max(0.0, 1 - brightness), 1 + brightness,
+                                     images, g)
+    if contrast > 0:
+        out["contrast"] = _uniform(n, (1, 1, 1), max(0.0, 1 - contrast), 1 + contrast, images, g)
+    if saturation > 0 and color:
+        out["saturation"] = _uniform(n, (1, 1, 1), max(0.0, 1 - saturation), 1 + saturation,
+                                     images, g)
+    if hue > 0 and color:
+        out["hue"] = _uniform(n, (1, 1), -hue, hue, images, g)
+    return out
+
+
+def color_jitter(images: torch.Tensor, brightness: Optional[torch.Tensor] = None,
+                 contrast: Optional[torch.Tensor] = None,
+                 saturation: Optional[torch.Tensor] = None,
+                 hue: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply drawn jitter factors in the JAX package's fixed order
+    (brightness, contrast, saturation, hue)."""
+    n = images.shape[0]
+    if brightness is not None:
+        images = (images * brightness).clamp(0.0, 1.0)
+    if contrast is not None:
+        mean = _luma(images).mean(dim=(1, 2)).reshape(n, 1, 1, 1)
+        images = (contrast * images + (1 - contrast) * mean).clamp(0.0, 1.0)
+    if saturation is not None and images.shape[-1] == 3:
+        gray = _luma(images)[..., None]
+        images = (saturation * images + (1 - saturation) * gray).clamp(0.0, 1.0)
+    if hue is not None and images.shape[-1] == 3:
+        hsv = _rgb_to_hsv(images)
+        h = torch.remainder(hsv[..., 0] + hue, 1.0)
+        images = _hsv_to_rgb(torch.stack([h, hsv[..., 1], hsv[..., 2]], dim=-1))
+    return images
+
+
+# ---------------------------------------------------------------- geometric ops
+
+
+def _pad(images: torch.Tensor, padding: int) -> torch.Tensor:
+    if padding <= 0:
+        return images
+    return F.pad(images, (0, 0, padding, padding, padding, padding))
+
+
+def draw_random_crop(images: torch.Tensor, g: torch.Generator, size: Tuple[int, int],
+                     padding: int = 0, **_) -> Dict[str, torch.Tensor]:
+    """(n,) top and left offsets into the padded images."""
+    n, h, w, _c = images.shape
+    h, w = h + 2 * max(padding, 0), w + 2 * max(padding, 0)
+    th, tw = size
+    return {"tops": torch.randint(0, h - th + 1, (n,), generator=g, device=images.device),
+            "lefts": torch.randint(0, w - tw + 1, (n,), generator=g, device=images.device)}
+
+
+def _is_degenerate(out: torch.Tensor) -> torch.Tensor:
+    """Per-sample constancy: max - min over the image, 0 for uint8 and at most
+    1e-6 for floats (the reference re-draws crops whose std is < 1e-15)."""
+    spread = out.amax(dim=(1, 2, 3)) - out.amin(dim=(1, 2, 3))
+    return spread <= (0 if out.dtype == torch.uint8 else 1e-6)
+
+
+def random_crop(images: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
+                size: Tuple[int, int], padding: int = 0,
+                resample_degenerate: bool = False) -> torch.Tensor:
+    """Per-sample crop at the drawn offsets, after optional zero padding, as
+    one gather. ``resample_degenerate``: a constant crop falls back to the
+    centre crop, the fixed-shape stand-in for the reference's re-draw."""
+    images = _pad(images, padding)
+    n = images.shape[0]
+    th, tw = size
+    rows = tops.reshape(n, 1) + torch.arange(th, device=images.device)
+    cols = lefts.reshape(n, 1) + torch.arange(tw, device=images.device)
+    batch = torch.arange(n, device=images.device).reshape(n, 1, 1)
+    out = images[batch, rows[:, :, None], cols[:, None, :]]
+    if resample_degenerate:
+        degenerate = _is_degenerate(out).reshape(n, 1, 1, 1)
+        out = torch.where(degenerate, center_crop(images, size), out)
+    return out
+
+
+def draw_random_hflip(images: torch.Tensor, g: torch.Generator, p: float = 0.5
+                      ) -> Dict[str, torch.Tensor]:
+    """(n,) flip bits, each set with probability ``p``."""
+    u = torch.rand(images.shape[0], generator=g, device=images.device)
+    return {"flip": u < p}
+
+
+def random_hflip(images: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
+    return torch.where(flip.reshape(-1, 1, 1, 1), images.flip(2), images)
+
+
+def draw_gaussian_noise(images: torch.Tensor, g: torch.Generator) -> Dict[str, torch.Tensor]:
+    return {"noise": torch.randn(images.shape, generator=g, device=images.device,
+                                 dtype=images.dtype)}
+
+
+def gaussian_noise(images: torch.Tensor, noise: torch.Tensor, std: float) -> torch.Tensor:
+    """Additive Gaussian noise (the reference's Noise transform)."""
+    return images + std * noise
+
+
 def normalize(images: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
     mean = torch.tensor(mean, dtype=images.dtype, device=images.device)
     std = torch.tensor(std, dtype=images.dtype, device=images.device)
@@ -122,48 +282,107 @@ def _size(s: Dict[str, Any]) -> Tuple[int, int]:
     return (size, size) if isinstance(size, int) else tuple(size)
 
 
-def compile_pipeline(specs: Sequence[Spec], stats: Optional[DatasetStats] = None
-                     ) -> Callable[..., torch.Tensor]:
-    """Compile deterministic transform specs into one batched function
-    ``fn(images, rt_stats=None) -> images`` (NHWC in, NHWC float out)."""
-    steps: List[Tuple[Callable, bool, bool]] = []  # (fn, uint8-safe, takes rt_stats)
+@dataclasses.dataclass
+class _Step:
+    fn: Callable                        # apply(images, **draws) for random steps
+    u8_safe: bool = False               # runs on raw uint8 bytes
+    takes_stats: bool = False           # receives the runtime (mean, std)
+    draw: Optional[Callable] = None     # draw(images, generator) -> dict; random steps
+    op: str = ""
+
+
+def compile_pipeline(specs: Sequence[Spec], stats: Optional[DatasetStats] = None,
+                     degenerate_crop_guard: bool = False) -> Callable[..., torch.Tensor]:
+    """Compile transform specs into one batched function
+    ``fn(images, rt_stats=None, *, generator=None, draws=None) -> images``
+    (NHWC in, NHWC float out). ``generator`` is needed when a spec is random, unless
+    ``draws`` gives the draws. ``degenerate_crop_guard``: the default of
+    ``random_crop``'s ``resample_degenerate``."""
+    steps: List[_Step] = []
     for raw in specs or ():
         s = {"op": raw} if isinstance(raw, str) else dict(raw)
         op = s["op"].lower()
         if op in ("to_tensor", "totensor", "rgb"):
             continue  # images are already NHWC
         elif op == "resize":
-            steps.append((partial(_resize_u8, size=_size(s), method=s.get("method", "linear")),
-                          True, False))
+            steps.append(_Step(partial(_resize_u8, size=_size(s),
+                                       method=s.get("method", "linear")), u8_safe=True))
         elif op == "center_crop":
-            steps.append((partial(center_crop, size=_size(s)), True, False))
+            steps.append(_Step(partial(center_crop, size=_size(s)), u8_safe=True))
+        elif op == "random_crop":
+            kw = dict(size=_size(s), padding=int(s.get("padding", 0) or 0),
+                      resample_degenerate=bool(s.get("resample_degenerate",
+                                                     degenerate_crop_guard)))
+            steps.append(_Step(partial(random_crop, **kw), u8_safe=True,
+                               draw=partial(draw_random_crop, **kw), op=op))
+        elif op in HFLIP_OPS:
+            steps.append(_Step(random_hflip, u8_safe=True,
+                               draw=partial(draw_random_hflip, p=float(s.get("p", 0.5))),
+                               op=op))
+        elif op == "color_jitter":
+            kw = {k: float(s.get(k, 0.0)) for k in ("brightness", "contrast", "saturation", "hue")}
+            steps.append(_Step(color_jitter, draw=partial(draw_color_jitter, **kw), op=op))
+        elif op == "gaussian_noise":
+            steps.append(_Step(partial(gaussian_noise, std=float(s["std"])),
+                               draw=draw_gaussian_noise, op=op))
         elif op == "clip_pil_preprocessing":
-            steps.append((partial(_clip_pil, res=int(s.get("resolution", 224))), True, False))
+            steps.append(_Step(partial(_clip_pil, res=int(s.get("resolution", 224))),
+                               u8_safe=True))
         elif op == "clip_tensor_preprocessing":
-            steps.append((partial(normalize, mean=CLIP_MEAN, std=CLIP_STD), False, False))
+            steps.append(_Step(partial(normalize, mean=CLIP_MEAN, std=CLIP_STD)))
         elif op == "normalize_with":
-            steps.append((partial(normalize, mean=tuple(s["mean"]), std=tuple(s["std"])),
-                          False, False))
+            steps.append(_Step(partial(normalize, mean=tuple(s["mean"]), std=tuple(s["std"]))))
         elif op in NORM_PLACEHOLDERS:
             if stats is None:
                 raise PipelineError(
                     "pipeline contains 'normalize' but no dataset statistics were provided; "
                     "they are extracted from the raw normal train split")
-            steps.append((partial(_normalize_rt, mean=stats.mean, std=stats.std), False, True))
+            steps.append(_Step(partial(_normalize_rt, mean=stats.mean, std=stats.std),
+                               takes_stats=True))
         elif op in NOT_PORTED:
             raise PipelineError(f"transform op {op!r} is not ported yet")
         elif op == "lambda":
             raise PipelineError("arbitrary lambdas are not serializable; add a named op instead")
         else:
             raise PipelineError(f"unknown transform op: {op!r} (spec {raw!r})")
+    random_ops = [st.op for st in steps if st.draw is not None]
 
-    def apply(images: torch.Tensor, rt_stats=None) -> torch.Tensor:
-        """``rt_stats``: optional (mean, std) overriding the baked statistics."""
-        for fn, safe, takes_stats in steps:
-            if not safe:
+    def apply(images: torch.Tensor, rt_stats=None, *,
+              generator: Optional[torch.Generator] = None,
+              draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None) -> torch.Tensor:
+        """``rt_stats``: optional (mean, std) overriding the baked statistics;
+        ``draws``: one dict of drawn tensors per random op, in spec order."""
+        if random_ops and generator is None and draws is None:
+            raise PipelineError("pipeline contains random ops but no generator was passed")
+        ki = 0
+        for st in steps:
+            if not st.u8_safe:
                 images = _to_float(images)
-            images = fn(images, rt_stats) if takes_stats else fn(images)
+            if st.draw is not None:
+                d = draws[ki] if draws is not None else st.draw(images, generator)
+                ki += 1
+                images = st.fn(images, **d)
+            elif st.takes_stats:
+                images = st.fn(images, rt_stats)
+            else:
+                images = st.fn(images)
         return _to_float(images)
 
     apply.specs = list(specs or ())
+    apply.random_ops = random_ops
+    return apply
+
+
+def compile_conditional(conditionals: Sequence, stats: Optional[DatasetStats] = None,
+                        degenerate_crop_guard: bool = False) -> Callable[..., torch.Tensor]:
+    """Label-conditional transforms (the JAX ``compile_conditional``). Only
+    the empty list is ported: it is the identity, and passes uint8 through."""
+    if conditionals:
+        raise PipelineError("label-conditional transforms (MSM) are not ported yet")
+
+    def apply(images: torch.Tensor, labels=None, rt_stats=None, *, generator=None
+              ) -> torch.Tensor:
+        return images
+
+    apply.conditionals = []
     return apply

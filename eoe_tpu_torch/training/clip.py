@@ -1,22 +1,33 @@
-"""The CLIP prompt centre: the text side of ``ClipTrainer.prepare_metric``
-(eoe_tpu/training/clip.py:138-155). ``ClipTrainer`` itself comes with the
-training slice.
+"""CLIP anomaly detection: ``ClipTrainer`` and the prompt centre. The port of
+eoe_tpu/training/clip.py.
+
+``ClipTrainer`` fine-tunes CLIP's image tower with the prompt-contrastive
+objective: it always uses the given CLIP weights (they are copied in again
+for every class and seed, never re-drawn), SGD with Nesterov momentum,
+CLIP's test preprocessing, and the prompt centre as the objective's centre.
+Zero-shot is a run with ``epochs=0``.
 
 The prompts: one-vs-rest ``["a photo of a {cls}", anomaly prompt]``;
 leave-one-out every other class's ``"a photo of a {c}"`` then the anomaly
 prompt. Their text features, L2-normalised, are the "center" that
-``clip_score`` takes, anomaly prompt last.
+``clip_loss`` and ``clip_score`` take, anomaly prompt last.
+
+Weights come as a port ``state_dict`` (``clip_state_dict=``, e.g. through
+``models.clip.convert.from_flax``). Loading the OpenAI checkpoint file is not
+ported yet.
 """
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
+from eoe_tpu_torch.datasets import CIFAR10_LABELS, str_labels  # noqa: F401
 from eoe_tpu_torch.device import resolve_device
+from eoe_tpu_torch.models.clip import CLIP, VIT_B32, ClipConfig
 from eoe_tpu_torch.models.clip.tokenizer import tokenize
+from eoe_tpu_torch.training.trainer import TrainState, Trainer
 
-CIFAR10_LABELS = ["airplane", "automobile", "bird", "cat", "deer", "dog", "frog", "horse",
-                  "ship", "truck"]
+CLIP_SPECS = [{"op": "clip_pil_preprocessing"}, {"op": "clip_tensor_preprocessing"}]
 
 
 def prompt_texts(clsstr: str, class_names: Sequence[str], ad_mode: str = "one_vs_rest",
@@ -29,16 +40,74 @@ def prompt_texts(clsstr: str, class_names: Sequence[str], ad_mode: str = "one_vs
     raise NotImplementedError(f"AD mode {ad_mode} unknown.")
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def prompt_center(model, clsstr: str, class_names: Sequence[str],
                   ad_mode: str = "one_vs_rest",
                   anom_tkn_ptn: str = "a photo of something", device=None) -> torch.Tensor:
     """Encode the prompt set with ``model`` (a port ``CLIP``), which is moved
     to ``device`` (``cuda`` unless the caller asks for another one); returns
-    the L2-normalised fp32 text features, anomaly prompt last, on ``device``."""
+    the L2-normalised fp32 text features, anomaly prompt last, on ``device``.
+    Computed without gradients but as an ordinary tensor, so that it can
+    enter ``clip_loss`` in a training step."""
     device = resolve_device(device)
     texts = prompt_texts(clsstr, class_names, ad_mode, anom_tkn_ptn)
     model = model.to(device)
     tokens = torch.from_numpy(tokenize(texts, model.config.context_length)).long().to(device)
     feats = model.encode_text(tokens).float()
     return feats / feats.norm(dim=-1, keepdim=True)
+
+
+class ClipTrainer(Trainer):
+    def __init__(self, model, train_specs, test_specs, *args,
+                 anom_tkn_ptn: str = "a photo of something",
+                 clip_config: Optional[ClipConfig] = None,
+                 clip_state_dict: Optional[dict] = None,
+                 compute_dtype: torch.dtype = torch.float32, **kwargs):
+        assert model is None, "CLIP-AD always uses the CLIP model"
+        assert not test_specs, "CLIP-AD always uses CLIP's test transform"
+        if clip_state_dict is None:
+            raise FileNotFoundError(
+                "No CLIP weights given. Loading the OpenAI ViT-B/32 checkpoint file is not "
+                "ported yet: pass clip_state_dict (a port state_dict, e.g. converted with "
+                "eoe_tpu_torch.models.clip.convert.from_flax).")
+        config = clip_config or VIT_B32
+        self._clip_state_dict = {k: v.detach().cpu().clone() for k, v in clip_state_dict.items()}
+        clip_model = CLIP(config, dtype=compute_dtype)
+        # setup.json records the raw specs; placeholders resolve below
+        self._raw_train_specs = list(train_specs) if train_specs else None
+        self._raw_test_specs = list(test_specs) if test_specs else None
+        train_specs = list(train_specs) if train_specs else list(CLIP_SPECS)
+        res = config.image_resolution
+        train_specs = [
+            ({"op": "clip_pil_preprocessing", "resolution": res}
+             if (s == "clip_pil_preprocessing"
+                 or (isinstance(s, dict) and s.get("op") == "clip_pil_preprocessing"))
+             else s)
+            for s in train_specs]
+        test_specs = [{"op": "clip_pil_preprocessing", "resolution": res},
+                      {"op": "clip_tensor_preprocessing"}]
+        super().__init__(clip_model, train_specs, test_specs, *args,
+                         objective="clip", compute_dtype=compute_dtype, **kwargs)
+        self.anom_tkn_ptn = anom_tkn_ptn
+        self.raw_texts: Sequence[str] = ()
+
+    def setup_dict(self) -> dict:
+        d = super().setup_dict()
+        d["train_specs"] = self._raw_train_specs or []
+        d["test_specs"] = self._raw_test_specs or []
+        return d
+
+    def init_weights(self, seed: int):
+        """The given CLIP weights, copied in anew for every class-seed."""
+        self.model.load_state_dict(self._clip_state_dict)
+
+    def _loss_kwargs(self):
+        return {"nominal_label": self.nominal_label, "ad_mode": self.ad_mode}
+
+    def prepare_metric(self, clsstr: str, ds, state: TrainState, seed: int) -> torch.Tensor:
+        """The prompt set's normalised text features under the current
+        weights: the objective's centre."""
+        classes = str_labels(self.dsstr) if self.ad_mode == "leave_one_out" else ()
+        self.raw_texts = prompt_texts(clsstr, classes, self.ad_mode, self.anom_tkn_ptn)
+        return prompt_center(state.model, clsstr, classes, self.ad_mode, self.anom_tkn_ptn,
+                             device=self.device)

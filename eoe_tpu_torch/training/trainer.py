@@ -1,0 +1,534 @@
+"""Training engine: train and eval steps and the class x seed experiment grid.
+The port of eoe_tpu/training/trainer.py.
+
+One step takes a normal half and an OE half of raw uint8 images, runs each
+through its (conditional ->) pipeline on the device, concatenates them, runs
+the model forward on the whole batch in the compute dtype, casts the
+features to fp32 for the loss, and updates the trainable parameters. The
+batch weights are ``w * (labels >= 0)``, so padding slots and unlabeled
+samples do not count. Train and test splits live on the device; a batch is
+an index gather there, following the sampler's numpy plans.
+
+The grid (``run``) trains seeds one after another and retries a class-seed
+whose anomaly scores turned NaN up to five times (``NanGradientsError``). It
+writes the JAX package's run directory (see ``utils.logger``). Not ported,
+being JAX dispatch machinery or later work: ``lax.scan`` epochs, the jit
+cache, meshes, vmapped seeds, the HLO dump, preview images, the DSVDD centre,
+MSMs, and loading datasets by name (pin one with ``trainer.ds``).
+
+Deviation: the sampler's seed comes from a numpy ``SeedSequence`` of
+(seed, class, seed index) instead of a JAX key, and augmentations draw from
+one ``torch.Generator`` per class-seed; the JAX package's random streams are
+not reproduced.
+"""
+
+import time
+from dataclasses import dataclass
+from typing import Any, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from eoe_tpu_torch.datasets import no_classes, str_labels
+from eoe_tpu_torch.datasets.bases import INF, BalancedEpochSampler, CombinedDataset
+from eoe_tpu_torch.device import resolve_device
+from eoe_tpu_torch.models.clip import CLIP
+from eoe_tpu_torch.ops import metrics as M
+from eoe_tpu_torch.ops.losses import OBJECTIVES, Objective
+from eoe_tpu_torch.training.optim import ScheduledOptimizer, make_optimizer
+from eoe_tpu_torch.utils.logger import Logger
+
+AD_MODES = ("one_vs_rest", "leave_one_out", "fifty_fifty")
+
+
+class NanGradientsError(RuntimeError):
+    """Anomaly scores turned NaN during an epoch."""
+
+
+class Result:
+    """Per-class lists of per-seed metrics plus class means."""
+
+    def __init__(self, n_classes: int):
+        self.values: List[list] = [[] for _ in range(n_classes)]
+        self.mean_values: List[Any] = [None] * n_classes
+
+    def __getitem__(self, cls: int) -> list:
+        return self.values[cls]
+
+    def set_mean(self, cls: int, value):
+        self.mean_values[cls] = value
+
+    def mean(self, cls: int, on_none_return_latest=False):
+        mean = self.mean_values[cls]
+        latest = self.values[cls][-1] if len(self.values[cls]) > 0 else None
+        return mean if mean is not None else (latest if on_none_return_latest else None)
+
+    def means(self, on_none_return_latest=False) -> list:
+        return [self.mean(c, on_none_return_latest) for c in range(len(self.mean_values))]
+
+    def __iter__(self):
+        return iter(self.values)
+
+
+@dataclass
+class TrainState:
+    """The model (holding the parameters, on the device) and its optimizer,
+    which counts the updates."""
+    model: torch.nn.Module
+    optimizer: ScheduledOptimizer
+
+
+def _seed(*parts: int) -> int:
+    """A 32-bit seed from non-negative integers."""
+    return int(np.random.SeedSequence([max(int(p), 0) for p in parts]).generate_state(1)[0])
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+class Trainer:
+    """The experiment-grid trainer. ``model`` is a port module (the CLIP
+    image tower is what this slice trains); its weights are drawn anew for
+    every class-seed with ``reset_parameters``. ``device`` is ``cuda`` unless
+    the caller asks for another one."""
+
+    def __init__(self, model: torch.nn.Module, train_specs: Sequence, test_specs: Sequence,
+                 dataset: str, oe_dataset: Optional[str], datapath: str, logger: Optional[Logger],
+                 epochs: int, lr: float, wdk: float, milestones: Sequence[int], batch_size: int,
+                 objective: Union[str, Objective] = "hsc", ad_mode: str = "one_vs_rest",
+                 oe_limit_samples: Union[int, float, Sequence[int]] = INF,
+                 oe_limit_classes: Union[int, float] = INF, msms: Sequence = (),
+                 workers: int = 0, seed: int = 0, nominal_label: int = 0,
+                 compute_dtype: torch.dtype = torch.float32, device=None):
+        assert ad_mode in AD_MODES, f"AD mode {ad_mode} unknown. Known modes are {AD_MODES}."
+        if msms:
+            raise NotImplementedError("multi-scale modes (MSM) are not ported yet")
+        self.device = resolve_device(device)
+        self.model = model
+        self.objective: Objective = OBJECTIVES[objective] if isinstance(objective, str) \
+            else objective
+        self.train_specs = list(train_specs or ())
+        self.test_specs = list(test_specs or ())
+        self.dsstr = dataset
+        self.oe_dsstr = oe_dataset
+        self.datapath = datapath
+        self.logger = logger if logger is not None else Logger("", active=False)
+        self.epochs = epochs
+        self.lr = lr
+        self.wdk = wdk
+        self.milestones = list(milestones or ())
+        self.batch_size = batch_size
+        self.ad_mode = ad_mode
+        self.oe_limit_samples = oe_limit_samples
+        self.oe_limit_classes = oe_limit_classes
+        self.msms = list(msms or ())
+        self.workers = workers
+        self.seed = seed
+        self.nominal_label = nominal_label
+        self.compute_dtype = compute_dtype
+        self.center = None
+        self.ds = None  # a pinned, pre-built dataset
+        self.epoch_rates: List[float] = []  # img/s per epoch
+        self.step_losses: List[float] = []  # every step's loss, in order
+        self.logger.logsetup(self.setup_dict(), step=0)
+
+    # ------------------------------------------------------------- config
+
+    def setup_dict(self) -> dict:
+        return {
+            "model": type(self.model).__name__, "objective": self.objective.name,
+            "train_specs": self.train_specs, "test_specs": self.test_specs,
+            "dataset": self.dsstr, "oe_dataset": self.oe_dsstr, "datapath": self.datapath,
+            "epochs": self.epochs, "lr": self.lr, "wdk": self.wdk, "milestones": self.milestones,
+            "batch_size": self.batch_size, "ad_mode": self.ad_mode,
+            "oe_limit_samples": (self.oe_limit_samples
+                                 if not isinstance(self.oe_limit_samples, (list, np.ndarray))
+                                 else list(map(int, self.oe_limit_samples))),
+            "oe_limit_classes": self.oe_limit_classes,
+            "msms": [str(m) for m in self.msms], "seed": self.seed,
+            "nominal_label": self.nominal_label,
+            "compute_dtype": str(self.compute_dtype).replace("torch.", ""),
+        }
+
+    def get_nominal_classes(self, cur_class: int) -> List[int]:
+        """The normal-class set of the AD mode."""
+        if self.ad_mode == "one_vs_rest":
+            return [cur_class]
+        n = no_classes(self.dsstr)
+        if self.ad_mode == "leave_one_out":
+            return [c for c in range(n) if c != cur_class]
+        if self.ad_mode == "fifty_fifty":
+            return [c % n for c in range(cur_class, n // 2 + cur_class)]
+        raise NotImplementedError(f"AD mode {self.ad_mode} unknown.")
+
+    # ------------------------------------------------------------- model state
+
+    def trainable_param_keys(self) -> Optional[frozenset]:
+        """Top-level parameter names the loss trains; None = all. CLIP trains
+        only the image tower: the text tower and ``logit_scale`` get no
+        updates and no decay."""
+        if isinstance(self.model, CLIP):
+            return frozenset(["visual"])
+        return None
+
+    def _mark_trainable(self, model: torch.nn.Module) -> List[torch.nn.Parameter]:
+        keys = self.trainable_param_keys()
+        params = []
+        for name, p in model.named_parameters():
+            p.requires_grad_(keys is None or name.split(".")[0] in keys)
+            if p.requires_grad:
+                params.append(p)
+        return params
+
+    def make_optimizer(self, params, steps_per_epoch: int) -> ScheduledOptimizer:
+        """SGD with Nesterov momentum for CLIP, Adam for every other model."""
+        kind = "sgd" if isinstance(self.model, CLIP) else "adam"
+        return make_optimizer(kind, params, self.lr, self.wdk, self.milestones, steps_per_epoch)
+
+    def init_weights(self, seed: int):
+        """Fresh weights for a class-seed, drawn on the CPU."""
+        self.model.reset_parameters(torch.Generator().manual_seed(seed))
+
+    def init_state(self, seed: int, ds, steps_per_epoch: int) -> TrainState:
+        self.init_weights(seed)
+        model = self.model.to(self.device)
+        params = self._mark_trainable(model)
+        return TrainState(model, self.make_optimizer(params, steps_per_epoch))
+
+    # ------------------------------------------------------------- steps
+
+    def _preprocess(self, ds, x, labels, generator, train: bool, part: str, rt_stats=None):
+        """One half-batch through (conditional ->) pipeline; ``part`` picks the
+        normal or the OE dataset of a CombinedDataset (train only)."""
+        if isinstance(ds, CombinedDataset):
+            sub = ds.oe if part == "oe" else ds.normal
+        else:
+            sub = ds
+        pipe = sub.train_pipeline if train else sub.test_pipeline
+        cond = sub.train_conditional_pipeline if train else sub.test_conditional_pipeline
+        x = cond(x, labels, rt_stats, generator=generator)
+        return pipe(x, rt_stats, generator=generator)
+
+    def _rt_stats(self, ds) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        stats = (ds.normal if isinstance(ds, CombinedDataset) else ds).stats
+        if stats is None:
+            return None
+        return (torch.tensor(stats.mean, device=self.device),
+                torch.tensor(stats.std, device=self.device))
+
+    def _loss_kwargs(self):
+        return {"nominal_label": self.nominal_label}
+
+    def train_step(self, state: TrainState, ds, xn, ln, xo, lo, w,
+                   generator: Optional[torch.Generator], center=None, rt_stats=None):
+        """One update on the normal half (+ the OE half). Returns the device
+        tensors (loss, scores, labels, weights) without synchronising."""
+        xn = self._preprocess(ds, xn, ln, generator, True, "normal", rt_stats)
+        if xo is not None:
+            xo = self._preprocess(ds, xo, lo, generator, True, "oe", rt_stats)
+            x = torch.cat([xn, xo])
+            labels = torch.cat([ln, lo])
+            weights = torch.cat([w, w])
+        else:
+            x, labels, weights = xn, ln, w
+        weights = weights * (labels >= 0)
+        x = x.to(self.compute_dtype)
+        model = state.model.train()
+        feats = model(x).float()
+        loss = self.objective.loss(feats, labels, center, weights=weights, **self._loss_kwargs())
+        state.optimizer.zero_grad()
+        loss.backward()
+        state.optimizer.step()
+        with torch.no_grad():
+            scores = self.objective.score(feats, center, **self._loss_kwargs()).reshape(-1)
+        return loss.detach(), scores, labels, weights
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, ds, x, labels, center=None, rt_stats=None):
+        x = self._preprocess(ds, x, labels, None, False, "normal", rt_stats)
+        x = x.to(self.compute_dtype)
+        feats = state.model.eval()(x).float()
+        return self.objective.score(feats, center, **self._loss_kwargs()).reshape(-1)
+
+    # ------------------------------------------------------------- metric prep
+
+    def prepare_metric(self, clsstr: str, ds, state: TrainState, seed: int):
+        """The objective's centre; HSC needs none. The DSVDD centre is not
+        ported yet."""
+        if self.objective.needs_center:
+            raise NotImplementedError(
+                f"the {self.objective.name} centre is not ported yet")
+        return None
+
+    # ------------------------------------------------------------- class x seed grid
+
+    def run(self, run_classes: Optional[List[int]] = None, run_seeds: int = 1,
+            load: Optional[List[List[str]]] = None, test: bool = True,
+            train: bool = True) -> Tuple[None, dict]:
+        """Iterate classes x seeds: build the dataset, train, evaluate,
+        snapshot; write results.json. Returns (None, results): trained states
+        are not kept in memory (the JAX package's KEEP_SNAPSHOT_IN_RAM is not
+        ported)."""
+        self.logger.logsetup({"run_classes": run_classes, "run_seeds": run_seeds,
+                              "load": load}, step=1)
+        classes = str_labels(self.dsstr)
+        run_classes = run_classes if run_classes is not None else list(range(len(classes)))
+        train_cls_rocs = Result(len(classes))
+        eval_cls_rocs = Result(len(classes))
+        eval_cls_prcs = Result(len(classes))
+        assert self.ds is None or len(run_classes) == 1, \
+            "pre-loading DS (setting trainer.ds) only allowed for one class"
+
+        for c in run_classes:
+            cstr = classes[c]
+            for it in range(run_seeds):
+                self.logger.print(f'------ start training cls {c} "{cstr}" (seed {it}) ------')
+                cur_load = load[c][it] if load is not None and len(load) > c \
+                    and len(load[c]) > it else None
+                ds = self._build_dataset(c, cur_load)
+                state = roc = None
+                for attempt in range(5):
+                    seed = _seed(self.seed, c, it, attempt)
+                    try:
+                        if train:
+                            state, roc = self.train_cls(ds, c, cstr, it, seed, cur_load)
+                        else:
+                            state, _ = self._init_or_load(ds, seed, cur_load, steps_per_epoch=1)
+                            roc = None
+                        break
+                    except NanGradientsError:
+                        self.logger.warning(
+                            f'Gradients got NaN for class {c} "{cstr}" and seed {it}. '
+                            f'Happened {attempt} times so far. Try once more.')
+                        if attempt == 4:
+                            state, roc = None, None
+                            self.logger.warning(
+                                f'Gradients got NaN for class {c} "{cstr}" and seed {it}. '
+                                f'Giving up.')
+                train_cls_rocs[c].append(roc)
+                self.logger.plot_many(train_cls_rocs.means(True), classes,
+                                      name="training_intermediate_roc")
+                if test and state is not None:
+                    eroc, eprc = self.eval_cls(state, ds, c, cstr, it)
+                else:
+                    eroc, eprc = None, None
+                eval_cls_rocs[c].append(eroc)
+                eval_cls_prcs[c].append(eprc)
+                self.logger.plot_many(eval_cls_rocs.means(True), classes,
+                                      name="eval_intermediate_roc")
+                if state is not None:
+                    self.snapshot(f"snapshot_cls{c}_it{it}", state, self.epochs,
+                                  ds.ds_statistics)
+
+            train_cls_rocs.set_mean(c, self.logger.plot_many(
+                train_cls_rocs[c], None, name=f"training_cls{c}-{cstr}_roc"))
+            eval_cls_rocs.set_mean(c, self.logger.plot_many(
+                eval_cls_rocs[c], None, name=f"eval_cls{c}-{cstr}_roc"))
+            eval_cls_prcs.set_mean(c, self.logger.plot_many(
+                eval_cls_prcs[c], None, name=f"eval_cls{c}-{cstr}_prc"))
+
+        if any(t is not None for t in train_cls_rocs.means()):
+            aucs = [m.auc for m in train_cls_rocs.means() if m is not None]
+            self.logger.logtxt(f"Training: Overall {np.mean(aucs) * 100:04.2f}% "
+                               f"+- {np.std(aucs) * 100:04.2f} AUC.")
+            self.logger.plot_many(train_cls_rocs.means(), classes, name="training_roc")
+        if test:
+            e_aucs = [m.auc for m in eval_cls_rocs.means() if m is not None]
+            e_aps = [m.avg_prec for m in eval_cls_prcs.means() if m is not None]
+            mean_auc = float(np.mean(e_aucs)) if e_aucs else float("nan")
+            std_auc = float(np.std(e_aucs)) if e_aucs else float("nan")
+            mean_ap = float(np.mean(e_aps)) if e_aps else float("nan")
+            std_ap = float(np.std(e_aps)) if e_aps else float("nan")
+            self.logger.plot_many(eval_cls_rocs.means(), classes, name="eval_roc")
+            self.logger.plot_many(eval_cls_prcs.means(), classes, name="eval_prc")
+            self.logger.logtxt("--------------- OVERVIEW ------------------")
+            self.logger.logtxt(f"Eval: Overall {mean_ap * 100:04.2f}% +- "
+                               f"{std_ap * 100:04.2f}% AvgPrec.")
+            for m, cs in zip(eval_cls_rocs.means(), classes):
+                if m is not None:
+                    self.logger.logtxt(f'Eval: Class "{cs}" yields {m.auc * 100:04.2f}% '
+                                       f'+- {getattr(m, "std", 0.0) * 100:04.2f}% AUC.')
+            self.logger.logtxt(f"Eval: Overall {mean_auc * 100:04.2f}% +- "
+                               f"{std_auc * 100:04.2f}% AUC.")
+        else:
+            mean_auc = std_auc = mean_ap = float("nan")
+
+        self.logger.logjson("results", {
+            "eval_mean_auc": mean_auc, "eval_std_auc": std_auc, "eval_mean_avg_prec": mean_ap,
+            "eval_cls_rocs": [[r.get_score() if r is not None else None for r in cr]
+                              for cr in eval_cls_rocs],
+            "classes": classes,
+        })
+        self.logger.flush_scalars()
+        self.logger.drain()
+        return None, {
+            "mean_auc": mean_auc, "mean_avg_prec": mean_ap, "std_auc": std_auc,
+            "cls_aucs": [[r.get_score() if r is not None else None for r in cr]
+                         for cr in eval_cls_rocs],
+        }
+
+    def _build_dataset(self, c: int, cur_load: Optional[str]):
+        if self.ds is not None:
+            return self.ds
+        raise NotImplementedError(
+            "loading datasets by name is not ported yet; pin a dataset built from "
+            "eoe_tpu_torch.datasets.bases with trainer.ds")
+
+    def _init_or_load(self, ds, seed: int, cur_load: Optional[str],
+                      steps_per_epoch: int) -> Tuple[TrainState, int]:
+        state = self.init_state(seed, ds, steps_per_epoch)
+        start_epoch = 0
+        if cur_load is not None:
+            state, start_epoch = self.load(cur_load, state)
+        return state, start_epoch
+
+    # ------------------------------------------------------------- train one cls
+
+    def _on_device(self, subset, binary_targets) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A whole split and its binary labels, moved to the device once."""
+        return (torch.from_numpy(np.ascontiguousarray(subset.gather_all())).to(self.device),
+                torch.from_numpy(binary_targets).to(self.device))
+
+    def train_cls(self, ds, cls: int, clsstr: str, it: int, seed: int,
+                  cur_load: Optional[str] = None) -> Tuple[TrainState, Optional[M.ROC]]:
+        train_set = ds.train_set
+        combined = isinstance(ds, CombinedDataset)
+        oe_set = ds.oe.train_set if combined else None
+        has_oe = combined and len(oe_set) > 0
+        sampler = BalancedEpochSampler(len(train_set), len(oe_set) if has_oe else 0,
+                                       self.batch_size, _seed(seed, 1))
+        state, start_epoch = self._init_or_load(ds, seed, cur_load, sampler.steps)
+        center = self.center = self.prepare_metric(clsstr, ds, state, it)
+        rt_stats = self._rt_stats(ds)
+        normal_ds = ds.normal if combined else ds
+        Xn, Ln = self._on_device(train_set, normal_ds.binary_targets(train_set))
+        Xo = Lo = None
+        if has_oe:
+            Xo, Lo = self._on_device(oe_set, ds.oe.binary_targets(oe_set))
+        generator = torch.Generator(device=self.device).manual_seed(_seed(seed, 2))
+
+        cls_roc = None
+        for ep in range(start_epoch, self.epochs):
+            t0 = time.time()
+            idx_n, idx_o, w = sampler.epoch()
+            plan = torch.from_numpy(np.stack([
+                idx_n, idx_o if has_oe else np.zeros_like(idx_n), w.astype(np.int64)])
+            ).to(self.device)  # one upload per epoch
+            outs = []
+            for s in range(sampler.steps):
+                i_n, i_o, w_s = plan[0, s], plan[1, s], plan[2, s].float()
+                xo = Xo[i_o] if has_oe else None
+                lo = Lo[i_o] if has_oe else None
+                outs.append(self.train_step(state, ds, Xn[i_n], Ln[i_n], xo, lo, w_s,
+                                            generator, center, rt_stats))
+            # one download per epoch: a per-step sync would stall the card
+            ep_losses = torch.stack([o[0] for o in outs]).cpu().numpy()
+            self.step_losses.extend(map(float, ep_losses))
+            ep_scores, ep_labels, ep_weights = (
+                torch.cat([o[i] for o in outs]).cpu().numpy() for i in (1, 2, 3))
+            dt = time.time() - t0
+            n_imgs = int(ep_weights.sum())
+            self.epoch_rates.append(n_imgs / max(dt, 1e-9))
+
+            keep = ep_weights > 0
+            ep_scores, ep_labels = ep_scores[keep], ep_labels[keep]
+            if np.isnan(ep_scores).sum() > 0:
+                raise NanGradientsError()
+            self.logger.hist(f"Training: CLS{cls} SEED{it} anomaly_scores normal",
+                             ep_scores[ep_labels == 0], ep)
+            if (ep_labels == 1).sum() > 0:
+                self.logger.hist(f"Training: CLS{cls} SEED{it} anomaly_scores anomalous",
+                                 ep_scores[ep_labels == 1], ep)
+                cls_roc = M.roc_curve(ep_labels, ep_scores)
+                self.logger.add_scalar(f"Training: CLS{cls} SEED{it} AUC", cls_roc.auc * 100, ep)
+            self.logger.add_scalar(f"training_cls{cls}_seed{it}_loss",
+                                   float(ep_losses.mean()), ep)
+            self.logger.print(
+                f"cls {cls} seed {it} epoch {ep + 1}/{self.epochs}: loss {ep_losses.mean():.5f}"
+                + (f", train AUC {cls_roc.auc * 100:.2f}%" if cls_roc is not None else "")
+                + f", {n_imgs / max(dt, 1e-9):.0f} img/s")
+        return state, cls_roc
+
+    # ------------------------------------------------------------- eval
+
+    def eval_scores(self, state: TrainState, ds) -> np.ndarray:
+        """Anomaly scores of the whole test split, in batches of the batch
+        size (the last one padded by repeating its last image)."""
+        test_set = ds.test_set
+        normal_ds = ds.normal if isinstance(ds, CombinedDataset) else ds
+        labels = normal_ds.binary_targets(test_set)
+        n, B = len(test_set), self.batch_size
+        total = -(-n // B) * B
+        X, L = self._on_device(test_set, labels)
+        if total > n:
+            pad = torch.full((total - n,), n - 1, device=self.device)
+            X, L = torch.cat([X, X[pad]]), torch.cat([L, L[pad]])
+        rt_stats = self._rt_stats(ds)
+        outs = [self.eval_step(state, ds, X[i:i + B], L[i:i + B], self.center, rt_stats)
+                for i in range(0, total, B)]
+        return torch.cat(outs).cpu().numpy()[:n]
+
+    def eval_cls(self, state: TrainState, ds, cls: int, clsstr: str, it: int,
+                 scores: Optional[np.ndarray] = None
+                 ) -> Tuple[Optional[M.ROC], Optional[M.PRC]]:
+        """Evaluate on the full test split; writes
+        ``eval_cls{cls}_it{it}_anomaly_scores.json``."""
+        test_set = ds.test_set
+        normal_ds = ds.normal if isinstance(ds, CombinedDataset) else ds
+        labels = normal_ds.binary_targets(test_set)
+        scores = self.eval_scores(state, ds) if scores is None else np.asarray(scores)
+        keep = labels >= 0
+        for lbl, tag in ((0, "nominal"), (1, "anomalous")):
+            if (labels == lbl).sum() > 0:
+                self.logger.hist(f"Eval: (SD{it}) anomaly_scores cls{cls} {tag}",
+                                 scores[labels == lbl], 0)
+        if (labels == 0).sum() > 0 and (labels == 1).sum() > 0:
+            cls_roc = M.roc_curve(labels[keep], scores[keep])
+            cls_prc = M.precision_recall_curve(labels[keep], scores[keep])
+            self.logger.logtxt(
+                f'Eval: class "{clsstr}" yields {cls_roc.auc * 100:04.2f}% AUC and '
+                f"{cls_prc.avg_prec * 100:04.2f}% average precision (seed {it}).")
+        else:
+            cls_roc = cls_prc = None
+        self.logger.logjson(f"eval_cls{cls}_it{it}_anomaly_scores",
+                            self._anomaly_score_dict(ds, scores))
+        return cls_roc, cls_prc
+
+    def _anomaly_score_dict(self, ds, scores: np.ndarray) -> dict:
+        """Per-sample scores keyed by test index, or by the source's sample
+        keys where it has them."""
+        test_set = (ds.normal if isinstance(ds, CombinedDataset) else ds).test_set
+        keys = test_set.sample_keys
+        if keys is not None:
+            return {str(k): float(v) for k, v in zip(keys, scores)}
+        return {int(i): float(v) for i, v in zip(test_set.indices, scores)}
+
+    # ------------------------------------------------------------- snapshots
+
+    def snapshot(self, name: str, state: TrainState, epoch: int,
+                 ds_statistics: Optional[dict]) -> str:
+        payload = {
+            "params": _to_cpu(state.model.state_dict()),
+            "opt_state": _to_cpu(state.optimizer.state_dict()),
+            "epoch": epoch,
+            "ds_statistics": ds_statistics or {},
+            "setup": self.setup_dict(),
+        }
+        return self.logger.snapshot(name, payload)
+
+    def load(self, path: str, state: TrainState) -> Tuple[TrainState, int]:
+        """Load a snapshot into an initialised state; returns (state, epoch)."""
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        state.model.load_state_dict(payload["params"])
+        if payload.get("opt_state"):
+            state.optimizer.load_state_dict(payload["opt_state"])
+        epoch = int(payload.get("epoch", 0))
+        self.logger.print(f"Loaded snapshot at epoch {epoch}")
+        return state, epoch

@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Where the time of the port's training step goes, on one NVIDIA GPU.
+
+    python3 profile_train.py [--steps 3] [--trace train_trace.json]
+
+Builds chip_smoke.py's training configuration (full-width ViT-B/32 in bf16,
+HSC, the acceptance augmentation stack, 128 normal + 128 OE images per
+step, random weights from seed 0), takes two warm-up steps, then traces
+``--steps`` steps with ``torch.profiler`` (CPU and CUDA activities). Prints
+the step time on the host clock (untraced, then traced), the device time by kernel class (the
+fused-QKV attention forward and backward, matrix products, everything else)
+and the device's busy share of the traced window, then the 25 kernels with
+the most device time. Needs one card; imports nothing of JAX or eoe_tpu.
+"""
+
+import argparse
+import os
+import sys
+import time
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    if "fused_qkv_bwd" in low:
+        return "attention backward (port kernel)"
+    if "fused_qkv_fwd" in low:
+        return "attention forward (port kernel)"
+    if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas", "sm90_")):
+        return "matrix products (cuBLAS)"
+    if "layer_norm" in low or "layernorm" in low:
+        return "layer norm"
+    if any(k in low for k in ("elementwise", "vectorized", "unrolled", "reduce", "index",
+                              "gather", "scatter", "copy", "cat", "fill")):
+        return "elementwise, reductions, copies"
+    return "other"
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--trace", default="", help="write a chrome trace here")
+    args = parser.parse_args()
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("profile_train.py: torch.cuda.is_available() is false: it needs an NVIDIA GPU")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke as cs
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32
+
+    card = cs.phase_card()
+    ds, _ = cs._combined(np.random.default_rng(cs.SEED), cs.ACCEPTANCE_SPECS)
+    trainer = cs._trainer(CLIP(VIT_B32, dtype=torch.bfloat16), cs.ACCEPTANCE_SPECS, None,
+                          torch.bfloat16)
+    state = trainer.init_state(cs.SEED, ds, 1)
+    dev = trainer.device
+    xn = torch.from_numpy(ds.train_set.gather_all()).to(dev)
+    xo = torch.from_numpy(ds.oe.train_set.gather_all()).to(dev)
+    ln = torch.zeros(len(xn), dtype=torch.int64, device=dev)
+    lo = torch.ones(len(xo), dtype=torch.int64, device=dev)
+    w = torch.ones(cs.BATCH, device=dev)
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    n_batches = len(xn) // cs.BATCH
+
+    def step(i):
+        sl = slice((i % n_batches) * cs.BATCH, (i % n_batches + 1) * cs.BATCH)
+        return trainer.train_step(state, ds, xn[sl], ln[sl], xo[sl], lo[sl], w, g)
+
+    for i in range(2):
+        step(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        step(i)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) / args.steps
+    print(f"profile: {plain * 1e3:.2f} ms per step untraced, host clock = "
+          f"{2 * cs.BATCH / plain:.1f} img/s [{card}]")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(args.steps):
+            step(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    step_ms = wall / args.steps * 1e3
+    imgs = 2 * cs.BATCH / (wall / args.steps)
+    print(f"profile: {args.steps} traced steps of {cs.BATCH}+{cs.BATCH} images, "
+          f"{step_ms:.2f} ms per step on the host clock (tracing included) = "
+          f"{imgs:.1f} img/s [{card}]")
+
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = {}
+    for e in kernels:
+        cls = kernel_class(e.name)
+        device_us[cls] = device_us.get(cls, 0.0) + e.device_time_total
+    total = sum(device_us.values())
+    if total <= 0:
+        sys.exit("profile_train.py: the profiler recorded no device time")
+    print(f"profile: device busy {total / 1e3 / args.steps:.2f} ms per step, "
+          f"{100 * total / 1e3 / (wall * 1e3):.1f}% of the traced window")
+    for cls, us in sorted(device_us.items(), key=lambda kv: -kv[1]):
+        print(f"profile:   {cls}: {us / 1e3 / args.steps:.3f} ms per step "
+              f"({100 * us / total:.1f}% of device time)")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25,
+                                    max_name_column_width=70))
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+        print(f"profile: chrome trace written to {args.trace}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,14 +1,17 @@
 """The port's fused QKV attention against the JAX package's.
 
-On the CPU the port's wrapper computes with its plain version,
-``fused_qkv_attention_ref``; it is held here against JAX's Pallas kernel (in
-interpret mode, as tests/test_attention.py runs it) and against JAX's
-``default_attention``. The CUDA kernel itself is compared with the plain
-version on a card by tests/test_torch_kernels.py and chip_smoke.py.
+On the CPU the port's wrapper computes with its plain versions,
+``fused_qkv_attention_fwd_ref`` and ``fused_qkv_attention_bwd_ref``; they are
+held here against JAX's Pallas kernels (in interpret mode, as
+tests/test_attention.py runs them: the backward through ``jax.vjp``) and the
+forward against JAX's ``default_attention``. The CUDA kernels themselves are
+compared with the plain versions on a card by tests/test_torch_kernels.py and
+chip_smoke.py.
 """
 
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,3 +97,63 @@ def test_fused_qkv_ok_gates_on_device_and_shape_only(dtype):
     assert A.fused_qkv_ok(4, 77, 8, 64, on_card)
     assert not A.fused_qkv_ok(4, 50, 3, 64, on_card)
     assert not A.fused_qkv_ok(4, 129, 12, 64, on_card)
+
+
+def _dout(n, s, h, d, seed=2):
+    return np.random.default_rng(seed).normal(0, 1, (n, s, h * d)).astype(np.float32)
+
+
+def _jax_bwd(qkv, dout, h, causal, dtype):
+    _, vjp = jax.vjp(lambda x: jax_fused_qkv_attention(x, h, causal), jnp.asarray(qkv, dtype))
+    return np.asarray(vjp(jnp.asarray(dout, dtype))[0], np.float32)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "n{}-s{}-h{}-d{}-{}".format(
+    *c[:4], "causal" if c[4] else "full"))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_ref_matches_jax(case, dtype):
+    """The plain backward against the Pallas backward: fp32 to 1e-4 (the JAX
+    tests' own), bf16 to 2^-5 of the largest gradient (both round P and dS to
+    bf16 once and the output once; a sum-order flip moves one rounding)."""
+    n, s, h, d, causal = case
+    qkv, dout = _qkv(n, s, h, d), _dout(n, s, h, d)
+    tdt = getattr(torch, dtype)
+    pallas = _jax_bwd(qkv, dout, h, causal, getattr(jnp, dtype))
+    ours = A.fused_qkv_attention_bwd_ref(torch.from_numpy(qkv).to(tdt),
+                                         torch.from_numpy(dout).to(tdt), h, causal)
+    assert ours.dtype == tdt and ours.shape == qkv.shape
+    atol = 1e-4 if dtype == "float32" else 2 ** -5 * np.abs(pallas).max()
+    np.testing.assert_allclose(ours.float().numpy(), pallas, atol=atol)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "n{}-s{}-h{}-d{}-{}".format(
+    *c[:4], "causal" if c[4] else "full"))
+def test_cpu_function_gradient_is_the_plain_backward(case):
+    """On a CPU tensor the autograd Function's backward is the plain backward
+    (held against JAX above) and launches nothing; the differentiable
+    ``fused_qkv_attention_ref`` is the same pair."""
+    n, s, h, d, causal = case
+    qkv, dout = _qkv(n, s, h, d), _dout(n, s, h, d)
+    expected = A.fused_qkv_attention_bwd_ref(torch.from_numpy(qkv), torch.from_numpy(dout),
+                                             h, causal)
+    launches = (A.fused_qkv_attention.launches, A.fused_qkv_attention.bwd_launches)
+    for fn in (A.fused_qkv_attention, A.fused_qkv_attention_ref):
+        x = torch.from_numpy(qkv).requires_grad_()
+        fn(x, h, causal).backward(torch.from_numpy(dout))
+        assert torch.equal(x.grad, expected)
+    assert (A.fused_qkv_attention.launches, A.fused_qkv_attention.bwd_launches) == launches
+
+
+def test_plain_backward_is_not_autograd_of_the_plain_forward():
+    """In bf16 autograd through the plain forward rounds dP, the JAX kernel
+    rounds dS: the plain backward follows the kernel, so the two differ."""
+    n, s, h, d = 2, 21, 2, 64
+    qkv = torch.from_numpy(_qkv(n, s, h, d, seed=3)).bfloat16()
+    dout = torch.from_numpy(_dout(n, s, h, d, seed=4)).bfloat16()
+    x = qkv.clone().requires_grad_()
+    A.fused_qkv_attention_fwd_ref(x, h, True).backward(dout)
+    ours = A.fused_qkv_attention_bwd_ref(qkv, dout, h, True)
+    pallas = _jax_bwd(qkv.float().numpy(), dout.float().numpy(), h, True, jnp.bfloat16)
+    ours_err = np.abs(ours.float().numpy() - pallas).max()
+    autograd_err = np.abs(x.grad.float().numpy() - pallas).max()
+    assert ours_err < autograd_err

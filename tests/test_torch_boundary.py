@@ -11,6 +11,7 @@ import torch
 from eoe_tpu_torch import resolve_device
 from eoe_tpu_torch.inference import AnomalyScorer
 from eoe_tpu_torch.models.clip import CLIP, ClipConfig
+from eoe_tpu_torch.training import TRAINER
 from eoe_tpu_torch.training.clip import CIFAR10_LABELS, prompt_center
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,7 +33,7 @@ def test_port_imports_neither_jax_nor_eoe_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, leaked = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 12
+    assert int(n_modules) >= 19
     assert leaked.strip() == "[]"
 
 
@@ -52,3 +53,28 @@ def test_entry_points_default_to_cuda(monkeypatch):
     AnomalyScorer(model.state_dict(), model, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         prompt_center(model, "cat", CIFAR10_LABELS)
+
+
+def test_trainers_default_to_cuda(monkeypatch):
+    """``Trainer`` and ``ClipTrainer`` run on ``cuda`` unless asked for the
+    CPU, and raise where there is no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = ClipConfig(embed_dim=16, image_resolution=16, vision_layers=1, vision_width=64,
+                      vision_patch_size=8, context_length=8, vocab_size=64,
+                      transformer_width=64, transformer_heads=1, transformer_layers=1)
+    kw = dict(dataset="cifar10", oe_dataset=None, datapath="", logger=None, epochs=1, lr=1e-3,
+              wdk=0.0, milestones=[], batch_size=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TRAINER["hsc"](model=CLIP(tiny), train_specs=[], test_specs=[], **kw)
+    weights = CLIP(tiny).state_dict()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TRAINER["clip"](None, None, None, clip_config=tiny, clip_state_dict=weights, **kw)
+    assert TRAINER["hsc"](model=CLIP(tiny), train_specs=[], test_specs=[], device="cpu",
+                          **kw).device == torch.device("cpu")
+    assert TRAINER["clip"](None, None, None, clip_config=tiny, clip_state_dict=weights,
+                           device="cpu", **kw).device == torch.device("cpu")
+    with pytest.raises(FileNotFoundError):  # the OpenAI checkpoint loader is not ported
+        TRAINER["clip"](None, None, None, device="cpu", **kw)
+    for name in ("bce", "focal", "dsvdd", "dsad", "ae"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            TRAINER[name](model=CLIP(tiny), train_specs=[], test_specs=[], **kw)

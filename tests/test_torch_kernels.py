@@ -55,8 +55,11 @@ def test_fused_qkv_attention_rejects(cuda):
                               .view(1, 10, 384), 2, False)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         A.fused_qkv_attention(qkv.half(), 2, False)
-    with pytest.raises(NotImplementedError):
-        A.fused_qkv_attention(qkv.requires_grad_(), 2, False)
+    # the backward kernel checks dout as the forward checks qkv
+    with pytest.raises(ValueError, match="dout must be"):
+        A._bwd_kernel(qkv, torch.zeros(2, 10, 64, device=cuda), 2, False)
+    with pytest.raises(ValueError, match="contiguous dout"):
+        A._bwd_kernel(qkv, torch.zeros(10, 2, 128, device=cuda).transpose(0, 1), 2, False)
 
 
 @pytest.mark.cuda
@@ -67,3 +70,52 @@ def test_fp16_attention_on_card_raises(cuda):
     x = torch.zeros(2, 10, 128, device=cuda, dtype=torch.float16)
     with torch.inference_mode(), pytest.raises(ValueError, match="float32 or bfloat16"):
         mha(x)
+
+
+def _bwd_tol(dtype, ref):
+    """fp32: the kernel and the plain version differ in summation order only.
+    bf16: an order flip can move dS across a rounding boundary before the
+    second products, and the output is rounded once more; 2^-5 of the largest
+    gradient covers both."""
+    scale = ref.float().abs().max().item()
+    return (2e-5 if dtype == torch.float32 else 2 ** -5) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_qkv_attention_bwd_matches_ref(cuda, case, dtype):
+    n, s, h, d, causal = case
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(n, s, 3 * h * d, generator=g, device=cuda).to(dtype)
+    dout = torch.randn(n, s, h * d, generator=g, device=cuda).to(dtype)
+    before = A.fused_qkv_attention.bwd_launches
+    dqkv = A._bwd_kernel(qkv, dout, h, causal)
+    torch.cuda.synchronize()
+    assert A.fused_qkv_attention.bwd_launches == before + 1
+    ref = A.fused_qkv_attention_bwd_ref(qkv, dout, h, causal)
+    assert dqkv.shape == ref.shape and dqkv.dtype == dtype
+    assert (dqkv.float() - ref.float()).abs().max().item() <= _bwd_tol(dtype, ref)
+
+
+@pytest.mark.cuda
+def test_attention_gradient_through_the_kernels(cuda):
+    """One ViT-B/32 attention layer in fp32: its input and weight gradients
+    through the autograd Function (both kernels) against the same layer
+    through the plain pair."""
+    torch.manual_seed(0)
+    mha = MultiHeadAttention(768, 12, torch.float32).to(cuda)
+    plain = MultiHeadAttention(768, 12, torch.float32,
+                               qkv_attention=A.fused_qkv_attention_ref).to(cuda)
+    plain.load_state_dict(mha.state_dict())
+    x = torch.randn(8, 50, 768, device=cuda)
+    grads = []
+    for layer in (mha, plain):
+        xi = x.clone().requires_grad_()
+        fwd, bwd = A.fused_qkv_attention.launches, A.fused_qkv_attention.bwd_launches
+        layer(xi).square().sum().backward()
+        launched = (A.fused_qkv_attention.launches - fwd, A.fused_qkv_attention.bwd_launches - bwd)
+        assert launched == ((1, 1) if layer is mha else (0, 0))
+        grads.append([xi.grad] + [p.grad for p in layer.parameters()])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
