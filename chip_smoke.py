@@ -5,12 +5,15 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. card: the card's name and power limit, as nvidia-smi reports them;
-  2. build: every kernel of the port (the fused-QKV attention forward and
-     backward, one source), compiled from this checkout's sources;
+  2. build: every kernel of the port, compiled from this checkout's sources,
+     one nvcc per source, all started together: the fused-QKV attention
+     forward and backward on both grids (one source) and the flash attention
+     forward (another);
   3. kernels: each kernel against its plain PyTorch version on the card, in
      fp32 (TF32 off) and bf16, with its time beside the plain version's and
      one PyTorch library call's (a yardstick the port never calls): SDPA's
-     forward, and SDPA's backward through a retained forward;
+     forward, and SDPA's backward through a retained forward. The lane-group
+     kernels are also held against the monolithic ones;
   4. serving (the first slice): CLIP ViT-B/32 anomaly scoring at full width
      with random weights from seed 0: the CIFAR-10 one-vs-rest prompt
      centre, then three requests (256, 100 and 37 raw 32x32 uint8 images)
@@ -25,12 +28,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      forward per eval batch. Then 3 fp32 steps (TF32 off, deterministic
      pipeline) twice, through the kernels and through their plain versions
      (``fused_qkv_attention_ref``), held against each other; and the
-     snapshot served through ``AnomalyScorer``, held against ``eval_cls``.
-Each path's launch counts are set to 0 just before it and read just after.
+     snapshot served through ``AnomalyScorer``, held against ``eval_cls``;
+  6. flash path: ``CLIP(VIT_B32, attention_fn=flash_attention)`` from seed 0
+     serves phase 4's prompt centre and requests (12 flash launches for the
+     prompts and 12 per batch), held in fp32 against the same weights with
+     ``attention_fn=default_attention``; then trains one bf16 epoch of 4
+     steps and ``eval_cls`` (12 launches per step and per eval batch, no
+     backward kernel), and 3 fp32 steps against 3 with
+     ``default_attention`` at phase 5's limits;
+  7. group-grid path: with ``attention.GROUP_GRID`` set (the JAX package's
+     ``EOE_TPU_ATTN_GROUP_GRID=1``), one bf16 epoch of 4 steps and
+     ``eval_cls`` (12 group forward launches per step and per eval batch, 12
+     group backward per step, no monolithic launch), 3 fp32 steps against 3
+     on the monolithic grid, and the snapshot served through
+     ``AnomalyScorer``.
+Each path's launch counts (every kernel's) are set to 0 just before it and
+read just after.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or eoe_tpu.
-"""
+``{"ok": true, "device": {...}}``. Imports nothing of JAX or eoe_tpu."""
 
 import json
 import os
@@ -38,6 +54,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12                                    # H100 SXM, data sheet
 PEAK_OPS_PER_S = {"torch.float32": 67e12, "torch.bfloat16": 989e12}  # CUDA-core fp32; bf16 dense
@@ -54,6 +71,26 @@ def fail(msg: str):
 def check(cond: bool, msg: str):
     if not cond:
         fail(msg)
+
+
+def _counts() -> dict:
+    """Every kernel's launch count."""
+    from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention
+    return {"fwd": fq.launches, "bwd": fq.bwd_launches, "group_fwd": fq.group_launches,
+            "group_bwd": fq.group_bwd_launches, "flash": flash_attention.launches}
+
+
+def _zero_counts():
+    from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention
+    fq.launches = fq.bwd_launches = fq.group_launches = fq.group_bwd_launches = 0
+    flash_attention.launches = 0
+
+
+def check_counts(counts: dict, expected: dict, what: str):
+    """Each kernel named in ``expected`` launched that many times, every
+    other kernel not at all."""
+    want = {k: expected.get(k, 0) for k in counts}
+    check(counts == want, f"{what}: launches {counts}, expected {want}")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -97,12 +134,24 @@ def phase_card() -> str:
 
 def phase_build():
     from eoe_tpu_torch.ops import _build, attention
+    sources = (attention.SOURCE, attention.FLASH_SOURCE)
+
+    def build(source):
+        t0 = time.perf_counter()
+        _build.build(source)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    attention._library()  # builds csrc/fused_qkv_attention.cu (forward and backward), then loads it
-    print(f"build: {attention.SOURCE} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log(attention.SOURCE).splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
+        seconds = list(pool.map(build, sources))
+    attention._library()
+    attention._flash_library()
+    print(f"build: {', '.join(f'{src} in {t:.1f} s' for src, t in zip(sources, seconds))}; "
+          f"{time.perf_counter() - t0:.1f} s in all")
+    for source in sources:
+        for line in _build.build_log(source).splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {source}: {line.strip()}")
 
 
 # (n, s, heads, d, causal): the ViT-B/32 image tower at the training and
@@ -187,7 +236,123 @@ def phase_kernels_bwd(card: str) -> dict:
     return rows
 
 
-def phase_slice(card: str) -> int:
+def phase_kernels_group(card: str) -> tuple:
+    """The lane-group kernels against the plain versions (the forward's and
+    the backward's tolerances above) and against the monolithic kernels,
+    which run the same per-head code: equal within the same tolerances (in
+    practice bit for bit). Bound and yardstick as the monolithic rows."""
+    import torch
+    import torch.nn.functional as F
+    from eoe_tpu_torch.ops.attention import (
+        _bwd_kernel, _fwd_kernel, _group_bwd_kernel, _group_fwd_kernel,
+        fused_qkv_attention_bwd_ref, fused_qkv_attention_fwd_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    fwd_rows, bwd_rows = {}, {}
+    for n, s, h, d, causal in SHAPES:
+        for dtype, tol, rel in ((torch.float32, 2e-5, 2e-5), (torch.bfloat16, 2e-2, 2 ** -5)):
+            qkv = torch.randn(n, s, 3 * h * d, generator=g, device="cuda").to(dtype)
+            dout = torch.randn(n, s, h * d, generator=g, device="cuda").to(dtype)
+            tag = f"n={n} s={s} H={h} d={d} {'causal' if causal else 'full'} {str(dtype)[6:]}"
+            key = (n, s, h, d, causal, str(dtype))
+            q, k, v = (t.view(n, s, h, d).transpose(1, 2).detach().requires_grad_()
+                       for t in qkv.chunk(3, dim=-1))
+
+            out = _group_fwd_kernel(qkv, h, causal)
+            err = (out.float() - fused_qkv_attention_fwd_ref(qkv, h, causal).float()).abs().max().item()
+            mono = (out.float() - _fwd_kernel(qkv, h, causal).float()).abs().max().item()
+            check(err <= tol and mono <= tol, f"group forward {tag}: max abs err {err} against "
+                  f"the plain version, {mono} against the monolithic kernel > {tol}")
+            qd, kd, vd = (t.detach() for t in (q, k, v))
+            ms = time_ms(lambda: _group_fwd_kernel(qkv, h, causal))
+            plain_ms = time_ms(lambda: fused_qkv_attention_fwd_ref(qkv, h, causal))
+            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, is_causal=causal))
+            bound, by = attention_bound_ms(n, s, h, d, causal, dtype)
+            fwd_rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=by, library_ms=sdpa_ms, shape=tag)
+            print(f"kernel fused_qkv_attention_group {tag}: max_abs_err {err:.3g} (tol {tol}; "
+                  f"vs monolithic {mono:.3g}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"sdpa {sdpa_ms:.4f} ms, bound {bound:.4f} ms ({by}) [{card}]")
+
+            dqkv = _group_bwd_kernel(qkv, dout, h, causal)
+            ref = fused_qkv_attention_bwd_ref(qkv, dout, h, causal)
+            btol = rel * ref.float().abs().max().item()
+            err = (dqkv.float() - ref.float()).abs().max().item()
+            mono = (dqkv.float() - _bwd_kernel(qkv, dout, h, causal).float()).abs().max().item()
+            check(err <= btol and mono <= btol, f"group backward {tag}: max abs err {err} against "
+                  f"the plain version, {mono} against the monolithic kernel > {btol}")
+            sdpa_out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            g_sdpa = dout.view(n, s, h, d).transpose(1, 2)
+            ms = time_ms(lambda: _group_bwd_kernel(qkv, dout, h, causal))
+            plain_ms = time_ms(lambda: fused_qkv_attention_bwd_ref(qkv, dout, h, causal))
+            sdpa_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (q, k, v), g_sdpa,
+                                                          retain_graph=True))
+            bound, by = attention_bound_ms(n, s, h, d, causal, dtype, backward=True)
+            bwd_rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=by, library_ms=sdpa_ms, shape=tag)
+            print(f"kernel fused_qkv_attention_group_bwd {tag}: max_abs_err {err:.3g} "
+                  f"(tol {btol:.3g}; vs monolithic {mono:.3g}) kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, sdpa bwd {sdpa_ms:.4f} ms, bound {bound:.4f} ms ({by}) "
+                  f"[{card}]")
+    return fwd_rows, bwd_rows
+
+
+# (n, heads, S, d, mask) of the flash kernel: the image tower at the serving
+# and training batch, the text tower with its causal mask over the CIFAR-10
+# prompts, the longest single block, the JAX tests' d=32 with a mask, and
+# d=128 with an arbitrary finite mask
+FLASH_SHAPES = [(256, 12, 50, 64, None), (10, 8, 77, 64, "causal"), (2, 12, 1024, 64, None),
+                (2, 2, 77, 32, "causal"), (16, 8, 128, 128, "random")]
+
+
+def flash_bound_ms(n, h, s, d, masked, dtype) -> tuple:
+    """Least time for the function: read q, k, v and write the output once
+    (4 n h S d elements), read the mask once (4 S^2 bytes); two products of
+    2 S^2 d operations per (image, head). The mask is arbitrary, so every
+    (query, key) pair counts."""
+    elem = 2 if str(dtype) == "torch.bfloat16" else 4
+    nbytes = 4 * n * h * s * d * elem + (4 * s * s if masked else 0)
+    ops = 4 * n * h * s * s * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[str(dtype)]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_kernels_flash(card: str) -> dict:
+    """The flash kernel against ``flash_attention_ref``: fp32 within 2e-5
+    (sum order only); bf16 within 2e-2 (an order flip can move P or the
+    output across one bf16 rounding)."""
+    import torch
+    import torch.nn.functional as F
+    from eoe_tpu_torch.ops.attention import flash_attention, flash_attention_ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows = {}
+    for n, h, s, d, kind in FLASH_SHAPES:
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            q, k, v = (torch.randn(n, h, s, d, generator=g, device="cuda").to(dtype)
+                       for _ in range(3))
+            mask = {None: None,
+                    "causal": torch.full((s, s), float("-inf"), device="cuda").triu(1),
+                    "random": torch.randn(s, s, generator=g, device="cuda")}[kind]
+            out = flash_attention(q, k, v, mask)
+            err = (out.float() - flash_attention_ref(q, k, v, mask).float()).abs().max().item()
+            tag = f"n={n} H={h} S={s} d={d} mask={kind} {str(dtype)[6:]}"
+            check(err <= tol, f"flash_attention {tag}: max abs err {err} > {tol}")
+            sdpa_mask = None if mask is None else mask.to(dtype)
+            ms = time_ms(lambda: flash_attention(q, k, v, mask))
+            plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, mask))
+            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
+            bound, by = flash_bound_ms(n, h, s, d, mask is not None, dtype)
+            rows[(n, h, s, d, kind, str(dtype))] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=sdpa_ms, shape=tag)
+            print(f"kernel flash_attention {tag}: max_abs_err {err:.3g} (tol {tol}) kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}) [{card}]")
+    return rows
+
+
+def phase_slice(card: str) -> dict:
     import numpy as np
     import torch
     from eoe_tpu_torch.inference import AnomalyScorer
@@ -215,7 +380,7 @@ def phase_slice(card: str) -> int:
     torch.cuda.synchronize()
 
     # ---- the main path, counted
-    fused_qkv_attention.launches = 0
+    _zero_counts()
     center = prompt_center(model, CIFAR10_LABELS[0], CIFAR10_LABELS)
     prompt_launches = fused_qkv_attention.launches
     scorer = AnomalyScorer(snapshot, model, objective="clip", batch_size=BATCH, center=center)
@@ -224,17 +389,17 @@ def phase_slice(card: str) -> int:
         t0 = time.perf_counter()
         scores.append(scorer.score(images))  # ends in a device->host copy
         seconds.append(time.perf_counter() - t0)
-    launches = fused_qkv_attention.launches
+    counts = _counts()
     # ---- end of the counted run
+    launches = counts["fwd"]
 
     batches = sum(-(-n // BATCH) for n in REQUESTS)
     layers = VIT_B32.vision_layers
     check(prompt_launches == VIT_B32.transformer_layers,
           f"prompt centre launched the kernel {prompt_launches} times, "
           f"expected {VIT_B32.transformer_layers}")
-    check(launches == prompt_launches + layers * batches,
-          f"main path launched the kernel {launches} times, expected "
-          f"{prompt_launches} + {layers} x {batches} batches")
+    check_counts(counts, {"fwd": prompt_launches + layers * batches},
+                 f"serving ({layers} x {batches} batches after the prompts)")
     for n, sc in zip(REQUESTS, scores):
         check(sc.shape == (n,) and np.isfinite(sc).all(), f"request of {n}: bad scores")
         check(((sc >= 0) & (sc <= 1)).all(), f"request of {n}: scores outside [0, 1]")
@@ -283,7 +448,7 @@ def phase_slice(card: str) -> int:
     print(f"slice hsc bf16: {REQUESTS[1]} images in {hsc_seconds * 1e3:.1f} ms, score err "
           f"{np.abs(hsc - hsc_ref).max():.3g}, feature err {feat_err:.3g} (tol 0.1), score "
           f"range [{hsc.min():.6f}, {hsc.max():.6f}] [{card}]")
-    return launches
+    return counts
 
 
 # the acceptance augmentation stack of the JAX package's training benchmark
@@ -320,117 +485,254 @@ def _combined(rng, train_specs):
     return CombinedDataset(normal, oe), xt
 
 
-def _trainer(model, train_specs, logger, dtype):
+def _trainer(model, train_specs, logger, dtype, epochs=TRAIN_EPOCHS):
     """The JAX package's benchmark trainer (bench.py:123-127)."""
     from eoe_tpu_torch.training import TRAINER
     return TRAINER["hsc"](model=model, train_specs=train_specs, test_specs=CLIP_TEST_SPECS,
                           dataset="cifar10", oe_dataset="cifar100", datapath="", logger=logger,
-                          epochs=TRAIN_EPOCHS, lr=1e-4, wdk=1e-3, milestones=[],
+                          epochs=epochs, lr=1e-4, wdk=1e-3, milestones=[],
                           batch_size=BATCH, compute_dtype=dtype)
 
 
-def phase_train(card: str) -> tuple:
+def _train_bf16(card, label, model, data, epochs, expected, serve_model=None) -> dict:
+    """``train_cls`` of ``epochs`` epochs and ``eval_cls`` on the acceptance
+    set, counted: ``expected(steps, eval_batches)`` gives each kernel's
+    launches. With ``serve_model``, the snapshot is served back through
+    ``AnomalyScorer`` and held against ``eval_cls``'s scores."""
     import tempfile
 
     import numpy as np
     import torch
     from eoe_tpu_torch.inference import AnomalyScorer
-    from eoe_tpu_torch.models.clip import CLIP, VIT_B32
-    from eoe_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_ref
     from eoe_tpu_torch.utils.logger import Logger
 
-    layers = VIT_B32.vision_layers
-    rng = np.random.default_rng(SEED)
-    ds, x_test = _combined(rng, ACCEPTANCE_SPECS)
-    steps = TRAIN_EPOCHS * (TRAIN_N // BATCH)
+    ds, x_test = data
+    steps = epochs * (TRAIN_N // BATCH)
     eval_batches = -(-TRAIN_TEST // BATCH)
     with tempfile.TemporaryDirectory() as logdir:
-        logger = Logger(logdir, noname=True)
-        trainer = _trainer(CLIP(VIT_B32, dtype=torch.bfloat16), ACCEPTANCE_SPECS, logger,
-                           torch.bfloat16)
+        trainer = _trainer(model, ACCEPTANCE_SPECS, Logger(logdir, noname=True), torch.bfloat16,
+                           epochs)
         trainer.ds = ds
 
         # ---- the main path, counted: train_cls, eval_cls, snapshot
-        fused_qkv_attention.launches = fused_qkv_attention.bwd_launches = 0
+        _zero_counts()
         t0 = time.perf_counter()
         state, roc = trainer.train_cls(ds, 0, "airplane", 0, seed=SEED)
         t_train = time.perf_counter() - t0
         t0 = time.perf_counter()
         eroc, _ = trainer.eval_cls(state, ds, 0, "airplane", 0)
         t_eval = time.perf_counter() - t0
-        path = trainer.snapshot("snapshot_cls0_it0", state, TRAIN_EPOCHS, ds.ds_statistics)
-        fwd, bwd = fused_qkv_attention.launches, fused_qkv_attention.bwd_launches
+        path = trainer.snapshot("snapshot_cls0_it0", state, epochs, ds.ds_statistics)
+        counts = _counts()
         # ---- end of the counted run
 
         losses = trainer.step_losses
         check(len(losses) == steps and np.isfinite(losses).all(),
-              f"training: expected {steps} finite losses, got {losses}")
-        check(fwd == layers * (steps + eval_batches),
-              f"training: {fwd} forward launches, expected {layers} x ({steps} steps + "
-              f"{eval_batches} eval batches)")
-        check(bwd == layers * steps, f"training: {bwd} backward launches, expected "
-              f"{layers} x {steps} steps")
+              f"{label}: expected {steps} finite losses, got {losses}")
+        check_counts(counts, expected(steps, eval_batches),
+                     f"{label} ({steps} steps, {eval_batches} eval batches)")
         eval_scores = np.array([v for _, v in sorted(
             (int(k), v) for k, v in _read_json(logdir, "eval_cls0_it0_anomaly_scores").items())])
         check(eval_scores.shape == (TRAIN_TEST,) and np.isfinite(eval_scores).all(),
-              "eval_cls: bad scores")
+              f"{label}: eval_cls gave bad scores")
         rates = [round(r, 1) for r in trainer.epoch_rates]
-        print(f"train hsc bf16 ViT-B/32: {steps} steps of {BATCH}+{BATCH} images in "
+        print(f"{label} hsc bf16 ViT-B/32: {steps} steps of {BATCH}+{BATCH} images in "
               f"{t_train:.2f} s; img/s per epoch {rates}; losses "
               f"{[round(x, 5) for x in losses]}; train AUROC {roc.auc:.4f}, eval of "
               f"{TRAIN_TEST} in {t_eval:.2f} s, synthetic AUROC {eroc.auc:.4f}; launches "
-              f"fwd {fwd} bwd {bwd} [{card}]")
+              f"{counts} [{card}]")
 
-        # the snapshot, served back through the first slice's scorer
-        scorer = AnomalyScorer(path, CLIP(VIT_B32, dtype=torch.bfloat16), objective="hsc",
-                               batch_size=BATCH, compute_dtype=torch.bfloat16)
-        served = scorer.score(x_test)
-        serve_err = float(np.abs(served - eval_scores).max())
-        check(serve_err <= 1e-4, f"served snapshot differs from eval_cls by {serve_err}")
-        print(f"train: snapshot served through AnomalyScorer, max score difference to "
-              f"eval_cls {serve_err:.3g} (tol 1e-4)")
-    del trainer, state, scorer
+        if serve_model is not None:
+            scorer = AnomalyScorer(path, serve_model, objective="hsc", batch_size=BATCH,
+                                   compute_dtype=torch.bfloat16)
+            _zero_counts()
+            served = scorer.score(x_test)
+            served_counts = _counts()
+            serve_err = float(np.abs(served - eval_scores).max())
+            check(serve_err <= 1e-4, f"{label}: served snapshot differs from eval_cls by "
+                  f"{serve_err}")
+            print(f"{label}: snapshot served through AnomalyScorer, max score difference to "
+                  f"eval_cls {serve_err:.3g} (tol 1e-4); launches {served_counts}")
+            counts["served"] = served_counts
+    del trainer, state
     torch.cuda.empty_cache()
+    return counts
 
-    # fp32, deterministic pipeline: the kernels against their plain versions
-    ds32, _ = _combined(np.random.default_rng(SEED + 1), CLIP_TEST_SPECS)
-    runs = []
-    for attention in ("kernels", "plain"):
-        kw = {"qkv_attention": fused_qkv_attention_ref} if attention == "plain" else {}
-        tr = _trainer(CLIP(VIT_B32, **kw), CLIP_TEST_SPECS, None, torch.float32)
-        st = tr.init_state(SEED, ds32, 1)
-        dev = tr.device
-        xn = torch.from_numpy(ds32.train_set.gather_all()).to(dev)
-        xo = torch.from_numpy(ds32.oe.train_set.gather_all()).to(dev)
-        ln = torch.zeros(TRAIN_N, dtype=torch.int64, device=dev)
-        lo = torch.ones(TRAIN_OE, dtype=torch.int64, device=dev)
-        w = torch.ones(BATCH, device=dev)
-        visual = [p for p in st.model.visual.parameters()]
-        fused_qkv_attention.launches = fused_qkv_attention.bwd_launches = 0
-        losses, grads = [], None
-        for i in range(3):
-            sl = slice(i * BATCH, (i + 1) * BATCH)
-            loss, *_ = tr.train_step(st, ds32, xn[sl], ln[sl], xo[sl], lo[sl], w, None)
-            losses.append(loss.item())
-            if i == 0:
-                grads = [p.grad.clone() for p in visual]
-        launches = (fused_qkv_attention.launches, fused_qkv_attention.bwd_launches)
-        check(launches == ((3 * layers, 3 * layers) if attention == "kernels" else (0, 0)),
-              f"fp32 {attention} run launched {launches}")
-        runs.append((losses, grads, [p.detach().clone() for p in visual]))
-        del tr, st, visual
-    (lk, gk, pk), (lp, gp, pp) = runs
+
+def _fp32_steps(model, ds32) -> tuple:
+    """3 fp32 HSC steps (deterministic pipeline) from seed 0, counted:
+    losses, the first step's visual gradients, the visual parameters after,
+    and every kernel's launches."""
+    import torch
+    tr = _trainer(model, CLIP_TEST_SPECS, None, torch.float32)
+    st = tr.init_state(SEED, ds32, 1)
+    dev = tr.device
+    xn = torch.from_numpy(ds32.train_set.gather_all()).to(dev)
+    xo = torch.from_numpy(ds32.oe.train_set.gather_all()).to(dev)
+    ln = torch.zeros(TRAIN_N, dtype=torch.int64, device=dev)
+    lo = torch.ones(TRAIN_OE, dtype=torch.int64, device=dev)
+    w = torch.ones(BATCH, device=dev)
+    visual = [p for p in st.model.visual.parameters()]
+    _zero_counts()
+    losses, grads = [], None
+    for i in range(3):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        loss, *_ = tr.train_step(st, ds32, xn[sl], ln[sl], xo[sl], lo[sl], w, None)
+        losses.append(loss.item())
+        if i == 0:
+            grads = [p.grad.clone() for p in visual]
+    counts = _counts()
+    params = [p.detach().clone() for p in visual]
+    del tr, st, visual
+    torch.cuda.empty_cache()
+    return losses, grads, params, counts
+
+
+def _hold_fp32(card, label, run, control):
+    """A 3-step fp32 run against its control: first-step gradients within
+    1e-4 of their max, losses within 1e-5 (relative), visual parameters
+    within 1e-5."""
+    (lk, gk, pk, _), (lp, gp, pp, _) = run, control
     g_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
                 for a, b in zip(gk, gp))
     l_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
     p_err = max((a - b).abs().max().item() for a, b in zip(pk, pp))
-    check(g_err <= 1e-4, f"fp32 first-step gradients differ by {g_err} of their max")
-    check(l_err <= 1e-5, f"fp32 losses differ by {l_err} (relative)")
-    check(p_err <= 1e-5, f"fp32 visual parameters differ by {p_err} after 3 steps")
-    print(f"train hsc fp32 kernels vs plain, 3 steps: gradient err {g_err:.3g} of max "
-          f"(tol 1e-4), loss err {l_err:.3g} rel (tol 1e-5), parameter err {p_err:.3g} "
-          f"(tol 1e-5); losses {[round(x, 6) for x in lk]} [{card}]")
-    return fwd, bwd
+    check(g_err <= 1e-4, f"{label}: fp32 first-step gradients differ by {g_err} of their max")
+    check(l_err <= 1e-5, f"{label}: fp32 losses differ by {l_err} (relative)")
+    check(p_err <= 1e-5, f"{label}: fp32 visual parameters differ by {p_err} after 3 steps")
+    print(f"{label}, 3 steps: gradient err {g_err:.3g} of max (tol 1e-4), loss err "
+          f"{l_err:.3g} rel (tol 1e-5), parameter err {p_err:.3g} (tol 1e-5); losses "
+          f"{[round(x, 6) for x in lk]} [{card}]")
+
+
+def _fp32_data():
+    import numpy as np
+    return _combined(np.random.default_rng(SEED + 1), CLIP_TEST_SPECS)[0]
+
+
+def phase_train(card: str, data) -> dict:
+    import torch
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32
+    from eoe_tpu_torch.ops.attention import fused_qkv_attention_ref
+
+    layers = VIT_B32.vision_layers
+    counts = _train_bf16(card, "train", CLIP(VIT_B32, dtype=torch.bfloat16), data,
+                         TRAIN_EPOCHS,
+                         lambda steps, evals: {"fwd": layers * (steps + evals),
+                                               "bwd": layers * steps},
+                         serve_model=CLIP(VIT_B32, dtype=torch.bfloat16))
+
+    # fp32, deterministic pipeline: the kernels against their plain versions
+    ds32 = _fp32_data()
+    run = _fp32_steps(CLIP(VIT_B32), ds32)
+    check_counts(run[3], {"fwd": 3 * layers, "bwd": 3 * layers}, "fp32 kernel run")
+    control = _fp32_steps(CLIP(VIT_B32, qkv_attention=fused_qkv_attention_ref), ds32)
+    check_counts(control[3], {}, "fp32 plain run")
+    _hold_fp32(card, "train hsc fp32 kernels vs plain", run, control)
+    return counts
+
+
+def phase_flash(card: str, data) -> tuple:
+    """The flash path: serving and training through ``CLIP(attention_fn=
+    flash_attention)``, each held in fp32 against ``default_attention``."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.inference import AnomalyScorer
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32
+    from eoe_tpu_torch.ops.attention import default_attention, flash_attention
+    from eoe_tpu_torch.training.clip import CIFAR10_LABELS, prompt_center
+
+    specs = [{"op": "clip_pil_preprocessing", "resolution": VIT_B32.image_resolution},
+             {"op": "clip_tensor_preprocessing"}]
+    model = CLIP(VIT_B32, attention_fn=flash_attention,
+                 generator=torch.Generator().manual_seed(SEED))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    model.to("cuda")
+    rng = np.random.default_rng(SEED)
+    requests = [rng.integers(0, 256, (n, 32, 32, 3), dtype=np.uint8) for n in REQUESTS]
+    snapshot = {"params": state, "setup": {"test_specs": specs}}
+    AnomalyScorer(snapshot, model, objective="hsc", batch_size=BATCH).score(requests[-1])
+    torch.cuda.synchronize()
+
+    # ---- the flash serving path, counted
+    _zero_counts()
+    center = prompt_center(model, CIFAR10_LABELS[0], CIFAR10_LABELS)
+    prompt_launches = flash_attention.launches
+    scorer = AnomalyScorer(snapshot, model, objective="clip", batch_size=BATCH, center=center)
+    scores, seconds = [], []
+    for images in requests:
+        t0 = time.perf_counter()
+        scores.append(scorer.score(images))
+        seconds.append(time.perf_counter() - t0)
+    serving = _counts()
+    # ---- end of the counted run
+
+    batches = sum(-(-n // BATCH) for n in REQUESTS)
+    text, layers = VIT_B32.transformer_layers, VIT_B32.vision_layers
+    check(prompt_launches == text, f"flash prompt centre: {prompt_launches} launches, "
+          f"expected {text}")
+    check_counts(serving, {"flash": text + layers * batches},
+                 f"flash serving ({text} for the prompts, {layers} x {batches} batches)")
+    for n, sc in zip(REQUESTS, scores):
+        check(sc.shape == (n,) and np.isfinite(sc).all() and ((sc >= 0) & (sc <= 1)).all(),
+              f"flash request of {n}: bad scores")
+    ref_model = CLIP(VIT_B32, attention_fn=default_attention).to("cuda")
+    ref_model.load_state_dict(state)
+    ref_center = prompt_center(ref_model, CIFAR10_LABELS[0], CIFAR10_LABELS)
+    ref_scorer = AnomalyScorer(snapshot, ref_model, objective="clip", batch_size=BATCH,
+                               center=ref_center)
+    score_err = max(float(np.abs(sc - ref_scorer.score(im)).max())
+                    for sc, im in zip(scores, requests))
+    check(score_err <= 1e-4, f"flash fp32 scores differ from default_attention's by {score_err}")
+    print(f"flash serving clip fp32: prompt centre err "
+          f"{(center - ref_center).abs().max().item():.3g}, score err {score_err:.3g} (tol "
+          f"1e-4); {REQUESTS[0]} images in {seconds[0] * 1e3:.1f} ms = "
+          f"{REQUESTS[0] / seconds[0]:.1f} img/s; requests {list(REQUESTS)} took "
+          f"{[round(t * 1e3, 1) for t in seconds]} ms; launches {serving} [{card}]")
+    del model, ref_model, scorer, ref_scorer
+    torch.cuda.empty_cache()
+
+    training = _train_bf16(card, "flash train",
+                           CLIP(VIT_B32, dtype=torch.bfloat16, attention_fn=flash_attention),
+                           data, 1, lambda steps, evals: {"flash": layers * (steps + evals)})
+    ds32 = _fp32_data()
+    run = _fp32_steps(CLIP(VIT_B32, attention_fn=flash_attention), ds32)
+    check_counts(run[3], {"flash": 3 * layers}, "flash fp32 kernel run")
+    control = _fp32_steps(CLIP(VIT_B32, attention_fn=default_attention), ds32)
+    check_counts(control[3], {}, "flash fp32 default_attention run")
+    _hold_fp32(card, "flash train hsc fp32 flash vs default_attention", run, control)
+    return serving, training
+
+
+def phase_group(card: str, data) -> dict:
+    """The lane-group grid, chosen as the JAX package chooses it, through
+    training, eval and serving; held in fp32 against the monolithic grid."""
+    import torch
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32
+    from eoe_tpu_torch.ops import attention
+
+    layers = VIT_B32.vision_layers
+    saved = attention.GROUP_GRID
+    try:
+        attention.GROUP_GRID = True
+        training = _train_bf16(card, "group train", CLIP(VIT_B32, dtype=torch.bfloat16), data, 1,
+                               lambda steps, evals: {"group_fwd": layers * (steps + evals),
+                                                     "group_bwd": layers * steps},
+                               serve_model=CLIP(VIT_B32, dtype=torch.bfloat16))
+        check_counts(training.pop("served"), {"group_fwd": layers * -(-TRAIN_TEST // BATCH)},
+                     "group serving")
+        ds32 = _fp32_data()
+        run = _fp32_steps(CLIP(VIT_B32), ds32)
+        check_counts(run[3], {"group_fwd": 3 * layers, "group_bwd": 3 * layers},
+                     "group fp32 kernel run")
+        attention.GROUP_GRID = False
+        control = _fp32_steps(CLIP(VIT_B32), ds32)
+        check_counts(control[3], {"fwd": 3 * layers, "bwd": 3 * layers},
+                     "monolithic fp32 kernel run")
+        _hold_fp32(card, "group train hsc fp32 group grid vs monolithic", run, control)
+    finally:
+        attention.GROUP_GRID = saved
+    return training
 
 
 def _read_json(logdir: str, name: str) -> dict:
@@ -455,20 +757,41 @@ def main():
     phase_build()
     rows = phase_kernels(card)
     bwd_rows = phase_kernels_bwd(card)
-    serve_launches = phase_slice(card)
-    train_fwd, train_bwd = phase_train(card)
+    group_rows, group_bwd_rows = phase_kernels_group(card)
+    flash_rows = phase_kernels_flash(card)
+    paths = {"serving": phase_slice(card)}
+    import numpy as np
+    data = _combined(np.random.default_rng(SEED), ACCEPTANCE_SPECS)
+    paths["training"] = phase_train(card, data)
+    paths["flash_serving"], paths["flash_training"] = phase_flash(card, data)
+    paths["group_training"] = phase_group(card, data)
 
-    main_shape = (256, 50, 12, 64, False, "torch.bfloat16")  # the training shape
+    def by_path(kernel):
+        return {path: counts[kernel] for path, counts in paths.items()}
+
+    main_shape = (*SHAPES[0], "torch.bfloat16")            # the training shape
+    flash_shape = (*FLASH_SHAPES[0], "torch.bfloat16")     # the image tower, as trained
     source = "eoe_tpu_torch/csrc/fused_qkv_attention.cu"
     kernels = [
         {"name": "fused_qkv_attention", "route": "cuda", "source": source,
-         "replaces": "eoe_tpu/ops/attention.py:216", "launches": train_fwd,
-         "launches_by_path": {"serving": serve_launches, "training": train_fwd},
-         **rows[main_shape]},
+         "replaces": "eoe_tpu/ops/attention.py:216", "launches": paths["training"]["fwd"],
+         "launches_by_path": by_path("fwd"), **rows[main_shape]},
         {"name": "fused_qkv_attention_bwd", "route": "cuda", "source": source,
-         "replaces": "eoe_tpu/ops/attention.py:294", "launches": train_bwd,
-         "launches_by_path": {"serving": 0, "training": train_bwd},
-         **bwd_rows[main_shape]},
+         "replaces": "eoe_tpu/ops/attention.py:294", "launches": paths["training"]["bwd"],
+         "launches_by_path": by_path("bwd"), **bwd_rows[main_shape]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "eoe_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "eoe_tpu/ops/attention.py:41",
+         "launches": paths["flash_training"]["flash"], "launches_by_path": by_path("flash"),
+         **flash_rows[flash_shape]},
+        {"name": "fused_qkv_attention_group", "route": "cuda", "source": source,
+         "replaces": "eoe_tpu/ops/attention.py:330",
+         "launches": paths["group_training"]["group_fwd"],
+         "launches_by_path": by_path("group_fwd"), **group_rows[main_shape]},
+        {"name": "fused_qkv_attention_group_bwd", "route": "cuda", "source": source,
+         "replaces": "eoe_tpu/ops/attention.py:343",
+         "launches": paths["group_training"]["group_bwd"],
+         "launches_by_path": by_path("group_bwd"), **group_bwd_rows[main_shape]},
     ]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,18 @@
 // Fused QKV multi-head self-attention for Hopper (sm_90a): the forward and its
-// backward.
+// backward, each on two grids.
 //
 // The forward replaces the TPU kernel eoe_tpu/ops/attention.py::_fwd_compute
 // (with _fwd_group_math and _cell_bias), the backward replaces
 // eoe_tpu/ops/attention.py::_bwd_compute (with _bwd_group_math); both are
-// reached there through fused_qkv_attention and its custom_vjp. Both CLIP
+// reached there through fused_qkv_attention and its custom_vjp. The same two
+// kernels on the lane-group grid replace _fwd_group_compute and
+// _bwd_group_compute, which the JAX package runs instead under
+// EOE_TPU_ATTN_GROUP_GRID=1: one block per (image, 128-lane group of heads),
+// that is two heads at d=64 and one at d=128, each block reading only its
+// group's q, k, v (and dout) columns; the backward then writes dq, dk and dv
+// as three (n, s, H*d) tensors, which the caller concatenates. The per-head
+// code is the same on both grids (fwd_head, bwd_head), so the two grids give
+// the same bits; a group's heads run one after the other in its block. Both CLIP
 // encoders run every transformer block through the forward: the image side at
 // s=50, 12 heads, d=64 with no mask, the text side at s=77, 8 heads, d=64,
 // causal. Training runs the image side's backward through the second kernel.
@@ -55,40 +63,23 @@
 // each read twice; the second read is of rows the block has just read, and
 // mostly hits L2.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
+
+#include "common.cuh"
 
 namespace {
+
+using namespace eoe;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSeq = 128;                 // one tile covers the sequence
+constexpr int kLane = 128;                   // the TPU kernel's lane group
 constexpr int kKeysPerLane = kMaxSeq / 32;
 constexpr float kMasked = -1e30f;            // the TPU kernel's additive bias
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // One head's s x D tile in shared memory, rows padded by one 32-bit word.
 template <typename T, int D>
@@ -103,14 +94,12 @@ size_t smem_bytes(int s) {
   return (size_t)3 * s * Tile<T, D>::kPitchWords * 4 + (size_t)kWarps * kMaxSeq * sizeof(float);
 }
 
+// The forward of one (image b, head h), by the whole block.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-fused_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int s, int heads,
-                     int causal, float scale) {
+__device__ __forceinline__ void fwd_head(const T* __restrict__ qkv, T* __restrict__ out,
+                                         uint32_t* smem, int b, int h, int s, int heads,
+                                         int causal, float scale) {
   using Tl = Tile<T, D>;
-  extern __shared__ uint32_t smem[];
-  const int b = blockIdx.x / heads;
-  const int h = blockIdx.x % heads;
   const int width = heads * D;                       // model width, elements
   const int width_words = width * (int)sizeof(T) / 4;
   const int row_words = 3 * width_words;             // one qkv row
@@ -199,12 +188,25 @@ fused_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int s, int 
   }
 }
 
-// ---------------------------------------------------------------- backward
-
-// Round to the input dtype and back: the TPU kernel's casts of P and dS.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
+// One block per (image, group of PER heads), the heads of a group one after
+// the other. PER=1 is the monolithic grid of _fwd_compute; PER=128/D is the
+// lane-group grid of _fwd_group_compute (two heads at d=64, one at d=128).
+template <typename T, int D, int PER>
+__global__ void __launch_bounds__(kThreads)
+fused_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int s, int heads,
+                     int causal, float scale) {
+  extern __shared__ uint32_t smem[];
+  const int groups = heads / PER;
+  const int b = blockIdx.x / groups;
+  const int g = blockIdx.x % groups;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    if (i > 0) __syncthreads();  // the previous head's tiles are still being read
+    fwd_head<T, D>(qkv, out, smem, b, g * PER + i, s, heads, causal, scale);
+  }
 }
+
+// ---------------------------------------------------------------- backward
 
 // dS of one (row, key) pair from the fp32 P, before its rounding. The
 // explicit-rounding intrinsics keep nvcc from contracting these into FMAs, so
@@ -247,14 +249,19 @@ size_t bwd_smem_bytes(int s) {
          ((size_t)kWarps * warp_floats<D>() + 3 * kMaxSeq) * sizeof(float);
 }
 
+// The backward of one (image b, head h), by the whole block. Row j of image
+// b, head h, of dq starts at dq + (b * s + j) * out_row + h * D, and so for dk
+// and dv: the monolithic kernel writes the packed d(qkv) (three column blocks
+// of rows 3*H*D long), the lane-group kernel three (n, s, H*D) tensors, as
+// _bwd_group_compute's three outputs. The three never overlap, and they are
+// __restrict__ so that the global reads of q, k, v and dout may take the
+// read-only path.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-fused_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dqkv,
-                     int s, int heads, int causal, float scale) {
+__device__ __forceinline__ void bwd_head(const T* __restrict__ qkv, const T* __restrict__ dout,
+                                         T* __restrict__ dq, T* __restrict__ dk,
+                                         T* __restrict__ dv, int out_row, uint32_t* smem, int b,
+                                         int h, int s, int heads, int causal, float scale) {
   using Tl = Tile<T, D>;
-  extern __shared__ uint32_t smem[];
-  const int b = blockIdx.x / heads;
-  const int h = blockIdx.x % heads;
   const int width = heads * D;
   const int width_words = width * (int)sizeof(T) / 4;
   const int qkv_row_words = 3 * width_words;
@@ -276,7 +283,7 @@ fused_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* _
   const uint32_t* dout_w = reinterpret_cast<const uint32_t*>(dout) + (size_t)b * s * width_words;
   const T* qkv_b = qkv + (size_t)b * s * 3 * width + h * D;   // q of row 0, head h
   const T* dout_b = dout + (size_t)b * s * width + h * D;
-  T* dqkv_b = dqkv + (size_t)b * s * 3 * width + h * D;
+  const size_t out_b = (size_t)b * s * out_row + h * D;   // row 0 of image b, head h
   const int n_chunks = (s + 31) / 32;
 
   // ---- phase 1: K, V resident; one warp per query row
@@ -349,10 +356,10 @@ fused_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* _
 #pragma unroll
         for (int i = 0; i < D / 32; ++i) acc[i] = fmaf(w, to_f32(kr[lane + 32 * i]), acc[i]);
       }
-      T* dq = dqkv_b + (size_t)r * 3 * width;
+      T* dq_r = dq + out_b + (size_t)r * out_row;
 #pragma unroll
       for (int i = 0; i < D / 32; ++i)
-        dq[lane + 32 * i] = from_f32<T>(D == 64 ? acc[i] * scale : acc[i]);
+        dq_r[lane + 32 * i] = from_f32<T>(D == 64 ? acc[i] * scale : acc[i]);
       __syncwarp();  // row_a, row_b and col_a are rewritten by this warp's next row
     }
   }
@@ -408,64 +415,107 @@ fused_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* _
         acc_k[i] = fmaf(ds, to_f32(qr[lane + 32 * i]), acc_k[i]);
       }
     }
-    T* dk = dqkv_b + (size_t)j * 3 * width + width;
-    T* dv = dk + width;
+    T* dk_j = dk + out_b + (size_t)j * out_row;
+    T* dv_j = dv + out_b + (size_t)j * out_row;
 #pragma unroll
     for (int i = 0; i < D / 32; ++i) {
-      dk[lane + 32 * i] = from_f32<T>(D == 64 ? acc_k[i] * scale : acc_k[i]);
-      dv[lane + 32 * i] = from_f32<T>(acc_v[i]);
+      dk_j[lane + 32 * i] = from_f32<T>(D == 64 ? acc_k[i] * scale : acc_k[i]);
+      dv_j[lane + 32 * i] = from_f32<T>(acc_v[i]);
     }
     __syncwarp();
   }
 }
 
-// ---------------------------------------------------------------- launchers
-
-constexpr int kMaxDevices = 64;
-
-// Above 48 KB a kernel must opt in to dynamic shared memory. Raise its cap
-// once per device, to what the longest sequence needs, instead of on every
-// launch. `raised` is the caller's per-kernel flag array.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t need, size_t cap, std::atomic<bool>* raised) {
-  if (need <= 48 * 1024) return cudaSuccess;
-  int device;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!raised[device].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cap);
-    if (err != cudaSuccess) return err;
-    raised[device].store(true, std::memory_order_release);
+// One block per (image, group of PER heads), as the forward.
+template <typename T, int D, int PER>
+__global__ void __launch_bounds__(kThreads)
+fused_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dq,
+                     T* __restrict__ dk, T* __restrict__ dv, int out_row, int s, int heads,
+                     int causal, float scale) {
+  extern __shared__ uint32_t smem[];
+  const int groups = heads / PER;
+  const int b = blockIdx.x / groups;
+  const int g = blockIdx.x % groups;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    if (i > 0) __syncthreads();  // the previous head's phase 2 still reads its tiles
+    bwd_head<T, D>(qkv, dout, dq, dk, dv, out_row, smem, b, g * PER + i, s, heads, causal,
+                   scale);
   }
-  return cudaSuccess;
 }
 
-template <typename T, int D>
+// ---------------------------------------------------------------- launchers
+
+template <typename T, int D, int PER>
 cudaError_t launch_fwd(const void* qkv, void* out, int n, int s, int heads, int causal,
                        float scale, cudaStream_t stream) {
   static std::atomic<bool> raised[kMaxDevices];
-  auto kernel = fused_qkv_fwd_kernel<T, D>;
+  auto kernel = fused_qkv_fwd_kernel<T, D, PER>;
   const size_t smem = smem_bytes<T, D>(s);
   cudaError_t err = allow_smem(kernel, smem, smem_bytes<T, D>(kMaxSeq), raised);
   if (err != cudaSuccess) return err;
-  kernel<<<n * heads, kThreads, smem, stream>>>(static_cast<const T*>(qkv), static_cast<T*>(out),
-                                                s, heads, causal, scale);
+  kernel<<<n * (heads / PER), kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out), s, heads, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_bwd(const void* qkv, const void* dout, void* dqkv, int n, int s, int heads,
-                       int causal, float scale, cudaStream_t stream) {
+template <typename T, int D, int PER>
+cudaError_t launch_bwd(const void* qkv, const void* dout, void* dq, void* dk, void* dv,
+                       int out_row, int n, int s, int heads, int causal, float scale,
+                       cudaStream_t stream) {
   static std::atomic<bool> raised[kMaxDevices];
-  auto kernel = fused_qkv_bwd_kernel<T, D>;
+  auto kernel = fused_qkv_bwd_kernel<T, D, PER>;
   const size_t smem = bwd_smem_bytes<T, D>(s);
   cudaError_t err = allow_smem(kernel, smem, bwd_smem_bytes<T, D>(kMaxSeq), raised);
   if (err != cudaSuccess) return err;
-  kernel<<<n * heads, kThreads, smem, stream>>>(static_cast<const T*>(qkv),
-                                                static_cast<const T*>(dout),
-                                                static_cast<T*>(dqkv), s, heads, causal, scale);
+  kernel<<<n * (heads / PER), kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(dout), static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dv), out_row, s, heads, causal, scale);
   return cudaGetLastError();
+}
+
+// Calls fn(T*, integral_constant<D>) for the element type and head dim the
+// kernels are built for; anything else is an invalid value.
+template <typename Fn>
+cudaError_t dispatch(int dtype, int d, Fn fn) {
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  if (dtype == 0 && d == 64) return fn(static_cast<float*>(nullptr), D64{});
+  if (dtype == 0 && d == 128) return fn(static_cast<float*>(nullptr), D128{});
+  if (dtype == 1 && d == 64) return fn(static_cast<__nv_bfloat16*>(nullptr), D64{});
+  if (dtype == 1 && d == 128) return fn(static_cast<__nv_bfloat16*>(nullptr), D128{});
+  return cudaErrorInvalidValue;
+}
+
+// PER = heads per block: 1 on the monolithic grid, the heads of a 128-lane
+// group (128 / d) on the group grid.
+cudaError_t fwd(const void* qkv, void* out, int n, int s, int heads, int d, int dtype, int causal,
+                float scale, void* stream, bool group) {
+  if (n < 1 || s < 1 || s > kMaxSeq || heads < 1) return cudaErrorInvalidValue;
+  if (group && (d <= 0 || (heads * d) % kLane != 0)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dispatch(dtype, d, [&](auto* tag, auto dim) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    constexpr int D = decltype(dim)::value;
+    return group ? launch_fwd<T, D, kLane / D>(qkv, out, n, s, heads, causal, scale, st)
+                 : launch_fwd<T, D, 1>(qkv, out, n, s, heads, causal, scale, st);
+  });
+}
+
+cudaError_t bwd(const void* qkv, const void* dout, void* dq, void* dk, void* dv, int out_row,
+                int n, int s, int heads, int d, int dtype, int causal, float scale, void* stream,
+                bool group) {
+  if (n < 1 || s < 1 || s > kMaxSeq || heads < 1) return cudaErrorInvalidValue;
+  if (group && (d <= 0 || (heads * d) % kLane != 0)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dispatch(dtype, d, [&](auto* tag, auto dim) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    constexpr int D = decltype(dim)::value;
+    return group ? launch_bwd<T, D, kLane / D>(qkv, dout, dq, dk, dv, out_row, n, s, heads,
+                                               causal, scale, st)
+                 : launch_bwd<T, D, 1>(qkv, dout, dq, dk, dv, out_row, n, s, heads, causal,
+                                       scale, st);
+  });
 }
 
 }  // namespace
@@ -473,37 +523,38 @@ cudaError_t launch_bwd(const void* qkv, const void* dout, void* dqkv, int n, int
 // dtype: 0 = float32, 1 = bfloat16. Each returns a cudaError_t (0 on
 // success), launches on `stream`, which must belong to the current device (the
 // caller sets it), and does not synchronise.
+
+// _fwd_compute: qkv (n, s, 3*H*d) -> out (n, s, H*d), one block per (image, head).
 extern "C" int eoe_fused_qkv_attention_fwd(const void* qkv, void* out, int n, int s, int heads,
                                            int d, int dtype, int causal, float scale,
                                            void* stream) {
-  if (n < 1 || s < 1 || s > kMaxSeq || heads < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64) return (int)launch_fwd<float, 64>(qkv, out, n, s, heads, causal, scale, st);
-  if (dtype == 0 && d == 128)
-    return (int)launch_fwd<float, 128>(qkv, out, n, s, heads, causal, scale, st);
-  if (dtype == 1 && d == 64)
-    return (int)launch_fwd<__nv_bfloat16, 64>(qkv, out, n, s, heads, causal, scale, st);
-  if (dtype == 1 && d == 128)
-    return (int)launch_fwd<__nv_bfloat16, 128>(qkv, out, n, s, heads, causal, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)fwd(qkv, out, n, s, heads, d, dtype, causal, scale, stream, false);
 }
 
+// _bwd_compute: qkv, dout (n, s, H*d) -> dqkv (n, s, 3*H*d) packed [dq | dk | dv].
 extern "C" int eoe_fused_qkv_attention_bwd(const void* qkv, const void* dout, void* dqkv, int n,
                                            int s, int heads, int d, int dtype, int causal,
                                            float scale, void* stream) {
-  if (n < 1 || s < 1 || s > kMaxSeq || heads < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64)
-    return (int)launch_bwd<float, 64>(qkv, dout, dqkv, n, s, heads, causal, scale, st);
-  if (dtype == 0 && d == 128)
-    return (int)launch_bwd<float, 128>(qkv, dout, dqkv, n, s, heads, causal, scale, st);
-  if (dtype == 1 && d == 64)
-    return (int)launch_bwd<__nv_bfloat16, 64>(qkv, dout, dqkv, n, s, heads, causal, scale, st);
-  if (dtype == 1 && d == 128)
-    return (int)launch_bwd<__nv_bfloat16, 128>(qkv, dout, dqkv, n, s, heads, causal, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const size_t width = (size_t)heads * d * (dtype == 0 ? 4 : 2);   // bytes of one column block
+  char* base = static_cast<char*>(dqkv);
+  return (int)bwd(qkv, dout, base, base + width, base + 2 * width, 3 * heads * d, n, s, heads, d,
+                  dtype, causal, scale, stream, false);
 }
 
-extern "C" const char* eoe_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// _fwd_group_compute: as eoe_fused_qkv_attention_fwd, one block per (image,
+// 128-lane group of heads).
+extern "C" int eoe_fused_qkv_attention_group_fwd(const void* qkv, void* out, int n, int s,
+                                                 int heads, int d, int dtype, int causal,
+                                                 float scale, void* stream) {
+  return (int)fwd(qkv, out, n, s, heads, d, dtype, causal, scale, stream, true);
+}
+
+// _bwd_group_compute: dq, dk and dv into three (n, s, H*d) tensors, one block
+// per (image, 128-lane group of heads).
+extern "C" int eoe_fused_qkv_attention_group_bwd(const void* qkv, const void* dout, void* dq,
+                                                 void* dk, void* dv, int n, int s, int heads,
+                                                 int d, int dtype, int causal, float scale,
+                                                 void* stream) {
+  return (int)bwd(qkv, dout, dq, dk, dv, heads * d, n, s, heads, d, dtype, causal, scale, stream,
+                  true);
 }

@@ -13,6 +13,10 @@ forward and, in training, backward (``fused_qkv_attention`` is an autograd
 Function); else, as on the CPU, through ``default_attention``.
 ``qkv_attention`` replaces the kernels by another function of the same
 signature, e.g. their plain versions ``fused_qkv_attention_ref``.
+``attention_fn`` is the JAX model's hook: when set, every block splits q, k
+and v into ``(n, heads, s, d)``, calls ``attention_fn(q, k, v, mask)`` (e.g.
+``flash_attention``) and skips the fused route; the text tower passes its
+additive causal mask. A model takes one of the two hooks, not both.
 ``ModifiedResNet`` is not ported yet.
 """
 
@@ -27,6 +31,8 @@ from torch import nn
 from eoe_tpu_torch.ops.attention import default_attention, fused_qkv_attention, fused_qkv_ok
 
 QkvAttention = Callable[[torch.Tensor, int, bool], torch.Tensor]
+AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]],
+                       torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,11 +98,15 @@ class MultiHeadAttention(nn.Module):
     """Joint ``qkv`` in-projection, separate ``attn_out`` out-projection."""
 
     def __init__(self, width: int, heads: int, dtype: torch.dtype,
-                 qkv_attention: Optional[QkvAttention] = None):
+                 qkv_attention: Optional[QkvAttention] = None,
+                 attention_fn: Optional[AttentionFn] = None):
         super().__init__()
+        if qkv_attention is not None and attention_fn is not None:
+            raise ValueError("pass qkv_attention or attention_fn, not both")
         self.heads = heads
         self.dtype = dtype
         self.qkv_attention = qkv_attention
+        self.attention_fn = attention_fn
         self.qkv = nn.Linear(width, 3 * width)
         self.attn_out = nn.Linear(width, width)
 
@@ -105,23 +115,24 @@ class MultiHeadAttention(nn.Module):
         n, s, d = x.shape
         hd = d // self.heads
         qkv = _dense(x, self.qkv, self.dtype)
-        if mask is None or causal:
+        if self.attention_fn is None and (mask is None or causal):
             if self.qkv_attention is not None:
                 return _dense(self.qkv_attention(qkv, self.heads, causal), self.attn_out, self.dtype)
             if fused_qkv_ok(n, s, self.heads, hd, qkv):
                 return _dense(fused_qkv_attention(qkv, self.heads, causal), self.attn_out, self.dtype)
         q, k, v = (t.reshape(n, s, self.heads, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-        attn = default_attention(q, k, v, mask).transpose(1, 2).reshape(n, s, d)
-        return _dense(attn, self.attn_out, self.dtype)
+        attn = (self.attention_fn or default_attention)(q, k, v, mask)
+        return _dense(attn.transpose(1, 2).reshape(n, s, d), self.attn_out, self.dtype)
 
 
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, width: int, heads: int, dtype: torch.dtype,
-                 qkv_attention: Optional[QkvAttention] = None):
+                 qkv_attention: Optional[QkvAttention] = None,
+                 attention_fn: Optional[AttentionFn] = None):
         super().__init__()
         self.dtype = dtype
         self.ln_1 = LayerNormF32(width)
-        self.attn = MultiHeadAttention(width, heads, dtype, qkv_attention)
+        self.attn = MultiHeadAttention(width, heads, dtype, qkv_attention, attention_fn)
         self.ln_2 = LayerNormF32(width)
         self.mlp_up = nn.Linear(width, 4 * width)
         self.mlp_down = nn.Linear(4 * width, width)
@@ -135,10 +146,12 @@ class ResidualAttentionBlock(nn.Module):
 
 class TransformerStack(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype,
-                 qkv_attention: Optional[QkvAttention] = None):
+                 qkv_attention: Optional[QkvAttention] = None,
+                 attention_fn: Optional[AttentionFn] = None):
         super().__init__()
         self.blocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, dtype, qkv_attention) for _ in range(layers))
+            ResidualAttentionBlock(width, heads, dtype, qkv_attention, attention_fn)
+            for _ in range(layers))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 causal: bool = False) -> torch.Tensor:
@@ -167,7 +180,8 @@ class PatchEmbed(nn.Module):
 
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: ClipConfig, dtype: torch.dtype,
-                 qkv_attention: Optional[QkvAttention] = None):
+                 qkv_attention: Optional[QkvAttention] = None,
+                 attention_fn: Optional[AttentionFn] = None):
         super().__init__()
         w = cfg.vision_width
         grid = cfg.image_resolution // cfg.vision_patch_size
@@ -176,7 +190,7 @@ class VisionTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(torch.empty(grid * grid + 1, w))
         self.ln_pre = LayerNormF32(w)
         self.transformer = TransformerStack(w, cfg.vision_layers, cfg.vision_heads, dtype,
-                                            qkv_attention)
+                                            qkv_attention, attention_fn)
         self.ln_post = LayerNormF32(w)
         self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim))
 
@@ -201,6 +215,7 @@ class CLIP(nn.Module):
 
     def __init__(self, config: ClipConfig = VIT_B32, dtype: torch.dtype = torch.float32,
                  qkv_attention: Optional[QkvAttention] = None,
+                 attention_fn: Optional[AttentionFn] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if not config.is_vit:
@@ -208,9 +223,10 @@ class CLIP(nn.Module):
         cfg = config
         self.config = cfg
         self.dtype = dtype
-        self.visual = VisionTransformer(cfg, dtype, qkv_attention)
+        self.visual = VisionTransformer(cfg, dtype, qkv_attention, attention_fn)
         self.transformer = TransformerStack(cfg.transformer_width, cfg.transformer_layers,
-                                            cfg.transformer_heads, dtype, qkv_attention)
+                                            cfg.transformer_heads, dtype, qkv_attention,
+                                            attention_fn)
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.transformer_width)
         self.positional_embedding = nn.Parameter(
             torch.empty(cfg.context_length, cfg.transformer_width))

@@ -4,7 +4,8 @@ Each source under ``eoe_tpu_torch/csrc`` exposes a plain ``extern "C"``
 launcher (data pointers, sizes, the CUDA stream), so one ``nvcc`` call per
 source builds it in seconds: no PyTorch headers, no ``ninja``. The library is
 loaded with ``ctypes``. Builds are cached under ``eoe_tpu_torch/_build`` by a
-hash of the source and the flags, and happen at first use, never at import.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, and
+happen at first use, never at import.
 A failed build raises :class:`BuildError`; nothing falls back to the plain
 PyTorch versions.
 """
@@ -41,7 +42,8 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    content = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

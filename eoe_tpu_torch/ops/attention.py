@@ -1,5 +1,5 @@
-"""Fused QKV self-attention for the CLIP encoders: the CUDA kernels and
-their plain PyTorch versions.
+"""Attention for the CLIP encoders: the CUDA kernels and their plain
+PyTorch versions.
 
 ``fused_qkv_attention`` is the port of eoe_tpu/ops/attention.py's
 ``fused_qkv_attention`` with its custom VJP: the forward is the Pallas kernel
@@ -11,11 +11,20 @@ hand-written kernels in ``csrc/fused_qkv_attention.cu`` (built at first use,
 see ``_build``) or raise; on a CPU tensor they compute the same functions
 with the plain versions ``fused_qkv_attention_fwd_ref`` and
 ``fused_qkv_attention_bwd_ref``. ``fused_qkv_attention_ref`` is the plain
-pair as one differentiable function, on any device.
+pair as one differentiable function, on any device. With ``GROUP_GRID`` set
+(``EOE_TPU_ATTN_GROUP_GRID=1``, as in the JAX package) the kernels run on the
+lane-group grid of ``_fwd_group_compute`` and ``_bwd_group_compute``.
+
+``flash_attention`` is the port of the JAX package's opt-in
+``flash_attention`` (``CLIP(attention_fn=flash_attention)``): its forward is
+the Pallas kernel ``_kernel``, here ``csrc/flash_attention.cu`` on a CUDA
+tensor and ``flash_attention_ref`` on a CPU tensor; its backward differentiates
+``default_attention``, as the JAX package's does.
 """
 
 import ctypes
 import functools
+import os
 from typing import Optional
 
 import torch
@@ -25,7 +34,14 @@ from eoe_tpu_torch.ops import _build
 LANE = 128      # the JAX kernel's lane group; heads must tile it evenly
 MAX_SEQ = 128   # one tile covers the whole sequence
 SOURCE = "fused_qkv_attention.cu"
+FLASH_SOURCE = "flash_attention.cu"
+MAX_SINGLE_BLOCK = 1024   # flash_attention's longest sequence; longer ones run default_attention
+FLASH_MAX_D = 256         # the flash kernel's widest head
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The JAX package's switch to the lane-group grid (eoe_tpu/ops/attention.py:412),
+# read at call time: tests and callers may set the module global.
+GROUP_GRID = os.environ.get("EOE_TPU_ATTN_GROUP_GRID", "0") == "1"
 
 
 def default_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,10 +72,13 @@ def _check_fused_shape(heads: int, d: int, s: int):
 
 def fused_qkv_ok(n: int, s: int, heads: int, d: int,
                  sample: Optional[torch.Tensor] = None) -> bool:
-    """Whether the CUDA kernels apply: ``sample`` (the projection) lies on a
-    CUDA device and the shape passes the gate. The dtype is not consulted: on
-    the card a dtype the kernel does not take raises in
+    """Whether the CUDA kernels apply: ``EOE_TPU_FUSED_ATTN`` is unset or
+    "1" (read at call time, as the JAX gate reads it), ``sample`` (the
+    projection) lies on a CUDA device and the shape passes the gate. The dtype
+    is not consulted: on the card a dtype the kernel does not take raises in
     ``fused_qkv_attention`` rather than running the plain version."""
+    if os.environ.get("EOE_TPU_FUSED_ATTN", "1") != "1":
+        return False
     if sample is None or not sample.is_cuda:
         return False
     aligned = (d == 64 and heads % 2 == 0) or d == 128
@@ -164,10 +183,25 @@ def fused_qkv_attention_ref(qkv: torch.Tensor, heads: int, causal: bool = False)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.eoe_fused_qkv_attention_fwd.argtypes = [P, P, I, I, I, I, I, I, ctypes.c_float, P]
-    lib.eoe_fused_qkv_attention_fwd.restype = I
-    lib.eoe_fused_qkv_attention_bwd.argtypes = [P, P, P, I, I, I, I, I, I, ctypes.c_float, P]
-    lib.eoe_fused_qkv_attention_bwd.restype = I
+    fwd_args = [P, P, I, I, I, I, I, I, ctypes.c_float, P]
+    for name, args in (("eoe_fused_qkv_attention_fwd", fwd_args),
+                       ("eoe_fused_qkv_attention_group_fwd", fwd_args),
+                       ("eoe_fused_qkv_attention_bwd", [P, P, P] + fwd_args[2:]),
+                       ("eoe_fused_qkv_attention_group_bwd", [P, P, P, P, P] + fwd_args[2:])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = I
+    lib.eoe_cuda_error_string.argtypes = [I]
+    lib.eoe_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_library() -> ctypes.CDLL:
+    lib = _build.load(FLASH_SOURCE)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.eoe_flash_attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I,
+                                            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, P]
+    lib.eoe_flash_attention_fwd.restype = I
     lib.eoe_cuda_error_string.argtypes = [I]
     lib.eoe_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -186,45 +220,84 @@ def _check_card_tensor(t: torch.Tensor, name: str):
         raise ValueError(f"fused_qkv_attention reads {name} in 4-byte words; it is misaligned")
 
 
-def _raise_on(err: int, what: str):
+def _raise_on(lib: ctypes.CDLL, err: int, what: str):
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           + _library().eoe_cuda_error_string(err).decode())
+        raise RuntimeError(f"{what} launch failed: {lib.eoe_cuda_error_string(err).decode()}")
 
 
-def _fwd_kernel(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+def _launch_fwd(qkv: torch.Tensor, heads: int, causal: bool, entry: str) -> torch.Tensor:
     n, s, F = qkv.shape
     D = F // 3
     d = D // heads
     _check_card_tensor(qkv, "qkv")
     out = torch.empty((n, s, D), dtype=qkv.dtype, device=qkv.device)
+    lib = _library()
     with torch.cuda.device(qkv.device):  # the launcher uses the current device
-        err = _library().eoe_fused_qkv_attention_fwd(
+        err = getattr(lib, entry)(
             qkv.data_ptr(), out.data_ptr(), n, s, heads, d, _DTYPE_CODES[qkv.dtype],
             int(causal), d ** -0.5, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "fused_qkv_attention")
+    _raise_on(lib, err, "fused_qkv_attention")
+    return out
+
+
+def _fwd_kernel(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+    out = _launch_fwd(qkv, heads, causal, "eoe_fused_qkv_attention_fwd")
     fused_qkv_attention.launches += 1
     return out
 
 
-def _bwd_kernel(qkv: torch.Tensor, dout: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+def _group_fwd_kernel(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+    """The forward on the lane-group grid (``_fwd_group_compute``)."""
+    out = _launch_fwd(qkv, heads, causal, "eoe_fused_qkv_attention_group_fwd")
+    fused_qkv_attention.group_launches += 1
+    return out
+
+
+def _check_bwd_args(qkv: torch.Tensor, dout: torch.Tensor):
     n, s, F = qkv.shape
     D = F // 3
-    d = D // heads
     _check_card_tensor(qkv, "qkv")
     _check_card_tensor(dout, "dout")
     if dout.shape != (n, s, D) or dout.dtype != qkv.dtype or dout.device != qkv.device:
         raise ValueError(f"dout must be {(n, s, D)} {qkv.dtype} on {qkv.device}, got "
                          f"{tuple(dout.shape)} {dout.dtype} on {dout.device}")
+
+
+def _bwd_kernel(qkv: torch.Tensor, dout: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+    n, s, F = qkv.shape
+    d = F // 3 // heads
+    _check_bwd_args(qkv, dout)
     dqkv = torch.empty_like(qkv)
+    lib = _library()
     with torch.cuda.device(qkv.device):
-        err = _library().eoe_fused_qkv_attention_bwd(
+        err = lib.eoe_fused_qkv_attention_bwd(
             qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), n, s, heads, d,
             _DTYPE_CODES[qkv.dtype], int(causal), d ** -0.5,
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "fused_qkv_attention backward")
+    _raise_on(lib, err, "fused_qkv_attention backward")
     fused_qkv_attention.bwd_launches += 1
     return dqkv
+
+
+def _group_bwd_kernel(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
+                      causal: bool) -> torch.Tensor:
+    """The backward on the lane-group grid (``_bwd_group_compute``): dq, dk
+    and dv come out as three ``(n, s, H*d)`` tensors and are concatenated, as
+    ``_group_grid_call`` does (eoe_tpu/ops/attention.py:395)."""
+    n, s, F = qkv.shape
+    D = F // 3
+    d = D // heads
+    _check_bwd_args(qkv, dout)
+    dq, dk, dv = (torch.empty((n, s, D), dtype=qkv.dtype, device=qkv.device) for _ in range(3))
+    lib = _library()
+    with torch.cuda.device(qkv.device):
+        err = lib.eoe_fused_qkv_attention_group_bwd(
+            qkv.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            n, s, heads, d, _DTYPE_CODES[qkv.dtype], int(causal), d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "fused_qkv_attention group backward")
+    fused_qkv_attention.group_bwd_launches += 1
+    return torch.cat([dq, dk, dv], dim=-1)
 
 
 def fused_qkv_attention(qkv: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
@@ -234,17 +307,117 @@ def fused_qkv_attention(qkv: torch.Tensor, heads: int, causal: bool = False) -> 
     ``qkv``: (n, s, 3*D), features ordered [q | k | v] with heads contiguous
     inside each. Returns (n, s, D), heads concatenated, un-transposed.
     ``causal`` applies the upper-triangular mask of the CLIP text encoder.
-    On a CUDA tensor the forward and the backward launch their kernels; on a
-    CPU tensor they run the plain versions. ``fused_qkv_attention.launches``
-    counts forward kernel launches, ``fused_qkv_attention.bwd_launches``
-    backward kernel launches."""
+    On a CUDA tensor the forward and the backward launch their kernels, on
+    the lane-group grid when ``GROUP_GRID`` is set and ``heads*d`` tiles the
+    128-lane groups (as ``_fused_call`` chooses); on a CPU tensor they run the
+    plain versions, which compute the same function on either grid.
+    ``fused_qkv_attention.launches`` and ``.bwd_launches`` count the launches
+    of the forward and backward kernels on the monolithic grid,
+    ``.group_launches`` and ``.group_bwd_launches`` on the group grid."""
     n, s, F = qkv.shape
-    _check_fused_shape(heads, F // 3 // heads, s)
+    d = F // 3 // heads
+    _check_fused_shape(heads, d, s)
     if qkv.device.type == "cpu":
         return _QkvAttention.apply(qkv, heads, causal, fused_qkv_attention_fwd_ref,
                                    fused_qkv_attention_bwd_ref)
+    if GROUP_GRID and (heads * d) % LANE == 0:
+        return _QkvAttention.apply(qkv, heads, causal, _group_fwd_kernel, _group_bwd_kernel)
     return _QkvAttention.apply(qkv, heads, causal, _fwd_kernel, _bwd_kernel)
 
 
 fused_qkv_attention.launches = 0
 fused_qkv_attention.bwd_launches = 0
+fused_qkv_attention.group_launches = 0
+fused_qkv_attention.group_bwd_launches = 0
+
+
+# ---------------------------------------------------------------- flash attention
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the flash kernel, with ``_kernel``'s numerics
+    (eoe_tpu/ops/attention.py:41): q and k in fp32, the logits scaled after
+    the product, then the fp32 mask added; an fp32 softmax normalised before P
+    is rounded to v's dtype; P.V accumulated in fp32 and cast to q's dtype."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if mask is not None:
+        logits = logits + mask.float()
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = (p / p.sum(dim=-1, keepdim=True)).to(v.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launches the flash kernel. q, k and v may be strided views (the
+    head-split joint projection) as long as d is contiguous; the output is
+    (n, h, s, d) laid out in (n, s, h, d) memory, so that the caller's
+    transpose back to (n, s, h*d) needs no copy."""
+    n, h, s, d = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be on {q.device}, got {t.device}")
+        if t.dtype not in _DTYPE_CODES or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention takes float32 or bfloat16 q, k, v of one dtype, "
+                             f"got {q.dtype}, {k.dtype}, {v.dtype}")
+        if t.shape != q.shape:
+            raise ValueError(f"flash_attention: {name} must be {tuple(q.shape)}, got "
+                             f"{tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention needs the head dim of {name} contiguous")
+    if mask is not None:
+        if mask.shape != (s, s) or mask.device != q.device or not mask.is_floating_point():
+            raise ValueError(f"flash_attention: the mask must be a float ({s}, {s}) tensor on "
+                             f"{q.device}, got {tuple(mask.shape)} {mask.dtype} on {mask.device}")
+        mask = mask.to(torch.float32).contiguous()
+    out = torch.empty((n, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    lib = _flash_library()
+    with torch.cuda.device(q.device):
+        err = lib.eoe_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), n, h, s, d, _DTYPE_CODES[q.dtype], strides, d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the flash kernel (the plain version on CPU tensors).
+    Backward: autograd through ``default_attention`` with the mask, as the
+    JAX package's ``_bwd`` takes ``jax.vjp`` of it (attention.py:646-650)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, mask)
+        return _flash_kernel(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = default_attention(*inputs, mask)
+        return (*torch.autograd.grad(out, inputs, g), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Drop-in for :func:`default_attention`: (n, heads, S, d) scaled
+    dot-product attention with an optional additive (S, S) mask,
+    differentiable in q, k and v. Above ``MAX_SINGLE_BLOCK`` it is
+    ``default_attention``, as in the JAX package; otherwise d may be at most
+    ``FLASH_MAX_D``. ``flash_attention.launches`` counts kernel launches."""
+    if q.shape[2] > MAX_SINGLE_BLOCK:
+        return default_attention(q, k, v, mask)
+    if q.shape[-1] > FLASH_MAX_D:
+        raise ValueError(f"flash_attention takes head dims up to {FLASH_MAX_D}, got "
+                         f"{q.shape[-1]}")
+    return _FlashAttention.apply(q, k, v, mask)
+
+
+flash_attention.launches = 0

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Where the time of the port's training step goes, on one NVIDIA GPU.
 
-    python3 profile_train.py [--steps 3] [--trace train_trace.json]
+    python3 profile_train.py [--steps 3] [--route fused|group|flash] [--trace train_trace.json]
 
 Builds chip_smoke.py's training configuration (full-width ViT-B/32 in bf16,
 HSC, the acceptance augmentation stack, 128 normal + 128 OE images per
 step, random weights from seed 0), takes two warm-up steps, then traces
 ``--steps`` steps with ``torch.profiler`` (CPU and CUDA activities). Prints
 the step time on the host clock (untraced, then traced), the device time by kernel class (the
-fused-QKV attention forward and backward, matrix products, everything else)
+attention kernels, matrix products, everything else)
 and the device's busy share of the traced window, then the 25 kernels with
-the most device time. Needs one card; imports nothing of JAX or eoe_tpu.
+the most device time. ``--route`` picks the attention: the fused-QKV
+kernels on their monolithic grid (the default), on the lane-group grid
+(``GROUP_GRID``), or ``CLIP(attention_fn=flash_attention)``. Needs one card;
+imports nothing of JAX or eoe_tpu.
 """
 
 import argparse
@@ -21,6 +24,8 @@ import time
 
 def kernel_class(name: str) -> str:
     low = name.lower()
+    if "flash_fwd" in low:
+        return "flash attention forward (port kernel)"
     if "fused_qkv_bwd" in low:
         return "attention backward (port kernel)"
     if "fused_qkv_fwd" in low:
@@ -38,6 +43,8 @@ def kernel_class(name: str) -> str:
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--route", choices=("fused", "group", "flash"), default="fused",
+                        help="the attention route the model takes")
     parser.add_argument("--trace", default="", help="write a chrome trace here")
     args = parser.parse_args()
 
@@ -48,10 +55,14 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import chip_smoke as cs
     from eoe_tpu_torch.models.clip import CLIP, VIT_B32
+    from eoe_tpu_torch.ops import attention
 
     card = cs.phase_card()
+    print(f"profile: route {args.route}")
+    attention.GROUP_GRID = args.route == "group"
+    kw = {"attention_fn": attention.flash_attention} if args.route == "flash" else {}
     ds, _ = cs._combined(np.random.default_rng(cs.SEED), cs.ACCEPTANCE_SPECS)
-    trainer = cs._trainer(CLIP(VIT_B32, dtype=torch.bfloat16), cs.ACCEPTANCE_SPECS, None,
+    trainer = cs._trainer(CLIP(VIT_B32, dtype=torch.bfloat16, **kw), cs.ACCEPTANCE_SPECS, None,
                           torch.bfloat16)
     state = trainer.init_state(cs.SEED, ds, 1)
     dev = trainer.device

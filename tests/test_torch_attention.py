@@ -99,6 +99,18 @@ def test_fused_qkv_ok_gates_on_device_and_shape_only(dtype):
     assert not A.fused_qkv_ok(4, 129, 12, 64, on_card)
 
 
+def test_fused_qkv_ok_honours_eoe_tpu_fused_attn(monkeypatch):
+    """As the JAX gate (eoe_tpu/ops/attention.py:619-620): unless
+    ``EOE_TPU_FUSED_ATTN`` is unset or "1", read at call time, the kernels do
+    not apply and the model takes ``default_attention``."""
+    on_card = types.SimpleNamespace(is_cuda=True, dtype=torch.float32)
+    monkeypatch.delenv("EOE_TPU_FUSED_ATTN", raising=False)
+    assert A.fused_qkv_ok(4, 50, 12, 64, on_card)
+    for value, applies in (("0", False), ("", False), ("true", False), ("1", True)):
+        monkeypatch.setenv("EOE_TPU_FUSED_ATTN", value)
+        assert A.fused_qkv_ok(4, 50, 12, 64, on_card) is applies
+
+
 def _dout(n, s, h, d, seed=2):
     return np.random.default_rng(seed).normal(0, 1, (n, s, h * d)).astype(np.float32)
 

@@ -119,3 +119,156 @@ def test_attention_gradient_through_the_kernels(cuda):
         grads.append([xi.grad] + [p.grad for p in layer.parameters()])
     for a, b in zip(*grads):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+# ---------------------------------------------------------------- group grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_group_forward_matches_ref_and_monolithic(cuda, case, dtype, atol):
+    """The lane-group forward runs the monolithic kernel's per-head code, so
+    the two agree bit for bit; the plain version within the forward's
+    tolerance."""
+    n, s, h, d, causal = case
+    g = torch.Generator(device=cuda).manual_seed(2)
+    qkv = torch.randn(n, s, 3 * h * d, generator=g, device=cuda).to(dtype)
+    before = A.fused_qkv_attention.group_launches
+    out = A._group_fwd_kernel(qkv, h, causal)
+    torch.cuda.synchronize()
+    assert A.fused_qkv_attention.group_launches == before + 1
+    assert torch.equal(out, A._fwd_kernel(qkv, h, causal))
+    ref = A.fused_qkv_attention_fwd_ref(qkv, h, causal)
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_backward_matches_ref_and_monolithic(cuda, case, dtype):
+    n, s, h, d, causal = case
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(n, s, 3 * h * d, generator=g, device=cuda).to(dtype)
+    dout = torch.randn(n, s, h * d, generator=g, device=cuda).to(dtype)
+    before = A.fused_qkv_attention.group_bwd_launches
+    dqkv = A._group_bwd_kernel(qkv, dout, h, causal)
+    torch.cuda.synchronize()
+    assert A.fused_qkv_attention.group_bwd_launches == before + 1
+    assert torch.equal(dqkv, A._bwd_kernel(qkv, dout, h, causal))
+    ref = A.fused_qkv_attention_bwd_ref(qkv, dout, h, causal)
+    assert (dqkv.float() - ref.float()).abs().max().item() <= _bwd_tol(dtype, ref)
+
+
+@pytest.mark.cuda
+def test_attention_gradient_through_the_group_kernels(cuda, monkeypatch):
+    """With ``GROUP_GRID`` on, one ViT-B/32 attention layer launches the group
+    kernels and not the monolithic ones, and gives the plain pair's
+    gradients."""
+    monkeypatch.setattr(A, "GROUP_GRID", True)
+    torch.manual_seed(0)
+    mha = MultiHeadAttention(768, 12, torch.float32).to(cuda)
+    plain = MultiHeadAttention(768, 12, torch.float32,
+                               qkv_attention=A.fused_qkv_attention_ref).to(cuda)
+    plain.load_state_dict(mha.state_dict())
+    x = torch.randn(8, 50, 768, device=cuda)
+    counters = ("launches", "bwd_launches", "group_launches", "group_bwd_launches")
+    grads = []
+    for layer in (mha, plain):
+        xi = x.clone().requires_grad_()
+        before = [getattr(A.fused_qkv_attention, c) for c in counters]
+        layer(xi).square().sum().backward()
+        moved = [getattr(A.fused_qkv_attention, c) - b for c, b in zip(counters, before)]
+        assert moved == ([0, 0, 1, 1] if layer is mha else [0, 0, 0, 0])
+        grads.append([xi.grad] + [p.grad for p in layer.parameters()])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+# ---------------------------------------------------------------- flash attention
+
+# (n, heads, S, d, mask): both CLIP towers, the JAX tests' d=32, the longest
+# single block, d=128 and d=256 with an arbitrary finite mask, and a ragged d
+# with masked holes
+FLASH_CASES = [(2, 12, 50, 64, None), (2, 8, 77, 64, "causal"), (2, 2, 77, 32, "causal"),
+               (1, 2, 1024, 64, None), (2, 4, 64, 128, "random"), (1, 2, 100, 256, "random"),
+               (2, 3, 33, 40, "holes")]
+
+
+def _flash_inputs(case, dtype, device, seed=0):
+    n, h, s, d, kind = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(n, h, s, d, generator=g, device=device).to(dtype) for _ in range(3))
+    if kind is None:
+        mask = None
+    elif kind == "causal":
+        mask = torch.full((s, s), float("-inf"), device=device).triu(1)
+    else:
+        mask = torch.randn(s, s, generator=g, device=device)
+        if kind == "holes":  # -inf off the diagonal: every row keeps one key
+            holes = torch.rand(s, s, generator=g, device=device) < 0.3
+            mask = mask.masked_fill(holes & ~torch.eye(s, dtype=torch.bool, device=device),
+                                    float("-inf"))
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_flash_attention_matches_ref(cuda, case, dtype, atol):
+    q, k, v, mask = _flash_inputs(case, dtype, cuda)
+    before = A.flash_attention.launches
+    out = A.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert A.flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    ref = A.flash_attention_ref(q, k, v, mask)
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_head_split_views(cuda):
+    """The model passes q, k, v as strided views of the joint projection;
+    the kernel reads them in place and returns what it returns for
+    contiguous copies."""
+    n, s, h, d = 3, 50, 12, 64
+    qkv = torch.randn(n, s, 3 * h * d, device=cuda)
+    q, k, v = (t.reshape(n, s, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    out = A.flash_attention(q, k, v)
+    assert torch.equal(out, A.flash_attention(q.contiguous(), k.contiguous(), v.contiguous()))
+    assert out.transpose(1, 2).is_contiguous()   # the model's transpose back is free
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects(cuda):
+    q = torch.zeros(1, 2, 16, 64, device=cuda)
+    with pytest.raises(ValueError, match="head dims up to"):
+        wide = torch.zeros(1, 2, 16, A.FLASH_MAX_D + 1, device=cuda)
+        A.flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        A.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        A.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="mask"):
+        A.flash_attention(q, q, q, torch.zeros(16, 15, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 2, 64, 16, device=cuda).transpose(2, 3)
+        A.flash_attention(t, t, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gradient_is_default_attentions(cuda, dtype):
+    """The backward differentiates ``default_attention`` with the mask, as the
+    JAX package's does; no kernel runs in it."""
+    q, k, v, mask = _flash_inputs((2, 8, 77, 64, "causal"), dtype, cuda, seed=1)
+    g = torch.randn(q.shape, device=cuda).to(dtype)
+    grads = []
+    for fn in (A.flash_attention, A.default_attention):
+        inputs = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = A.flash_attention.launches
+        fn(*inputs, mask).backward(g)
+        assert A.flash_attention.launches == before + (fn is A.flash_attention)
+        grads.append([t.grad for t in inputs])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)

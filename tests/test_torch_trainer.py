@@ -20,6 +20,7 @@ import torch
 
 from eoe_tpu.datasets import bases as JB
 from eoe_tpu.models.clip import CLIP as JaxCLIP, ClipConfig as JaxConfig
+from eoe_tpu.ops.attention import flash_attention as jax_flash_attention
 from eoe_tpu.training.clip import ClipTrainer as JaxClipTrainer
 from eoe_tpu.training.trainer import Trainer as JaxTrainer, TrainState as JaxState
 from eoe_tpu.utils.logger import Logger as JaxLogger
@@ -125,17 +126,18 @@ def _compare(port_out, jax_out, port_model, jax_params, init):
     assert not np.array_equal(trained["visual"]["proj"], init["visual"]["proj"])
 
 
-def test_hsc_train_step_matches_jax(weights):
+def _hsc_steps_match_jax(weights, steps, port_kw=None, jax_kw=None):
     init = to_flax_numpy(weights)
-    plans = _plans(3)
-    port = TRAINER["hsc"](model=CLIP(ClipConfig(**TINY)), train_specs=SPECS, test_specs=SPECS,
-                          logger=None, epochs=1, device="cpu", **COMMON)
+    plans = _plans(steps)
+    port = TRAINER["hsc"](model=CLIP(ClipConfig(**TINY), **(port_kw or {})), train_specs=SPECS,
+                          test_specs=SPECS, logger=None, epochs=1, device="cpu", **COMMON)
     state = _port_state(port, weights)
     port_out = _port_steps(port, state, _combined(B), plans)
-    assert state.optimizer.count == 3
+    assert state.optimizer.count == steps
 
-    jt = JaxTrainer(model=JaxCLIP(JaxConfig(**TINY)), train_specs=SPECS, test_specs=SPECS,
-                    logger=JaxLogger("", active=False), epochs=1, objective="hsc", **COMMON)
+    jt = JaxTrainer(model=JaxCLIP(JaxConfig(**TINY), **(jax_kw or {})), train_specs=SPECS,
+                    test_specs=SPECS, logger=JaxLogger("", active=False), epochs=1,
+                    objective="hsc", **COMMON)
     params = jax.tree_util.tree_map(jnp.asarray, init)
     trainable, _ = jt._split_trainable(params)
     tx = jt.make_optimizer(N_NORMAL // BATCH)
@@ -143,6 +145,20 @@ def test_hsc_train_step_matches_jax(weights):
                       step=jnp.zeros((), jnp.int32))
     jax_out, jstate = _jax_steps(jt, jstate, _combined(JB), plans)
     _compare(port_out, jax_out, state.model, jstate.params, init)
+
+
+def test_hsc_train_step_matches_jax(weights):
+    _hsc_steps_match_jax(weights, 3)
+
+
+def test_hsc_train_step_with_flash_attention_matches_jax(weights):
+    """``attention_fn=flash_attention`` on both sides: the JAX Pallas kernel
+    in interpret mode and the port's plain version forward, the backward
+    through ``default_attention`` on both; the same limits as above."""
+    before = A.flash_attention.launches
+    _hsc_steps_match_jax(weights, 1, {"attention_fn": A.flash_attention},
+                         {"attention_fn": jax_flash_attention})
+    assert A.flash_attention.launches == before
 
 
 @pytest.mark.parametrize("ad_mode", ["one_vs_rest", "leave_one_out"])
