@@ -27,8 +27,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      launch counts must be 12 forward and 12 backward per step plus 12
      forward per eval batch. Then 3 fp32 steps (TF32 off, deterministic
      pipeline) twice, through the kernels and through their plain versions
-     (``fused_qkv_attention_ref``), held against each other; and the
-     snapshot served through ``AnomalyScorer``, held against ``eval_cls``;
+     (``fused_qkv_attention_ref``), held against each other; one bf16 step
+     the same way (the bf16 hold); and the snapshot served through
+     ``AnomalyScorer``, held against ``eval_cls``;
   6. flash path: ``CLIP(VIT_B32, attention_fn=flash_attention)`` from seed 0
      serves phase 4's prompt centre and requests (12 flash launches for the
      prompts and 12 per batch), held in fp32 against the same weights with
@@ -50,7 +51,6 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -61,6 +61,7 @@ PEAK_OPS_PER_S = {"torch.float32": 67e12, "torch.bfloat16": 989e12}  # CUDA-core
 SEED = 0
 REQUESTS = (256, 100, 37)
 BATCH = 128
+SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
 
 def fail(msg: str):
@@ -94,19 +95,23 @@ def check_counts(counts: dict, expected: dict, what: str):
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+    """Device time of one call: CUDA events around ``iters`` calls queued
+    back to back behind a sleep kernel, over ``iters``. The queue keeps the
+    host's time to issue a call (the wrapper's checks, the launch) out of the
+    measurement, which a call of a few tens of microseconds would otherwise
+    be made of."""
     import torch
     for _ in range(warmup):
         fn()
-    pairs = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)   # the device waits while the host queues the calls
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def attention_bound_ms(n, s, heads, d, causal, dtype, backward=False) -> tuple:
@@ -132,6 +137,28 @@ def phase_card() -> str:
     return card
 
 
+def ptxas_summary(log: str) -> list:
+    """One line per kernel of nvcc's ``-Xptxas=-v`` report: its name with
+    its template arguments (element type, then the integers), registers and
+    spill bytes."""
+    import re
+    lines, current, spills = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            name = re.search(r"\d+([a-z][a-z_]*_kernel(?:_[a-z]+)?)I", mangled)
+            args = ["bf16" if "bfloat16" in mangled else "fp32"] + re.findall(r"Li(\d+)E", mangled)
+            current, spills = f"{name.group(1) if name else mangled}<{', '.join(args)}>", ""
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            spills = f"spill stores {spill.group(1)} B, loads {spill.group(2)} B"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and current:
+            lines.append(f"{current}: {used.group(1)} registers, {spills}")
+    return lines
+
+
 def phase_build():
     from eoe_tpu_torch.ops import _build, attention
     sources = (attention.SOURCE, attention.FLASH_SOURCE)
@@ -149,15 +176,16 @@ def phase_build():
     print(f"build: {', '.join(f'{src} in {t:.1f} s' for src, t in zip(sources, seconds))}; "
           f"{time.perf_counter() - t0:.1f} s in all")
     for source in sources:
-        for line in _build.build_log(source).splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas {source}: {line.strip()}")
+        for line in ptxas_summary(_build.build_log(source)):
+            print(f"  ptxas {source}: {line}")
 
 
 # (n, s, heads, d, causal): the ViT-B/32 image tower at the training and
-# serving batch (n = 256 images), the text tower, a ragged causal case, d=128
+# serving batch (n = 256 images), the text tower, a ragged causal case, d=128,
+# the longest sequence at d=128 and a sequence that fills its bf16 tiles
 SHAPES = [(256, 50, 12, 64, False), (64, 77, 8, 64, True),
-          (3, 21, 4, 64, True), (2, 10, 2, 128, True)]
+          (3, 21, 4, 64, True), (2, 10, 2, 128, True), (2, 128, 2, 128, False),
+          (4, 64, 12, 64, False)]
 
 
 def phase_kernels(card: str) -> dict:
@@ -299,10 +327,12 @@ def phase_kernels_group(card: str) -> tuple:
 
 # (n, heads, S, d, mask) of the flash kernel: the image tower at the serving
 # and training batch, the text tower with its causal mask over the CIFAR-10
-# prompts, the longest single block, the JAX tests' d=32 with a mask, and
-# d=128 with an arbitrary finite mask
+# prompts, the longest single block, the JAX tests' d=32 with a mask,
+# d=128 with an arbitrary finite mask, and a head wider than one 256-column
+# chunk
 FLASH_SHAPES = [(256, 12, 50, 64, None), (10, 8, 77, 64, "causal"), (2, 12, 1024, 64, None),
-                (2, 2, 77, 32, "causal"), (16, 8, 128, 128, "random")]
+                (2, 2, 77, 32, "causal"), (16, 8, 128, 128, "random"),
+                (2, 2, 77, 300, "random")]
 
 
 def flash_bound_ms(n, h, s, d, masked, dtype) -> tuple:
@@ -559,12 +589,12 @@ def _train_bf16(card, label, model, data, epochs, expected, serve_model=None) ->
     return counts
 
 
-def _fp32_steps(model, ds32) -> tuple:
-    """3 fp32 HSC steps (deterministic pipeline) from seed 0, counted:
-    losses, the first step's visual gradients, the visual parameters after,
-    and every kernel's launches."""
+def _train_steps(model, ds32, dtype=None, steps=3) -> tuple:
+    """``steps`` HSC steps (deterministic pipeline) from seed 0 in ``dtype``
+    (fp32 by default), counted: losses, the first step's visual gradients,
+    the visual parameters after, and every kernel's launches."""
     import torch
-    tr = _trainer(model, CLIP_TEST_SPECS, None, torch.float32)
+    tr = _trainer(model, CLIP_TEST_SPECS, None, dtype or torch.float32)
     st = tr.init_state(SEED, ds32, 1)
     dev = tr.device
     xn = torch.from_numpy(ds32.train_set.gather_all()).to(dev)
@@ -575,7 +605,7 @@ def _fp32_steps(model, ds32) -> tuple:
     visual = [p for p in st.model.visual.parameters()]
     _zero_counts()
     losses, grads = [], None
-    for i in range(3):
+    for i in range(steps):
         sl = slice(i * BATCH, (i + 1) * BATCH)
         loss, *_ = tr.train_step(st, ds32, xn[sl], ln[sl], xo[sl], lo[sl], w, None)
         losses.append(loss.item())
@@ -624,12 +654,47 @@ def phase_train(card: str, data) -> dict:
 
     # fp32, deterministic pipeline: the kernels against their plain versions
     ds32 = _fp32_data()
-    run = _fp32_steps(CLIP(VIT_B32), ds32)
+    run = _train_steps(CLIP(VIT_B32), ds32)
     check_counts(run[3], {"fwd": 3 * layers, "bwd": 3 * layers}, "fp32 kernel run")
-    control = _fp32_steps(CLIP(VIT_B32, qkv_attention=fused_qkv_attention_ref), ds32)
+    control = _train_steps(CLIP(VIT_B32, qkv_attention=fused_qkv_attention_ref), ds32)
     check_counts(control[3], {}, "fp32 plain run")
     _hold_fp32(card, "train hsc fp32 kernels vs plain", run, control)
+    del run, control
+
+    # the bf16 hold: one bf16 step through the kernels and through their
+    # plain versions, from the same weights on the same batch
+    run = _train_steps(CLIP(VIT_B32, dtype=torch.bfloat16), ds32, torch.bfloat16, steps=1)
+    check_counts(run[3], {"fwd": layers, "bwd": layers}, "bf16 kernel step")
+    control = _train_steps(CLIP(VIT_B32, dtype=torch.bfloat16,
+                               qkv_attention=fused_qkv_attention_ref), ds32, torch.bfloat16,
+                          steps=1)
+    check_counts(control[3], {}, "bf16 plain step")
+    _hold_bf16(card, run, control)
     return counts
+
+
+# The bf16 hold's limits. The kernels and their plain versions round P, dS and
+# the outputs to bf16 at the same places but sum in other orders, so single
+# elements differ by a bf16 ulp (2^-8 relative) where a sum lands near a
+# rounding boundary; through 12 layers forward and back such flips move the
+# loss by well under 2^-8 and a gradient by a few ulps of its tensor's max. A
+# wrong mask, scale or transpose moves both by order 1.
+BF16_LOSS_TOL, BF16_GRAD_TOL = 2 ** -8, 2 ** -4
+
+
+def _hold_bf16(card, run, control):
+    """One bf16 step against its control: the loss within ``BF16_LOSS_TOL``
+    (relative), the visual gradients within ``BF16_GRAD_TOL`` of each
+    tensor's max."""
+    (lk, gk, _, _), (lp, gp, _, _) = run, control
+    l_err = abs(lk[0] - lp[0]) / abs(lp[0])
+    g_err = max(((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
+                .item() for a, b in zip(gk, gp))
+    check(l_err <= BF16_LOSS_TOL, f"bf16 hold: losses differ by {l_err} (relative)")
+    check(g_err <= BF16_GRAD_TOL, f"bf16 hold: first-step gradients differ by {g_err} of max")
+    print(f"train hsc bf16 kernels vs plain, 1 step: loss {lk[0]:.6f} vs {lp[0]:.6f}, err "
+          f"{l_err:.3g} rel (tol {BF16_LOSS_TOL:.3g}), gradient err {g_err:.3g} of max (tol "
+          f"{BF16_GRAD_TOL:.3g}) [{card}]")
 
 
 def phase_flash(card: str, data) -> tuple:
@@ -696,9 +761,9 @@ def phase_flash(card: str, data) -> tuple:
                            CLIP(VIT_B32, dtype=torch.bfloat16, attention_fn=flash_attention),
                            data, 1, lambda steps, evals: {"flash": layers * (steps + evals)})
     ds32 = _fp32_data()
-    run = _fp32_steps(CLIP(VIT_B32, attention_fn=flash_attention), ds32)
+    run = _train_steps(CLIP(VIT_B32, attention_fn=flash_attention), ds32)
     check_counts(run[3], {"flash": 3 * layers}, "flash fp32 kernel run")
-    control = _fp32_steps(CLIP(VIT_B32, attention_fn=default_attention), ds32)
+    control = _train_steps(CLIP(VIT_B32, attention_fn=default_attention), ds32)
     check_counts(control[3], {}, "flash fp32 default_attention run")
     _hold_fp32(card, "flash train hsc fp32 flash vs default_attention", run, control)
     return serving, training
@@ -722,11 +787,11 @@ def phase_group(card: str, data) -> dict:
         check_counts(training.pop("served"), {"group_fwd": layers * -(-TRAIN_TEST // BATCH)},
                      "group serving")
         ds32 = _fp32_data()
-        run = _fp32_steps(CLIP(VIT_B32), ds32)
+        run = _train_steps(CLIP(VIT_B32), ds32)
         check_counts(run[3], {"group_fwd": 3 * layers, "group_bwd": 3 * layers},
                      "group fp32 kernel run")
         attention.GROUP_GRID = False
-        control = _fp32_steps(CLIP(VIT_B32), ds32)
+        control = _train_steps(CLIP(VIT_B32), ds32)
         check_counts(control[3], {"fwd": 3 * layers, "bwd": 3 * layers},
                      "monolithic fp32 kernel run")
         _hold_fp32(card, "group train hsc fp32 group grid vs monolithic", run, control)

@@ -6,8 +6,9 @@
 // flash_attention) calls in every transformer block: the image tower at
 // (n, 12, 50, 64) with no mask, the text tower at (n, 8, 77, 64) with the
 // additive causal mask. Sequences up to 1024 (the JAX package's
-// MAX_SINGLE_BLOCK; longer ones never reach a kernel there or here) and head
-// dims up to 256. Its backward is not a kernel in the JAX package either.
+// MAX_SINGLE_BLOCK; longer ones never reach a kernel there or here) and any
+// head dim, as _flash_forward pads any d. Its backward is not a kernel in the
+// JAX package either.
 //
 // Numerics follow _kernel: q and k in fp32, logits = (q.k) * d^-1/2 rounded
 // once, then + mask; an fp32 softmax with the row max subtracted; P = p / sum
@@ -35,6 +36,11 @@
 //     _kernel does, with no rescaling of partial sums;
 //   - pass 2 over the value tiles: each lane owns output columns lane,
 //     lane+32, ...; P.V accumulated in fp32 registers.
+// A head dim above 256 is walked in chunks of 256 columns: pass 1 runs once
+// per chunk and sums the chunks' partial q.k in fp32 in the logit rows, which
+// are scaled and masked after the last chunk; pass 2 runs once per chunk and
+// writes that chunk's output columns. With one chunk (d <= 256) the
+// arithmetic is the single-pass one.
 // Products are fp32 FMAs on CUDA cores from shared memory (float4 reads of K,
 // rows padded by 4 words so a quarter-warp's reads hit distinct banks). What
 // it does not yet do is use the tensor cores or overlap loads with compute.
@@ -56,7 +62,6 @@ constexpr int kRowsPerWarp = 4;
 constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kKeys = 32;                     // keys per tile: one per lane
 constexpr int kMaxSeq = 1024;                 // MAX_SINGLE_BLOCK
-constexpr int kMaxDim = 256;
 
 // Element strides of one tensor's n, h and s axes; d is contiguous.
 struct Strides {
@@ -67,7 +72,8 @@ struct Layout {
   Strides q, k, v, out;
 };
 
-// NC = 32-column chunks of the head dim: d <= 32 * NC.
+// NC = 32-column chunks of the head dim in shared memory: d <= 32 * NC, or
+// NC = 8 and the head dim walked in chunks of 256 columns.
 template <int NC>
 struct Dims {
   static constexpr int kDim = NC * 32;     // padded head dim of the shared tiles
@@ -83,8 +89,9 @@ size_t smem_bytes(int s) {
           (size_t)kRows * round_up(s, kKeys)) * sizeof(float);
 }
 
-// Stage rows [key0, key0 + kKeys) of one head's k or v, converted to fp32
-// and zero-padded (keys past s, columns past d), into a shared tile.
+// Stage rows [key0, key0 + kKeys) of one head's k or v (columns from src,
+// d of them left in this chunk), converted to fp32 and zero-padded (keys past
+// s, columns past d), into a shared tile.
 template <typename T, int NC>
 __device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ src,
                                           long long row_stride, int key0, int s, int d) {
@@ -118,44 +125,53 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* vb = v + b * lay.v.n + h * lay.v.h;
   T* ob = out + b * lay.out.n + h * lay.out.h;
 
-  // the block's query rows, fp32, zero-padded
-  for (int i = threadIdx.x; i < kRows * Dm::kDim; i += kThreads) {
-    const int r = row0 + i / Dm::kDim;
-    const int c = i % Dm::kDim;
-    Qs[i] = r < s && c < d ? to_f32(qb[r * lay.q.s + c]) : 0.f;
-  }
   const int r_first = warp * kRowsPerWarp;  // the warp's rows in the block
   const float4* q4 = reinterpret_cast<const float4*>(Qs + r_first * Dm::kDim);
 
-  // ---- pass 1: logits (+ mask) of the warp's rows, one key per lane
-  for (int key0 = 0; key0 < s; key0 += kKeys) {
-    __syncthreads();  // the tile is free (and, the first time, Qs is written)
-    load_tile<T, NC>(KV, kb, lay.k.s, key0, s, d);
-    __syncthreads();
-    const float4* k4 = reinterpret_cast<const float4*>(KV + lane * Dm::kPitch);
-    float acc[kRowsPerWarp];
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) acc[rr] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < Dm::kDim / 4; ++c) {
-      const float4 kk = k4[c];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float4 qq = q4[rr * (Dm::kDim / 4) + c];   // the same word for all lanes
-        acc[rr] = fmaf(qq.x, kk.x, acc[rr]);
-        acc[rr] = fmaf(qq.y, kk.y, acc[rr]);
-        acc[rr] = fmaf(qq.z, kk.z, acc[rr]);
-        acc[rr] = fmaf(qq.w, kk.w, acc[rr]);
-      }
+  // ---- pass 1: logits (+ mask) of the warp's rows, one key per lane, summed
+  //      over the head dim's chunks
+  for (int c0 = 0; c0 < d; c0 += Dm::kDim) {
+    const bool last = c0 + Dm::kDim >= d;
+    if (c0 > 0) __syncthreads();  // the previous chunk's last tile is still being read
+    // the block's query rows, this chunk's columns, fp32, zero-padded
+    for (int i = threadIdx.x; i < kRows * Dm::kDim; i += kThreads) {
+      const int r = row0 + i / Dm::kDim;
+      const int c = i % Dm::kDim;
+      Qs[i] = r < s && c0 + c < d ? to_f32(qb[r * lay.q.s + c0 + c]) : 0.f;
     }
-    const int key = key0 + lane;
-    if (key < s) {
+    for (int key0 = 0; key0 < s; key0 += kKeys) {
+      __syncthreads();  // the tile is free (and, the first time, Qs is written)
+      load_tile<T, NC>(KV, kb + c0, lay.k.s, key0, s, d - c0);
+      __syncthreads();
+      const float4* k4 = reinterpret_cast<const float4*>(KV + lane * Dm::kPitch);
+      float acc[kRowsPerWarp];
 #pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const int r = min(row0 + r_first + rr, s - 1);  // rows past s are computed, not kept
-        float logit = __fmul_rn(acc[rr], scale);        // scaled once, then masked
-        if (mask != nullptr) logit = __fadd_rn(logit, mask[(size_t)r * s + key]);
-        L[(r_first + rr) * s_pad + key] = logit;
+      for (int rr = 0; rr < kRowsPerWarp; ++rr) acc[rr] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < Dm::kDim / 4; ++c) {
+        const float4 kk = k4[c];
+#pragma unroll
+        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+          const float4 qq = q4[rr * (Dm::kDim / 4) + c];   // the same word for all lanes
+          acc[rr] = fmaf(qq.x, kk.x, acc[rr]);
+          acc[rr] = fmaf(qq.y, kk.y, acc[rr]);
+          acc[rr] = fmaf(qq.z, kk.z, acc[rr]);
+          acc[rr] = fmaf(qq.w, kk.w, acc[rr]);
+        }
+      }
+      const int key = key0 + lane;
+      if (key < s) {
+#pragma unroll
+        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+          const int r = min(row0 + r_first + rr, s - 1);  // rows past s are computed, not kept
+          float* at = L + (r_first + rr) * s_pad + key;    // this lane's own word
+          float logit = c0 > 0 ? __fadd_rn(*at, acc[rr]) : acc[rr];
+          if (last) {
+            logit = __fmul_rn(logit, scale);              // scaled once, then masked
+            if (mask != nullptr) logit = __fadd_rn(logit, mask[(size_t)r * s + key]);
+          }
+          *at = logit;
+        }
       }
     }
   }
@@ -176,38 +192,40 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
   __syncwarp();
 
-  // ---- pass 2: P.V, lane owns output columns lane, lane + 32, ...
-  float acc[kRowsPerWarp][NC];
+  // ---- pass 2: P.V, lane owns output columns lane, lane + 32, ... of the chunk
+  for (int c0 = 0; c0 < d; c0 += Dm::kDim) {
+    float acc[kRowsPerWarp][NC];
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr)
+    for (int rr = 0; rr < kRowsPerWarp; ++rr)
 #pragma unroll
-    for (int i = 0; i < NC; ++i) acc[rr][i] = 0.f;
-  for (int key0 = 0; key0 < s; key0 += kKeys) {
-    __syncthreads();
-    load_tile<T, NC>(KV, vb, lay.v.s, key0, s, d);
-    __syncthreads();
-    const int keys = min(kKeys, s - key0);
-    for (int j = 0; j < keys; ++j) {
-      float vv[NC];
+      for (int i = 0; i < NC; ++i) acc[rr][i] = 0.f;
+    for (int key0 = 0; key0 < s; key0 += kKeys) {
+      __syncthreads();
+      load_tile<T, NC>(KV, vb + c0, lay.v.s, key0, s, d - c0);
+      __syncthreads();
+      const int keys = min(kKeys, s - key0);
+      for (int j = 0; j < keys; ++j) {
+        float vv[NC];
 #pragma unroll
-      for (int i = 0; i < NC; ++i) vv[i] = KV[j * Dm::kPitch + lane + 32 * i];
+        for (int i = 0; i < NC; ++i) vv[i] = KV[j * Dm::kPitch + lane + 32 * i];
 #pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float p = L[(r_first + rr) * s_pad + key0 + j];   // the same word for all lanes
+        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+          const float p = L[(r_first + rr) * s_pad + key0 + j];   // the same word for all lanes
 #pragma unroll
-        for (int i = 0; i < NC; ++i) acc[rr][i] = fmaf(p, vv[i], acc[rr][i]);
+          for (int i = 0; i < NC; ++i) acc[rr][i] = fmaf(p, vv[i], acc[rr][i]);
+        }
       }
     }
-  }
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = row0 + r_first + rr;
-    if (r >= s) continue;
-    T* o = ob + r * lay.out.s;
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int r = row0 + r_first + rr;
+      if (r >= s) continue;
+      T* o = ob + r * lay.out.s + c0;
 #pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = lane + 32 * i;
-      if (c < d) o[c] = from_f32<T>(acc[rr][i]);
+      for (int i = 0; i < NC; ++i) {
+        const int c = lane + 32 * i;
+        if (c0 + c < d) o[c] = from_f32<T>(acc[rr][i]);
+      }
     }
   }
 }
@@ -235,7 +253,7 @@ cudaError_t launch_for_dim(const void* q, const void* k, const void* v, const fl
   if (d <= 32) return launch<T, 1>(q, k, v, mask, out, lay, n, heads, s, d, scale, st);
   if (d <= 64) return launch<T, 2>(q, k, v, mask, out, lay, n, heads, s, d, scale, st);
   if (d <= 128) return launch<T, 4>(q, k, v, mask, out, lay, n, heads, s, d, scale, st);
-  return launch<T, 8>(q, k, v, mask, out, lay, n, heads, s, d, scale, st);
+  return launch<T, 8>(q, k, v, mask, out, lay, n, heads, s, d, scale, st);   // chunks of 256
 }
 
 }  // namespace
@@ -250,8 +268,7 @@ extern "C" int eoe_flash_attention_fwd(const void* q, const void* k, const void*
                                        const float* mask, void* out, int n, int heads, int s,
                                        int d, int dtype, const long long* strides, float scale,
                                        void* stream) {
-  if (n < 1 || heads < 1 || s < 1 || s > kMaxSeq || d < 1 || d > kMaxDim)
-    return (int)cudaErrorInvalidValue;
+  if (n < 1 || heads < 1 || s < 1 || s > kMaxSeq || d < 1) return (int)cudaErrorInvalidValue;
   const Layout lay{{strides[0], strides[1], strides[2]}, {strides[3], strides[4], strides[5]},
                    {strides[6], strides[7], strides[8]}, {strides[9], strides[10], strides[11]}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -42,14 +42,48 @@
 // 4*n*H*s^2*d operations; the backward moves 7*n*s*H*d elements (read qkv and
 // dout, write dqkv) and does 10*n*H*s^2*d. Both are about 25 operations per
 // byte in bf16, far under the ~295 the H100 needs before its tensor cores are
-// the limit: they are bound by bytes. This first version of each is the simple
-// correct design: one block per (image, head), s x D tiles in shared memory
-// (one padding word per row, so a warp reading one column across 32 rows hits
-// 32 banks), one warp per row, CUDA-core fp32 FMAs for every product. What
-// they do not yet do is keep enough bytes in flight (no cp.async/TMA pipeline)
-// or use the tensor cores.
+// the limit: they are bound by bytes. The element type picks one of two
+// designs (see with_tiles):
 //
-// The backward in two phases inside one block, so that no float atomics sum
+// bf16: tensor cores and asynchronous copies. A design on CUDA cores is held
+// back long before the bytes: one shared-memory load per FMA caps it at the
+// shared-memory instruction rate (bf16 was no faster than fp32 there). So:
+//   - one block per (image, head) with one warp per 16 query rows; the
+//     sequence is padded to 16 * KT rows (KT in {2, 4, 5, 8}: s=50 -> 64,
+//     s=77 -> 80, s <= 128), padded rows of q, k, v and dout are zero-filled
+//     in shared memory (never left as they are: 0 x NaN garbage is NaN),
+//     padded keys masked to -1e30 as _cell_bias does, padded rows not stored;
+//   - tiles come in by cp.async.cg 16-byte copies strided straight from qkv
+//     and dout, in two commit groups: (Q, K) first, then V (and dout), so that
+//     the second group lands while QK^T and the softmax run. Overlap across
+//     (image, head) items comes from several resident blocks per SM. Rows are
+//     padded by 16 bytes so that ldmatrix's eight 16-byte rows hit eight bank
+//     groups; the wrapper checks that qkv and dout are 16-byte aligned;
+//   - every product is mma.sync m16n8k16 bf16 -> fp32, operands through
+//     ldmatrix (.trans where the product contracts over the row axis). The
+//     fp32 logits stay in the accumulator registers for the softmax (row max
+//     and sum through quad shuffles); P is normalised in fp32, rounded to
+//     bf16 and packed straight into the A operand of P.V (the C -> A reuse
+//     of FlashAttention-2). Outputs go through the warp's own rows of shared
+//     memory and out as 16-byte stores, dq as 4-byte pairs;
+//   - the backward takes 5 products, not 7: step 1, per warp of 16 query
+//     rows, S = QK^T and dP = dout.V^T, the fp32 P and
+//     dS = (dP - rowsum(dP*P)) * P in registers (rowsum from the fp32 P, as
+//     _bwd_group_math), round(P) and round(dS) once, dq = round(dS).K, and
+//     both rounded tiles into shared memory; step 2, after one barrier, per
+//     warp of 16 key rows, dv = round(P)^T.dout and dk = round(dS)^T.Q. No
+//     recompute, no atomics, nothing depends on block order.
+// Sums run in the tensor core's order, so bf16 results are no longer bit for
+// bit those of the plain version; they hold to the same tolerances.
+//
+// fp32: the first, CUDA-core design below, kept line for line. fp32 is what
+// the parity runs hold the port to and what fp32 serving runs, and a
+// tensor-core fp32 product would be TF32, a different function. One block per
+// (image, head), s x D tiles in shared memory (one padding word per row, so a
+// warp reading one column across 32 rows hits 32 banks), one warp per row,
+// CUDA-core fp32 FMAs for every product.
+//
+// The fp32 backward in two phases inside one block, so that no float atomics sum
 // dk and dv across blocks and the result does not depend on block order:
 //   1. K and V in shared memory, one warp per query row r: P_r, dp_r and
 //      dS_r, the row's statistics (max, sum, rowsum(dp*P)) kept in shared
@@ -66,6 +100,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <initializer_list>
 #include <type_traits>
 
 #include "common.cuh"
@@ -188,6 +223,272 @@ __device__ __forceinline__ void fwd_head(const T* __restrict__ qkv, T* __restric
   }
 }
 
+// ---------------------------------------------------------------- bf16 on tensor cores
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, past L1; with src_bytes = 0 it writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's commit groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8 and receives its (l / 4, 2 (l % 4) .. +1) pair of each.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// The same, each matrix transposed: the lane receives (2 (l % 4) .. +1, l / 4).
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// c += a (16x16, row-major fragment) . b (16x8, column fragment), fp32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (nearest even), the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One head's tiles for a sequence padded to 16 * KT rows: rows of D elements
+// padded by 16 bytes (kPitch), and the (query, key) tiles of P and dS
+// (kPPitch), so that the eight rows of an ldmatrix hit eight bank groups.
+template <int D, int KT>
+struct TcTile {
+  static constexpr int kRows = 16 * KT;
+  static constexpr int kPitch = D + 8;
+  static constexpr int kElems = kRows * kPitch;
+  static constexpr int kPPitch = kRows + 8;
+  static constexpr int kThreads = 32 * KT;     // a warp per 16 rows
+};
+
+template <int D, int KT>
+constexpr size_t tc_fwd_smem() { return (size_t)3 * TcTile<D, KT>::kElems * sizeof(bf16); }
+
+template <int D, int KT>
+constexpr size_t tc_bwd_smem() {
+  using Tl = TcTile<D, KT>;
+  return ((size_t)4 * Tl::kElems + (size_t)2 * Tl::kRows * Tl::kPPitch) * sizeof(bf16);
+}
+
+// Start the copy of rows [0, s) of one head's D columns (row j at
+// src + j * row_elems) into a padded tile; rows [s, 16 * KT) become zeros.
+template <int D, int KT>
+__device__ __forceinline__ void tc_load(bf16* tile, const bf16* src, size_t row_elems, int s) {
+  using Tl = TcTile<D, KT>;
+  constexpr int kChunks = D / 8;                     // 16-byte chunks of a row
+  for (int i = threadIdx.x; i < Tl::kRows * kChunks; i += Tl::kThreads) {
+    const int j = i / kChunks, c = i % kChunks;
+    const bool real = j < s;
+    cp_async16(smem_addr(tile + j * Tl::kPitch + c * 8),
+               src + (real ? (size_t)j * row_elems : 0) + c * 8, real ? 16 : 0);
+  }
+}
+
+// acc (16 x 8 n-tiles of fp32 fragments) = A . B^T over D columns, A's 16
+// rows at a (row-major tile, pitch kPitch), B's 16 * KT rows at b; the n-tile
+// j covers B rows 8j .. 8j + 7.
+template <int D, int KT>
+__device__ __forceinline__ void tc_abt(float (&acc)[2 * KT][4], const bf16* a, const bf16* b) {
+  constexpr int P = TcTile<D, KT>::kPitch;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int t = 0; t < 2 * KT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, smem_addr(a + (lane % 16) * P + kk * 16 + (lane / 16) * 8));
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      uint32_t bf[4];
+      ldsm_x4(bf, smem_addr(b + (t * 16 + lane % 8 + (lane / 16) * 8) * P + kk * 16 +
+                            (lane / 8 % 2) * 8));
+      mma_bf16(acc[2 * t], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * t + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x D, D/8 n-tiles) += A . V over 16 * K16 contraction rows: A given
+// as packed fragments, one per 16 rows; V's rows at v (pitch kPitch).
+template <int D, int KT, int K16>
+__device__ __forceinline__ void tc_av(float (&acc)[D / 8][4], const uint32_t (&a)[K16][4],
+                                      const bf16* v) {
+  constexpr int P = TcTile<D, KT>::kPitch;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int t = 0; t < K16; ++t) {
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      uint32_t bf[4];
+      ldsm_x4_t(bf, smem_addr(v + (t * 16 + lane % 8 + (lane / 8 % 2) * 8) * P + dn * 16 +
+                              (lane / 16) * 8));
+      mma_bf16(acc[2 * dn], a[t], bf[0], bf[1]);
+      mma_bf16(acc[2 * dn + 1], a[t], bf[2], bf[3]);
+    }
+  }
+}
+
+// The A fragments of one 16-row tile of x^T, for x a (rows, 16 cols) slice
+// of a (query, key) tile at x (pitch kPPitch): rows 16t .. 16t + 15 of x
+// become the contraction axis.
+template <int D, int KT>
+__device__ __forceinline__ void tc_at_frag(uint32_t (&a)[4], const bf16* x, int t) {
+  constexpr int P = TcTile<D, KT>::kPPitch;
+  const int lane = threadIdx.x % 32;
+  const int m = lane / 8;                           // which 8x8 matrix this lane addresses
+  ldsm_x4_t(a, smem_addr(x + (t * 16 + lane % 8 + (m / 2) * 8) * P + (m % 2) * 8));
+}
+
+// Store a warp's 16 x D fp32 fragments as bf16 (times `mul`) into its 16
+// rows of `stage` (pitch kPitch), then copy rows [row0, s) out in 16-byte
+// chunks to dst + row * row_elems.
+template <int D, int KT>
+__device__ __forceinline__ void tc_store_staged(const float (&acc)[D / 8][4], float mul,
+                                                bf16* stage, bf16* dst, size_t row_elems,
+                                                int row0, int s) {
+  constexpr int P = TcTile<D, KT>::kPitch;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    *reinterpret_cast<uint32_t*>(stage + g * P + nt * 8 + c2) =
+        pack_bf16(acc[nt][0] * mul, acc[nt][1] * mul);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * P + nt * 8 + c2) =
+        pack_bf16(acc[nt][2] * mul, acc[nt][3] * mul);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = i % kChunks;
+    if (row0 + r < s)
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * row_elems + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * P + c * 8);
+  }
+}
+
+// Scale and mask the warp's fp32 logits (rows row0 + g and row0 + g + 8,
+// keys 8 nt + 2 (lane % 4) .. +1) and turn them into the fp32 softmax in
+// place: masked and padded keys at -1e30 (exp gives 0), max and sum over the
+// row's quad.
+template <int KT>
+__device__ __forceinline__ void tc_softmax(float (&x)[2 * KT][4], int row0, int s, int causal,
+                                           float scale) {
+  const int lane = threadIdx.x % 32;
+  const int r_lo = row0 + lane / 4, r_hi = r_lo + 8;
+  float m_lo = kMasked, m_hi = kMasked;
+#pragma unroll
+  for (int nt = 0; nt < 2 * KT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = nt * 8 + 2 * (lane % 4) + e;
+      const bool ok_lo = key < s && (!causal || key <= r_lo);
+      const bool ok_hi = key < s && (!causal || key <= r_hi);
+      x[nt][e] = ok_lo ? x[nt][e] * scale : kMasked;
+      x[nt][2 + e] = ok_hi ? x[nt][2 + e] * scale : kMasked;
+      m_lo = fmaxf(m_lo, x[nt][e]);
+      m_hi = fmaxf(m_hi, x[nt][2 + e]);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, o));
+    m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, o));
+  }
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 2 * KT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      x[nt][e] = expf(x[nt][e] - m_lo);
+      x[nt][2 + e] = expf(x[nt][2 + e] - m_hi);
+      sum_lo += x[nt][e];
+      sum_hi += x[nt][2 + e];
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, o);
+    sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, o);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2 * KT; ++nt) {
+    x[nt][0] = x[nt][0] / sum_lo;
+    x[nt][1] = x[nt][1] / sum_lo;
+    x[nt][2] = x[nt][2] / sum_hi;
+    x[nt][3] = x[nt][3] / sum_hi;
+  }
+}
+
+// The forward of one (image b, head h) in bf16, by the whole block: warp w
+// owns query rows 16w .. 16w + 15.
+template <int D, int KT>
+__device__ __forceinline__ void fwd_head_tc(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                                            uint32_t* smem, int b, int h, int s, int heads,
+                                            int causal, float scale) {
+  using Tl = TcTile<D, KT>;
+  const int width = heads * D;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + Tl::kElems;
+  bf16* Vs = Ks + Tl::kElems;
+  const bf16* src = qkv + (size_t)b * s * 3 * width + h * D;   // q of row 0, head h
+  tc_load<D, KT>(Qs, src, 3 * width, s);
+  tc_load<D, KT>(Ks, src + width, 3 * width, s);
+  cp_async_commit();
+  tc_load<D, KT>(Vs, src + 2 * width, 3 * width, s);
+  cp_async_commit();
+  cp_async_wait<1>();                  // Q and K have landed; V may still be in flight
+  __syncthreads();
+
+  const int row0 = threadIdx.x / 32 * 16;
+  float x[2 * KT][4];
+  tc_abt<D, KT>(x, Qs + row0 * Tl::kPitch, Ks);
+  tc_softmax<KT>(x, row0, s, causal, scale);
+  uint32_t p[KT][4];                   // round(P) as the A operand of P.V
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    p[t][0] = pack_bf16(x[2 * t][0], x[2 * t][1]);
+    p[t][1] = pack_bf16(x[2 * t][2], x[2 * t][3]);
+    p[t][2] = pack_bf16(x[2 * t + 1][0], x[2 * t + 1][1]);
+    p[t][3] = pack_bf16(x[2 * t + 1][2], x[2 * t + 1][3]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float o[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+  tc_av<D, KT, KT>(o, p, Vs);
+  // the warp's own Q rows are free now: stage the output there
+  tc_store_staged<D, KT>(o, 1.f, Qs + row0 * Tl::kPitch, out + (size_t)b * s * width + h * D,
+                         width, row0, s);
+}
+
 // One block per (image, group of PER heads), the heads of a group one after
 // the other. PER=1 is the monolithic grid of _fwd_compute; PER=128/D is the
 // lane-group grid of _fwd_group_compute (two heads at d=64, one at d=128).
@@ -203,6 +504,23 @@ fused_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int s, int 
   for (int i = 0; i < PER; ++i) {
     if (i > 0) __syncthreads();  // the previous head's tiles are still being read
     fwd_head<T, D>(qkv, out, smem, b, g * PER + i, s, heads, causal, scale);
+  }
+}
+
+// The same grids in bf16, for a sequence padded to 16 * KT rows. The heads of
+// a group stay a loop (unrolled, the two heads' code interleaves and spills).
+template <int D, int PER, int KT>
+__global__ void __launch_bounds__(TcTile<D, KT>::kThreads)
+fused_qkv_fwd_kernel_tc(const bf16* __restrict__ qkv, bf16* __restrict__ out, int s, int heads,
+                        int causal, float scale) {
+  extern __shared__ __align__(16) uint32_t smem_tc[];
+  const int groups = heads / PER;
+  const int b = blockIdx.x / groups;
+  const int g = blockIdx.x % groups;
+#pragma unroll 1
+  for (int i = 0; i < PER; ++i) {
+    if (i > 0) __syncthreads();  // the previous head's tiles are still being read
+    fwd_head_tc<D, KT>(qkv, out, smem_tc, b, g * PER + i, s, heads, causal, scale);
   }
 }
 
@@ -426,6 +744,114 @@ __device__ __forceinline__ void bwd_head(const T* __restrict__ qkv, const T* __r
   }
 }
 
+// The backward of one (image b, head h) in bf16, by the whole block, with
+// bwd_head's output layout. Step 1: warp w owns query rows 16w .. 16w + 15;
+// step 2: key rows 16w .. 16w + 15.
+template <int D, int KT>
+__device__ __forceinline__ void bwd_head_tc(const bf16* __restrict__ qkv,
+                                            const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                            int out_row, uint32_t* smem, int b, int h, int s,
+                                            int heads, int causal, float scale) {
+  using Tl = TcTile<D, KT>;
+  const int width = heads * D;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + Tl::kElems;
+  bf16* Vs = Ks + Tl::kElems;
+  bf16* Gs = Vs + Tl::kElems;                      // dout
+  bf16* Ps = Gs + Tl::kElems;                      // round(P), (query, key)
+  bf16* Ds = Ps + Tl::kRows * Tl::kPPitch;         // round(dS), (query, key)
+  const bf16* src = qkv + (size_t)b * s * 3 * width + h * D;
+  tc_load<D, KT>(Qs, src, 3 * width, s);
+  tc_load<D, KT>(Ks, src + width, 3 * width, s);
+  cp_async_commit();
+  tc_load<D, KT>(Vs, src + 2 * width, 3 * width, s);
+  tc_load<D, KT>(Gs, dout + (size_t)b * s * width + h * D, width, s);
+  cp_async_commit();
+  cp_async_wait<1>();                  // Q and K have landed
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  const int row0 = threadIdx.x / 32 * 16;
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+  const size_t out_b = (size_t)b * s * out_row + h * D;   // row 0 of image b, head h
+  const float mul = D == 64 ? scale : 1.f;   // d=64 scales dq and dk, d=128 scales dS
+
+  // ---- step 1: P and dS of the warp's query rows, dq
+  float p[2 * KT][4], dp[2 * KT][4];
+  tc_abt<D, KT>(p, Qs + row0 * Tl::kPitch, Ks);
+  tc_softmax<KT>(p, row0, s, causal, scale);       // the fp32 P
+  cp_async_wait<0>();                  // V and dout have landed
+  __syncthreads();
+  tc_abt<D, KT>(dp, Gs + row0 * Tl::kPitch, Vs);
+  float rs_lo = 0.f, rs_hi = 0.f;                  // rowsum(dP * P), fp32 P
+#pragma unroll
+  for (int nt = 0; nt < 2 * KT; ++nt) {
+    rs_lo += dp[nt][0] * p[nt][0] + dp[nt][1] * p[nt][1];
+    rs_hi += dp[nt][2] * p[nt][2] + dp[nt][3] * p[nt][3];
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    rs_lo += __shfl_xor_sync(0xffffffffu, rs_lo, o);
+    rs_hi += __shfl_xor_sync(0xffffffffu, rs_hi, o);
+  }
+  // padded query rows get P = dS = 0, so that they add nothing to dk and dv
+  const bool real_lo = row0 + g < s, real_hi = row0 + g + 8 < s;
+  uint32_t ds[KT][4];                              // round(dS) as the A operand of dS.K
+#pragma unroll
+  for (int nt = 0; nt < 2 * KT; ++nt) {
+    float d[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      d[e] = (dp[nt][e] - (e < 2 ? rs_lo : rs_hi)) * p[nt][e];
+      if (D == 128) d[e] = d[e] * scale;
+    }
+    const uint32_t p_lo = real_lo ? pack_bf16(p[nt][0], p[nt][1]) : 0u;
+    const uint32_t p_hi = real_hi ? pack_bf16(p[nt][2], p[nt][3]) : 0u;
+    const uint32_t d_lo = real_lo ? pack_bf16(d[0], d[1]) : 0u;
+    const uint32_t d_hi = real_hi ? pack_bf16(d[2], d[3]) : 0u;
+    const int idx = (row0 + g) * Tl::kPPitch + nt * 8 + c2;
+    *reinterpret_cast<uint32_t*>(Ps + idx) = p_lo;
+    *reinterpret_cast<uint32_t*>(Ps + idx + 8 * Tl::kPPitch) = p_hi;
+    *reinterpret_cast<uint32_t*>(Ds + idx) = d_lo;
+    *reinterpret_cast<uint32_t*>(Ds + idx + 8 * Tl::kPPitch) = d_hi;
+    ds[nt / 2][(nt % 2) * 2] = d_lo;
+    ds[nt / 2][(nt % 2) * 2 + 1] = d_hi;
+  }
+  {
+    float acc[D / 8][4];
+#pragma unroll
+    for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+    tc_av<D, KT, KT>(acc, ds, Ks);                 // dq = round(dS) . K
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      bf16* dst = dq + out_b + (size_t)(row0 + g) * out_row + nt * 8 + c2;
+      if (real_lo)
+        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc[nt][0] * mul, acc[nt][1] * mul);
+      if (real_hi)
+        *reinterpret_cast<uint32_t*>(dst + (size_t)8 * out_row) =
+            pack_bf16(acc[nt][2] * mul, acc[nt][3] * mul);
+    }
+  }
+  __syncthreads();                     // round(P) and round(dS) complete; K and V are free
+
+  // ---- step 2: dv and dk of the warp's key rows, contracting over queries
+  uint32_t xt[KT][4];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < KT; ++t) tc_at_frag<D, KT>(xt[t], Ps + row0, t);
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  tc_av<D, KT, KT>(acc, xt, Gs);                   // dv = round(P)^T . dout
+  tc_store_staged<D, KT>(acc, 1.f, Vs + row0 * Tl::kPitch, dv + out_b, out_row, row0, s);
+#pragma unroll
+  for (int t = 0; t < KT; ++t) tc_at_frag<D, KT>(xt[t], Ds + row0, t);
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  tc_av<D, KT, KT>(acc, xt, Qs);                   // dk = round(dS)^T . Q
+  tc_store_staged<D, KT>(acc, mul, Ks + row0 * Tl::kPitch, dk + out_b, out_row, row0, s);
+}
+
 // One block per (image, group of PER heads), as the forward.
 template <typename T, int D, int PER>
 __global__ void __launch_bounds__(kThreads)
@@ -444,34 +870,121 @@ fused_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* _
   }
 }
 
+// The same grids in bf16, for a sequence padded to 16 * KT rows: the block's
+// work, and one kernel for each grid.
+template <int D, int PER, int KT>
+__device__ __forceinline__ void bwd_block_tc(const bf16* __restrict__ qkv,
+                                             const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                             int out_row, int s, int heads, int causal,
+                                             float scale) {
+  extern __shared__ __align__(16) uint32_t smem_tc[];
+  const int groups = heads / PER;
+  const int b = blockIdx.x / groups;
+  const int g = blockIdx.x % groups;
+#pragma unroll 1
+  for (int i = 0; i < PER; ++i) {
+    if (i > 0) __syncthreads();  // the previous head's step 2 still reads its tiles
+    bwd_head_tc<D, KT>(qkv, dout, dq, dk, dv, out_row, smem_tc, b, g * PER + i, s, heads,
+                       causal, scale);
+  }
+}
+
+// The monolithic grid declares a minimum of one resident block: without it
+// ptxas caps the registers near 80 for an occupancy that shared memory does
+// not allow (4 blocks of 55 KB per SM at CLIP's shape) and spills. The group
+// grid keeps ptxas's choice, which does not spill there; the minimum would
+// cost it registers and occupancy (attention_variants.py).
+template <int D, int KT>
+__global__ void __launch_bounds__(TcTile<D, KT>::kThreads, 1)
+fused_qkv_bwd_kernel_tc(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                        bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        int out_row, int s, int heads, int causal, float scale) {
+  bwd_block_tc<D, 1, KT>(qkv, dout, dq, dk, dv, out_row, s, heads, causal, scale);
+}
+
+template <int D, int KT>
+__global__ void __launch_bounds__(TcTile<D, KT>::kThreads)
+fused_qkv_bwd_group_kernel_tc(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                              bf16* __restrict__ dq, bf16* __restrict__ dk,
+                              bf16* __restrict__ dv, int out_row, int s, int heads, int causal,
+                              float scale) {
+  bwd_block_tc<D, kLane / D, KT>(qkv, dout, dq, dk, dv, out_row, s, heads, causal, scale);
+}
+
 // ---------------------------------------------------------------- launchers
 
-template <typename T, int D, int PER>
+template <typename T, int D, int PER, int KT>
 cudaError_t launch_fwd(const void* qkv, void* out, int n, int s, int heads, int causal,
                        float scale, cudaStream_t stream) {
   static std::atomic<bool> raised[kMaxDevices];
-  auto kernel = fused_qkv_fwd_kernel<T, D, PER>;
-  const size_t smem = smem_bytes<T, D>(s);
-  cudaError_t err = allow_smem(kernel, smem, smem_bytes<T, D>(kMaxSeq), raised);
-  if (err != cudaSuccess) return err;
-  kernel<<<n * (heads / PER), kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), s, heads, causal, scale);
+  if constexpr (KT == 0) {
+    auto kernel = fused_qkv_fwd_kernel<T, D, PER>;
+    const size_t smem = smem_bytes<T, D>(s);
+    cudaError_t err = allow_smem(kernel, smem, smem_bytes<T, D>(kMaxSeq), raised);
+    if (err != cudaSuccess) return err;
+    kernel<<<n * (heads / PER), kThreads, smem, stream>>>(
+        static_cast<const T*>(qkv), static_cast<T*>(out), s, heads, causal, scale);
+  } else {
+    auto kernel = fused_qkv_fwd_kernel_tc<D, PER, KT>;
+    constexpr size_t smem = tc_fwd_smem<D, KT>();
+    cudaError_t err = allow_smem(kernel, smem, smem, raised);
+    if (err != cudaSuccess) return err;
+    kernel<<<n * (heads / PER), TcTile<D, KT>::kThreads, smem, stream>>>(
+        static_cast<const bf16*>(qkv), static_cast<bf16*>(out), s, heads, causal, scale);
+  }
   return cudaGetLastError();
 }
 
-template <typename T, int D, int PER>
+template <typename T, int D, int PER, int KT>
 cudaError_t launch_bwd(const void* qkv, const void* dout, void* dq, void* dk, void* dv,
                        int out_row, int n, int s, int heads, int causal, float scale,
                        cudaStream_t stream) {
   static std::atomic<bool> raised[kMaxDevices];
-  auto kernel = fused_qkv_bwd_kernel<T, D, PER>;
-  const size_t smem = bwd_smem_bytes<T, D>(s);
-  cudaError_t err = allow_smem(kernel, smem, bwd_smem_bytes<T, D>(kMaxSeq), raised);
-  if (err != cudaSuccess) return err;
-  kernel<<<n * (heads / PER), kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout), static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), out_row, s, heads, causal, scale);
+  if constexpr (KT == 0) {
+    auto kernel = fused_qkv_bwd_kernel<T, D, PER>;
+    const size_t smem = bwd_smem_bytes<T, D>(s);
+    cudaError_t err = allow_smem(kernel, smem, bwd_smem_bytes<T, D>(kMaxSeq), raised);
+    if (err != cudaSuccess) return err;
+    kernel<<<n * (heads / PER), kThreads, smem, stream>>>(
+        static_cast<const T*>(qkv), static_cast<const T*>(dout), static_cast<T*>(dq),
+        static_cast<T*>(dk), static_cast<T*>(dv), out_row, s, heads, causal, scale);
+  } else {
+    auto kernel = [] {                 // at d=128 a lane group is one head: the monolithic kernel
+      if constexpr (PER == 1) return fused_qkv_bwd_kernel_tc<D, KT>;
+      else return fused_qkv_bwd_group_kernel_tc<D, KT>;
+    }();
+    constexpr size_t smem = tc_bwd_smem<D, KT>();
+    cudaError_t err = allow_smem(kernel, smem, smem, raised);
+    if (err != cudaSuccess) return err;
+    kernel<<<n * (heads / PER), TcTile<D, KT>::kThreads, smem, stream>>>(
+        static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), out_row, s, heads, causal, scale);
+  }
   return cudaGetLastError();
+}
+
+// Calls fn(integral_constant<KT>) with the design for element type T and
+// sequence length s: KT = 0, the CUDA-core design, for fp32; for bf16 the
+// tensor-core design with the sequence padded to 16 * KT rows.
+template <typename T, typename Fn>
+cudaError_t with_tiles(int s, Fn fn) {
+  if constexpr (std::is_same_v<T, float>) {
+    return fn(std::integral_constant<int, 0>{});
+  } else {
+    if (s <= 32) return fn(std::integral_constant<int, 2>{});
+    if (s <= 64) return fn(std::integral_constant<int, 4>{});
+    if (s <= 80) return fn(std::integral_constant<int, 5>{});
+    return fn(std::integral_constant<int, 8>{});
+  }
+}
+
+// The bf16 design copies and stores 16 bytes at a time.
+bool aligned16(int dtype, std::initializer_list<const void*> ptrs) {
+  if (dtype != 1) return true;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 // Calls fn(T*, integral_constant<D>) for the element type and head dim the
@@ -493,12 +1006,16 @@ cudaError_t fwd(const void* qkv, void* out, int n, int s, int heads, int d, int 
                 float scale, void* stream, bool group) {
   if (n < 1 || s < 1 || s > kMaxSeq || heads < 1) return cudaErrorInvalidValue;
   if (group && (d <= 0 || (heads * d) % kLane != 0)) return cudaErrorInvalidValue;
+  if (!aligned16(dtype, {qkv, out})) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, d, [&](auto* tag, auto dim) {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int D = decltype(dim)::value;
-    return group ? launch_fwd<T, D, kLane / D>(qkv, out, n, s, heads, causal, scale, st)
-                 : launch_fwd<T, D, 1>(qkv, out, n, s, heads, causal, scale, st);
+    return with_tiles<T>(s, [&](auto tiles) {
+      constexpr int KT = decltype(tiles)::value;
+      return group ? launch_fwd<T, D, kLane / D, KT>(qkv, out, n, s, heads, causal, scale, st)
+                   : launch_fwd<T, D, 1, KT>(qkv, out, n, s, heads, causal, scale, st);
+    });
   });
 }
 
@@ -507,14 +1024,18 @@ cudaError_t bwd(const void* qkv, const void* dout, void* dq, void* dk, void* dv,
                 bool group) {
   if (n < 1 || s < 1 || s > kMaxSeq || heads < 1) return cudaErrorInvalidValue;
   if (group && (d <= 0 || (heads * d) % kLane != 0)) return cudaErrorInvalidValue;
+  if (!aligned16(dtype, {qkv, dout, dq, dk, dv})) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, d, [&](auto* tag, auto dim) {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int D = decltype(dim)::value;
-    return group ? launch_bwd<T, D, kLane / D>(qkv, dout, dq, dk, dv, out_row, n, s, heads,
-                                               causal, scale, st)
-                 : launch_bwd<T, D, 1>(qkv, dout, dq, dk, dv, out_row, n, s, heads, causal,
-                                       scale, st);
+    return with_tiles<T>(s, [&](auto tiles) {
+      constexpr int KT = decltype(tiles)::value;
+      return group ? launch_bwd<T, D, kLane / D, KT>(qkv, dout, dq, dk, dv, out_row, n, s,
+                                                     heads, causal, scale, st)
+                   : launch_bwd<T, D, 1, KT>(qkv, dout, dq, dk, dv, out_row, n, s, heads,
+                                             causal, scale, st);
+    });
   });
 }
 

@@ -10,7 +10,10 @@ saves ``qkv_p``. On a CUDA tensor its forward and backward launch the
 hand-written kernels in ``csrc/fused_qkv_attention.cu`` (built at first use,
 see ``_build``) or raise; on a CPU tensor they compute the same functions
 with the plain versions ``fused_qkv_attention_fwd_ref`` and
-``fused_qkv_attention_bwd_ref``. ``fused_qkv_attention_ref`` is the plain
+``fused_qkv_attention_bwd_ref``. In bf16 the kernels run on the tensor cores
+and copy rows in 16-byte pieces, so a bf16 ``qkv`` or ``dout`` must be
+16-byte aligned (or they raise); fp32 keeps the CUDA-core design.
+``fused_qkv_attention_ref`` is the plain
 pair as one differentiable function, on any device. With ``GROUP_GRID`` set
 (``EOE_TPU_ATTN_GROUP_GRID=1``, as in the JAX package) the kernels run on the
 lane-group grid of ``_fwd_group_compute`` and ``_bwd_group_compute``.
@@ -36,7 +39,6 @@ MAX_SEQ = 128   # one tile covers the whole sequence
 SOURCE = "fused_qkv_attention.cu"
 FLASH_SOURCE = "flash_attention.cu"
 MAX_SINGLE_BLOCK = 1024   # flash_attention's longest sequence; longer ones run default_attention
-FLASH_MAX_D = 256         # the flash kernel's widest head
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The JAX package's switch to the lane-group grid (eoe_tpu/ops/attention.py:412),
@@ -208,16 +210,19 @@ def _flash_library() -> ctypes.CDLL:
 
 
 def _check_card_tensor(t: torch.Tensor, name: str):
-    """What the kernels take: a contiguous fp32 or bf16 CUDA tensor whose
-    data is 4-byte aligned (they read it in 32-bit words)."""
+    """What the kernels take: a contiguous fp32 or bf16 CUDA tensor. The fp32
+    kernels read it in 4-byte words; the bf16 kernels copy its rows in 16-byte
+    pieces, so its data and its row pitch must be multiples of 16 bytes."""
     if not t.is_cuda:
         raise ValueError(f"fused_qkv_attention runs on CUDA or CPU tensors, got {t.device}")
     if t.dtype not in _DTYPE_CODES:
         raise ValueError(f"fused_qkv_attention takes float32 or bfloat16, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"fused_qkv_attention needs a contiguous {name}")
-    if t.data_ptr() % 4:
-        raise ValueError(f"fused_qkv_attention reads {name} in 4-byte words; it is misaligned")
+    align = 16 if t.dtype == torch.bfloat16 else 4
+    if t.data_ptr() % align or t.shape[-1] * t.element_size() % align:
+        raise ValueError(f"fused_qkv_attention reads {name} in {align}-byte pieces; it is "
+                         f"misaligned")
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, what: str):
@@ -409,14 +414,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Drop-in for :func:`default_attention`: (n, heads, S, d) scaled
     dot-product attention with an optional additive (S, S) mask,
-    differentiable in q, k and v. Above ``MAX_SINGLE_BLOCK`` it is
-    ``default_attention``, as in the JAX package; otherwise d may be at most
-    ``FLASH_MAX_D``. ``flash_attention.launches`` counts kernel launches."""
+    differentiable in q, k and v, for any head dim. Above
+    ``MAX_SINGLE_BLOCK`` it is ``default_attention``, as in the JAX package.
+    ``flash_attention.launches`` counts kernel launches."""
     if q.shape[2] > MAX_SINGLE_BLOCK:
         return default_attention(q, k, v, mask)
-    if q.shape[-1] > FLASH_MAX_D:
-        raise ValueError(f"flash_attention takes head dims up to {FLASH_MAX_D}, got "
-                         f"{q.shape[-1]}")
     return _FlashAttention.apply(q, k, v, mask)
 
 

@@ -121,11 +121,20 @@ def test_fully_masked_row_is_nan_as_in_jax():
     np.testing.assert_allclose(ours[0, 0, rows], expected[0, 0, rows], atol=1e-5)
 
 
-def test_flash_rejects_wide_heads():
-    q = torch.zeros(1, 1, 8, A.FLASH_MAX_D + 1)
-    with pytest.raises(ValueError, match="head dims up to"):
-        A.flash_attention(q, q, q)
-    A.flash_attention(q[..., :A.FLASH_MAX_D], q[..., :A.FLASH_MAX_D], q[..., :A.FLASH_MAX_D])
+@pytest.mark.parametrize("d", [257, 300])
+def test_flash_takes_wide_heads(d):
+    """Head dims above 256 run, as the JAX kernel runs any d (it pads d to a
+    multiple of 128): fp32 to 1e-5 against it in interpret mode, with a
+    random finite mask."""
+    shape = (1, 2, 20, d)
+    q, k, v = _qkv(shape, seed=6)
+    mask = np.random.default_rng(7).normal(0, 1, (20, 20)).astype(np.float32)
+    expected = _jax(q, k, v, mask)
+    before = A.flash_attention.launches
+    ours = A.flash_attention(*_torch(q, k, v, mask))
+    assert A.flash_attention.launches == before
+    assert ours.shape == shape
+    np.testing.assert_allclose(ours.numpy(), expected, atol=1e-5)
 
 
 def test_clip_with_flash_attention_matches_jax():

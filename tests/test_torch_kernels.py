@@ -25,9 +25,12 @@ def cuda():
 
 # (n, s, heads, d, causal): both CLIP encoders, a ragged causal case, d=128,
 # and the longest sequence one tile takes (fp32 d=128 at s=128 needs 198 KB
-# of shared memory)
+# of shared memory, bf16 204 KB); then the bf16 design's padding and tile
+# edges (rows padded to 32, 64, 80 or 128), causal and full
+EDGES = [(2, s, 2, d, causal) for s in (1, 16, 17, 64, 80, 127) for d in (64, 128)
+         for causal in (False, True)]
 CASES = [(4, 50, 12, 64, False), (4, 77, 8, 64, True), (3, 21, 4, 64, True),
-         (2, 10, 2, 128, True), (2, 128, 2, 128, False)]
+         (2, 10, 2, 128, True), (2, 128, 2, 128, False)] + EDGES
 
 
 @pytest.mark.cuda
@@ -60,6 +63,23 @@ def test_fused_qkv_attention_rejects(cuda):
         A._bwd_kernel(qkv, torch.zeros(2, 10, 64, device=cuda), 2, False)
     with pytest.raises(ValueError, match="contiguous dout"):
         A._bwd_kernel(qkv, torch.zeros(10, 2, 128, device=cuda).transpose(0, 1), 2, False)
+
+
+@pytest.mark.cuda
+def test_bf16_needs_16_byte_alignment(cuda):
+    """The bf16 kernels copy rows in 16-byte pieces: a bf16 qkv or dout view
+    whose data is 8 bytes off raises instead of falling back; 16 bytes off
+    runs."""
+    buf = torch.zeros(8 + 10 * 384, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte pieces; it is misaligned"):
+        A.fused_qkv_attention(buf[4:4 + 10 * 384].view(1, 10, 384), 2, False)
+    qkv = buf[8:].view(1, 10, 384)
+    A.fused_qkv_attention(qkv, 2, False)
+    dout = torch.zeros(4 + 10 * 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte pieces; it is misaligned"):
+        A._bwd_kernel(qkv, dout[4:].view(1, 10, 128), 2, False)
+    with pytest.raises(ValueError, match="16-byte pieces; it is misaligned"):
+        A._group_bwd_kernel(qkv, dout[4:].view(1, 10, 128), 2, False)
 
 
 @pytest.mark.cuda
@@ -161,6 +181,21 @@ def test_group_backward_matches_ref_and_monolithic(cuda, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [(256, 50, 12, 64, False), (64, 77, 8, 64, True)])
+def test_group_grid_bf16_is_monolithic_bit_for_bit(cuda, case):
+    """In bf16 both grids run the same tensor-core code per head, so the
+    group kernels give the monolithic kernels' bits, forward and backward,
+    at the main path's full batches (the tests above take small ones)."""
+    n, s, h, d, causal = case
+    g = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn(n, s, 3 * h * d, generator=g, device=cuda).bfloat16()
+    dout = torch.randn(n, s, h * d, generator=g, device=cuda).bfloat16()
+    assert torch.equal(A._group_fwd_kernel(qkv, h, causal), A._fwd_kernel(qkv, h, causal))
+    assert torch.equal(A._group_bwd_kernel(qkv, dout, h, causal),
+                       A._bwd_kernel(qkv, dout, h, causal))
+
+
+@pytest.mark.cuda
 def test_attention_gradient_through_the_group_kernels(cuda, monkeypatch):
     """With ``GROUP_GRID`` on, one ViT-B/32 attention layer launches the group
     kernels and not the monolithic ones, and gives the plain pair's
@@ -188,11 +223,11 @@ def test_attention_gradient_through_the_group_kernels(cuda, monkeypatch):
 # ---------------------------------------------------------------- flash attention
 
 # (n, heads, S, d, mask): both CLIP towers, the JAX tests' d=32, the longest
-# single block, d=128 and d=256 with an arbitrary finite mask, and a ragged d
-# with masked holes
+# single block, d=128 and d=256 with an arbitrary finite mask, a ragged d
+# with masked holes, and a head wider than one 256-column chunk
 FLASH_CASES = [(2, 12, 50, 64, None), (2, 8, 77, 64, "causal"), (2, 2, 77, 32, "causal"),
                (1, 2, 1024, 64, None), (2, 4, 64, 128, "random"), (1, 2, 100, 256, "random"),
-               (2, 3, 33, 40, "holes")]
+               (2, 3, 33, 40, "holes"), (2, 2, 77, 300, "random")]
 
 
 def _flash_inputs(case, dtype, device, seed=0):
@@ -242,9 +277,6 @@ def test_flash_attention_takes_head_split_views(cuda):
 @pytest.mark.cuda
 def test_flash_attention_rejects(cuda):
     q = torch.zeros(1, 2, 16, 64, device=cuda)
-    with pytest.raises(ValueError, match="head dims up to"):
-        wide = torch.zeros(1, 2, 16, A.FLASH_MAX_D + 1, device=cuda)
-        A.flash_attention(wide, wide, wide)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         A.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="float32 or bfloat16"):
