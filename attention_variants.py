@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Design choices of the bf16 fused-QKV attention kernels, measured on one
-NVIDIA GPU.
+"""Design choices of the attention kernels, measured on one NVIDIA GPU.
 
     python3 attention_variants.py
 
-Builds ``eoe_tpu_torch/csrc/fused_qkv_attention.cu`` as it is ("base") and in
-variants that each undo one of its choices, made by text substitution on the
-source into ``eoe_tpu_torch/_build/variants`` (ignored by git):
+Builds ``eoe_tpu_torch/csrc/fused_qkv_attention.cu`` and
+``eoe_tpu_torch/csrc/flash_attention.cu`` as they are ("base") and in
+variants that each undo one of their choices, made by text substitution on
+the sources into ``eoe_tpu_torch/_build/variants`` (ignored by git). The
+bf16 fused-QKV kernels:
   pairs           outputs stored as 4-byte bf16 pairs straight from the mma
                   fragments, not staged through shared memory for 16-byte
                   stores (dq is stored as pairs in every build);
@@ -18,12 +19,29 @@ source into ``eoe_tpu_torch/_build/variants`` (ignored by git):
                   chooses its registers;
   group_min_blocks  the group backward with that minimum;
   heads_unrolled  the loops over a group's heads unrolled.
-Prints the registers and spills of each build's bf16 d=64 kernels, then the
-device time (``chip_smoke.time_ms``) of the forward and backward on both grids
-at the training shape (n=256, s=50, H=12, d=64) and the text shape (n=64,
-s=77, H=8, causal), in the order base, variants, variants reversed, base, and
+The flash kernel's bf16 tensor-core variant:
+  kv_per_32_rows  S <= 128: blocks of 32 query rows, each staging all of K and
+                  V (the first design's grid), not one block per (image, head);
+  stream_32_rows  128 < S: blocks of 32 query rows, not 64;
+  kept_logits     128 < S, blocks of 32 rows: pass 1 keeps each thread's
+                  logits in shared memory (128 KB at S=1024) and pass 2 reads
+                  them back with V alone, instead of loading K again and
+                  recomputing QK^T;
+  divide          P as exp(x - m) / sum, a division per key as _kernel writes
+                  it, not a multiplication by the row's reciprocal sum;
+  mask_early      S <= 128: the mask terms loaded before QK^T, so that their
+                  loads overlap the product, not after it.
+Every flash variant but divide must give the base's bits; divide, within an
+ulp of P, must stay within the smoke's 2e-2 of the base.
+Prints the registers and spills of each build's d=64 kernels, then the
+device time (``chip_smoke.time_ms``) of the fused forward and backward on
+both grids at the training shape (n=256, s=50, H=12, d=64) and the text shape
+(n=64, s=77, H=8, causal), and of flash_attention in bf16 at the image shape
+(256, 12, 50, 64), the text shape (10, 8, 77, 64) with the causal mask and
+(2, 12, 1024, 64), in the order base, variants, variants reversed, base, and
 checks that every variant gives the base's bits. Needs one card and nvcc;
-imports nothing of JAX or eoe_tpu.
+imports nothing of JAX or eoe_tpu. The fp32 register tiles were not built
+against a 3xTF32 tensor-core design (PERF.md).
 """
 
 import ctypes
@@ -113,49 +131,78 @@ def variants(src: str) -> dict:
     }
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        sys.exit("attention_variants.py: torch.cuda.is_available() is false: it needs an NVIDIA GPU")
-    sys.path.insert(0, ROOT)
-    import chip_smoke as cs
+QW_ALL = "constexpr int QW = KT;  "
+STREAM_ROWS = "constexpr int kTcRows = 64;"
+VS_DECL = "  bf16* Vs = Ks + 2 * kKeyTile * P;\n"
+PASS1_LOGITS = ("    tc_logits<2 * NB>(x, mk, t * kKeyTile, scale, s, mt_lo, mt_hi);\n"
+                "    const float base_lo")
+NORM, PROB = "return 1.f / l;", "return expf(__fsub_rn(x, m)) * n;"
+MASK_AFTER = "  mma_abt<D, KT, P>(x, Qs + row0 * P, Ks);\n  tc_mask<2 * KT>(mk, 0, r_lo, mask, s);\n"
+PASS2_HEAD = """  for_each_tile(n_tiles, load_kv, [&](int t, int buf) {
+    float x[2 * NB][4], mk[2 * NB][4], mt_lo, mt_hi;
+    mma_abt<D, NB, P>(x, qw, Ks + buf * kKeyTile * P);
+    tc_mask<2 * NB>(mk, t * kKeyTile, r_lo, mask, s);
+    tc_logits<2 * NB>(x, mk, t * kKeyTile, scale, s, mt_lo, mt_hi);
+"""
+KEPT_DECL = "  float* Ls = reinterpret_cast<float*>(Vs + 2 * kKeyTile * P);   // thread-private\n"
+KEPT_STORE = """    for (int i = 0; i < 8 * NB; ++i)
+      Ls[(t * 8 * NB + i) * NT + threadIdx.x] = x[i / 4][i % 4];
+"""
+KEPT_PASS2_HEAD = """  for_each_tile(n_tiles, load_v, [&](int t, int buf) {
+    float x[2 * NB][4];
+    for (int i = 0; i < 8 * NB; ++i) x[i / 4][i % 4] = Ls[(t * 8 * NB + i) * NT + threadIdx.x];
+"""
+STREAM_SMEM = """      constexpr size_t smem = (size_t)(kTcRows + 4 * kKeyTile) * P * sizeof(bf16);
+      cudaError_t err = allow_smem(kernel, smem, smem, raised);"""
+KEPT_SMEM = """      constexpr size_t tiles = (size_t)(kTcRows + 4 * kKeyTile) * P * sizeof(bf16);
+      const size_t smem = tiles + (size_t)(s + kKeyTile - 1) / kKeyTile * kKeyTile * kTcRows * 4;
+      cudaError_t err = allow_smem(kernel, smem, tiles + (size_t)kMaxSeq * kTcRows * 4, raised);"""
+
+
+def flash_variants(src: str) -> dict:
+    rows32 = _sub(src, STREAM_ROWS, STREAM_ROWS.replace("64", "32"))
+    kept = _sub(rows32, VS_DECL, VS_DECL + KEPT_DECL)
+    kept = _sub(kept, PASS1_LOGITS, PASS1_LOGITS.replace("    const float base_lo",
+                                                         KEPT_STORE + "    const float base_lo"))
+    kept = _sub(kept, PASS2_HEAD, KEPT_PASS2_HEAD)
+    kept = _sub(kept, STREAM_SMEM, KEPT_SMEM)
+    return {
+        "base": src,
+        "kv_per_32_rows": _sub(src, QW_ALL, "constexpr int QW = KT < 2 ? KT : 2;  "),
+        "stream_32_rows": rows32,
+        "kept_logits": kept,
+        "divide": _sub(_sub(src, NORM, "return l;"), PROB,
+                       "return __fdiv_rn(expf(__fsub_rn(x, m)), n);"),
+        "mask_early": _sub(src, MASK_AFTER, "  tc_mask<2 * KT>(mk, 0, r_lo, mask, s);\n"
+                           "  mma_abt<D, KT, P>(x, Qs + row0 * P, Ks);\n"),
+    }
+
+
+FUSED_ENTRIES = ("eoe_fused_qkv_attention_fwd", "eoe_fused_qkv_attention_group_fwd",
+                 "eoe_fused_qkv_attention_bwd", "eoe_fused_qkv_attention_group_bwd")
+
+
+def _build_all(sources: dict, out_dir) -> dict:
+    """Builds every (source, variant) into its own library, one nvcc each, all
+    started together; returns {(source, variant): (library path, ptxas log)}."""
     from eoe_tpu_torch.ops import _build
 
-    card = cs.phase_card()
-    src = (_build.CSRC_DIR / "fused_qkv_attention.cu").read_text()
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for header in _build.CSRC_DIR.glob("*.cuh"):
-        (out_dir / header.name).write_bytes(header.read_bytes())
-    sources = variants(src)
-
-    def build(name):
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(sources[name])
-        so = out_dir / f"{name}.so"
+    def build(key):
+        stem = f"{key[0].split('.')[0]}-{key[1]}"
+        cu, so = out_dir / f"{stem}.cu", out_dir / f"{stem}.so"
+        cu.write_text(sources[key])
         proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
                               capture_output=True, text=True)
         if proc.returncode:
-            sys.exit(f"attention_variants.py: {name} failed to build:\n{proc.stderr[-3000:]}")
-        return name, so, proc.stdout + proc.stderr
+            sys.exit(f"attention_variants.py: {stem} failed to build:\n{proc.stderr[-3000:]}")
+        return key, (so, proc.stdout + proc.stderr)
 
-    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per variant, together
-        built = list(pool.map(build, sources))
-    libs = {}
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fa = [P, P, I, I, I, I, I, I, ctypes.c_float, P]
-    for name, so, log in built:
-        for line in cs.ptxas_summary(log):
-            if "<bf16, 64," in line:
-                print(f"ptxas {name}: {line}")
-        lib = ctypes.CDLL(str(so))
-        for entry, args in (("eoe_fused_qkv_attention_fwd", fa),
-                            ("eoe_fused_qkv_attention_group_fwd", fa),
-                            ("eoe_fused_qkv_attention_bwd", [P, P, P] + fa[2:]),
-                            ("eoe_fused_qkv_attention_group_bwd", [P, P, P, P, P] + fa[2:])):
-            getattr(lib, entry).argtypes = args
-        libs[name] = lib
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return dict(pool.map(build, sources))
 
+
+def _time_fused(cs, libs, card):
+    import torch
     g = torch.Generator(device="cuda").manual_seed(cs.SEED)
     order = list(libs) + list(libs)[::-1]
     for n, s, h, d, causal in ((256, 50, 12, 64, False), (64, 77, 8, 64, True)):
@@ -186,6 +233,89 @@ def main():
             if not all(torch.equal(a, b) for a, b in zip(res, outs["base"])):
                 sys.exit(f"attention_variants.py: {name} gives other bits than base")
         print(f"n={n} s={s}: every variant gives the base's bits")
+
+
+def _time_flash(cs, libs, card):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 3)
+    order = list(libs) + list(libs)[::-1]
+    for n, h, s, d, causal in ((256, 12, 50, 64, False), (10, 8, 77, 64, True),
+                               (2, 12, 1024, 64, False)):
+        q, k, v = (torch.randn(n, h, s, d, generator=g, device="cuda").bfloat16()
+                   for _ in range(3))
+        mask = torch.full((s, s), float("-inf"), device="cuda").triu(1) if causal else None
+        out = torch.empty((n, s, h, d), dtype=torch.bfloat16, device="cuda").transpose(1, 2)
+        strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
+        variant = ctypes.c_int(-1)
+        outs = {}
+        for name in order:
+            lib = libs[name]
+
+            def call():
+                err = lib.eoe_flash_attention_fwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    None if mask is None else mask.data_ptr(), out.data_ptr(), n, h, s, d, 1,
+                    strides, d ** -0.5, torch.cuda.current_stream().cuda_stream,
+                    ctypes.byref(variant))
+                if err or variant.value != 1:
+                    sys.exit(f"attention_variants.py: flash {name} returned {err}, variant "
+                             f"{variant.value}")
+
+            ms = cs.time_ms(call)
+            torch.cuda.synchronize()
+            outs[name] = out.clone()
+            print(f"flash n={n} H={h} S={s} d={d} {'causal' if causal else 'full'} {name}: "
+                  f"{ms:.4f} ms [{card}]")
+        for name, res in outs.items():
+            if name == "divide":
+                err = (res.float() - outs["base"].float()).abs().max().item()
+                if err > 2e-2:
+                    sys.exit(f"attention_variants.py: flash divide is {err} off the base")
+                print(f"flash S={s}: divide within {err:.3g} of the base")
+            elif not torch.equal(res, outs["base"]):
+                sys.exit(f"attention_variants.py: flash {name} gives other bits than base")
+        print(f"flash S={s}: every other variant gives the base's bits")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("attention_variants.py: torch.cuda.is_available() is false: it needs an NVIDIA GPU")
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from eoe_tpu_torch.ops import _build
+
+    card = cs.phase_card()
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for header in _build.CSRC_DIR.glob("*.cuh"):
+        (out_dir / header.name).write_bytes(header.read_bytes())
+    fused_src = (_build.CSRC_DIR / "fused_qkv_attention.cu").read_text()
+    flash_src = (_build.CSRC_DIR / "flash_attention.cu").read_text()
+    sources = {("fused_qkv_attention.cu", k): v for k, v in variants(fused_src).items()}
+    sources.update({("flash_attention.cu", k): v for k, v in flash_variants(flash_src).items()})
+    built = _build_all(sources, out_dir)
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fa = [P, P, I, I, I, I, I, I, ctypes.c_float, P]
+    fused, flash = {}, {}
+    for (source, name), (so, log) in built.items():
+        for line in cs.ptxas_summary(log):
+            if "<bf16, 64," in line and ("flash" not in source or "_tc" in line):
+                print(f"ptxas {source.split('.')[0]} {name}: {line}")
+        lib = ctypes.CDLL(str(so))
+        if source == "flash_attention.cu":
+            lib.eoe_flash_attention_fwd.argtypes = [
+                P, P, P, P, P, I, I, I, I, I, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, P,
+                ctypes.POINTER(I)]
+            flash[name] = lib
+        else:
+            for entry, args in zip(FUSED_ENTRIES, (fa, fa, [P, P, P] + fa[2:],
+                                                   [P, P, P, P, P] + fa[2:])):
+                getattr(lib, entry).argtypes = args
+            fused[name] = lib
+    _time_fused(cs, fused, card)
+    _time_flash(cs, flash, card)
 
 
 if __name__ == "__main__":

@@ -36,7 +36,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ``attention_fn=default_attention``; then trains one bf16 epoch of 4
      steps and ``eval_cls`` (12 launches per step and per eval batch, no
      backward kernel), and 3 fp32 steps against 3 with
-     ``default_attention`` at phase 5's limits;
+     ``default_attention`` at phase 5's limits. Every fp32 launch must take
+     the flash kernel's fp32 register tiles, every bf16 launch its tensor
+     cores;
   7. group-grid path: with ``attention.GROUP_GRID`` set (the JAX package's
      ``EOE_TPU_ATTN_GROUP_GRID=1``), one bf16 epoch of 4 steps and
      ``eval_cls`` (12 group forward launches per step and per eval batch, 12
@@ -46,8 +48,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 Each path's launch counts (every kernel's) are set to 0 just before it and
 read just after.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or eoe_tpu."""
+The line before the last is ``{"kernels": [...]}`` (each kernel's bf16 row at
+the training shape, its fp32 row under ``"fp32"``, and the variant each path's
+launches took); the last line is ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX or eoe_tpu."""
 
 import json
 import os
@@ -60,6 +64,9 @@ HBM_BYTES_PER_S = 3.35e12                                    # H100 SXM, data sh
 PEAK_OPS_PER_S = {"torch.float32": 67e12, "torch.bfloat16": 989e12}  # CUDA-core fp32; bf16 dense
 SEED = 0
 REQUESTS = (256, 100, 37)
+# the dtype of each counted path's launches: serving scores in fp32, training in bf16
+PATH_DTYPES = {"serving": "fp32", "training": "bf16", "flash_serving": "fp32",
+               "flash_training": "bf16", "group_training": "bf16"}
 BATCH = 128
 SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
@@ -75,16 +82,29 @@ def check(cond: bool, msg: str):
 
 
 def _counts() -> dict:
-    """Every kernel's launch count."""
-    from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention
+    """Every kernel's launch count, and the flash kernel's by variant
+    (tensor cores, fp32 register tiles; the rest took the CUDA cores)."""
+    from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention as fl
     return {"fwd": fq.launches, "bwd": fq.bwd_launches, "group_fwd": fq.group_launches,
-            "group_bwd": fq.group_bwd_launches, "flash": flash_attention.launches}
+            "group_bwd": fq.group_bwd_launches, "flash": fl.launches,
+            "flash_tc": fl.tc_launches, "flash_tile": fl.tile_launches}
 
 
 def _zero_counts():
-    from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention
+    from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention as fl
     fq.launches = fq.bwd_launches = fq.group_launches = fq.group_bwd_launches = 0
-    flash_attention.launches = 0
+    fl.launches = fl.tc_launches = fl.tile_launches = 0
+
+
+FLASH_VARIANTS = {"flash_tc": "tensor cores", "flash_tile": "fp32 register tiles"}
+
+
+def flash_variant(before: dict, after: dict) -> str:
+    """The variant of the one flash launch between two ``_counts()``."""
+    for key, name in FLASH_VARIANTS.items():
+        if after[key] - before[key] == 1:
+            return name
+    return "CUDA cores"
 
 
 def check_counts(counts: dict, expected: dict, what: str):
@@ -350,7 +370,9 @@ def flash_bound_ms(n, h, s, d, masked, dtype) -> tuple:
 def phase_kernels_flash(card: str) -> dict:
     """The flash kernel against ``flash_attention_ref``: fp32 within 2e-5
     (sum order only); bf16 within 2e-2 (an order flip can move P or the
-    output across one bf16 rounding)."""
+    output across one bf16 rounding). Each row names the variant the
+    launcher took; at CLIP's shapes bf16 must take the tensor cores and fp32
+    the register tiles."""
     import torch
     import torch.nn.functional as F
     from eoe_tpu_torch.ops.attention import flash_attention, flash_attention_ref
@@ -364,10 +386,15 @@ def phase_kernels_flash(card: str) -> dict:
             mask = {None: None,
                     "causal": torch.full((s, s), float("-inf"), device="cuda").triu(1),
                     "random": torch.randn(s, s, generator=g, device="cuda")}[kind]
+            before = _counts()
             out = flash_attention(q, k, v, mask)
+            variant = flash_variant(before, _counts())
             err = (out.float() - flash_attention_ref(q, k, v, mask).float()).abs().max().item()
             tag = f"n={n} H={h} S={s} d={d} mask={kind} {str(dtype)[6:]}"
             check(err <= tol, f"flash_attention {tag}: max abs err {err} > {tol}")
+            if d == 64 and s in (50, 77):
+                want = "tensor cores" if dtype == torch.bfloat16 else "fp32 register tiles"
+                check(variant == want, f"flash_attention {tag} took the {variant}, not the {want}")
             sdpa_mask = None if mask is None else mask.to(dtype)
             ms = time_ms(lambda: flash_attention(q, k, v, mask))
             plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, mask))
@@ -375,9 +402,9 @@ def phase_kernels_flash(card: str) -> dict:
             bound, by = flash_bound_ms(n, h, s, d, mask is not None, dtype)
             rows[(n, h, s, d, kind, str(dtype))] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=sdpa_ms, shape=tag)
-            print(f"kernel flash_attention {tag}: max_abs_err {err:.3g} (tol {tol}) kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound "
+                library_ms=sdpa_ms, shape=tag, variant=variant)
+            print(f"kernel flash_attention {tag} ({variant}): max_abs_err {err:.3g} (tol {tol}) "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound "
                   f"{bound:.4f} ms ({by}) [{card}]")
     return rows
 
@@ -736,7 +763,8 @@ def phase_flash(card: str, data) -> tuple:
     text, layers = VIT_B32.transformer_layers, VIT_B32.vision_layers
     check(prompt_launches == text, f"flash prompt centre: {prompt_launches} launches, "
           f"expected {text}")
-    check_counts(serving, {"flash": text + layers * batches},
+    launched = text + layers * batches     # fp32: every launch on the register tiles
+    check_counts(serving, {"flash": launched, "flash_tile": launched},
                  f"flash serving ({text} for the prompts, {layers} x {batches} batches)")
     for n, sc in zip(REQUESTS, scores):
         check(sc.shape == (n,) and np.isfinite(sc).all() and ((sc >= 0) & (sc <= 1)).all(),
@@ -757,12 +785,14 @@ def phase_flash(card: str, data) -> tuple:
     del model, ref_model, scorer, ref_scorer
     torch.cuda.empty_cache()
 
+    # bf16: every launch on the tensor cores
     training = _train_bf16(card, "flash train",
                            CLIP(VIT_B32, dtype=torch.bfloat16, attention_fn=flash_attention),
-                           data, 1, lambda steps, evals: {"flash": layers * (steps + evals)})
+                           data, 1, lambda steps, evals: {"flash": layers * (steps + evals),
+                                                          "flash_tc": layers * (steps + evals)})
     ds32 = _fp32_data()
     run = _train_steps(CLIP(VIT_B32, attention_fn=flash_attention), ds32)
-    check_counts(run[3], {"flash": 3 * layers}, "flash fp32 kernel run")
+    check_counts(run[3], {"flash": 3 * layers, "flash_tile": 3 * layers}, "flash fp32 kernel run")
     control = _train_steps(CLIP(VIT_B32, attention_fn=default_attention), ds32)
     check_counts(control[3], {}, "flash fp32 default_attention run")
     _hold_fp32(card, "flash train hsc fp32 flash vs default_attention", run, control)
@@ -834,29 +864,59 @@ def main():
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}
 
+    def variants_by_path(kernel):
+        """The variant each path's launches took: the fused kernels' by the
+        path's dtype (bf16 on the tensor cores; fp32 on register tiles forward,
+        on CUDA cores backward), the flash kernel's as counted."""
+        out = {}
+        for path, counts in paths.items():
+            if not counts[kernel]:
+                continue
+            if kernel == "flash":
+                tc, tile = counts["flash_tc"], counts["flash_tile"]
+                out[path] = {k: v for k, v in (("tensor cores", tc), ("fp32 register tiles", tile),
+                                               ("CUDA cores", counts["flash"] - tc - tile)) if v}
+            else:
+                fp32 = "fp32 register tiles" if "bwd" not in kernel else "fp32 CUDA cores"
+                name = fp32 if PATH_DTYPES[path] == "fp32" else "tensor cores"
+                out[path] = {name: counts[kernel]}
+        return out
+
+    def fp32(row):
+        return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "max_abs_err")}
+
     main_shape = (*SHAPES[0], "torch.bfloat16")            # the training shape
     flash_shape = (*FLASH_SHAPES[0], "torch.bfloat16")     # the image tower, as trained
+    f32_shape, f32_flash = (*SHAPES[0], "torch.float32"), (*FLASH_SHAPES[0], "torch.float32")
     source = "eoe_tpu_torch/csrc/fused_qkv_attention.cu"
     kernels = [
         {"name": "fused_qkv_attention", "route": "cuda", "source": source,
          "replaces": "eoe_tpu/ops/attention.py:216", "launches": paths["training"]["fwd"],
-         "launches_by_path": by_path("fwd"), **rows[main_shape]},
+         "launches_by_path": by_path("fwd"), "variants_by_path": variants_by_path("fwd"),
+         **rows[main_shape], "fp32": fp32(rows[f32_shape])},
         {"name": "fused_qkv_attention_bwd", "route": "cuda", "source": source,
          "replaces": "eoe_tpu/ops/attention.py:294", "launches": paths["training"]["bwd"],
-         "launches_by_path": by_path("bwd"), **bwd_rows[main_shape]},
+         "launches_by_path": by_path("bwd"), "variants_by_path": variants_by_path("bwd"),
+         **bwd_rows[main_shape], "fp32": fp32(bwd_rows[f32_shape])},
         {"name": "flash_attention", "route": "cuda",
          "source": "eoe_tpu_torch/csrc/flash_attention.cu",
          "replaces": "eoe_tpu/ops/attention.py:41",
          "launches": paths["flash_training"]["flash"], "launches_by_path": by_path("flash"),
-         **flash_rows[flash_shape]},
+         "variants_by_path": variants_by_path("flash"), **flash_rows[flash_shape],
+         "fp32": fp32(flash_rows[f32_flash])},
         {"name": "fused_qkv_attention_group", "route": "cuda", "source": source,
          "replaces": "eoe_tpu/ops/attention.py:330",
          "launches": paths["group_training"]["group_fwd"],
-         "launches_by_path": by_path("group_fwd"), **group_rows[main_shape]},
+         "launches_by_path": by_path("group_fwd"),
+         "variants_by_path": variants_by_path("group_fwd"), **group_rows[main_shape],
+         "fp32": fp32(group_rows[f32_shape])},
         {"name": "fused_qkv_attention_group_bwd", "route": "cuda", "source": source,
          "replaces": "eoe_tpu/ops/attention.py:343",
          "launches": paths["group_training"]["group_bwd"],
-         "launches_by_path": by_path("group_bwd"), **group_bwd_rows[main_shape]},
+         "launches_by_path": by_path("group_bwd"),
+         "variants_by_path": variants_by_path("group_bwd"), **group_bwd_rows[main_shape],
+         "fp32": fp32(group_bwd_rows[f32_shape])},
     ]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -11,10 +11,11 @@
 // JAX package either.
 //
 // Numerics follow _kernel: q and k in fp32, logits = (q.k) * d^-1/2 rounded
-// once, then + mask; an fp32 softmax with the row max subtracted; P = p / sum
-// normalised BEFORE it is rounded to v's dtype; P.V accumulated in fp32 and
-// cast to the output dtype. A row whose logits are all -inf gives NaN, as
-// the JAX kernel does; a row with one finite logit is finite.
+// once, then + mask; keys past S at -inf; an fp32 softmax with the row max
+// subtracted; P = p / sum normalised BEFORE it is rounded to v's dtype; P.V
+// accumulated in fp32 and cast to the output dtype. A row whose logits are
+// all -inf gives NaN, as the JAX kernel does; a row with one finite logit is
+// finite.
 //
 // Layout: q, k, v and out are read and written through their own (n, h, s)
 // strides with d contiguous, so the caller passes the head-split views of a
@@ -25,30 +26,39 @@
 // once, the output written once) plus the 4*S^2 mask bytes, and does
 // 4*n*h*S^2*d operations: about 16 operations per byte at CLIP's S=50 in
 // bf16, far under the ~295 at which the tensor cores would be the limit, so
-// it is bound by bytes. This first version is the simple correct design:
-//   - one block per (n*h, tile of 32 query rows); 8 warps, each owning 4 rows;
-//   - q rows in fp32 in shared memory (zero-padded to a multiple of 32);
-//   - K, then V, staged through shared memory 32 keys at a time (S=1024 at
-//     d=256 does not fit whole: 1 MB per tensor in fp32);
-//   - pass 1 over the key tiles: each lane one key, the logits of the warp's
-//     4 rows into a row of shared memory (S floats a row, 128 KB for the 32
-//     rows at S=1024); then max, sum and the rounded P from that row, as
-//     _kernel does, with no rescaling of partial sums;
-//   - pass 2 over the value tiles: each lane owns output columns lane,
-//     lane+32, ...; P.V accumulated in fp32 registers.
-// A head dim above 256 is walked in chunks of 256 columns: pass 1 runs once
-// per chunk and sums the chunks' partial q.k in fp32 in the logit rows, which
-// are scaled and masked after the last chunk; pass 2 runs once per chunk and
-// writes that chunk's output columns. With one chunk (d <= 256) the
-// arithmetic is the single-pass one.
-// Products are fp32 FMAs on CUDA cores from shared memory (float4 reads of K,
-// rows padded by 4 words so a quarter-warp's reads hit distinct banks). What
-// it does not yet do is use the tensor cores or overlap loads with compute.
+// it is bound by bytes; at S=1024 (~250 per byte) nearly by operations.
+// The launcher picks one of three variants by dtype, shape and alignment
+// (never by a failed launch) and reports it to the caller:
+//   - tensor cores (bf16, d <= 128 a multiple of 8, every base pointer and
+//     stride a multiple of 16 bytes, as CLIP's head-split views are): the
+//     fused-QKV kernels' bf16 design, cp.async 16-byte tile loads, every
+//     product mma.sync m16n8k16 bf16 -> fp32 from ldmatrix, the fp32 softmax
+//     in the accumulator registers and P packed from them into P.V's A
+//     operand; d padded with zero columns to 32, 64 or 128. S <= 128: one
+//     block per (image, head), a warp per 16 query rows, K and V staged once.
+//     128 < S <= 1024: blocks of 64 query rows, K and V streamed in 64-key
+//     tiles through a two-buffer cp.async ring, and two passes (row max and
+//     sum online, then the logits again for P.V), since P is normalised
+//     before it is rounded;
+//   - fp32 register tiles (fp32, d <= 128 a multiple of 4, 16-byte rows), on
+//     the fp32 register tiles of common.cuh (each shared load feeds 4 or more
+//     FMAs): S <= 128 runs the fused fp32 forward's per-head function, one
+//     block per (image, head), the whole sequence resident; above, the
+//     tensor-core variant's two-pass stream;
+//   - CUDA cores (every other shape: d above 128 or ragged, unaligned views):
+//     one block per (n*h, 32 query rows), 8 warps of 4 rows; q in fp32 in
+//     shared memory; K, then V, staged 32 keys at a time; the logits of the
+//     block's rows kept in shared memory (128 KB at S=1024), so P is
+//     normalised from them directly; d above 256 walked in chunks of 256
+//     columns (the chunks' partial q.k summed in fp32 in the logit rows,
+//     scaled and masked after the last chunk; one chunk is the single-pass
+//     arithmetic).
 
 #include <math.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -56,11 +66,6 @@ namespace {
 
 using namespace eoe;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kKeys = 32;                     // keys per tile: one per lane
 constexpr int kMaxSeq = 1024;                 // MAX_SINGLE_BLOCK
 
 // Element strides of one tensor's n, h and s axes; d is contiguous.
@@ -71,6 +76,463 @@ struct Strides {
 struct Layout {
   Strides q, k, v, out;
 };
+
+// The variant a call took, as the launcher reports it.
+enum Variant { kCudaCores = 0, kTensorCores = 1, kRegisterTiles = 2 };
+
+// ---------------------------------------------------------------- the logit of every variant
+
+// The mask term of row r and key j: the fp32 mask read through L2 (one
+// (S, S) array for every image and head), 0 without a mask and for padded
+// query rows (r >= s, as _flash_forward zeroes their mask rows; they are
+// never stored).
+__device__ __forceinline__ float flash_mask(const float* __restrict__ mask, int s, int r, int key) {
+  return mask != nullptr && r < s && key < s ? __ldg(mask + (size_t)r * s + key) : 0.f;
+}
+
+// _kernel's logit from the product q.k and the mask term: scaled once, then
+// the mask added; keys past s are -inf.
+__device__ __forceinline__ float flash_logit(float qk, float scale, float mask, int s, int key) {
+  return key < s ? __fadd_rn(__fmul_rn(qk, scale), mask) : -INFINITY;
+}
+
+// The base against which a tile's exps join a row's running max m and sum
+// l, given the tile's max mt: the new max, or 0 while no finite logit has
+// come (every exp is then 0 and l stays 0). Once every tile is in, a row
+// whose logits are all -inf has m = -inf and l = 0, and its P is NaN, as in
+// _kernel.
+__device__ __forceinline__ float online_base(float m, float mt) {
+  const float mn = fmaxf(m, mt);
+  return mn == -INFINITY ? 0.f : mn;
+}
+
+// P is normalised in fp32 by a row's normaliser, the reciprocal of its sum,
+// taken once: one rounding more than _kernel's division, at most an ulp of P
+// before it is rounded to the element type, and far cheaper than an IEEE
+// division per key (attention_variants.py, "divide", measures it).
+__device__ __forceinline__ float flash_norm(float l) {
+  return 1.f / l;
+}
+
+// P of one logit from the row's final max and normaliser.
+__device__ __forceinline__ float flash_prob(float x, float m, float n) {
+  return expf(__fsub_rn(x, m)) * n;
+}
+
+// ---------------------------------------------------------------- bf16 on tensor cores
+
+// Padded head dim of the tensor-core and register-tiled variants: d <= D,
+// the columns past d zero-filled in shared memory and never stored.
+template <int D>
+struct TcDims {
+  static constexpr int kPitch = D + 8;   // bf16 rows padded by 16 bytes, as the fused kernels
+};
+
+// The mask terms of a warp's fragments (rows r_lo and r_lo + 8, keys
+// key0 + 8 nt + 2 (lane % 4) .. +1), read in a pass of their own so that
+// their loads through L2 go out together, not one by one between the
+// logits' arithmetic. Read before QK^T instead of after it, they gain
+// nothing and take registers (attention_variants.py, "mask_early").
+template <int NTILES>
+__device__ __forceinline__ void tc_mask(float (&mk)[NTILES][4], int key0, int r_lo,
+                                        const float* __restrict__ mask, int s) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int nt = 0; nt < NTILES; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = key0 + nt * 8 + 2 * (lane % 4) + e;
+      mk[nt][e] = flash_mask(mask, s, r_lo, key);
+      mk[nt][2 + e] = flash_mask(mask, s, r_lo + 8, key);
+    }
+  }
+}
+
+// The scaled, masked logits of a warp's fragments (as tc_mask's), and their
+// row maxima over the quad.
+template <int NTILES>
+__device__ __forceinline__ void tc_logits(float (&x)[NTILES][4], const float (&mk)[NTILES][4],
+                                          int key0, float scale, int s, float& m_lo,
+                                          float& m_hi) {
+  const int lane = threadIdx.x % 32;
+  m_lo = m_hi = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < NTILES; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = key0 + nt * 8 + 2 * (lane % 4) + e;
+      x[nt][e] = flash_logit(x[nt][e], scale, mk[nt][e], s, key);
+      x[nt][2 + e] = flash_logit(x[nt][2 + e], scale, mk[nt][2 + e], s, key);
+      m_lo = fmaxf(m_lo, x[nt][e]);
+      m_hi = fmaxf(m_hi, x[nt][2 + e]);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, o));
+    m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, o));
+  }
+}
+
+// The sums of exp(x - base) of a warp's two fragment rows over the quad.
+template <int NTILES>
+__device__ __forceinline__ void tc_sum_exp(const float (&x)[NTILES][4], float base_lo,
+                                           float base_hi, float& s_lo, float& s_hi) {
+  s_lo = s_hi = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NTILES; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s_lo += expf(__fsub_rn(x[nt][e], base_lo));
+      s_hi += expf(__fsub_rn(x[nt][2 + e], base_hi));
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    s_lo += __shfl_xor_sync(0xffffffffu, s_lo, o);
+    s_hi += __shfl_xor_sync(0xffffffffu, s_hi, o);
+  }
+}
+
+// P of the fragments, normalised in fp32 and rounded to bf16, packed as the
+// A operand of P.V (one fragment per 16 keys); n_lo and n_hi are the rows'
+// normalisers.
+template <int K16>
+__device__ __forceinline__ void tc_probs(uint32_t (&p)[K16][4], const float (&x)[2 * K16][4],
+                                         float m_lo, float n_lo, float m_hi, float n_hi) {
+#pragma unroll
+  for (int t = 0; t < K16; ++t) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float (&f)[4] = x[2 * t + h];
+      p[t][2 * h] = pack_bf16(flash_prob(f[0], m_lo, n_lo), flash_prob(f[1], m_lo, n_lo));
+      p[t][2 * h + 1] = pack_bf16(flash_prob(f[2], m_hi, n_hi), flash_prob(f[3], m_hi, n_hi));
+    }
+  }
+}
+
+// Store a warp's 16 x D fp32 fragments as bf16 through its 16 rows of
+// `stage` (pitch D + 8), then rows [row0, row0 + 16) below s, columns below
+// d, in 16-byte chunks to dst + row * row_stride.
+template <int D>
+__device__ __forceinline__ void tc_store_rows(const float (&o)[D / 8][4], bf16* stage, bf16* dst,
+                                              long long row_stride, int row0, int s, int d) {
+  constexpr int P = TcDims<D>::kPitch;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    *reinterpret_cast<uint32_t*>(stage + g * P + nt * 8 + c2) = pack_bf16(o[nt][0], o[nt][1]);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * P + nt * 8 + c2) =
+        pack_bf16(o[nt][2], o[nt][3]);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = i % kChunks;
+    if (row0 + r < s && c * 8 < d)
+      *reinterpret_cast<uint4*>(dst + (row0 + r) * row_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * P + c * 8);
+  }
+}
+
+// S <= 128: the whole sequence, padded to 16 * KT rows, in one block per
+// (image, head) with QW = KT warps of 16 query rows; K and V are staged
+// once for all of them. (QW < KT splits the rows over KT / QW blocks, each
+// staging K and V again: attention_variants.py measures that.)
+template <int D, int KT, int QW>
+__global__ void __launch_bounds__(32 * QW)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                const float* __restrict__ mask, bf16* __restrict__ out, Layout lay, int heads,
+                int s, int d, float scale) {
+  constexpr int P = TcDims<D>::kPitch, R = 16 * KT, NT = 32 * QW;
+  extern __shared__ __align__(16) uint32_t smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);   // 16 * QW query rows
+  bf16* Ks = Qs + 16 * QW * P;                    // R key rows
+  bf16* Vs = Ks + R * P;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int q0 = blockIdx.y * 16 * QW;           // the block's first query row
+  const bf16* qb = q + b * lay.q.n + h * lay.q.h;
+  tile_load<bf16, D, P, NT>(Qs, qb + q0 * lay.q.s, lay.q.s, 16 * QW, s - q0, d);
+  tile_load<bf16, D, P, NT>(Ks, k + b * lay.k.n + h * lay.k.h, lay.k.s, R, s, d);
+  cp_async_commit();
+  tile_load<bf16, D, P, NT>(Vs, v + b * lay.v.n + h * lay.v.h, lay.v.s, R, s, d);
+  cp_async_commit();
+  cp_async_wait<1>();                  // Q and K have landed; V may still be in flight
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  const int row0 = threadIdx.x / 32 * 16;        // the warp's rows in the block
+  const int r_lo = q0 + row0 + lane / 4;
+  float x[2 * KT][4], mk[2 * KT][4];
+  mma_abt<D, KT, P>(x, Qs + row0 * P, Ks);
+  tc_mask<2 * KT>(mk, 0, r_lo, mask, s);
+  float m_lo, m_hi, l_lo, l_hi;
+  tc_logits<2 * KT>(x, mk, 0, scale, s, m_lo, m_hi);
+  tc_sum_exp<2 * KT>(x, m_lo, m_hi, l_lo, l_hi);
+  uint32_t p[KT][4];
+  tc_probs<KT>(p, x, m_lo, flash_norm(l_lo), m_hi, flash_norm(l_hi));
+  cp_async_wait<0>();
+  __syncthreads();
+  float o[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+  mma_av<D, KT, P>(o, p, Vs);
+  // the warp's own Q rows are free now: stage the output there
+  tc_store_rows<D>(o, Qs + row0 * P, out + b * lay.out.n + h * lay.out.h, lay.out.s, q0 + row0,
+                   s, d);
+}
+
+// 128 < S <= 1024: blocks of kTcRows query rows (a warp per 16), K and V
+// streamed through shared memory in tiles of kKeyTile keys, two buffers
+// each, the next tile's cp.async in flight while the current one is used.
+// P is normalised before it is rounded, so the final row max and sum must
+// be known before any P.V: pass 1 takes them online over the key tiles
+// (scalars only), pass 2 recomputes each tile's logits, forms the rounded P
+// and accumulates P.V.
+constexpr int kTcRows = 64;
+constexpr int kKeyTile = 64;
+
+// Runs body(t, buffer) for the key tiles t < n_tiles after load(t, buffer)
+// has landed, with load(t + 1, the other buffer) in flight meanwhile. Every
+// thread of the block calls it; commit groups before it must have been
+// committed (they are waited for with the first tile).
+template <typename Load, typename Body>
+__device__ __forceinline__ void for_each_tile(int n_tiles, Load load, Body body) {
+  load(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load(t + 1, (t + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    body(t, t & 1);
+    __syncthreads();                   // the buffer is refilled with tile t + 2
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(2 * kTcRows)
+flash_tc_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const float* __restrict__ mask,
+                       bf16* __restrict__ out, Layout lay, int heads, int s, int d, float scale) {
+  constexpr int P = TcDims<D>::kPitch, NT = 2 * kTcRows, NB = kKeyTile / 16;
+  extern __shared__ __align__(16) uint32_t smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);   // kTcRows query rows
+  bf16* Ks = Qs + kTcRows * P;                    // two tiles of kKeyTile keys
+  bf16* Vs = Ks + 2 * kKeyTile * P;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int q0 = blockIdx.y * kTcRows;
+  const bf16* kb = k + b * lay.k.n + h * lay.k.h;
+  const bf16* vb = v + b * lay.v.n + h * lay.v.h;
+  tile_load<bf16, D, P, NT>(Qs, q + b * lay.q.n + h * lay.q.h + q0 * lay.q.s, lay.q.s,
+                            kTcRows, s - q0, d);
+  cp_async_commit();
+  const int n_tiles = (s + kKeyTile - 1) / kKeyTile;
+  auto load_k = [&](int t, int buf) {
+    tile_load<bf16, D, P, NT>(Ks + buf * kKeyTile * P, kb + t * kKeyTile * lay.k.s, lay.k.s,
+                              kKeyTile, s - t * kKeyTile, d);
+  };
+  auto load_v = [&](int t, int buf) {
+    tile_load<bf16, D, P, NT>(Vs + buf * kKeyTile * P, vb + t * kKeyTile * lay.v.s, lay.v.s,
+                              kKeyTile, s - t * kKeyTile, d);
+  };
+  auto load_kv = [&](int t, int buf) {
+    load_k(t, buf);
+    load_v(t, buf);
+  };
+
+  const int lane = threadIdx.x % 32;
+  const int row0 = threadIdx.x / 32 * 16;
+  const int r_lo = q0 + row0 + lane / 4;
+  const bf16* qw = Qs + row0 * P;
+
+  // ---- pass 1: the rows' max and sum of exp, online over the key tiles
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  for_each_tile(n_tiles, load_k, [&](int t, int buf) {
+    float x[2 * NB][4], mk[2 * NB][4], mt_lo, mt_hi, s_lo, s_hi;
+    mma_abt<D, NB, P>(x, qw, Ks + buf * kKeyTile * P);
+    tc_mask<2 * NB>(mk, t * kKeyTile, r_lo, mask, s);
+    tc_logits<2 * NB>(x, mk, t * kKeyTile, scale, s, mt_lo, mt_hi);
+    const float base_lo = online_base(m_lo, mt_lo), base_hi = online_base(m_hi, mt_hi);
+    tc_sum_exp<2 * NB>(x, base_lo, base_hi, s_lo, s_hi);
+    l_lo = l_lo * expf(__fsub_rn(m_lo, base_lo)) + s_lo;
+    l_hi = l_hi * expf(__fsub_rn(m_hi, base_hi)) + s_hi;
+    m_lo = fmaxf(m_lo, mt_lo);
+    m_hi = fmaxf(m_hi, mt_hi);
+  });
+
+  // ---- pass 2: the logits again, P rounded, P.V
+  const float n_lo = flash_norm(l_lo), n_hi = flash_norm(l_hi);
+  float o[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+  for_each_tile(n_tiles, load_kv, [&](int t, int buf) {
+    float x[2 * NB][4], mk[2 * NB][4], mt_lo, mt_hi;
+    mma_abt<D, NB, P>(x, qw, Ks + buf * kKeyTile * P);
+    tc_mask<2 * NB>(mk, t * kKeyTile, r_lo, mask, s);
+    tc_logits<2 * NB>(x, mk, t * kKeyTile, scale, s, mt_lo, mt_hi);
+    uint32_t p[NB][4];
+    tc_probs<NB>(p, x, m_lo, n_lo, m_hi, n_hi);
+    mma_av<D, NB, P>(o, p, Vs + buf * kKeyTile * P);
+  });
+  tc_store_rows<D>(o, Qs + row0 * P, out + b * lay.out.n + h * lay.out.h, lay.out.s, q0 + row0,
+                   s, d);
+}
+
+// ---------------------------------------------------------------- fp32 on register tiles
+
+constexpr int kTileWarps = 8;
+
+// fp32, S <= 128: the fused fp32 forward's per-head function (common.cuh),
+// one block per (image, head), the whole sequence resident, each warp taking
+// quads of query rows; keys past S at -inf, the mask added.
+template <int D>
+__global__ void __launch_bounds__(32 * kTileWarps)
+flash_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ mask,
+                  float* __restrict__ out, Layout lay, int heads, int s, int d, float scale) {
+  extern __shared__ __align__(16) uint32_t smem_f32[];
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  f32_attend_head<D, 32 * kTileWarps>(
+      q + b * lay.q.n + h * lay.q.h, lay.q.s, k + b * lay.k.n + h * lay.k.h, lay.k.s,
+      v + b * lay.v.n + h * lay.v.h, lay.v.s, out + b * lay.out.n + h * lay.out.h, lay.out.s, s,
+      d, false,
+      [&](int r, int key, float qk) {
+        return flash_logit(qk, scale, flash_mask(mask, s, r, key), s, key);
+      },
+      smem_f32);
+}
+
+// fp32, 128 < S <= 1024: blocks of kTileRows = 64 query rows, 8 warps of two
+// quads of rows each (rows 4w .. 4w + 3 and 32 + 4w .. 32 + 4w + 3 of the
+// block); K and V in tiles of kKeyTile keys through the same two-buffer ring
+// and the same two passes as the tensor-core stream, the products on the
+// register tiles of common.cuh.
+constexpr int kTileRows = 2 * 4 * kTileWarps;   // two quads a warp
+
+template <int D>
+__global__ void __launch_bounds__(32 * kTileWarps)
+flash_tile_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ mask,
+                         float* __restrict__ out, Layout lay, int heads, int s, int d,
+                         float scale) {
+  constexpr int P = F32Tile<D>::kPitch, NT = 32 * kTileWarps, NC = kKeyTile / 32;
+  extern __shared__ __align__(16) uint32_t smem_f32[];
+  float* Qs = reinterpret_cast<float*>(smem_f32);
+  float* Ks = Qs + kTileRows * P;
+  float* Vs = Ks + 2 * kKeyTile * P;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float4* pw = reinterpret_cast<float4*>(Vs + 2 * kKeyTile * P) + warp * kKeyTile;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int q0 = blockIdx.y * kTileRows;
+  const float* kb = k + b * lay.k.n + h * lay.k.h;
+  const float* vb = v + b * lay.v.n + h * lay.v.h;
+  tile_load<float, D, P, NT>(Qs, q + b * lay.q.n + h * lay.q.h + q0 * lay.q.s, lay.q.s,
+                             kTileRows, s - q0, d);
+  cp_async_commit();
+  const int n_tiles = (s + kKeyTile - 1) / kKeyTile;
+  auto load_k = [&](int t, int buf) {
+    tile_load<float, D, P, NT>(Ks + buf * kKeyTile * P, kb + t * kKeyTile * lay.k.s, lay.k.s,
+                               kKeyTile, s - t * kKeyTile, d);
+  };
+  auto load_kv = [&](int t, int buf) {
+    load_k(t, buf);
+    tile_load<float, D, P, NT>(Vs + buf * kKeyTile * P, vb + t * kKeyTile * lay.v.s, lay.v.s,
+                               kKeyTile, s - t * kKeyTile, d);
+  };
+
+  const int rq[2] = {4 * warp, 4 * (kTileWarps + warp)};   // the quads' first rows in the block
+  // logits of quad i against key tile t (in buffer buf), and the tile's key count
+  auto logits = [&](float (&x)[4][NC], int i, int t, int buf) {
+    const int keys = min(kKeyTile, s - t * kKeyTile);
+    f32_qk<D, NC>(x, Qs + rq[i] * P, Ks + buf * kKeyTile * P, (keys + 31) / 32);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int key = t * kKeyTile + lane + 32 * c;
+        x[r][c] = flash_logit(x[r][c], scale, flash_mask(mask, s, q0 + rq[i] + r, key), s, key);
+      }
+    return keys;
+  };
+
+  // ---- pass 1: the rows' max and sum of exp, online over the key tiles
+  float m[2][4], l[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) m[i][r] = -INFINITY, l[i][r] = 0.f;
+  for_each_tile(n_tiles, load_k, [&](int t, int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (q0 + rq[i] >= s) continue;             // a quad of padding rows only
+      float x[4][NC];
+      logits(x, i, t, buf);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float mt = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) mt = fmaxf(mt, x[r][c]);
+        mt = warp_max(mt);
+        const float base = online_base(m[i][r], mt);
+        float se = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) se += expf(__fsub_rn(x[r][c], base));
+        l[i][r] = l[i][r] * expf(__fsub_rn(m[i][r], base)) + warp_sum(se);
+        m[i][r] = fmaxf(m[i][r], mt);
+      }
+    }
+  });
+
+  // ---- pass 2: the logits again, P through the warp's float4 row, P.V
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) l[i][r] = flash_norm(l[i][r]);
+  float acc[2][4][D / 32];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int u = 0; u < D / 32; ++u) acc[i][r][u] = 0.f;
+  for_each_tile(n_tiles, load_kv, [&](int t, int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (q0 + rq[i] >= s) continue;
+      float x[4][NC];
+      const int keys = logits(x, i, t, buf);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        pw[lane + 32 * c] = make_float4(
+            flash_prob(x[0][c], m[i][0], l[i][0]), flash_prob(x[1][c], m[i][1], l[i][1]),
+            flash_prob(x[2][c], m[i][2], l[i][2]), flash_prob(x[3][c], m[i][3], l[i][3]));
+      __syncwarp();
+      f32_pv<D>(acc[i], pw, Vs + buf * kKeyTile * P, keys);
+      __syncwarp();                    // pw is rewritten for the next quad
+    }
+  });
+  float* ob = out + b * lay.out.n + h * lay.out.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (q0 + rq[i] + r < s) f32_store_row<D>(ob + (q0 + rq[i] + r) * lay.out.s, acc[i][r], d);
+}
+
+// ---------------------------------------------------------------- on CUDA cores, any shape
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerWarp = 4;
+constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
+constexpr int kKeys = 32;                     // keys per tile: one per lane
 
 // NC = 32-column chunks of the head dim in shared memory: d <= 32 * NC, or
 // NC = 8 and the head dim walked in chunks of 256 columns.
@@ -256,24 +718,123 @@ cudaError_t launch_for_dim(const void* q, const void* k, const void* v, const fl
   return launch<T, 8>(q, k, v, mask, out, lay, n, heads, s, d, scale, st);   // chunks of 256
 }
 
+
+// ---------------------------------------------------------------- launchers
+
+// Calls fn(integral_constant<D>) with the padded head dim of d <= 128.
+template <typename Fn>
+cudaError_t with_dim(int d, Fn fn) {
+  if (d <= 32) return fn(std::integral_constant<int, 32>{});
+  if (d <= 64) return fn(std::integral_constant<int, 64>{});
+  return fn(std::integral_constant<int, 128>{});
+}
+
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* mask, void* out,
+                      const Layout& lay, int n, int heads, int s, int d, float scale,
+                      cudaStream_t st) {
+  auto args = [&](auto kernel, dim3 grid, int threads, size_t smem) {
+    kernel<<<grid, threads, smem, st>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                        static_cast<const bf16*>(v), mask, static_cast<bf16*>(out),
+                                        lay, heads, s, d, scale);
+    return cudaGetLastError();
+  };
+  return with_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    constexpr int P = TcDims<D>::kPitch;
+    if (s > 128) {
+      static std::atomic<bool> raised[kMaxDevices];
+      auto kernel = flash_tc_stream_kernel<D>;
+      constexpr size_t smem = (size_t)(kTcRows + 4 * kKeyTile) * P * sizeof(bf16);
+      cudaError_t err = allow_smem(kernel, smem, smem, raised);
+      if (err != cudaSuccess) return err;
+      return args(kernel, dim3(n * heads, (s + kTcRows - 1) / kTcRows), 2 * kTcRows, smem);
+    }
+    auto small = [&](auto tiles) {
+      constexpr int KT = decltype(tiles)::value;   // the sequence padded to 16 * KT rows
+      constexpr int QW = KT;                       // warps of 16 query rows a block
+      static std::atomic<bool> raised[kMaxDevices];
+      auto kernel = flash_tc_kernel<D, KT, QW>;
+      constexpr size_t smem = (size_t)(16 * QW + 32 * KT) * P * sizeof(bf16);
+      cudaError_t err = allow_smem(kernel, smem, smem, raised);
+      if (err != cudaSuccess) return err;
+      return args(kernel, dim3(n * heads, (s + 16 * QW - 1) / (16 * QW)), 32 * QW, smem);
+    };
+    if (s <= 32) return small(std::integral_constant<int, 2>{});
+    if (s <= 64) return small(std::integral_constant<int, 4>{});
+    if (s <= 80) return small(std::integral_constant<int, 5>{});
+    return small(std::integral_constant<int, 8>{});
+  });
+}
+
+cudaError_t launch_tiles(const void* q, const void* k, const void* v, const float* mask,
+                         void* out, const Layout& lay, int n, int heads, int s, int d,
+                         float scale, cudaStream_t st) {
+  auto args = [&](auto kernel, dim3 grid, size_t smem) {
+    kernel<<<grid, 32 * kTileWarps, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        mask, static_cast<float*>(out), lay, heads, s, d, scale);
+    return cudaGetLastError();
+  };
+  return with_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    if (s <= 128) {
+      static std::atomic<bool> raised[kMaxDevices];
+      auto kernel = flash_tile_kernel<D>;
+      const size_t smem = f32_head_smem<D, 32 * kTileWarps>(s);
+      cudaError_t err = allow_smem(kernel, smem, f32_head_smem<D, 32 * kTileWarps>(128), raised);
+      if (err != cudaSuccess) return err;
+      return args(kernel, dim3(n * heads), smem);
+    }
+    static std::atomic<bool> raised[kMaxDevices];
+    auto kernel = flash_tile_stream_kernel<D>;
+    constexpr size_t smem = (size_t)(kTileRows + 4 * kKeyTile) * F32Tile<D>::kPitch *
+                                sizeof(float) +
+                            (size_t)kTileWarps * kKeyTile * sizeof(float4);
+    cudaError_t err = allow_smem(kernel, smem, smem, raised);
+    if (err != cudaSuccess) return err;
+    return args(kernel, dim3(n * heads, (s + kTileRows - 1) / kTileRows), smem);
+  });
+}
+
+// The variant for a call: the tensor cores (bf16) or the register tiles
+// (fp32) when d <= 128 is a whole number of 16-byte chunks and every row of
+// q, k, v and out starts on 16 bytes; the CUDA cores otherwise.
+Variant choose(const void* const (&ptrs)[4], const Layout& lay, int d, int dtype) {
+  const int chunk = dtype == 0 ? 4 : 8;      // elements of 16 bytes
+  if (d > 128 || d % chunk != 0) return kCudaCores;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return kCudaCores;
+  for (const Strides& st : {lay.q, lay.k, lay.v, lay.out})
+    if (st.n % chunk != 0 || st.h % chunk != 0 || st.s % chunk != 0) return kCudaCores;
+  return dtype == 0 ? kRegisterTiles : kTensorCores;
+}
+
 }  // namespace
 
 // q, k, v, out: (n, heads, s, d) with element strides strides[0..2] (q),
 // [3..5] (k), [6..8] (v), [9..11] (out) for the n, h and s axes and d
 // contiguous; mask: a contiguous fp32 (s, s) array or null. dtype: 0 =
-// float32, 1 = bfloat16, the same for q, k, v and out. Returns a cudaError_t
-// (0 on success), launches on `stream`, which must belong to the current
-// device (the caller sets it), and does not synchronise.
+// float32, 1 = bfloat16, the same for q, k, v and out. Writes the variant it
+// launched to *variant (0: CUDA cores, 1: tensor cores, 2: fp32 register
+// tiles). Returns a cudaError_t (0 on success), launches on `stream`, which
+// must belong to the current device (the caller sets it), and does not
+// synchronise.
 extern "C" int eoe_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        const float* mask, void* out, int n, int heads, int s,
                                        int d, int dtype, const long long* strides, float scale,
-                                       void* stream) {
-  if (n < 1 || heads < 1 || s < 1 || s > kMaxSeq || d < 1) return (int)cudaErrorInvalidValue;
+                                       void* stream, int* variant) {
+  if (n < 1 || heads < 1 || s < 1 || s > kMaxSeq || d < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   const Layout lay{{strides[0], strides[1], strides[2]}, {strides[3], strides[4], strides[5]},
                    {strides[6], strides[7], strides[8]}, {strides[9], strides[10], strides[11]}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_for_dim<float>(q, k, v, mask, out, lay, n, heads, s, d, scale, st);
-  if (dtype == 1)
-    return (int)launch_for_dim<__nv_bfloat16>(q, k, v, mask, out, lay, n, heads, s, d, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const Variant which = choose({q, k, v, out}, lay, d, dtype);
+  *variant = which;
+  if (which == kTensorCores)
+    return (int)launch_tc(q, k, v, mask, out, lay, n, heads, s, d, scale, st);
+  if (which == kRegisterTiles)
+    return (int)launch_tiles(q, k, v, mask, out, lay, n, heads, s, d, scale, st);
+  if (dtype == 0)
+    return (int)launch_for_dim<float>(q, k, v, mask, out, lay, n, heads, s, d, scale, st);
+  return (int)launch_for_dim<bf16>(q, k, v, mask, out, lay, n, heads, s, d, scale, st);
 }

@@ -11,8 +11,9 @@
 // that is two heads at d=64 and one at d=128, each block reading only its
 // group's q, k, v (and dout) columns; the backward then writes dq, dk and dv
 // as three (n, s, H*d) tensors, which the caller concatenates. The per-head
-// code is the same on both grids (fwd_head, bwd_head), so the two grids give
-// the same bits; a group's heads run one after the other in its block. Both CLIP
+// code is the same on both grids (fwd_head_f32, fwd_head_tc, bwd_head,
+// bwd_head_tc), so the two grids give the same bits; a group's heads run one
+// after the other in its block. Both CLIP
 // encoders run every transformer block through the forward: the image side at
 // s=50, 12 heads, d=64 with no mask, the text side at s=77, 8 heads, d=64,
 // causal. Training runs the image side's backward through the second kernel.
@@ -76,15 +77,25 @@
 // Sums run in the tensor core's order, so bf16 results are no longer bit for
 // bit those of the plain version; they hold to the same tolerances.
 //
-// fp32: the first, CUDA-core design below, kept line for line. fp32 is what
-// the parity runs hold the port to and what fp32 serving runs, and a
-// tensor-core fp32 product would be TF32, a different function. One block per
-// (image, head), s x D tiles in shared memory (one padding word per row, so a
-// warp reading one column across 32 rows hits 32 banks), one warp per row,
-// CUDA-core fp32 FMAs for every product.
+// fp32: CUDA-core FMAs, since fp32 is what the parity runs hold the port to
+// and what fp32 serving runs, and a tensor-core fp32 product would be TF32, a
+// different function. The first design (a warp per query row) spent one
+// shared-memory load on every FMA. The forward now takes the register tiles of
+// common.cuh: one block per (image, head), q, k and v copied in by cp.async
+// 16-byte pieces into rows padded to D + 4 floats (so the wrapper checks
+// 16-byte alignment in fp32 too), a warp per four query rows (the quads
+// round-robin over the warps), lane l owning keys l, l + 32, ... of QK^T and
+// D/32 adjacent output columns of P.V, so that a float4 read of K feeds 16
+// FMAs and one broadcast float4 of P and a float2 or float4 of V feed 8 or 16.
+// Numerics as before but for one rounding: fp32 logits times d^-1/2, masked
+// and padded keys at -1e30, fp32 softmax, P normalised by the sum's
+// reciprocal (the plain version divides: at most an ulp of P), P.V summed
+// over the keys in order. The flash kernel's fp32 variant runs the same
+// per-head function.
 //
-// The fp32 backward in two phases inside one block, so that no float atomics sum
-// dk and dv across blocks and the result does not depend on block order:
+// The fp32 backward keeps the first design, a warp per row, in two phases
+// inside one block, so that no float atomics sum dk and dv across blocks and
+// the result does not depend on block order:
 //   1. K and V in shared memory, one warp per query row r: P_r, dp_r and
 //      dS_r, the row's statistics (max, sum, rowsum(dp*P)) kept in shared
 //      memory, and dq_r written out;
@@ -116,7 +127,8 @@ constexpr int kLane = 128;                   // the TPU kernel's lane group
 constexpr int kKeysPerLane = kMaxSeq / 32;
 constexpr float kMasked = -1e30f;            // the TPU kernel's additive bias
 
-// One head's s x D tile in shared memory, rows padded by one 32-bit word.
+// One head's s x D tile of the fp32 backward in shared memory, rows padded
+// by one 32-bit word.
 template <typename T, int D>
 struct Tile {
   static constexpr int kWords = D * (int)sizeof(T) / 4;     // words of one row
@@ -124,156 +136,24 @@ struct Tile {
   static constexpr int kPitch = kPitchWords * 4 / (int)sizeof(T);  // in elements
 };
 
-template <typename T, int D>
-size_t smem_bytes(int s) {
-  return (size_t)3 * s * Tile<T, D>::kPitchWords * 4 + (size_t)kWarps * kMaxSeq * sizeof(float);
-}
-
-// The forward of one (image b, head h), by the whole block.
-template <typename T, int D>
-__device__ __forceinline__ void fwd_head(const T* __restrict__ qkv, T* __restrict__ out,
-                                         uint32_t* smem, int b, int h, int s, int heads,
-                                         int causal, float scale) {
-  using Tl = Tile<T, D>;
-  const int width = heads * D;                       // model width, elements
-  const int width_words = width * (int)sizeof(T) / 4;
-  const int row_words = 3 * width_words;             // one qkv row
-
-  // 1. q, k, v of head h, strided from the joint projection into shared memory.
-  //    Consecutive threads read consecutive words of a row.
-  uint32_t* tiles = smem;
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(qkv) + (size_t)b * s * row_words;
-  const int head_word = h * Tl::kWords;
-  for (int i = threadIdx.x; i < 3 * s * Tl::kWords; i += kThreads) {
-    const int w = i % Tl::kWords;
-    const int j = (i / Tl::kWords) % s;
-    const int t = i / (Tl::kWords * s);
-    tiles[(t * s + j) * Tl::kPitchWords + w] =
-        src[(size_t)j * row_words + t * width_words + head_word + w];
-  }
-  __syncthreads();
-
-  const T* Qs = reinterpret_cast<const T*>(tiles);
-  const T* Ks = Qs + s * Tl::kPitch;
-  const T* Vs = Ks + s * Tl::kPitch;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* p_row = reinterpret_cast<float*>(smem + 3 * s * Tl::kPitchWords) + warp * kMaxSeq;
-  T* dst = out + (size_t)b * s * width + h * D;
-
-  // 2. One warp per query row.
-  for (int r = warp; r < s; r += kWarps) {
-    const int n_keys = causal ? r + 1 : s;           // keys row r may attend to
-    const int n_chunks = (n_keys + 31) / 32;         // uniform across the warp
-
-    // logits: lane owns keys lane, lane+32, lane+64, lane+96
-    float logit[kKeysPerLane];
-#pragma unroll
-    for (int c = 0; c < kKeysPerLane; ++c) logit[c] = 0.f;
-    const T* q = Qs + r * Tl::kPitch;
-    for (int k = 0; k < D; ++k) {
-      const float qk = to_f32(q[k]);
-#pragma unroll
-      for (int c = 0; c < kKeysPerLane; ++c) {
-        if (c < n_chunks) {
-          const int j = min(lane + 32 * c, s - 1);
-          logit[c] = fmaf(qk, to_f32(Ks[j * Tl::kPitch + k]), logit[c]);
-        }
-      }
-    }
-
-    // fp32 softmax over the allowed keys; masked keys contribute exp(-1e30-m)=0
-    float m = kMasked;
-#pragma unroll
-    for (int c = 0; c < kKeysPerLane; ++c) {
-      const int j = lane + 32 * c;
-      logit[c] = j < n_keys ? logit[c] * scale : kMasked;
-      m = fmaxf(m, logit[c]);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kKeysPerLane; ++c) {
-      const int j = lane + 32 * c;
-      logit[c] = j < n_keys ? expf(logit[c] - m) : 0.f;
-      sum += logit[c];
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int c = 0; c < kKeysPerLane; ++c) {
-      const int j = lane + 32 * c;
-      if (j < n_keys) p_row[j] = to_f32(from_f32<T>(logit[c] / sum));  // P in input dtype
-    }
-    __syncwarp();
-
-    // P.V in fp32: lane owns output columns lane, lane+32, ...
-    float acc[D / 32];
-#pragma unroll
-    for (int i = 0; i < D / 32; ++i) acc[i] = 0.f;
-    for (int j = 0; j < n_keys; ++j) {
-      const float p = p_row[j];
-      const T* v = Vs + j * Tl::kPitch;
-#pragma unroll
-      for (int i = 0; i < D / 32; ++i) acc[i] = fmaf(p, to_f32(v[lane + 32 * i]), acc[i]);
-    }
-    T* o = dst + (size_t)r * width;
-#pragma unroll
-    for (int i = 0; i < D / 32; ++i) o[lane + 32 * i] = from_f32<T>(acc[i]);
-    __syncwarp();  // p_row is rewritten by this warp's next row
-  }
+// The fp32 forward of one (image b, head h), by the whole block, on the
+// register tiles of common.cuh: masked and padded keys at -1e30.
+template <int D>
+__device__ __forceinline__ void fwd_head_f32(const float* __restrict__ qkv,
+                                             float* __restrict__ out, uint32_t* smem, int b,
+                                             int h, int s, int heads, int causal, float scale) {
+  const int width = heads * D;
+  const float* src = qkv + (size_t)b * s * 3 * width + h * D;   // q of row 0, head h
+  f32_attend_head<D, kThreads>(
+      src, 3 * width, src + width, 3 * width, src + 2 * width, 3 * width,
+      out + (size_t)b * s * width + h * D, width, s, D, causal,
+      [&](int r, int key, float qk) {
+        return key < (causal ? min(r + 1, s) : s) ? qk * scale : kMasked;
+      },
+      smem);
 }
 
 // ---------------------------------------------------------------- bf16 on tensor cores
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, past L1; with src_bytes = 0 it writes zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's commit groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of row
-// l % 8 of matrix l / 8 and receives its (l / 4, 2 (l % 4) .. +1) pair of each.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
-// The same, each matrix transposed: the lane receives (2 (l % 4) .. +1, l / 4).
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
-// c += a (16x16, row-major fragment) . b (16x8, column fragment), fp32 sums.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16 (nearest even), the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // One head's tiles for a sequence padded to 16 * KT rows: rows of D elements
 // padded by 16 bytes (kPitch), and the (query, key) tiles of P and dS
@@ -294,64 +174,6 @@ template <int D, int KT>
 constexpr size_t tc_bwd_smem() {
   using Tl = TcTile<D, KT>;
   return ((size_t)4 * Tl::kElems + (size_t)2 * Tl::kRows * Tl::kPPitch) * sizeof(bf16);
-}
-
-// Start the copy of rows [0, s) of one head's D columns (row j at
-// src + j * row_elems) into a padded tile; rows [s, 16 * KT) become zeros.
-template <int D, int KT>
-__device__ __forceinline__ void tc_load(bf16* tile, const bf16* src, size_t row_elems, int s) {
-  using Tl = TcTile<D, KT>;
-  constexpr int kChunks = D / 8;                     // 16-byte chunks of a row
-  for (int i = threadIdx.x; i < Tl::kRows * kChunks; i += Tl::kThreads) {
-    const int j = i / kChunks, c = i % kChunks;
-    const bool real = j < s;
-    cp_async16(smem_addr(tile + j * Tl::kPitch + c * 8),
-               src + (real ? (size_t)j * row_elems : 0) + c * 8, real ? 16 : 0);
-  }
-}
-
-// acc (16 x 8 n-tiles of fp32 fragments) = A . B^T over D columns, A's 16
-// rows at a (row-major tile, pitch kPitch), B's 16 * KT rows at b; the n-tile
-// j covers B rows 8j .. 8j + 7.
-template <int D, int KT>
-__device__ __forceinline__ void tc_abt(float (&acc)[2 * KT][4], const bf16* a, const bf16* b) {
-  constexpr int P = TcTile<D, KT>::kPitch;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int t = 0; t < 2 * KT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, smem_addr(a + (lane % 16) * P + kk * 16 + (lane / 16) * 8));
-#pragma unroll
-    for (int t = 0; t < KT; ++t) {
-      uint32_t bf[4];
-      ldsm_x4(bf, smem_addr(b + (t * 16 + lane % 8 + (lane / 16) * 8) * P + kk * 16 +
-                            (lane / 8 % 2) * 8));
-      mma_bf16(acc[2 * t], af, bf[0], bf[1]);
-      mma_bf16(acc[2 * t + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 x D, D/8 n-tiles) += A . V over 16 * K16 contraction rows: A given
-// as packed fragments, one per 16 rows; V's rows at v (pitch kPitch).
-template <int D, int KT, int K16>
-__device__ __forceinline__ void tc_av(float (&acc)[D / 8][4], const uint32_t (&a)[K16][4],
-                                      const bf16* v) {
-  constexpr int P = TcTile<D, KT>::kPitch;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int t = 0; t < K16; ++t) {
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, smem_addr(v + (t * 16 + lane % 8 + (lane / 8 % 2) * 8) * P + dn * 16 +
-                              (lane / 16) * 8));
-      mma_bf16(acc[2 * dn], a[t], bf[0], bf[1]);
-      mma_bf16(acc[2 * dn + 1], a[t], bf[2], bf[3]);
-    }
-  }
 }
 
 // The A fragments of one 16-row tile of x^T, for x a (rows, 16 cols) slice
@@ -458,17 +280,17 @@ __device__ __forceinline__ void fwd_head_tc(const bf16* __restrict__ qkv, bf16* 
   bf16* Ks = Qs + Tl::kElems;
   bf16* Vs = Ks + Tl::kElems;
   const bf16* src = qkv + (size_t)b * s * 3 * width + h * D;   // q of row 0, head h
-  tc_load<D, KT>(Qs, src, 3 * width, s);
-  tc_load<D, KT>(Ks, src + width, 3 * width, s);
+  tile_load<bf16, D, Tl::kPitch, Tl::kThreads>(Qs, src, 3 * width, Tl::kRows, s, D);
+  tile_load<bf16, D, Tl::kPitch, Tl::kThreads>(Ks, src + width, 3 * width, Tl::kRows, s, D);
   cp_async_commit();
-  tc_load<D, KT>(Vs, src + 2 * width, 3 * width, s);
+  tile_load<bf16, D, Tl::kPitch, Tl::kThreads>(Vs, src + 2 * width, 3 * width, Tl::kRows, s, D);
   cp_async_commit();
   cp_async_wait<1>();                  // Q and K have landed; V may still be in flight
   __syncthreads();
 
   const int row0 = threadIdx.x / 32 * 16;
   float x[2 * KT][4];
-  tc_abt<D, KT>(x, Qs + row0 * Tl::kPitch, Ks);
+  mma_abt<D, KT, Tl::kPitch>(x, Qs + row0 * Tl::kPitch, Ks);
   tc_softmax<KT>(x, row0, s, causal, scale);
   uint32_t p[KT][4];                   // round(P) as the A operand of P.V
 #pragma unroll
@@ -483,7 +305,7 @@ __device__ __forceinline__ void fwd_head_tc(const bf16* __restrict__ qkv, bf16* 
   float o[D / 8][4];
 #pragma unroll
   for (int t = 0; t < D / 8; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-  tc_av<D, KT, KT>(o, p, Vs);
+  mma_av<D, KT, Tl::kPitch>(o, p, Vs);
   // the warp's own Q rows are free now: stage the output there
   tc_store_staged<D, KT>(o, 1.f, Qs + row0 * Tl::kPitch, out + (size_t)b * s * width + h * D,
                          width, row0, s);
@@ -492,18 +314,18 @@ __device__ __forceinline__ void fwd_head_tc(const bf16* __restrict__ qkv, bf16* 
 // One block per (image, group of PER heads), the heads of a group one after
 // the other. PER=1 is the monolithic grid of _fwd_compute; PER=128/D is the
 // lane-group grid of _fwd_group_compute (two heads at d=64, one at d=128).
-template <typename T, int D, int PER>
+template <int D, int PER>
 __global__ void __launch_bounds__(kThreads)
-fused_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int s, int heads,
+fused_qkv_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int s, int heads,
                      int causal, float scale) {
-  extern __shared__ uint32_t smem[];
+  extern __shared__ __align__(16) uint32_t smem_f32[];
   const int groups = heads / PER;
   const int b = blockIdx.x / groups;
   const int g = blockIdx.x % groups;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     if (i > 0) __syncthreads();  // the previous head's tiles are still being read
-    fwd_head<T, D>(qkv, out, smem, b, g * PER + i, s, heads, causal, scale);
+    fwd_head_f32<D>(qkv, out, smem_f32, b, g * PER + i, s, heads, causal, scale);
   }
 }
 
@@ -762,11 +584,12 @@ __device__ __forceinline__ void bwd_head_tc(const bf16* __restrict__ qkv,
   bf16* Ps = Gs + Tl::kElems;                      // round(P), (query, key)
   bf16* Ds = Ps + Tl::kRows * Tl::kPPitch;         // round(dS), (query, key)
   const bf16* src = qkv + (size_t)b * s * 3 * width + h * D;
-  tc_load<D, KT>(Qs, src, 3 * width, s);
-  tc_load<D, KT>(Ks, src + width, 3 * width, s);
+  tile_load<bf16, D, Tl::kPitch, Tl::kThreads>(Qs, src, 3 * width, Tl::kRows, s, D);
+  tile_load<bf16, D, Tl::kPitch, Tl::kThreads>(Ks, src + width, 3 * width, Tl::kRows, s, D);
   cp_async_commit();
-  tc_load<D, KT>(Vs, src + 2 * width, 3 * width, s);
-  tc_load<D, KT>(Gs, dout + (size_t)b * s * width + h * D, width, s);
+  tile_load<bf16, D, Tl::kPitch, Tl::kThreads>(Vs, src + 2 * width, 3 * width, Tl::kRows, s, D);
+  tile_load<bf16, D, Tl::kPitch, Tl::kThreads>(Gs, dout + (size_t)b * s * width + h * D, width,
+                                                Tl::kRows, s, D);
   cp_async_commit();
   cp_async_wait<1>();                  // Q and K have landed
   __syncthreads();
@@ -779,11 +602,11 @@ __device__ __forceinline__ void bwd_head_tc(const bf16* __restrict__ qkv,
 
   // ---- step 1: P and dS of the warp's query rows, dq
   float p[2 * KT][4], dp[2 * KT][4];
-  tc_abt<D, KT>(p, Qs + row0 * Tl::kPitch, Ks);
+  mma_abt<D, KT, Tl::kPitch>(p, Qs + row0 * Tl::kPitch, Ks);
   tc_softmax<KT>(p, row0, s, causal, scale);       // the fp32 P
   cp_async_wait<0>();                  // V and dout have landed
   __syncthreads();
-  tc_abt<D, KT>(dp, Gs + row0 * Tl::kPitch, Vs);
+  mma_abt<D, KT, Tl::kPitch>(dp, Gs + row0 * Tl::kPitch, Vs);
   float rs_lo = 0.f, rs_hi = 0.f;                  // rowsum(dP * P), fp32 P
 #pragma unroll
   for (int nt = 0; nt < 2 * KT; ++nt) {
@@ -822,7 +645,7 @@ __device__ __forceinline__ void bwd_head_tc(const bf16* __restrict__ qkv,
     float acc[D / 8][4];
 #pragma unroll
     for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-    tc_av<D, KT, KT>(acc, ds, Ks);                 // dq = round(dS) . K
+    mma_av<D, KT, Tl::kPitch>(acc, ds, Ks);                 // dq = round(dS) . K
 #pragma unroll
     for (int nt = 0; nt < D / 8; ++nt) {
       bf16* dst = dq + out_b + (size_t)(row0 + g) * out_row + nt * 8 + c2;
@@ -842,13 +665,13 @@ __device__ __forceinline__ void bwd_head_tc(const bf16* __restrict__ qkv,
   for (int t = 0; t < KT; ++t) tc_at_frag<D, KT>(xt[t], Ps + row0, t);
 #pragma unroll
   for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-  tc_av<D, KT, KT>(acc, xt, Gs);                   // dv = round(P)^T . dout
+  mma_av<D, KT, Tl::kPitch>(acc, xt, Gs);                   // dv = round(P)^T . dout
   tc_store_staged<D, KT>(acc, 1.f, Vs + row0 * Tl::kPitch, dv + out_b, out_row, row0, s);
 #pragma unroll
   for (int t = 0; t < KT; ++t) tc_at_frag<D, KT>(xt[t], Ds + row0, t);
 #pragma unroll
   for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-  tc_av<D, KT, KT>(acc, xt, Qs);                   // dk = round(dS)^T . Q
+  mma_av<D, KT, Tl::kPitch>(acc, xt, Qs);                   // dk = round(dS)^T . Q
   tc_store_staged<D, KT>(acc, mul, Ks + row0 * Tl::kPitch, dk + out_b, out_row, row0, s);
 }
 
@@ -919,12 +742,12 @@ cudaError_t launch_fwd(const void* qkv, void* out, int n, int s, int heads, int 
                        float scale, cudaStream_t stream) {
   static std::atomic<bool> raised[kMaxDevices];
   if constexpr (KT == 0) {
-    auto kernel = fused_qkv_fwd_kernel<T, D, PER>;
-    const size_t smem = smem_bytes<T, D>(s);
-    cudaError_t err = allow_smem(kernel, smem, smem_bytes<T, D>(kMaxSeq), raised);
+    auto kernel = fused_qkv_fwd_kernel<D, PER>;
+    const size_t smem = f32_head_smem<D, kThreads>(s);
+    cudaError_t err = allow_smem(kernel, smem, f32_head_smem<D, kThreads>(kMaxSeq), raised);
     if (err != cudaSuccess) return err;
     kernel<<<n * (heads / PER), kThreads, smem, stream>>>(
-        static_cast<const T*>(qkv), static_cast<T*>(out), s, heads, causal, scale);
+        static_cast<const float*>(qkv), static_cast<float*>(out), s, heads, causal, scale);
   } else {
     auto kernel = fused_qkv_fwd_kernel_tc<D, PER, KT>;
     constexpr size_t smem = tc_fwd_smem<D, KT>();
@@ -979,9 +802,8 @@ cudaError_t with_tiles(int s, Fn fn) {
   }
 }
 
-// The bf16 design copies and stores 16 bytes at a time.
-bool aligned16(int dtype, std::initializer_list<const void*> ptrs) {
-  if (dtype != 1) return true;
+// Both forward designs copy 16 bytes at a time, and the bf16 backward too.
+bool aligned16(std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return false;
   return true;
@@ -1006,7 +828,7 @@ cudaError_t fwd(const void* qkv, void* out, int n, int s, int heads, int d, int 
                 float scale, void* stream, bool group) {
   if (n < 1 || s < 1 || s > kMaxSeq || heads < 1) return cudaErrorInvalidValue;
   if (group && (d <= 0 || (heads * d) % kLane != 0)) return cudaErrorInvalidValue;
-  if (!aligned16(dtype, {qkv, out})) return cudaErrorMisalignedAddress;
+  if (!aligned16({qkv, out})) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, d, [&](auto* tag, auto dim) {
     using T = std::remove_pointer_t<decltype(tag)>;
@@ -1024,7 +846,7 @@ cudaError_t bwd(const void* qkv, const void* dout, void* dq, void* dk, void* dv,
                 bool group) {
   if (n < 1 || s < 1 || s > kMaxSeq || heads < 1) return cudaErrorInvalidValue;
   if (group && (d <= 0 || (heads * d) % kLane != 0)) return cudaErrorInvalidValue;
-  if (!aligned16(dtype, {qkv, dout, dq, dk, dv})) return cudaErrorMisalignedAddress;
+  if (!aligned16({qkv, dout, dq, dk, dv})) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, d, [&](auto* tag, auto dim) {
     using T = std::remove_pointer_t<decltype(tag)>;

@@ -10,10 +10,10 @@ saves ``qkv_p``. On a CUDA tensor its forward and backward launch the
 hand-written kernels in ``csrc/fused_qkv_attention.cu`` (built at first use,
 see ``_build``) or raise; on a CPU tensor they compute the same functions
 with the plain versions ``fused_qkv_attention_fwd_ref`` and
-``fused_qkv_attention_bwd_ref``. In bf16 the kernels run on the tensor cores
-and copy rows in 16-byte pieces, so a bf16 ``qkv`` or ``dout`` must be
-16-byte aligned (or they raise); fp32 keeps the CUDA-core design.
-``fused_qkv_attention_ref`` is the plain
+``fused_qkv_attention_bwd_ref``. In bf16 the kernels run on the tensor cores,
+the fp32 forward on register tiles of the CUDA cores; since they copy rows
+in 16-byte pieces, ``qkv`` and ``dout`` must be 16-byte aligned, pointer and
+row pitch, in either dtype (or they raise). ``fused_qkv_attention_ref`` is the plain
 pair as one differentiable function, on any device. With ``GROUP_GRID`` set
 (``EOE_TPU_ATTN_GROUP_GRID=1``, as in the JAX package) the kernels run on the
 lane-group grid of ``_fwd_group_compute`` and ``_bwd_group_compute``.
@@ -22,7 +22,10 @@ lane-group grid of ``_fwd_group_compute`` and ``_bwd_group_compute``.
 ``flash_attention`` (``CLIP(attention_fn=flash_attention)``): its forward is
 the Pallas kernel ``_kernel``, here ``csrc/flash_attention.cu`` on a CUDA
 tensor and ``flash_attention_ref`` on a CPU tensor; its backward differentiates
-``default_attention``, as the JAX package's does.
+``default_attention``, as the JAX package's does. The kernel's launcher picks
+its variant by dtype, head dim and alignment: the tensor cores for bf16, the
+fp32 register tiles for fp32, each where d <= 128 fills whole 16-byte chunks
+and every row of q, k, v starts on 16 bytes; the CUDA-core design otherwise.
 """
 
 import ctypes
@@ -39,6 +42,7 @@ MAX_SEQ = 128   # one tile covers the whole sequence
 SOURCE = "fused_qkv_attention.cu"
 FLASH_SOURCE = "flash_attention.cu"
 MAX_SINGLE_BLOCK = 1024   # flash_attention's longest sequence; longer ones run default_attention
+FLASH_TENSOR_CORES, FLASH_REGISTER_TILES = 1, 2   # the variants the flash launcher reports
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The JAX package's switch to the lane-group grid (eoe_tpu/ops/attention.py:412),
@@ -202,7 +206,8 @@ def _flash_library() -> ctypes.CDLL:
     lib = _build.load(FLASH_SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.eoe_flash_attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I,
-                                            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, P]
+                                            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, P,
+                                            ctypes.POINTER(I)]
     lib.eoe_flash_attention_fwd.restype = I
     lib.eoe_cuda_error_string.argtypes = [I]
     lib.eoe_cuda_error_string.restype = ctypes.c_char_p
@@ -210,19 +215,17 @@ def _flash_library() -> ctypes.CDLL:
 
 
 def _check_card_tensor(t: torch.Tensor, name: str):
-    """What the kernels take: a contiguous fp32 or bf16 CUDA tensor. The fp32
-    kernels read it in 4-byte words; the bf16 kernels copy its rows in 16-byte
-    pieces, so its data and its row pitch must be multiples of 16 bytes."""
+    """What the kernels take: a contiguous fp32 or bf16 CUDA tensor whose data
+    and row pitch are multiples of 16 bytes, since the kernels copy its rows
+    in 16-byte pieces."""
     if not t.is_cuda:
         raise ValueError(f"fused_qkv_attention runs on CUDA or CPU tensors, got {t.device}")
     if t.dtype not in _DTYPE_CODES:
         raise ValueError(f"fused_qkv_attention takes float32 or bfloat16, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"fused_qkv_attention needs a contiguous {name}")
-    align = 16 if t.dtype == torch.bfloat16 else 4
-    if t.data_ptr() % align or t.shape[-1] * t.element_size() % align:
-        raise ValueError(f"fused_qkv_attention reads {name} in {align}-byte pieces; it is "
-                         f"misaligned")
+    if t.data_ptr() % 16 or t.shape[-1] * t.element_size() % 16:
+        raise ValueError(f"fused_qkv_attention reads {name} in 16-byte pieces; it is misaligned")
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, what: str):
@@ -358,7 +361,8 @@ def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launches the flash kernel. q, k and v may be strided views (the
     head-split joint projection) as long as d is contiguous; the output is
     (n, h, s, d) laid out in (n, s, h, d) memory, so that the caller's
-    transpose back to (n, s, h*d) needs no copy."""
+    transpose back to (n, s, h*d) needs no copy. Counts the launch, and the
+    variant the launcher took."""
     n, h, s, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
@@ -379,13 +383,18 @@ def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((n, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
     lib = _flash_library()
+    variant = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = lib.eoe_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
             out.data_ptr(), n, h, s, d, _DTYPE_CODES[q.dtype], strides, d ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(variant))
     _raise_on(lib, err, "flash_attention")
     flash_attention.launches += 1
+    if variant.value == FLASH_TENSOR_CORES:
+        flash_attention.tc_launches += 1
+    elif variant.value == FLASH_REGISTER_TILES:
+        flash_attention.tile_launches += 1
     return out
 
 
@@ -416,10 +425,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dot-product attention with an optional additive (S, S) mask,
     differentiable in q, k and v, for any head dim. Above
     ``MAX_SINGLE_BLOCK`` it is ``default_attention``, as in the JAX package.
-    ``flash_attention.launches`` counts kernel launches."""
+    ``flash_attention.launches`` counts kernel launches, ``.tc_launches`` those
+    of the tensor-core variant and ``.tile_launches`` those of the fp32
+    register tiles; the rest took the CUDA-core variant."""
     if q.shape[2] > MAX_SINGLE_BLOCK:
         return default_attention(q, k, v, mask)
     return _FlashAttention.apply(q, k, v, mask)
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
+flash_attention.tile_launches = 0

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of the port's training step goes, on one NVIDIA GPU.
+"""Where the time of the port's training step, or of a serving request, goes,
+on one NVIDIA GPU.
 
-    python3 profile_train.py [--steps 3] [--route fused|group|flash] [--trace train_trace.json]
+    python3 profile_train.py [--steps 3] [--route fused|group|flash] [--serving]
+                             [--trace train_trace.json]
 
 Builds chip_smoke.py's training configuration (full-width ViT-B/32 in bf16,
 HSC, the acceptance augmentation stack, 128 normal + 128 OE images per
@@ -12,8 +14,11 @@ attention kernels, matrix products, everything else)
 and the device's busy share of the traced window, then the 25 kernels with
 the most device time. ``--route`` picks the attention: the fused-QKV
 kernels on their monolithic grid (the default), on the lane-group grid
-(``GROUP_GRID``), or ``CLIP(attention_fn=flash_attention)``. Needs one card;
-imports nothing of JAX or eoe_tpu.
+(``GROUP_GRID``), or ``CLIP(attention_fn=flash_attention)``. With
+``--serving`` each step is instead one fp32 request of 256 raw 32x32 images
+through ``AnomalyScorer`` with the CLIP objective (chip_smoke.py's serving
+phase, the prompt centre computed once before). Needs one card; imports
+nothing of JAX or eoe_tpu.
 """
 
 import argparse
@@ -24,7 +29,7 @@ import time
 
 def kernel_class(name: str) -> str:
     low = name.lower()
-    if "flash_fwd" in low:
+    if any(k in low for k in ("flash_tc", "flash_tile", "flash_fwd_kernel")):
         return "flash attention forward (port kernel)"
     if "fused_qkv_bwd" in low:
         return "attention backward (port kernel)"
@@ -40,27 +45,11 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def main():
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--steps", type=int, default=3)
-    parser.add_argument("--route", choices=("fused", "group", "flash"), default="fused",
-                        help="the attention route the model takes")
-    parser.add_argument("--trace", default="", help="write a chrome trace here")
-    args = parser.parse_args()
-
+def training_step(cs, kw):
+    """chip_smoke.py's bf16 HSC training step on the acceptance stack."""
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        sys.exit("profile_train.py: torch.cuda.is_available() is false: it needs an NVIDIA GPU")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import chip_smoke as cs
     from eoe_tpu_torch.models.clip import CLIP, VIT_B32
-    from eoe_tpu_torch.ops import attention
-
-    card = cs.phase_card()
-    print(f"profile: route {args.route}")
-    attention.GROUP_GRID = args.route == "group"
-    kw = {"attention_fn": attention.flash_attention} if args.route == "flash" else {}
     ds, _ = cs._combined(np.random.default_rng(cs.SEED), cs.ACCEPTANCE_SPECS)
     trainer = cs._trainer(CLIP(VIT_B32, dtype=torch.bfloat16, **kw), cs.ACCEPTANCE_SPECS, None,
                           torch.bfloat16)
@@ -77,6 +66,51 @@ def main():
     def step(i):
         sl = slice((i % n_batches) * cs.BATCH, (i % n_batches + 1) * cs.BATCH)
         return trainer.train_step(state, ds, xn[sl], ln[sl], xo[sl], lo[sl], w, g)
+    return step, 2 * cs.BATCH
+
+
+def serving_step(cs, kw):
+    """chip_smoke.py's fp32 serving request of 256 images (CLIP objective)."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.inference import AnomalyScorer
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32
+    from eoe_tpu_torch.training.clip import CIFAR10_LABELS, prompt_center
+    specs = [{"op": "clip_pil_preprocessing", "resolution": VIT_B32.image_resolution},
+             {"op": "clip_tensor_preprocessing"}]
+    model = CLIP(VIT_B32, generator=torch.Generator().manual_seed(cs.SEED), **kw)
+    snapshot = {"params": {k: v.clone() for k, v in model.state_dict().items()},
+                "setup": {"test_specs": specs}}
+    model.to("cuda")
+    center = prompt_center(model, CIFAR10_LABELS[0], CIFAR10_LABELS)
+    scorer = AnomalyScorer(snapshot, model, objective="clip", batch_size=cs.BATCH, center=center)
+    images = np.random.default_rng(cs.SEED).integers(0, 256, (cs.REQUESTS[0], 32, 32, 3),
+                                                     dtype=np.uint8)
+    return (lambda i: scorer.score(images)), cs.REQUESTS[0]
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--route", choices=("fused", "group", "flash"), default="fused",
+                        help="the attention route the model takes")
+    parser.add_argument("--serving", action="store_true",
+                        help="profile an fp32 scoring request of 256 images, not a training step")
+    parser.add_argument("--trace", default="", help="write a chrome trace here")
+    args = parser.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("profile_train.py: torch.cuda.is_available() is false: it needs an NVIDIA GPU")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke as cs
+    from eoe_tpu_torch.ops import attention
+
+    card = cs.phase_card()
+    print(f"profile: route {args.route}, {'serving' if args.serving else 'training'}")
+    attention.GROUP_GRID = args.route == "group"
+    kw = {"attention_fn": attention.flash_attention} if args.route == "flash" else {}
+    step, images = (serving_step if args.serving else training_step)(cs, kw)
 
     for i in range(2):
         step(i)
@@ -87,7 +121,7 @@ def main():
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) / args.steps
     print(f"profile: {plain * 1e3:.2f} ms per step untraced, host clock = "
-          f"{2 * cs.BATCH / plain:.1f} img/s [{card}]")
+          f"{images / plain:.1f} img/s [{card}]")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -96,8 +130,8 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     step_ms = wall / args.steps * 1e3
-    imgs = 2 * cs.BATCH / (wall / args.steps)
-    print(f"profile: {args.steps} traced steps of {cs.BATCH}+{cs.BATCH} images, "
+    imgs = images / (wall / args.steps)
+    print(f"profile: {args.steps} traced steps of {images} images, "
           f"{step_ms:.2f} ms per step on the host clock (tracing included) = "
           f"{imgs:.1f} img/s [{card}]")
 

@@ -1,6 +1,7 @@
 """The port's boundaries: it imports neither jax nor eoe_tpu, and its entry
 points run on CUDA unless the caller asks for the CPU."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -35,6 +36,22 @@ def test_port_imports_neither_jax_nor_eoe_tpu():
     n_modules, leaked = out.stdout.split(" ", 1)
     assert int(n_modules) >= 19
     assert leaked.strip() == "[]"
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_train.py", "attention_variants.py"])
+def test_root_scripts_import_neither_jax_nor_eoe_tpu(script):
+    """The scripts that drive the port on the card import only the port:
+    every import statement, at any depth, is read from the source."""
+    with open(os.path.join(REPO, script)) as f:
+        tree = ast.parse(f.read(), script)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "eoe_tpu_torch" in roots or "chip_smoke" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "eoe_tpu"}, sorted(roots)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

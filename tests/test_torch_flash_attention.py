@@ -19,8 +19,11 @@ from eoe_tpu.ops.attention import flash_attention as jax_flash_attention
 from eoe_tpu_torch.models.clip import CLIP, ClipConfig, from_flax
 from eoe_tpu_torch.ops import attention as A
 
-# tests/test_attention.py's shapes (n, heads, S, d)
-SHAPES = [(2, 4, 50, 64), (2, 2, 77, 32), (1, 1, 128, 64)]
+# tests/test_attention.py's shapes (n, heads, S, d), then the CUDA kernel's tile
+# edges: one past a 64-key tile, one past the 128 rows of one block, and
+# d=128 at the longest whole-sequence block
+SHAPES = [(2, 4, 50, 64), (2, 2, 77, 32), (1, 1, 128, 64), (1, 2, 65, 64), (1, 2, 129, 32),
+          (1, 1, 128, 128)]
 # tests/test_attention.py's tiny CLIP (heads of 16)
 TINY = dict(embed_dim=16, image_resolution=16, vision_layers=1, vision_width=32,
             vision_patch_size=8, context_length=16, vocab_size=64, transformer_width=32,

@@ -220,6 +220,33 @@ def test_attention_gradient_through_the_group_kernels(cuda, monkeypatch):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 50, 77, 128])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp32_forward_tiles_on_both_grids(cuda, s, d, causal):
+    """The fp32 forward's register tiles at the edges of a lane's 32-key
+    chunks and of the warps' quads of rows: the plain version within 2e-5,
+    and the group grid equal to the monolithic one bit for bit (both run
+    one per-head function)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn(3, s, 3 * 2 * d, generator=g, device=cuda)
+    out = A._fwd_kernel(qkv, 2, causal)
+    assert torch.equal(out, A._group_fwd_kernel(qkv, 2, causal))
+    ref = A.fused_qkv_attention_fwd_ref(qkv, 2, causal)
+    assert (out - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+def test_fp32_needs_16_byte_alignment(cuda):
+    """The fp32 forward copies rows in 16-byte pieces too: a view 4 bytes
+    off raises."""
+    buf = torch.zeros(4 + 10 * 384, device=cuda)
+    with pytest.raises(ValueError, match="16-byte pieces; it is misaligned"):
+        A.fused_qkv_attention(buf[1:1 + 10 * 384].view(1, 10, 384), 2, False)
+    A.fused_qkv_attention(buf[4:].view(1, 10, 384), 2, False)
+
+
 # ---------------------------------------------------------------- flash attention
 
 # (n, heads, S, d, mask): both CLIP towers, the JAX tests' d=32, the longest
@@ -304,3 +331,103 @@ def test_flash_attention_gradient_is_default_attentions(cuda, dtype):
         grads.append([t.grad for t in inputs])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+# The flash kernel's variants at their tile edges: S around the 16-row
+# fragments, the 32- and 64-key tiles, the 128 rows of one whole-sequence
+# block and the longest sequence; d of 32, 64 and 128 (padded to the
+# tensor-core and register-tile widths) and 300 (the CUDA cores, in chunks
+# of 256 columns).
+EDGE_S = [1, 15, 16, 17, 50, 64, 65, 77, 128, 129, 512, 1000, 1024]
+EDGE_D = [32, 64, 128, 300]
+
+
+def _flash_views(n, h, s, d, dtype, device, offset, seed):
+    """q, k, v of (n, h, s, d): contiguous, or (offset) views of one buffer
+    one element past a 16-byte boundary, which only the CUDA-core variant
+    takes."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    buf = torch.randn(3 * n * h * s * d + 1, generator=g, device=device).to(dtype)
+    buf = buf[1:] if offset else buf[:-1]
+    return buf.view(3, n, h, s, d).unbind(0)
+
+
+def _expected_variant(dtype, d, offset):
+    if offset or d > 128:
+        return "core"
+    return "tc" if dtype == torch.bfloat16 else "tile"
+
+
+def _flash_counted(q, k, v, mask):
+    before = (A.flash_attention.launches, A.flash_attention.tc_launches,
+              A.flash_attention.tile_launches)
+    out = A.flash_attention(q, k, v, mask)
+    launches, tc, tile = (after - b for after, b in zip(
+        (A.flash_attention.launches, A.flash_attention.tc_launches,
+         A.flash_attention.tile_launches), before))
+    assert launches == 1
+    return out, {(1, 0): "tc", (0, 1): "tile", (0, 0): "core"}[(tc, tile)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", EDGE_S)
+@pytest.mark.parametrize("d", EDGE_D)
+@pytest.mark.parametrize("kind", [None, "causal", "random"])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+def test_flash_variants_at_tile_edges(cuda, s, d, kind, dtype, atol, offset):
+    q, k, v = _flash_views(1, 2, s, d, dtype, cuda, offset, seed=s * 1000 + d)
+    g = torch.Generator(device=cuda).manual_seed(s)
+    mask = {None: None,
+            "causal": torch.full((s, s), float("-inf"), device=cuda).triu(1),
+            "random": torch.randn(s, s, generator=g, device=cuda)}[kind]
+    out, variant = _flash_counted(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert variant == _expected_variant(dtype, d, offset)
+    ref = A.flash_attention_ref(q, k, v, mask)
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [20, 77, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+def test_flash_fully_masked_row_is_nan(cuda, s, dtype, offset):
+    """A row whose every logit is -inf is NaN in every variant, as in the JAX
+    kernel (no guard turns it into zeros); the other rows stay finite and
+    agree with the plain version."""
+    q, k, v = _flash_views(1, 2, s, 64, dtype, cuda, offset, seed=7)
+    mask = torch.full((s, s), float("-inf"), device=cuda).triu(1)
+    mask[5] = float("-inf")
+    out, variant = _flash_counted(q, k, v, mask)
+    assert variant == _expected_variant(dtype, 64, offset)
+    assert out[:, :, 5].isnan().all()
+    rows = torch.arange(s, device=cuda) != 5
+    assert out[:, :, rows].isfinite().all()
+    ref = A.flash_attention_ref(q, k, v, mask)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (out[:, :, rows].float() - ref[:, :, rows].float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_flash_head_split_views_take_the_fast_variant(cuda, dtype, atol):
+    """CLIP's head-split views of the joint projection (16-byte rows) take the
+    tensor cores in bf16 and the register tiles in fp32; the same views of a
+    projection one element off take the CUDA cores; the two agree."""
+    n, s, h, d = 4, 77, 8, 64
+    buf = torch.randn(n * s * 3 * h * d + 1, device=cuda).to(dtype)
+
+    def views(t):
+        qkv = t.view(n, s, 3 * h * d)
+        return [x.reshape(n, s, h, d).transpose(1, 2) for x in qkv.chunk(3, dim=-1)]
+
+    aligned = views(buf[:-1].clone())
+    off = buf.clone()
+    off[1:] = buf[:-1]
+    mask = torch.full((s, s), float("-inf"), device=cuda).triu(1)
+    fast, variant = _flash_counted(*aligned, mask)
+    assert variant == ("tc" if dtype == torch.bfloat16 else "tile")
+    slow, variant = _flash_counted(*views(off[1:]), mask)
+    assert variant == "core"
+    assert (fast.float() - slow.float()).abs().max().item() <= atol
