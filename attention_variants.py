@@ -18,7 +18,18 @@ bf16 fused-QKV kernels:
                   resident block, so that ptxas's occupancy heuristic
                   chooses its registers;
   group_min_blocks  the group backward with that minimum;
-  heads_unrolled  the loops over a group's heads unrolled.
+  heads_unrolled  the bf16 loops over a group's heads unrolled.
+The fp32 fused-QKV backward (timed in fp32; the variants above in bf16),
+the first two changing the register-tile products of common.cuh, which the
+fp32 forward shares:
+  pv_unrolled     f32_pv's loop over keys unrolled by 4, so that four keys'
+                  loads can go out together;
+  qk_unrolled     f32_qk's loop over columns fully unrolled, not by 4;
+  recompute       every shape in the recompute design: step 1 reading each
+                  quad's q and dout rows from global memory with only K and
+                  V resident, the row statistics kept, not P and dS, and
+                  step 2 recomputing S^T and dP^T (7 products, not 5) from
+                  quads of k and v rows read from global memory.
 The flash kernel's bf16 tensor-core variant:
   kv_per_32_rows  S <= 128: blocks of 32 query rows, each staging all of K and
                   V (the first design's grid), not one block per (image, head);
@@ -36,7 +47,8 @@ ulp of P, must stay within the smoke's 2e-2 of the base.
 Prints the registers and spills of each build's d=64 kernels, then the
 device time (``chip_smoke.time_ms``) of the fused forward and backward on
 both grids at the training shape (n=256, s=50, H=12, d=64) and the text shape
-(n=64, s=77, H=8, causal), and of flash_attention in bf16 at the image shape
+(n=64, s=77, H=8, causal), in bf16 for the bf16 variants and in fp32 for the
+fp32 ones, and of flash_attention in bf16 at the image shape
 (256, 12, 50, 64), the text shape (10, 8, 77, 64) with the causal mask and
 (2, 12, 1024, 64), in the order base, variants, variants reversed, base, and
 checks that every variant gives the base's bits. Needs one card and nvcc;
@@ -82,7 +94,16 @@ DQ_STORE = DK_STORE[:-1] + """  __syncthreads();                     // every wa
   }
 }"""
 MONO_BOUNDS = "__launch_bounds__(TcTile<D, KT>::kThreads, 1)\nfused_qkv_bwd_kernel_tc("
+F32_DESIGN = "*design = f32_bwd_design<D>(s);"
+PV_LOOP = "  for (int j = 0; j < n; ++j) {\n    const float4 pj = p[j];"
+QK_LOOP = "#pragma unroll 4\n  for (int c4 = 0; c4 < D; c4 += 4) {"
 GROUP_BOUNDS = "__launch_bounds__(TcTile<D, KT>::kThreads)\nfused_qkv_bwd_group_kernel_tc("
+HEADS_FWD_TC = ("#pragma unroll 1\n  for (int i = 0; i < PER; ++i) {\n    if (i > 0) "
+                "__syncthreads();  // the previous head's tiles are still being read\n    "
+                "fwd_head_tc")
+HEADS_BWD_TC = ("#pragma unroll 1\n  for (int i = 0; i < PER; ++i) {\n    if (i > 0) "
+                "__syncthreads();  // the previous head's step 2 still reads its tiles\n    "
+                "bwd_head_tc")
 PAIRS_BODY = """
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, c2 = 2 * (lane % 4);
@@ -116,18 +137,26 @@ def _pairs(src: str) -> str:
     return src[:body] + PAIRS_BODY + src[i:]
 
 
-def variants(src: str) -> dict:
+def _with_common(src: str, common: str) -> str:
+    """The source with the text of ``common`` in place of its include."""
+    return _sub(src, '#include "common.cuh"\n', common.replace("#pragma once\n", ""))
+
+
+def variants(src: str, common: str) -> dict:
     dq_late = _sub(src, DQ_PAIRS, DQ_HELD)
     dq_late = _sub(dq_late, DQ_DECL, "  uint32_t dq_pairs[D / 8][2];\n" + DQ_DECL)
     dq_late = _sub(dq_late, DK_STORE, DQ_STORE)
     return {
         "base": src,
+        "pv_unrolled": _with_common(src, _sub(common, PV_LOOP, "#pragma unroll 4\n" + PV_LOOP)),
+        "qk_unrolled": _with_common(src, _sub(common, QK_LOOP, QK_LOOP.replace(" 4\n", "\n"))),
+        "recompute": _sub(src, F32_DESIGN, "*design = kRecompute;"),
         "pairs": _pairs(src),
         "dq_late": dq_late,
         "no_min_blocks": _sub(src, MONO_BOUNDS, MONO_BOUNDS.replace(", 1)", ")")),
         "group_min_blocks": _sub(src, GROUP_BOUNDS, GROUP_BOUNDS.replace(")\n", ", 1)\n")),
-        "heads_unrolled": _sub(src, "#pragma unroll 1\n  for (int i = 0; i < PER; ++i)",
-                               "#pragma unroll\n  for (int i = 0; i < PER; ++i)", count=2),
+        "heads_unrolled": _sub(_sub(src, HEADS_FWD_TC, HEADS_FWD_TC.replace(" 1\n", "\n")),
+                               HEADS_BWD_TC, HEADS_BWD_TC.replace(" 1\n", "\n")),
     }
 
 
@@ -201,38 +230,49 @@ def _build_all(sources: dict, out_dir) -> dict:
         return dict(pool.map(build, sources))
 
 
+F32_VARIANTS = ("pv_unrolled", "qk_unrolled", "recompute")
+
+
 def _time_fused(cs, libs, card):
+    """The bf16 variants in bf16, the fp32 ones (against the base) in fp32."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(cs.SEED)
-    order = list(libs) + list(libs)[::-1]
-    for n, s, h, d, causal in ((256, 50, 12, 64, False), (64, 77, 8, 64, True)):
-        qkv = torch.randn(n, s, 3 * h * d, generator=g, device="cuda").bfloat16()
-        dout = torch.randn(n, s, h * d, generator=g, device="cuda").bfloat16()
-        outs = {}
-        for name in order:
-            lib = libs[name]
-            out = torch.empty(n, s, h * d, dtype=torch.bfloat16, device="cuda")
-            dqkv = torch.empty_like(qkv)
-            parts = [torch.empty_like(out) for _ in range(3)]
-            args = (n, s, h, d, 1, int(causal), d ** -0.5, torch.cuda.current_stream().cuda_stream)
-            calls = {
-                "fwd": lambda: lib.eoe_fused_qkv_attention_fwd(qkv.data_ptr(), out.data_ptr(), *args),
-                "group fwd": lambda: lib.eoe_fused_qkv_attention_group_fwd(
-                    qkv.data_ptr(), out.data_ptr(), *args),
-                "bwd": lambda: lib.eoe_fused_qkv_attention_bwd(
-                    qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), *args),
-                "group bwd": lambda: lib.eoe_fused_qkv_attention_group_bwd(
-                    qkv.data_ptr(), dout.data_ptr(), *(t.data_ptr() for t in parts), *args),
-            }
-            times = {k: cs.time_ms(f) for k, f in calls.items()}
-            torch.cuda.synchronize()
-            outs[name] = (out.clone(), dqkv.clone(), *(t.clone() for t in parts))
-            print(f"n={n} s={s} H={h} d={d} {'causal' if causal else 'full'} {name}: "
-                  + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items()) + f" [{card}]")
-        for name, res in outs.items():
-            if not all(torch.equal(a, b) for a, b in zip(res, outs["base"])):
-                sys.exit(f"attention_variants.py: {name} gives other bits than base")
-        print(f"n={n} s={s}: every variant gives the base's bits")
+    for dtype in (torch.bfloat16, torch.float32):
+        names = [k for k in libs if (k in F32_VARIANTS) == (dtype == torch.float32)]
+        names = ["base"] + [k for k in names if k != "base"]
+        order = names + names[::-1]
+        for n, s, h, d, causal in ((256, 50, 12, 64, False), (64, 77, 8, 64, True)):
+            qkv = torch.randn(n, s, 3 * h * d, generator=g, device="cuda").to(dtype)
+            dout = torch.randn(n, s, h * d, generator=g, device="cuda").to(dtype)
+            tag = f"n={n} s={s} H={h} d={d} {'causal' if causal else 'full'} {str(dtype)[6:]}"
+            outs = {}
+            for name in order:
+                lib = libs[name]
+                out = torch.empty(n, s, h * d, dtype=dtype, device="cuda")
+                dqkv, group_dqkv = torch.empty_like(qkv), torch.empty_like(qkv)
+                args = (n, s, h, d, 0 if dtype == torch.float32 else 1, int(causal), d ** -0.5,
+                        torch.cuda.current_stream().cuda_stream)
+                design = ctypes.byref(ctypes.c_int(-1))
+                calls = {
+                    "fwd": lambda: lib.eoe_fused_qkv_attention_fwd(qkv.data_ptr(), out.data_ptr(),
+                                                                   *args),
+                    "group fwd": lambda: lib.eoe_fused_qkv_attention_group_fwd(
+                        qkv.data_ptr(), out.data_ptr(), *args),
+                    "bwd": lambda: lib.eoe_fused_qkv_attention_bwd(
+                        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), *args, design),
+                    "group bwd": lambda: lib.eoe_fused_qkv_attention_group_bwd(
+                        qkv.data_ptr(), dout.data_ptr(), group_dqkv.data_ptr(), *args,
+                        design),
+                }
+                times = {k: cs.time_ms(f) for k, f in calls.items()}
+                torch.cuda.synchronize()
+                outs[name] = (out.clone(), dqkv.clone(), group_dqkv.clone())
+                print(f"{tag} {name}: " + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items())
+                      + f" [{card}]")
+            for name, res in outs.items():
+                if not all(torch.equal(a, b) for a, b in zip(res, outs["base"])):
+                    sys.exit(f"attention_variants.py: {name} gives other bits than base")
+            print(f"{tag}: every variant gives the base's bits")
 
 
 def _time_flash(cs, libs, card):
@@ -292,7 +332,8 @@ def main():
         (out_dir / header.name).write_bytes(header.read_bytes())
     fused_src = (_build.CSRC_DIR / "fused_qkv_attention.cu").read_text()
     flash_src = (_build.CSRC_DIR / "flash_attention.cu").read_text()
-    sources = {("fused_qkv_attention.cu", k): v for k, v in variants(fused_src).items()}
+    common = (_build.CSRC_DIR / "common.cuh").read_text()
+    sources = {("fused_qkv_attention.cu", k): v for k, v in variants(fused_src, common).items()}
     sources.update({("flash_attention.cu", k): v for k, v in flash_variants(flash_src).items()})
     built = _build_all(sources, out_dir)
 
@@ -301,7 +342,8 @@ def main():
     fused, flash = {}, {}
     for (source, name), (so, log) in built.items():
         for line in cs.ptxas_summary(log):
-            if "<bf16, 64," in line and ("flash" not in source or "_tc" in line):
+            shown = "<bf16, 64," in line or "fused_qkv_bwd_kernel<fp32, 64," in line
+            if shown and ("flash" not in source or "_tc" in line):
                 print(f"ptxas {source.split('.')[0]} {name}: {line}")
         lib = ctypes.CDLL(str(so))
         if source == "flash_attention.cu":
@@ -310,8 +352,8 @@ def main():
                 ctypes.POINTER(I)]
             flash[name] = lib
         else:
-            for entry, args in zip(FUSED_ENTRIES, (fa, fa, [P, P, P] + fa[2:],
-                                                   [P, P, P, P, P] + fa[2:])):
+            ba = [P, P, P] + fa[2:] + [ctypes.POINTER(I)]
+            for entry, args in zip(FUSED_ENTRIES, (fa, fa, ba, ba)):
                 getattr(lib, entry).argtypes = args
             fused[name] = lib
     _time_fused(cs, fused, card)

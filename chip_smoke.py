@@ -26,7 +26,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      epochs of 4 steps of 128 + 128 images, ``eval_cls`` and a snapshot; the
      launch counts must be 12 forward and 12 backward per step plus 12
      forward per eval batch. Then 3 fp32 steps (TF32 off, deterministic
-     pipeline) twice, through the kernels and through their plain versions
+     pipeline; 36 forward and 36 backward launches, every backward in the
+     resident design, a path of its own in the counts) twice, through the kernels and through their plain versions
      (``fused_qkv_attention_ref``), held against each other; one bf16 step
      the same way (the bf16 hold); and the snapshot served through
      ``AnomalyScorer``, held against ``eval_cls``;
@@ -42,9 +43,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
   7. group-grid path: with ``attention.GROUP_GRID`` set (the JAX package's
      ``EOE_TPU_ATTN_GROUP_GRID=1``), one bf16 epoch of 4 steps and
      ``eval_cls`` (12 group forward launches per step and per eval batch, 12
-     group backward per step, no monolithic launch), 3 fp32 steps against 3
-     on the monolithic grid, and the snapshot served through
-     ``AnomalyScorer``.
+     group backward per step, no monolithic launch), 3 fp32 steps (36 group
+     launches each way, the backward's resident, counted as a path) against
+     3 on the monolithic grid,
+     and the snapshot served through ``AnomalyScorer``.
 Each path's launch counts (every kernel's) are set to 0 just before it and
 read just after.
 
@@ -64,9 +66,11 @@ HBM_BYTES_PER_S = 3.35e12                                    # H100 SXM, data sh
 PEAK_OPS_PER_S = {"torch.float32": 67e12, "torch.bfloat16": 989e12}  # CUDA-core fp32; bf16 dense
 SEED = 0
 REQUESTS = (256, 100, 37)
-# the dtype of each counted path's launches: serving scores in fp32, training in bf16
-PATH_DTYPES = {"serving": "fp32", "training": "bf16", "flash_serving": "fp32",
-               "flash_training": "bf16", "group_training": "bf16"}
+# the dtype of each counted path's launches: serving scores in fp32, training
+# in bf16, and the fp32 training steps of the parity holds
+PATH_DTYPES = {"serving": "fp32", "training": "bf16", "training_fp32": "fp32",
+               "flash_serving": "fp32", "flash_training": "bf16", "group_training": "bf16",
+               "group_training_fp32": "fp32"}
 BATCH = 128
 SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
@@ -82,17 +86,20 @@ def check(cond: bool, msg: str):
 
 
 def _counts() -> dict:
-    """Every kernel's launch count, and the flash kernel's by variant
+    """Every kernel's launch count, the fp32 fused backward's by design (both
+    grids; bf16 takes the tensor cores) and the flash kernel's by variant
     (tensor cores, fp32 register tiles; the rest took the CUDA cores)."""
     from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention as fl
     return {"fwd": fq.launches, "bwd": fq.bwd_launches, "group_fwd": fq.group_launches,
-            "group_bwd": fq.group_bwd_launches, "flash": fl.launches,
+            "group_bwd": fq.group_bwd_launches, "bwd_resident": fq.resident_bwd_launches,
+            "bwd_recompute": fq.recompute_bwd_launches, "flash": fl.launches,
             "flash_tc": fl.tc_launches, "flash_tile": fl.tile_launches}
 
 
 def _zero_counts():
     from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention as fl
     fq.launches = fq.bwd_launches = fq.group_launches = fq.group_bwd_launches = 0
+    fq.resident_bwd_launches = fq.recompute_bwd_launches = 0
     fl.launches = fl.tc_launches = fl.tile_launches = 0
 
 
@@ -105,6 +112,18 @@ def flash_variant(before: dict, after: dict) -> str:
         if after[key] - before[key] == 1:
             return name
     return "CUDA cores"
+
+
+BWD_DESIGNS = {"bwd_resident": "resident", "bwd_recompute": "recompute"}
+
+
+def bwd_design(before: dict, after: dict) -> str:
+    """The design of the fused backward launches between two ``_counts()``:
+    fp32's resident or recompute design, or bf16's tensor cores."""
+    for key, name in BWD_DESIGNS.items():
+        if after[key] > before[key]:
+            return name
+    return "tensor cores"
 
 
 def check_counts(counts: dict, expected: dict, what: str):
@@ -202,10 +221,12 @@ def phase_build():
 
 # (n, s, heads, d, causal): the ViT-B/32 image tower at the training and
 # serving batch (n = 256 images), the text tower, a ragged causal case, d=128,
-# the longest sequence at d=128 and a sequence that fills its bf16 tiles
+# the longest sequence at d=128 (where the fp32 backward recomputes P and dS),
+# a sequence that fills its bf16 tiles, and one past the fp32 backward's
+# resident design at d=64 (it recomputes P and dS)
 SHAPES = [(256, 50, 12, 64, False), (64, 77, 8, 64, True),
           (3, 21, 4, 64, True), (2, 10, 2, 128, True), (2, 128, 2, 128, False),
-          (4, 64, 12, 64, False)]
+          (4, 64, 12, 64, False), (2, 120, 4, 64, True)]
 
 
 def phase_kernels(card: str) -> dict:
@@ -245,9 +266,12 @@ def phase_kernels(card: str) -> dict:
 
 def phase_kernels_bwd(card: str) -> dict:
     """The backward kernel against ``fused_qkv_attention_bwd_ref``. fp32: the
-    two differ in summation order only, 2e-5 of the largest gradient. bf16:
+    two differ in summation order and in P's normalisation (by the reciprocal
+    sum, not a division: an ulp of P), 2e-5 of the largest gradient. bf16:
     an order flip can move dS across a rounding boundary before the second
-    products, and the output is rounded once more: 2^-5 of the largest."""
+    products, and the output is rounded once more: 2^-5 of the largest. Each
+    row names the design the launcher took; at CLIP's shapes fp32 must keep
+    every tile resident."""
     import torch
     import torch.nn.functional as F
     from eoe_tpu_torch.ops.attention import _bwd_kernel, fused_qkv_attention_bwd_ref
@@ -258,13 +282,16 @@ def phase_kernels_bwd(card: str) -> dict:
         for dtype, rel in ((torch.float32, 2e-5), (torch.bfloat16, 2 ** -5)):
             qkv = torch.randn(n, s, 3 * h * d, generator=g, device="cuda").to(dtype)
             dout = torch.randn(n, s, h * d, generator=g, device="cuda").to(dtype)
+            before = _counts()
             dqkv = _bwd_kernel(qkv, dout, h, causal)
+            design = bwd_design(before, _counts())
             ref = fused_qkv_attention_bwd_ref(qkv, dout, h, causal)
             torch.cuda.synchronize()
             err = (dqkv.float() - ref.float()).abs().max().item()
             tol = rel * ref.float().abs().max().item()
             tag = f"n={n} s={s} H={h} d={d} {'causal' if causal else 'full'} {str(dtype)[6:]}"
             check(err <= tol, f"fused_qkv_attention backward {tag}: max abs err {err} > {tol}")
+            check_design(tag, d, s, dtype, design)
             # the library yardstick: SDPA's backward through a retained forward
             q, k, v = (t.view(n, s, h, d).transpose(1, 2).detach().requires_grad_()
                        for t in qkv.chunk(3, dim=-1))
@@ -277,11 +304,22 @@ def phase_kernels_bwd(card: str) -> dict:
             bound, by = attention_bound_ms(n, s, h, d, causal, dtype, backward=True)
             rows[(n, s, h, d, causal, str(dtype))] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=sdpa_ms, shape=tag)
-            print(f"kernel fused_qkv_attention_bwd {tag}: max_abs_err {err:.3g} (tol {tol:.3g}) "
+                library_ms=sdpa_ms, shape=tag, design=design)
+            print(f"kernel fused_qkv_attention_bwd {tag} ({design}): max_abs_err {err:.3g} "
+                  f"(tol {tol:.3g}) "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bwd {sdpa_ms:.4f} ms, "
                   f"bound {bound:.4f} ms ({by}) [{card}]")
     return rows
+
+
+def check_design(tag: str, d: int, s: int, dtype, design: str):
+    """At CLIP's shapes the fp32 backward keeps every tile resident; bf16
+    runs on the tensor cores."""
+    import torch
+    if dtype == torch.bfloat16:
+        check(design == "tensor cores", f"backward {tag} took the {design} design")
+    elif d == 64 and s in (50, 77):
+        check(design == "resident", f"backward {tag} took the {design} design, not resident")
 
 
 def phase_kernels_group(card: str) -> tuple:
@@ -322,7 +360,10 @@ def phase_kernels_group(card: str) -> tuple:
                   f"vs monolithic {mono:.3g}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"sdpa {sdpa_ms:.4f} ms, bound {bound:.4f} ms ({by}) [{card}]")
 
+            before = _counts()
             dqkv = _group_bwd_kernel(qkv, dout, h, causal)
+            design = bwd_design(before, _counts())
+            check_design(f"group {tag}", d, s, dtype, design)
             ref = fused_qkv_attention_bwd_ref(qkv, dout, h, causal)
             btol = rel * ref.float().abs().max().item()
             err = (dqkv.float() - ref.float()).abs().max().item()
@@ -337,8 +378,8 @@ def phase_kernels_group(card: str) -> tuple:
                                                           retain_graph=True))
             bound, by = attention_bound_ms(n, s, h, d, causal, dtype, backward=True)
             bwd_rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                 bound_by=by, library_ms=sdpa_ms, shape=tag)
-            print(f"kernel fused_qkv_attention_group_bwd {tag}: max_abs_err {err:.3g} "
+                                 bound_by=by, library_ms=sdpa_ms, shape=tag, design=design)
+            print(f"kernel fused_qkv_attention_group_bwd {tag} ({design}): max_abs_err {err:.3g} "
                   f"(tol {btol:.3g}; vs monolithic {mono:.3g}) kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, sdpa bwd {sdpa_ms:.4f} ms, bound {bound:.4f} ms ({by}) "
                   f"[{card}]")
@@ -667,7 +708,7 @@ def _fp32_data():
     return _combined(np.random.default_rng(SEED + 1), CLIP_TEST_SPECS)[0]
 
 
-def phase_train(card: str, data) -> dict:
+def phase_train(card: str, data) -> tuple:
     import torch
     from eoe_tpu_torch.models.clip import CLIP, VIT_B32
     from eoe_tpu_torch.ops.attention import fused_qkv_attention_ref
@@ -682,7 +723,9 @@ def phase_train(card: str, data) -> dict:
     # fp32, deterministic pipeline: the kernels against their plain versions
     ds32 = _fp32_data()
     run = _train_steps(CLIP(VIT_B32), ds32)
-    check_counts(run[3], {"fwd": 3 * layers, "bwd": 3 * layers}, "fp32 kernel run")
+    check_counts(run[3], {"fwd": 3 * layers, "bwd": 3 * layers, "bwd_resident": 3 * layers},
+                 "fp32 kernel run")
+    fp32_counts = run[3]
     control = _train_steps(CLIP(VIT_B32, qkv_attention=fused_qkv_attention_ref), ds32)
     check_counts(control[3], {}, "fp32 plain run")
     _hold_fp32(card, "train hsc fp32 kernels vs plain", run, control)
@@ -697,7 +740,7 @@ def phase_train(card: str, data) -> dict:
                           steps=1)
     check_counts(control[3], {}, "bf16 plain step")
     _hold_bf16(card, run, control)
-    return counts
+    return counts, fp32_counts
 
 
 # The bf16 hold's limits. The kernels and their plain versions round P, dS and
@@ -799,9 +842,10 @@ def phase_flash(card: str, data) -> tuple:
     return serving, training
 
 
-def phase_group(card: str, data) -> dict:
+def phase_group(card: str, data) -> tuple:
     """The lane-group grid, chosen as the JAX package chooses it, through
-    training, eval and serving; held in fp32 against the monolithic grid."""
+    training, eval and serving; held in fp32 against the monolithic grid.
+    Returns the bf16 path's counts and the fp32 steps'."""
     import torch
     from eoe_tpu_torch.models.clip import CLIP, VIT_B32
     from eoe_tpu_torch.ops import attention
@@ -818,16 +862,17 @@ def phase_group(card: str, data) -> dict:
                      "group serving")
         ds32 = _fp32_data()
         run = _train_steps(CLIP(VIT_B32), ds32)
-        check_counts(run[3], {"group_fwd": 3 * layers, "group_bwd": 3 * layers},
-                     "group fp32 kernel run")
+        check_counts(run[3], {"group_fwd": 3 * layers, "group_bwd": 3 * layers,
+                              "bwd_resident": 3 * layers}, "group fp32 kernel run")
+        fp32_counts = run[3]
         attention.GROUP_GRID = False
         control = _train_steps(CLIP(VIT_B32), ds32)
-        check_counts(control[3], {"fwd": 3 * layers, "bwd": 3 * layers},
-                     "monolithic fp32 kernel run")
+        check_counts(control[3], {"fwd": 3 * layers, "bwd": 3 * layers,
+                                  "bwd_resident": 3 * layers}, "monolithic fp32 kernel run")
         _hold_fp32(card, "group train hsc fp32 group grid vs monolithic", run, control)
     finally:
         attention.GROUP_GRID = saved
-    return training
+    return training, fp32_counts
 
 
 def _read_json(logdir: str, name: str) -> dict:
@@ -857,17 +902,17 @@ def main():
     paths = {"serving": phase_slice(card)}
     import numpy as np
     data = _combined(np.random.default_rng(SEED), ACCEPTANCE_SPECS)
-    paths["training"] = phase_train(card, data)
+    paths["training"], paths["training_fp32"] = phase_train(card, data)
     paths["flash_serving"], paths["flash_training"] = phase_flash(card, data)
-    paths["group_training"] = phase_group(card, data)
+    paths["group_training"], paths["group_training_fp32"] = phase_group(card, data)
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}
 
     def variants_by_path(kernel):
-        """The variant each path's launches took: the fused kernels' by the
-        path's dtype (bf16 on the tensor cores; fp32 on register tiles forward,
-        on CUDA cores backward), the flash kernel's as counted."""
+        """The variant each path's launches took: the fused forwards' by the
+        path's dtype (bf16 on the tensor cores, fp32 on register tiles), the
+        fused backwards' fp32 designs and the flash kernel's as counted."""
         out = {}
         for path, counts in paths.items():
             if not counts[kernel]:
@@ -876,15 +921,17 @@ def main():
                 tc, tile = counts["flash_tc"], counts["flash_tile"]
                 out[path] = {k: v for k, v in (("tensor cores", tc), ("fp32 register tiles", tile),
                                                ("CUDA cores", counts["flash"] - tc - tile)) if v}
+            elif kernel in ("bwd", "group_bwd") and PATH_DTYPES[path] == "fp32":
+                out[path] = {f"fp32 register tiles, {name}": counts[key]
+                             for key, name in BWD_DESIGNS.items() if counts[key]}
             else:
-                fp32 = "fp32 register tiles" if "bwd" not in kernel else "fp32 CUDA cores"
-                name = fp32 if PATH_DTYPES[path] == "fp32" else "tensor cores"
+                name = "fp32 register tiles" if PATH_DTYPES[path] == "fp32" else "tensor cores"
                 out[path] = {name: counts[kernel]}
         return out
 
     def fp32(row):
         return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                    "max_abs_err")}
+                                    "max_abs_err", "design") if k in row}
 
     main_shape = (*SHAPES[0], "torch.bfloat16")            # the training shape
     flash_shape = (*FLASH_SHAPES[0], "torch.bfloat16")     # the image tower, as trained

@@ -190,11 +190,13 @@ struct F32Tile {
 };
 
 // x[i][c] = q_i . k_(lane + 32 c) for c < nch (uniform over the warp): the
-// four query rows at q and the key rows at k, both of pitch D + 4. Sums run
-// over the columns in order.
-template <int D, int NC>
-__device__ __forceinline__ void f32_qk(float (&x)[4][NC], const float* q, const float* k,
-                                       int nch) {
+// four rows at row(0..3) (a callable giving each row's 16-byte aligned
+// address, in shared or global memory) against the key rows at k, of pitch
+// D + 4. Sums run over the columns in order, so the same two rows give the
+// same bits whichever side they are on.
+template <int D, int NC, typename Rows>
+__device__ __forceinline__ void f32_qk_rows(float (&x)[4][NC], Rows row, const float* k,
+                                            int nch) {
   constexpr int P = F32Tile<D>::kPitch;
   const int lane = threadIdx.x % 32;
 #pragma unroll
@@ -205,7 +207,7 @@ __device__ __forceinline__ void f32_qk(float (&x)[4][NC], const float* q, const 
   for (int c4 = 0; c4 < D; c4 += 4) {
     float4 qv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(q + i * P + c4);
+    for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(row(i) + c4);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       if (c < nch) {
@@ -220,6 +222,13 @@ __device__ __forceinline__ void f32_qk(float (&x)[4][NC], const float* q, const 
       }
     }
   }
+}
+
+// The same with the four rows at q, of pitch D + 4.
+template <int D, int NC>
+__device__ __forceinline__ void f32_qk(float (&x)[4][NC], const float* q, const float* k,
+                                       int nch) {
+  f32_qk_rows<D, NC>(x, [q](int i) { return q + i * F32Tile<D>::kPitch; }, k, nch);
 }
 
 // acc[i][u] += sum_(j < n) p[j].i * v_j[lane * D/32 + u], in key order:

@@ -9,11 +9,12 @@
 // _bwd_group_compute, which the JAX package runs instead under
 // EOE_TPU_ATTN_GROUP_GRID=1: one block per (image, 128-lane group of heads),
 // that is two heads at d=64 and one at d=128, each block reading only its
-// group's q, k, v (and dout) columns; the backward then writes dq, dk and dv
-// as three (n, s, H*d) tensors, which the caller concatenates. The per-head
-// code is the same on both grids (fwd_head_f32, fwd_head_tc, bwd_head,
-// bwd_head_tc), so the two grids give the same bits; a group's heads run one
-// after the other in its block. Both CLIP
+// group's q, k, v (and dout) columns; the backward writes dq, dk and dv into
+// the three column blocks of one packed d(qkv), as _group_grid_call's
+// concatenation leaves them. The per-head code is the same on both grids
+// (fwd_head_f32, fwd_head_tc, bwd_head_f32, bwd_head_tc), so the two grids
+// give the same bits; a group's heads run one after the other in its block.
+// Both CLIP
 // encoders run every transformer block through the forward: the image side at
 // s=50, 12 heads, d=64 with no mask, the text side at s=77, 8 heads, d=64,
 // causal. Training runs the image side's backward through the second kernel.
@@ -79,34 +80,35 @@
 //
 // fp32: CUDA-core FMAs, since fp32 is what the parity runs hold the port to
 // and what fp32 serving runs, and a tensor-core fp32 product would be TF32, a
-// different function. The first design (a warp per query row) spent one
-// shared-memory load on every FMA. The forward now takes the register tiles of
-// common.cuh: one block per (image, head), q, k and v copied in by cp.async
-// 16-byte pieces into rows padded to D + 4 floats (so the wrapper checks
-// 16-byte alignment in fp32 too), a warp per four query rows (the quads
-// round-robin over the warps), lane l owning keys l, l + 32, ... of QK^T and
-// D/32 adjacent output columns of P.V, so that a float4 read of K feeds 16
-// FMAs and one broadcast float4 of P and a float2 or float4 of V feed 8 or 16.
-// Numerics as before but for one rounding: fp32 logits times d^-1/2, masked
-// and padded keys at -1e30, fp32 softmax, P normalised by the sum's
-// reciprocal (the plain version divides: at most an ulp of P), P.V summed
-// over the keys in order. The flash kernel's fp32 variant runs the same
-// per-head function.
+// different function. The first designs (a warp per row) spent one
+// shared-memory load on every FMA. Both directions now take the register
+// tiles of common.cuh: one block per (image, head), tiles copied in by
+// cp.async 16-byte pieces into rows padded to D + 4 floats (so the wrapper
+// checks 16-byte alignment in fp32 too), a warp per four rows (the quads
+// round-robin over the warps), lane l owning keys l, l + 32, ... of a QK^T-like
+// product and D/32 adjacent output columns of a P.V-like one, so that a float4
+// read of K feeds 16 FMAs and one broadcast float4 of P and a float2 or
+// float4 of V feed 8 or 16. Numerics as the plain versions but for one
+// rounding: fp32 logits times d^-1/2, masked and padded keys at -1e30, fp32
+// softmax, P normalised by the sum's reciprocal (the plain versions divide:
+// at most an ulp of P), products summed in order. The flash kernel's fp32
+// variant runs the forward's per-head function.
 //
-// The fp32 backward keeps the first design, a warp per row, in two phases
-// inside one block, so that no float atomics sum dk and dv across blocks and
-// the result does not depend on block order:
-//   1. K and V in shared memory, one warp per query row r: P_r, dp_r and
-//      dS_r, the row's statistics (max, sum, rowsum(dp*P)) kept in shared
-//      memory, and dq_r written out;
-//   2. Q and dout in the same shared memory, one warp per key row j: P and dS
-//      of column j recomputed from the row statistics with the same
-//      operations (so bit for bit the same values), then dk_j = sum_r dS_rj q_r
-//      and dv_j = sum_r round(P_rj) dout_r written out.
-// Only two tiles are resident at a time, so fp32 at d=128, s=128 needs
-// 150 KB of shared memory, not the 264 KB of four tiles. q, k, v and dout are
-// each read twice; the second read is of rows the block has just read, and
-// mostly hits L2.
+// The fp32 backward (bwd_head_f32) takes 5 products, as bf16 does. Step 1,
+// per quad of query rows: S = QK^T and dP = dout.V^T by the same helper with
+// other operands, the softmax, rowsum(dP*P) and dS by warp shuffles,
+// dq = dS.K through the warp's float4 buffer of dS by key, and P and dS into
+// shared memory laid out [key / 4][query][4]; step 2, after one barrier, per
+// quad of key rows, dv = P^T.dout and dk = dS^T.Q, each reading one float4 of
+// its four keys per query row. No atomics; nothing depends on block order.
+// Four tiles and the two (query, key) tables take 108.5 KB at CLIP's image
+// shape (two blocks a SM) and fit one block up to s=96 at d=64 and s=64 at
+// d=128 (kResident). Longer sequences keep only K and V while step 1 reads
+// each quad's q and dout rows from global memory (through L1), then load Q and
+// dout in their place; the tables give way to each row's max, reciprocal sum
+// and rowsum(dP*P), and step 2 recomputes S^T and dP^T from global quads of k
+// and v rows with the same operations, so P and dS have step 1's bits
+// (kRecompute, 7 products). The launcher reports the design it took.
 
 #include <stdint.h>
 
@@ -124,17 +126,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSeq = 128;                 // one tile covers the sequence
 constexpr int kLane = 128;                   // the TPU kernel's lane group
-constexpr int kKeysPerLane = kMaxSeq / 32;
 constexpr float kMasked = -1e30f;            // the TPU kernel's additive bias
-
-// One head's s x D tile of the fp32 backward in shared memory, rows padded
-// by one 32-bit word.
-template <typename T, int D>
-struct Tile {
-  static constexpr int kWords = D * (int)sizeof(T) / 4;     // words of one row
-  static constexpr int kPitchWords = kWords + 1;
-  static constexpr int kPitch = kPitchWords * 4 / (int)sizeof(T);  // in elements
-};
+constexpr size_t kMaxSmem = 227 * 1024;      // dynamic shared memory of one block
 
 // The fp32 forward of one (image b, head h), by the whole block, on the
 // register tiles of common.cuh: masked and padded keys at -1e30.
@@ -346,228 +339,272 @@ fused_qkv_fwd_kernel_tc(const bf16* __restrict__ qkv, bf16* __restrict__ out, in
   }
 }
 
-// ---------------------------------------------------------------- backward
+// ---------------------------------------------------------------- fp32 backward
 
-// dS of one (row, key) pair from the fp32 P, before its rounding. The
-// explicit-rounding intrinsics keep nvcc from contracting these into FMAs, so
-// both phases compute the same bits.
+// The logit of (query r, key) as _bwd_group_math forms it: masked and padded
+// keys at -1e30, the others q.k times d^-1/2. The explicit-rounding
+// intrinsics here and below keep nvcc from contracting them into FMAs, so
+// that P and dS recomputed from the same operands have the same bits.
+__device__ __forceinline__ float bwd_logit(int r, int key, float qk, int s, int causal,
+                                           float scale) {
+  return key < (causal ? min(r + 1, s) : s) ? __fmul_rn(qk, scale) : kMasked;
+}
+
+// P of a logit from its row's max and reciprocal sum.
+__device__ __forceinline__ float bwd_prob(float logit, float m, float inv) {
+  return __fmul_rn(expf(__fsub_rn(logit, m)), inv);
+}
+
+// dS of one (row, key) pair from the fp32 P.
 template <int D>
 __device__ __forceinline__ float grad_logit(float dp, float rowsum, float p, float scale) {
   const float ds = __fmul_rn(__fsub_rn(dp, rowsum), p);
   return D == 128 ? __fmul_rn(ds, scale) : ds;   // d=64 scales dq and dk instead
 }
 
-// The softmax probability of a logit from its row's max and sum.
-__device__ __forceinline__ float prob(float logit, float scale, float m, float sum) {
-  return __fdiv_rn(expf(__fsub_rn(__fmul_rn(logit, scale), m)), sum);
-}
+// The backward's designs, as the launcher reports them: bf16 on the tensor
+// cores, and the two fp32 designs by what stays in shared memory (rows: the
+// sequence padded to a multiple of 32):
+//   kResident   Q, K, V and dout, and the fp32 P and dS of every (query, key);
+//   kRecompute  K and V in step 1, whose warps read their quads of q and dout
+//               rows from global memory, then Q and dout in their place for
+//               step 2, and each query row's max, reciprocal sum and
+//               rowsum(dP*P); step 2 recomputes P and dS from them, reading
+//               its quads of k and v rows from global.
+// fp32 takes kResident where it fits one block (f32_bwd_design). The kernels
+// take the design as an int, so that ptxas's report names it.
+enum BwdDesign : int { kTensorCores, kResident, kRecompute };
 
-// Copy rows [0, s) of one head's D columns, starting at word `col_word` of
-// rows `row_words` words apart, into a padded shared-memory tile.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(uint32_t* dst, const uint32_t* src, int s,
-                                          int row_words, int col_word) {
-  using Tl = Tile<T, D>;
-  for (int i = threadIdx.x; i < s * Tl::kWords; i += kThreads) {
-    const int w = i % Tl::kWords;
-    const int j = i / Tl::kWords;
-    dst[j * Tl::kPitchWords + w] = src[(size_t)j * row_words + col_word + w];
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void load_row(float* dst, const T* src) {
-  for (int c = threadIdx.x % 32; c < D; c += 32) dst[c] = to_f32(src[c]);
+// Floats of shared memory: the tiles (pitch D + 4), each warp's float4
+// buffers of `rows` (one; two for kRecompute), then P and dS laid out
+// [key / 4][query][4] with rows + 1 float4s per key quad (so that step 1's
+// scalar stores of 32 keys hit 32 banks and step 2 reads one float4 of four
+// keys per query row), or the row statistics.
+template <int D>
+constexpr size_t f32_bwd_floats(int rows, int how) {
+  const size_t tiles = (size_t)(how == kResident ? 4 : 2) * rows * F32Tile<D>::kPitch;
+  const size_t bufs = (size_t)(how == kRecompute ? 2 : 1) * kWarps * rows * 4;
+  const size_t kept =
+      how == kRecompute ? (size_t)3 * rows : (size_t)2 * (rows / 4) * (rows + 1) * 4;
+  return tiles + bufs + kept;
 }
 
 template <int D>
-__host__ __device__ constexpr int warp_floats() { return 2 * D + 2 * kMaxSeq; }  // two D rows, two s rows
-
-template <typename T, int D>
-size_t bwd_smem_bytes(int s) {
-  return (size_t)2 * s * Tile<T, D>::kPitchWords * 4 +
-         ((size_t)kWarps * warp_floats<D>() + 3 * kMaxSeq) * sizeof(float);
+BwdDesign f32_bwd_design(int s) {
+  const int rows = (s + 31) / 32 * 32;
+  return f32_bwd_floats<D>(rows, kResident) * sizeof(float) <= kMaxSmem ? kResident : kRecompute;
 }
 
-// The backward of one (image b, head h), by the whole block. Row j of image
-// b, head h, of dq starts at dq + (b * s + j) * out_row + h * D, and so for dk
-// and dv: the monolithic kernel writes the packed d(qkv) (three column blocks
-// of rows 3*H*D long), the lane-group kernel three (n, s, H*D) tensors, as
-// _bwd_group_compute's three outputs. The three never overlap, and they are
-// __restrict__ so that the global reads of q, k, v and dout may take the
-// read-only path.
-template <typename T, int D>
-__device__ __forceinline__ void bwd_head(const T* __restrict__ qkv, const T* __restrict__ dout,
-                                         T* __restrict__ dq, T* __restrict__ dk,
-                                         T* __restrict__ dv, int out_row, uint32_t* smem, int b,
-                                         int h, int s, int heads, int causal, float scale) {
-  using Tl = Tile<T, D>;
-  const int width = heads * D;
-  const int width_words = width * (int)sizeof(T) / 4;
-  const int qkv_row_words = 3 * width_words;
-  const int head_word = h * Tl::kWords;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+// The rows of a quad from row0 in global memory, `stride` floats apart from
+// base, for f32_qk_rows; rows past s repeat row s - 1, so that nothing is
+// read past the tensor (their results are never stored).
+__device__ __forceinline__ auto quad_rows(const float* base, int row0, int s, int stride) {
+  return [=](int i) { return base + (size_t)min(row0 + i, s - 1) * stride; };
+}
 
-  uint32_t* tiles = smem;
-  float* scratch = reinterpret_cast<float*>(smem + 2 * s * Tl::kPitchWords);
-  float* row_a = scratch + warp * warp_floats<D>();   // D floats
-  float* row_b = row_a + D;                            // D floats
-  float* col_a = row_b + D;                            // kMaxSeq floats
-  float* col_b = col_a + kMaxSeq;                      // kMaxSeq floats
-  float* stat_m = scratch + kWarps * warp_floats<D>(); // per query row: max,
-  float* stat_l = stat_m + kMaxSeq;                    // sum of exp,
-  float* stat_d = stat_l + kMaxSeq;                    // rowsum(dp * P)
+// Scale a quad's accumulators by `mul` and store rows row0 + i < s at
+// dst + row * out_row.
+template <int D>
+__device__ __forceinline__ void f32_store_quad(float (&acc)[4][D / 32], float mul, float* dst,
+                                               int out_row, int row0, int s) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int u = 0; u < D / 32; ++u) acc[i][u] *= mul;
+    if (row0 + i < s) f32_store_row<D>(dst + (size_t)(row0 + i) * out_row, acc[i], D);
+  }
+}
 
-  const uint32_t* qkv_w = reinterpret_cast<const uint32_t*>(qkv) + (size_t)b * s * qkv_row_words;
-  const uint32_t* dout_w = reinterpret_cast<const uint32_t*>(dout) + (size_t)b * s * width_words;
-  const T* qkv_b = qkv + (size_t)b * s * 3 * width + h * D;   // q of row 0, head h
-  const T* dout_b = dout + (size_t)b * s * width + h * D;
-  const size_t out_b = (size_t)b * s * out_row + h * D;   // row 0 of image b, head h
-  const int n_chunks = (s + 31) / 32;
+// The fp32 backward of one (image b, head h), by the whole block, on the
+// register tiles of common.cuh. Row j of dq starts at
+// dq + (b * s + j) * out_row + h * D, and so for dk and dv (the three column
+// blocks of the packed d(qkv)). Step 1, per quad of query rows (round-robin
+// over the warps): S = QK^T and dP = dout.V^T, the fp32 softmax (P normalised
+// by the reciprocal sum), rowsum(dP*P) and dS by warp shuffles, dq = dS.K
+// from the warp's buffer of dS by key; P and dS (or the row statistics) kept.
+// Step 2, after one barrier, per quad of key rows: dv = P^T.dout and
+// dk = dS^T.Q, over the query rows that see the keys. Five products, or seven
+// with kRecompute; no atomics, nothing depends on block order.
+template <int D, int How>
+__device__ __forceinline__ void bwd_head_f32(const float* __restrict__ qkv,
+                                             const float* __restrict__ dout,
+                                             float* __restrict__ dq, float* __restrict__ dk,
+                                             float* __restrict__ dv, int out_row, uint32_t* smem,
+                                             int b, int h, int s, int heads, int causal,
+                                             float scale) {
+  constexpr int P = F32Tile<D>::kPitch, NC = kMaxSeq / 32, U = D / 32;
+  const int width = heads * D, ld = 3 * width;
+  const int rows = (s + 31) / 32 * 32;               // zero-filled past s
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* qb = qkv + (size_t)b * s * ld + h * D;   // q of row 0, head h
+  const float* gb = dout + (size_t)b * s * width + h * D;
+  const size_t out_b = (size_t)b * s * out_row + h * D;
+  const float mul = D == 64 ? scale : 1.f;           // d=64 scales dq and dk, d=128 dS
 
-  // ---- phase 1: K, V resident; one warp per query row
-  load_tile<T, D>(tiles, qkv_w, s, qkv_row_words, width_words + head_word);
-  load_tile<T, D>(tiles + s * Tl::kPitchWords, qkv_w, s, qkv_row_words,
-                  2 * width_words + head_word);
+  constexpr int kTiles = How == kResident ? 4 : 2;
+  float* T0 = reinterpret_cast<float*>(smem);
+  float* Ks = How == kResident ? T0 + rows * P : T0;
+  float* Vs = Ks + rows * P;
+  float* Qs = T0;                                    // step 2's Q and dout: resident,
+  float* Gs = How == kResident ? Vs + rows * P : Vs;  // or loaded over K and V
+  float4* bufs = reinterpret_cast<float4*>(T0 + kTiles * rows * P);
+  float4* wds = bufs + warp * rows;                  // dS by key (step 1), by query (step 2)
+  float4* wp = bufs + (kWarps + warp) * rows;        // P by query (kRecompute, step 2)
+  float* kept = reinterpret_cast<float*>(bufs + (How == kRecompute ? 2 : 1) * kWarps * rows);
+  float4* Pt = reinterpret_cast<float4*>(kept);      // [key / 4][query], pitch rows + 1
+  float4* St = Pt + rows / 4 * (rows + 1);
+  float* stat_m = kept;                              // kRecompute: per query row
+  float* stat_inv = stat_m + rows;
+  float* stat_rs = stat_inv + rows;
+
+  if constexpr (How == kResident) {
+    tile_load<float, D, P, kThreads>(Qs, qb, ld, rows, s, D);
+    tile_load<float, D, P, kThreads>(Gs, gb, width, rows, s, D);
+  }
+  tile_load<float, D, P, kThreads>(Ks, qb + width, ld, rows, s, D);
+  tile_load<float, D, P, kThreads>(Vs, qb + 2 * width, ld, rows, s, D);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  {
-    const T* Ks = reinterpret_cast<const T*>(tiles);
-    const T* Vs = Ks + s * Tl::kPitch;
-    for (int r = warp; r < s; r += kWarps) {
-      const int n_keys = causal ? r + 1 : s;
-      const int chunks = (n_keys + 31) / 32;
-      load_row<T, D>(row_a, qkv_b + (size_t)r * 3 * width);   // q_r
-      load_row<T, D>(row_b, dout_b + (size_t)r * width);      // dout_r
-      __syncwarp();
-      // lane owns keys lane, lane+32, ...: logits q_r.k_j and dp = dout_r.v_j
-      float logit[kKeysPerLane], dp[kKeysPerLane];
+
+  // ---- step 1: per quad of query rows
+  for (int r0 = 4 * warp; r0 < s; r0 += 4 * kWarps) {
+    const int n_max = causal ? min(r0 + 4, s) : s;   // keys the quad's last row sees
+    const int nch = (n_max + 31) / 32;               // uniform across the warp
+    float x[4][NC], y[4][NC];                        // S, then P; dP, then dS
+    if constexpr (How == kResident) {
+      f32_qk<D, NC>(x, Qs + r0 * P, Ks, nch);
+      f32_qk<D, NC>(y, Gs + r0 * P, Vs, nch);
+    } else {
+      f32_qk_rows<D, NC>(x, quad_rows(qb, r0, s, ld), Ks, nch);
+      f32_qk_rows<D, NC>(y, quad_rows(gb, r0, s, width), Vs, nch);
+    }
+    float m[4], inv[4], rs[4];
 #pragma unroll
-      for (int c = 0; c < kKeysPerLane; ++c) logit[c] = dp[c] = 0.f;
-      for (int k = 0; k < D; ++k) {
-        const float qk = row_a[k], gk = row_b[k];
+    for (int i = 0; i < 4; ++i) {
+      m[i] = -INFINITY;
 #pragma unroll
-        for (int c = 0; c < kKeysPerLane; ++c) {
-          if (c < chunks) {
-            const int j = min(lane + 32 * c, s - 1);
-            logit[c] = fmaf(qk, to_f32(Ks[j * Tl::kPitch + k]), logit[c]);
-            dp[c] = fmaf(gk, to_f32(Vs[j * Tl::kPitch + k]), dp[c]);
-          }
-        }
+      for (int c = 0; c < NC; ++c) {
+        x[i][c] = bwd_logit(r0 + i, lane + 32 * c, x[i][c], s, causal, scale);
+        m[i] = fmaxf(m[i], x[i][c]);
       }
-      float m = kMasked;
+    }
 #pragma unroll
-      for (int c = 0; c < kKeysPerLane; ++c) {
-        if (lane + 32 * c < n_keys) m = fmaxf(m, __fmul_rn(logit[c], scale));
-      }
-      m = warp_max(m);
+    for (int i = 0; i < 4; ++i) m[i] = warp_max(m[i]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
       float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < kKeysPerLane; ++c) {
-        if (lane + 32 * c < n_keys) sum += expf(__fsub_rn(__fmul_rn(logit[c], scale), m));
+      for (int c = 0; c < NC; ++c) {
+        x[i][c] = expf(__fsub_rn(x[i][c], m[i]));
+        sum += x[i][c];
       }
-      sum = warp_sum(sum);
-      float p[kKeysPerLane];
-      float rowsum = 0.f;
-#pragma unroll
-      for (int c = 0; c < kKeysPerLane; ++c) {
-        p[c] = lane + 32 * c < n_keys ? prob(logit[c], scale, m, sum) : 0.f;
-        rowsum = fmaf(dp[c], p[c], rowsum);
-      }
-      rowsum = warp_sum(rowsum);
-      if (lane == 0) {
-        stat_m[r] = m;
-        stat_l[r] = sum;
-        stat_d[r] = rowsum;
-      }
-#pragma unroll
-      for (int c = 0; c < kKeysPerLane; ++c) {
-        const int j = lane + 32 * c;
-        if (j < n_keys) col_a[j] = round_to<T>(grad_logit<D>(dp[c], rowsum, p[c], scale));
-      }
-      __syncwarp();
-      // dq_r = sum_j dS_rj k_j: lane owns columns lane, lane+32, ...
-      float acc[D / 32];
-#pragma unroll
-      for (int i = 0; i < D / 32; ++i) acc[i] = 0.f;
-      for (int j = 0; j < n_keys; ++j) {
-        const float w = col_a[j];
-        const T* kr = Ks + j * Tl::kPitch;
-#pragma unroll
-        for (int i = 0; i < D / 32; ++i) acc[i] = fmaf(w, to_f32(kr[lane + 32 * i]), acc[i]);
-      }
-      T* dq_r = dq + out_b + (size_t)r * out_row;
-#pragma unroll
-      for (int i = 0; i < D / 32; ++i)
-        dq_r[lane + 32 * i] = from_f32<T>(D == 64 ? acc[i] * scale : acc[i]);
-      __syncwarp();  // row_a, row_b and col_a are rewritten by this warp's next row
+      inv[i] = 1.f / warp_sum(sum);
     }
-  }
-  __syncthreads();  // row statistics complete; K and V no longer needed
-
-  // ---- phase 2: Q, dout resident; one warp per key row
-  load_tile<T, D>(tiles, qkv_w, s, qkv_row_words, head_word);
-  load_tile<T, D>(tiles + s * Tl::kPitchWords, dout_w, s, width_words, head_word);
-  __syncthreads();
-  const T* Qs = reinterpret_cast<const T*>(tiles);
-  const T* Gs = Qs + s * Tl::kPitch;
-  for (int j = warp; j < s; j += kWarps) {
-    const int r0 = causal ? j : 0;                    // first query row that sees key j
-    load_row<T, D>(row_a, qkv_b + (size_t)j * 3 * width + width);      // k_j
-    load_row<T, D>(row_b, qkv_b + (size_t)j * 3 * width + 2 * width);  // v_j
-    __syncwarp();
-    // lane owns query rows lane, lane+32, ...; the same products as phase 1
-    float logit[kKeysPerLane], dp[kKeysPerLane];
 #pragma unroll
-    for (int c = 0; c < kKeysPerLane; ++c) logit[c] = dp[c] = 0.f;
-    for (int k = 0; k < D; ++k) {
-      const float kk = row_a[k], vk = row_b[k];
+    for (int i = 0; i < 4; ++i) {
+      float t = 0.f;
 #pragma unroll
-      for (int c = 0; c < kKeysPerLane; ++c) {
-        if (c < n_chunks) {
-          const int r = min(lane + 32 * c, s - 1);
-          logit[c] = fmaf(to_f32(Qs[r * Tl::kPitch + k]), kk, logit[c]);
-          dp[c] = fmaf(to_f32(Gs[r * Tl::kPitch + k]), vk, dp[c]);
+      for (int c = 0; c < NC; ++c) {
+        x[i][c] = __fmul_rn(x[i][c], inv[i]);        // bwd_prob's bits
+        t = fmaf(y[i][c], x[i][c], t);
+      }
+      rs[i] = warp_sum(t);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) y[i][c] = grad_logit<D>(y[i][c], rs[i], x[i][c], scale);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c < nch) {
+        const int key = lane + 32 * c;
+        wds[key] = make_float4(y[0][c], y[1][c], y[2][c], y[3][c]);
+        if constexpr (How == kResident) {
+          float* pt = reinterpret_cast<float*>(Pt + key / 4 * (rows + 1) + r0) + key % 4;
+          float* st = reinterpret_cast<float*>(St + key / 4 * (rows + 1) + r0) + key % 4;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pt[4 * i] = x[i][c], st[4 * i] = y[i][c];
         }
       }
     }
+    if constexpr (How == kRecompute) {
+      if (lane == 0) {
 #pragma unroll
-    for (int c = 0; c < kKeysPerLane; ++c) {
-      const int r = lane + 32 * c;
-      if (r >= r0 && r < s) {
-        const float p = prob(logit[c], scale, stat_m[r], stat_l[r]);
-        col_a[r] = round_to<T>(p);
-        col_b[r] = round_to<T>(grad_logit<D>(dp[c], stat_d[r], p, scale));
+        for (int i = 0; i < 4; ++i)
+          stat_m[r0 + i] = m[i], stat_inv[r0 + i] = inv[i], stat_rs[r0 + i] = rs[i];
       }
     }
     __syncwarp();
-    // dv_j = sum_r round(P_rj) dout_r, dk_j = sum_r dS_rj q_r
-    float acc_k[D / 32], acc_v[D / 32];
+    float acc[4][U];
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) acc_k[i] = acc_v[i] = 0.f;
-    for (int r = r0; r < s; ++r) {
-      const float pc = col_a[r], ds = col_b[r];
-      const T* qr = Qs + r * Tl::kPitch;
-      const T* gr = Gs + r * Tl::kPitch;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < D / 32; ++i) {
-        acc_v[i] = fmaf(pc, to_f32(gr[lane + 32 * i]), acc_v[i]);
-        acc_k[i] = fmaf(ds, to_f32(qr[lane + 32 * i]), acc_k[i]);
+      for (int u = 0; u < U; ++u) acc[i][u] = 0.f;
+    f32_pv<D>(acc, wds, Ks, n_max);                  // dq = dS . K
+    f32_store_quad<D>(acc, mul, dq + out_b, out_row, r0, s);
+    __syncwarp();  // wds is rewritten by this warp's next quad
+  }
+  __syncthreads();  // P and dS (or the statistics) complete; K and V are free
+
+  if constexpr (How == kRecompute) {
+    tile_load<float, D, P, kThreads>(Qs, qb, ld, rows, s, D);
+    tile_load<float, D, P, kThreads>(Gs, gb, width, rows, s, D);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // ---- step 2: per quad of key rows, over the query rows from r_lo
+  const int nq = rows / 32;                          // chunks of query rows (kRecompute)
+  for (int j0 = 4 * warp; j0 < s; j0 += 4 * kWarps) {
+    const int r_lo = causal ? j0 : 0;                // first query row that sees key j0
+    const float4 *pj, *dsj;                          // P and dS of the quad, by query row
+    if constexpr (How == kRecompute) {
+      float x[4][NC], y[4][NC];                      // S^T and dP^T: lane owns query rows
+      f32_qk_rows<D, NC>(x, quad_rows(qb + width, j0, s, ld), Qs, nq);
+      f32_qk_rows<D, NC>(y, quad_rows(qb + 2 * width, j0, s, ld), Gs, nq);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (c < nq) {
+          const int r = lane + 32 * c;
+          const float mr = stat_m[r], ir = stat_inv[r], rr = stat_rs[r];
+          float p[4], d[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            p[i] = bwd_prob(bwd_logit(r, j0 + i, x[i][c], s, causal, scale), mr, ir);
+            d[i] = grad_logit<D>(y[i][c], rr, p[i], scale);
+          }
+          wp[r] = make_float4(p[0], p[1], p[2], p[3]);
+          wds[r] = make_float4(d[0], d[1], d[2], d[3]);
+        }
       }
+      __syncwarp();
+      pj = wp + r_lo;
+      dsj = wds + r_lo;
+    } else {
+      pj = Pt + j0 / 4 * (rows + 1) + r_lo;
+      dsj = St + j0 / 4 * (rows + 1) + r_lo;
     }
-    T* dk_j = dk + out_b + (size_t)j * out_row;
-    T* dv_j = dv + out_b + (size_t)j * out_row;
+    float acc[4][U];
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) {
-      dk_j[lane + 32 * i] = from_f32<T>(D == 64 ? acc_k[i] * scale : acc_k[i]);
-      dv_j[lane + 32 * i] = from_f32<T>(acc_v[i]);
-    }
-    __syncwarp();
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < U; ++u) acc[i][u] = 0.f;
+    f32_pv<D>(acc, pj, Gs + r_lo * P, s - r_lo);     // dv = P^T . dout
+    f32_store_quad<D>(acc, 1.f, dv + out_b, out_row, j0, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < U; ++u) acc[i][u] = 0.f;
+    f32_pv<D>(acc, dsj, Qs + r_lo * P, s - r_lo);    // dk = dS^T . Q
+    f32_store_quad<D>(acc, mul, dk + out_b, out_row, j0, s);
+    if constexpr (How == kRecompute) __syncwarp();   // wp and wds are rewritten next
   }
 }
 
 // The backward of one (image b, head h) in bf16, by the whole block, with
-// bwd_head's output layout. Step 1: warp w owns query rows 16w .. 16w + 15;
+// bwd_head_f32's output layout. Step 1: warp w owns query rows 16w .. 16w + 15;
 // step 2: key rows 16w .. 16w + 15.
 template <int D, int KT>
 __device__ __forceinline__ void bwd_head_tc(const bf16* __restrict__ qkv,
@@ -675,21 +712,23 @@ __device__ __forceinline__ void bwd_head_tc(const bf16* __restrict__ qkv,
   tc_store_staged<D, KT>(acc, mul, Ks + row0 * Tl::kPitch, dk + out_b, out_row, row0, s);
 }
 
-// One block per (image, group of PER heads), as the forward.
-template <typename T, int D, int PER>
-__global__ void __launch_bounds__(kThreads)
-fused_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dq,
-                     T* __restrict__ dk, T* __restrict__ dv, int out_row, int s, int heads,
-                     int causal, float scale) {
-  extern __shared__ uint32_t smem[];
+// One block per (image, group of PER heads), as the forward. Two resident
+// blocks a SM are declared, which caps the registers at 128 (the CLIP image
+// shape's kResident blocks take 108.5 KB of shared memory, two a SM).
+template <int D, int PER, int How>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_qkv_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                     int out_row, int s, int heads, int causal, float scale) {
+  extern __shared__ __align__(16) uint32_t smem_f32[];
   const int groups = heads / PER;
   const int b = blockIdx.x / groups;
   const int g = blockIdx.x % groups;
-#pragma unroll
+#pragma unroll 1
   for (int i = 0; i < PER; ++i) {
-    if (i > 0) __syncthreads();  // the previous head's phase 2 still reads its tiles
-    bwd_head<T, D>(qkv, dout, dq, dk, dv, out_row, smem, b, g * PER + i, s, heads, causal,
-                   scale);
+    if (i > 0) __syncthreads();  // the previous head's step 2 still reads its tiles
+    bwd_head_f32<D, How>(qkv, dout, dq, dk, dv, out_row, smem_f32, b, g * PER + i, s, heads,
+                         causal, scale);
   }
 }
 
@@ -759,20 +798,35 @@ cudaError_t launch_fwd(const void* qkv, void* out, int n, int s, int heads, int 
   return cudaGetLastError();
 }
 
+template <int D, int PER, int How>
+cudaError_t launch_bwd_f32(const void* qkv, const void* dout, void* dq, void* dk, void* dv,
+                           int out_row, int n, int s, int heads, int causal, float scale,
+                           cudaStream_t stream) {
+  static std::atomic<bool> raised[kMaxDevices];
+  auto kernel = fused_qkv_bwd_kernel<D, PER, How>;
+  const size_t smem = f32_bwd_floats<D>((s + 31) / 32 * 32, How) * sizeof(float);
+  cudaError_t err = allow_smem(kernel, smem, kMaxSmem, raised);
+  if (err != cudaSuccess) return err;
+  kernel<<<n * (heads / PER), kThreads, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(dout), static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), out_row, s, heads, causal, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, int PER, int KT>
 cudaError_t launch_bwd(const void* qkv, const void* dout, void* dq, void* dk, void* dv,
                        int out_row, int n, int s, int heads, int causal, float scale,
-                       cudaStream_t stream) {
-  static std::atomic<bool> raised[kMaxDevices];
+                       cudaStream_t stream, int* design) {
   if constexpr (KT == 0) {
-    auto kernel = fused_qkv_bwd_kernel<T, D, PER>;
-    const size_t smem = bwd_smem_bytes<T, D>(s);
-    cudaError_t err = allow_smem(kernel, smem, bwd_smem_bytes<T, D>(kMaxSeq), raised);
-    if (err != cudaSuccess) return err;
-    kernel<<<n * (heads / PER), kThreads, smem, stream>>>(
-        static_cast<const T*>(qkv), static_cast<const T*>(dout), static_cast<T*>(dq),
-        static_cast<T*>(dk), static_cast<T*>(dv), out_row, s, heads, causal, scale);
+    *design = f32_bwd_design<D>(s);
+    if (*design == kResident)
+      return launch_bwd_f32<D, PER, kResident>(qkv, dout, dq, dk, dv, out_row, n, s, heads,
+                                               causal, scale, stream);
+    return launch_bwd_f32<D, PER, kRecompute>(qkv, dout, dq, dk, dv, out_row, n, s, heads,
+                                              causal, scale, stream);
   } else {
+    *design = kTensorCores;
+    static std::atomic<bool> raised[kMaxDevices];
     auto kernel = [] {                 // at d=128 a lane group is one head: the monolithic kernel
       if constexpr (PER == 1) return fused_qkv_bwd_kernel_tc<D, KT>;
       else return fused_qkv_bwd_group_kernel_tc<D, KT>;
@@ -788,8 +842,8 @@ cudaError_t launch_bwd(const void* qkv, const void* dout, void* dq, void* dk, vo
 }
 
 // Calls fn(integral_constant<KT>) with the design for element type T and
-// sequence length s: KT = 0, the CUDA-core design, for fp32; for bf16 the
-// tensor-core design with the sequence padded to 16 * KT rows.
+// sequence length s: KT = 0, the register tiles of the CUDA cores, for fp32;
+// for bf16 the tensor-core design with the sequence padded to 16 * KT rows.
 template <typename T, typename Fn>
 cudaError_t with_tiles(int s, Fn fn) {
   if constexpr (std::is_same_v<T, float>) {
@@ -802,7 +856,7 @@ cudaError_t with_tiles(int s, Fn fn) {
   }
 }
 
-// Both forward designs copy 16 bytes at a time, and the bf16 backward too.
+// Every design copies 16 bytes at a time.
 bool aligned16(std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return false;
@@ -841,12 +895,17 @@ cudaError_t fwd(const void* qkv, void* out, int n, int s, int heads, int d, int 
   });
 }
 
-cudaError_t bwd(const void* qkv, const void* dout, void* dq, void* dk, void* dv, int out_row,
-                int n, int s, int heads, int d, int dtype, int causal, float scale, void* stream,
-                bool group) {
+// Both grids write the packed d(qkv): dq, dk and dv are its three column
+// blocks, rows 3*H*d elements apart. *design gets the design launched.
+cudaError_t bwd(const void* qkv, const void* dout, void* dqkv, int n, int s, int heads, int d,
+                int dtype, int causal, float scale, void* stream, bool group, int* design) {
   if (n < 1 || s < 1 || s > kMaxSeq || heads < 1) return cudaErrorInvalidValue;
   if (group && (d <= 0 || (heads * d) % kLane != 0)) return cudaErrorInvalidValue;
-  if (!aligned16({qkv, dout, dq, dk, dv})) return cudaErrorMisalignedAddress;
+  if (!aligned16({qkv, dout, dqkv})) return cudaErrorMisalignedAddress;
+  const int out_row = 3 * heads * d;
+  char* dq = static_cast<char*>(dqkv);
+  char* dk = dq + (size_t)heads * d * (dtype == 0 ? 4 : 2);   // one column block on
+  char* dv = dk + (dk - dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, d, [&](auto* tag, auto dim) {
     using T = std::remove_pointer_t<decltype(tag)>;
@@ -854,9 +913,9 @@ cudaError_t bwd(const void* qkv, const void* dout, void* dq, void* dk, void* dv,
     return with_tiles<T>(s, [&](auto tiles) {
       constexpr int KT = decltype(tiles)::value;
       return group ? launch_bwd<T, D, kLane / D, KT>(qkv, dout, dq, dk, dv, out_row, n, s,
-                                                     heads, causal, scale, st)
+                                                     heads, causal, scale, st, design)
                    : launch_bwd<T, D, 1, KT>(qkv, dout, dq, dk, dv, out_row, n, s, heads,
-                                             causal, scale, st);
+                                             causal, scale, st, design);
     });
   });
 }
@@ -875,13 +934,12 @@ extern "C" int eoe_fused_qkv_attention_fwd(const void* qkv, void* out, int n, in
 }
 
 // _bwd_compute: qkv, dout (n, s, H*d) -> dqkv (n, s, 3*H*d) packed [dq | dk | dv].
+// Writes the design it launched to *design (0: bf16 tensor cores, 1: fp32
+// resident, 2: fp32 recompute).
 extern "C" int eoe_fused_qkv_attention_bwd(const void* qkv, const void* dout, void* dqkv, int n,
                                            int s, int heads, int d, int dtype, int causal,
-                                           float scale, void* stream) {
-  const size_t width = (size_t)heads * d * (dtype == 0 ? 4 : 2);   // bytes of one column block
-  char* base = static_cast<char*>(dqkv);
-  return (int)bwd(qkv, dout, base, base + width, base + 2 * width, 3 * heads * d, n, s, heads, d,
-                  dtype, causal, scale, stream, false);
+                                           float scale, void* stream, int* design) {
+  return (int)bwd(qkv, dout, dqkv, n, s, heads, d, dtype, causal, scale, stream, false, design);
 }
 
 // _fwd_group_compute: as eoe_fused_qkv_attention_fwd, one block per (image,
@@ -892,12 +950,11 @@ extern "C" int eoe_fused_qkv_attention_group_fwd(const void* qkv, void* out, int
   return (int)fwd(qkv, out, n, s, heads, d, dtype, causal, scale, stream, true);
 }
 
-// _bwd_group_compute: dq, dk and dv into three (n, s, H*d) tensors, one block
-// per (image, 128-lane group of heads).
-extern "C" int eoe_fused_qkv_attention_group_bwd(const void* qkv, const void* dout, void* dq,
-                                                 void* dk, void* dv, int n, int s, int heads,
-                                                 int d, int dtype, int causal, float scale,
-                                                 void* stream) {
-  return (int)bwd(qkv, dout, dq, dk, dv, heads * d, n, s, heads, d, dtype, causal, scale, stream,
-                  true);
+// _bwd_group_compute with _group_grid_call's concatenation: as
+// eoe_fused_qkv_attention_bwd, one block per (image, 128-lane group of heads).
+extern "C" int eoe_fused_qkv_attention_group_bwd(const void* qkv, const void* dout, void* dqkv,
+                                                 int n, int s, int heads, int d, int dtype,
+                                                 int causal, float scale, void* stream,
+                                                 int* design) {
+  return (int)bwd(qkv, dout, dqkv, n, s, heads, d, dtype, causal, scale, stream, true, design);
 }

@@ -11,9 +11,9 @@ hand-written kernels in ``csrc/fused_qkv_attention.cu`` (built at first use,
 see ``_build``) or raise; on a CPU tensor they compute the same functions
 with the plain versions ``fused_qkv_attention_fwd_ref`` and
 ``fused_qkv_attention_bwd_ref``. In bf16 the kernels run on the tensor cores,
-the fp32 forward on register tiles of the CUDA cores; since they copy rows
-in 16-byte pieces, ``qkv`` and ``dout`` must be 16-byte aligned, pointer and
-row pitch, in either dtype (or they raise). ``fused_qkv_attention_ref`` is the plain
+in fp32 on register tiles of the CUDA cores; since they copy rows in 16-byte
+pieces, ``qkv`` and ``dout`` must be 16-byte aligned, pointer and row pitch,
+in either dtype (or they raise). ``fused_qkv_attention_ref`` is the plain
 pair as one differentiable function, on any device. With ``GROUP_GRID`` set
 (``EOE_TPU_ATTN_GROUP_GRID=1``, as in the JAX package) the kernels run on the
 lane-group grid of ``_fwd_group_compute`` and ``_bwd_group_compute``.
@@ -38,11 +38,16 @@ import torch
 from eoe_tpu_torch.ops import _build
 
 LANE = 128      # the JAX kernel's lane group; heads must tile it evenly
-MAX_SEQ = 128   # one tile covers the whole sequence
+MAX_SEQ = 128   # the CUDA kernels' longest sequence: one tile covers it
+# The JAX package's row budget of one grid cell (eoe_tpu/ops/attention.py:127),
+# read at import as there: the gate takes a sequence only when its 16-row
+# padding fits it.
+MAX_R = int(os.environ.get("EOE_TPU_ATTN_MAX_R", "128"))
 SOURCE = "fused_qkv_attention.cu"
 FLASH_SOURCE = "flash_attention.cu"
 MAX_SINGLE_BLOCK = 1024   # flash_attention's longest sequence; longer ones run default_attention
 FLASH_TENSOR_CORES, FLASH_REGISTER_TILES = 1, 2   # the variants the flash launcher reports
+BWD_RESIDENT, BWD_RECOMPUTE = 1, 2   # the fp32 backward designs its launcher reports
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The JAX package's switch to the lane-group grid (eoe_tpu/ops/attention.py:412),
@@ -62,33 +67,40 @@ def default_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("nhqk,nhkd->nhqd", probs, v)
 
 
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
 def _check_fused_shape(heads: int, d: int, s: int):
-    """Reject what the fused kernel does not compute (the JAX gate,
-    eoe_tpu/ops/attention.py:592): head dims other than 64 and 128, head
-    counts that do not tile a 128-lane group, sequences over one tile."""
+    """Reject what the JAX package's fused kernel rejects
+    (eoe_tpu/ops/attention.py:592): head dims other than 64 and 128, head
+    counts that do not tile a 128-lane group, sequences whose 16-row padding
+    exceeds ``MAX_R``. The gate also keeps sequences over ``MAX_SEQ`` from
+    the CUDA kernels, whose C entry points refuse them."""
     per = LANE // d if d in (64, 128) else 0
     if per == 0 or heads % per != 0:
         raise ValueError(
             f"fused_qkv_attention requires d in (64, 128) and "
             f"heads%(LANE//d)==0; got heads={heads}, d={d} "
             f"(use fused_qkv_ok() to gate)")
-    if s > MAX_SEQ:
-        raise ValueError(f"sequence {s} exceeds the single-tile budget {MAX_SEQ}")
+    if _round_up(s, 16) > MAX_R:
+        raise ValueError(f"sequence {s} exceeds the single-cell budget MAX_R={MAX_R}")
 
 
 def fused_qkv_ok(n: int, s: int, heads: int, d: int,
                  sample: Optional[torch.Tensor] = None) -> bool:
     """Whether the CUDA kernels apply: ``EOE_TPU_FUSED_ATTN`` is unset or
     "1" (read at call time, as the JAX gate reads it), ``sample`` (the
-    projection) lies on a CUDA device and the shape passes the gate. The dtype
-    is not consulted: on the card a dtype the kernel does not take raises in
+    projection) lies on a CUDA device and the shape passes the JAX gate
+    (``_round_up(s, 16) <= MAX_R``) and fits the kernels (``s <= MAX_SEQ``).
+    The dtype is not consulted: on the card a dtype the kernel does not take raises in
     ``fused_qkv_attention`` rather than running the plain version."""
     if os.environ.get("EOE_TPU_FUSED_ATTN", "1") != "1":
         return False
     if sample is None or not sample.is_cuda:
         return False
     aligned = (d == 64 and heads % 2 == 0) or d == 128
-    return aligned and s <= MAX_SEQ and n >= 1
+    return aligned and _round_up(s, 16) <= MAX_R and s <= MAX_SEQ and n >= 1
 
 
 def _split_heads(qkv: torch.Tensor, heads: int):
@@ -190,10 +202,11 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
     fwd_args = [P, P, I, I, I, I, I, I, ctypes.c_float, P]
+    bwd_args = [P, P, P] + fwd_args[2:] + [ctypes.POINTER(I)]
     for name, args in (("eoe_fused_qkv_attention_fwd", fwd_args),
                        ("eoe_fused_qkv_attention_group_fwd", fwd_args),
-                       ("eoe_fused_qkv_attention_bwd", [P, P, P] + fwd_args[2:]),
-                       ("eoe_fused_qkv_attention_group_bwd", [P, P, P, P, P] + fwd_args[2:])):
+                       ("eoe_fused_qkv_attention_bwd", bwd_args),
+                       ("eoe_fused_qkv_attention_group_bwd", bwd_args)):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = I
     lib.eoe_cuda_error_string.argtypes = [I]
@@ -271,41 +284,42 @@ def _check_bwd_args(qkv: torch.Tensor, dout: torch.Tensor):
                          f"{tuple(dout.shape)} {dout.dtype} on {dout.device}")
 
 
-def _bwd_kernel(qkv: torch.Tensor, dout: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+def _launch_bwd(qkv: torch.Tensor, dout: torch.Tensor, heads: int, causal: bool,
+                entry: str) -> torch.Tensor:
     n, s, F = qkv.shape
     d = F // 3 // heads
     _check_bwd_args(qkv, dout)
     dqkv = torch.empty_like(qkv)
     lib = _library()
+    design = ctypes.c_int(-1)
     with torch.cuda.device(qkv.device):
-        err = lib.eoe_fused_qkv_attention_bwd(
+        err = getattr(lib, entry)(
             qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), n, s, heads, d,
             _DTYPE_CODES[qkv.dtype], int(causal), d ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(design))
     _raise_on(lib, err, "fused_qkv_attention backward")
+    if design.value == BWD_RESIDENT:
+        fused_qkv_attention.resident_bwd_launches += 1
+    elif design.value == BWD_RECOMPUTE:
+        fused_qkv_attention.recompute_bwd_launches += 1
+    return dqkv
+
+
+def _bwd_kernel(qkv: torch.Tensor, dout: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+    dqkv = _launch_bwd(qkv, dout, heads, causal, "eoe_fused_qkv_attention_bwd")
     fused_qkv_attention.bwd_launches += 1
     return dqkv
 
 
 def _group_bwd_kernel(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
                       causal: bool) -> torch.Tensor:
-    """The backward on the lane-group grid (``_bwd_group_compute``): dq, dk
-    and dv come out as three ``(n, s, H*d)`` tensors and are concatenated, as
-    ``_group_grid_call`` does (eoe_tpu/ops/attention.py:395)."""
-    n, s, F = qkv.shape
-    D = F // 3
-    d = D // heads
-    _check_bwd_args(qkv, dout)
-    dq, dk, dv = (torch.empty((n, s, D), dtype=qkv.dtype, device=qkv.device) for _ in range(3))
-    lib = _library()
-    with torch.cuda.device(qkv.device):
-        err = lib.eoe_fused_qkv_attention_group_bwd(
-            qkv.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            n, s, heads, d, _DTYPE_CODES[qkv.dtype], int(causal), d ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "fused_qkv_attention group backward")
+    """The backward on the lane-group grid (``_bwd_group_compute``): the
+    kernel writes dq, dk and dv into the three column blocks of one packed
+    d(qkv), which is ``_group_grid_call``'s concatenation
+    (eoe_tpu/ops/attention.py:395)."""
+    dqkv = _launch_bwd(qkv, dout, heads, causal, "eoe_fused_qkv_attention_group_bwd")
     fused_qkv_attention.group_bwd_launches += 1
-    return torch.cat([dq, dk, dv], dim=-1)
+    return dqkv
 
 
 def fused_qkv_attention(qkv: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
@@ -321,7 +335,10 @@ def fused_qkv_attention(qkv: torch.Tensor, heads: int, causal: bool = False) -> 
     plain versions, which compute the same function on either grid.
     ``fused_qkv_attention.launches`` and ``.bwd_launches`` count the launches
     of the forward and backward kernels on the monolithic grid,
-    ``.group_launches`` and ``.group_bwd_launches`` on the group grid."""
+    ``.group_launches`` and ``.group_bwd_launches`` on the group grid;
+    ``.resident_bwd_launches`` and ``.recompute_bwd_launches`` count the fp32
+    backward's launches on either grid by the design its launcher took (all
+    tiles resident, or P and dS recomputed); bf16 takes the tensor cores."""
     n, s, F = qkv.shape
     d = F // 3 // heads
     _check_fused_shape(heads, d, s)
@@ -337,6 +354,8 @@ fused_qkv_attention.launches = 0
 fused_qkv_attention.bwd_launches = 0
 fused_qkv_attention.group_launches = 0
 fused_qkv_attention.group_bwd_launches = 0
+fused_qkv_attention.resident_bwd_launches = 0
+fused_qkv_attention.recompute_bwd_launches = 0
 
 
 # ---------------------------------------------------------------- flash attention

@@ -3,20 +3,22 @@
 on one NVIDIA GPU.
 
     python3 profile_train.py [--steps 3] [--route fused|group|flash] [--serving]
-                             [--trace train_trace.json]
+                             [--dtype bfloat16|float32] [--trace train_trace.json]
 
 Builds chip_smoke.py's training configuration (full-width ViT-B/32 in bf16,
 HSC, the acceptance augmentation stack, 128 normal + 128 OE images per
 step, random weights from seed 0), takes two warm-up steps, then traces
 ``--steps`` steps with ``torch.profiler`` (CPU and CUDA activities). Prints
-the step time on the host clock (untraced, then traced), the device time by kernel class (the
-attention kernels, matrix products, everything else)
-and the device's busy share of the traced window, then the 25 kernels with
-the most device time. ``--route`` picks the attention: the fused-QKV
-kernels on their monolithic grid (the default), on the lane-group grid
-(``GROUP_GRID``), or ``CLIP(attention_fn=flash_attention)``. With
-``--serving`` each step is instead one fp32 request of 256 raw 32x32 images
-through ``AnomalyScorer`` with the CLIP objective (chip_smoke.py's serving
+the step time on the host clock (untraced, then traced), the device time by
+kernel class (the attention kernels, matrix products, everything else) and
+the device's busy share of the traced window, then the 25 kernels with the
+most device time. ``--route`` picks the attention: the fused-QKV kernels on
+their monolithic grid (the default), on the lane-group grid
+(``GROUP_GRID``), or ``CLIP(attention_fn=flash_attention)``. ``--dtype
+float32`` trains the same step in fp32 (TF32 off, as the parity runs of
+chip_smoke.py), which takes the fp32 kernels. With ``--serving`` each step
+is instead one fp32 request of 256 raw 32x32 images through
+``AnomalyScorer`` with the CLIP objective (chip_smoke.py's serving
 phase, the prompt centre computed once before). Needs one card; imports
 nothing of JAX or eoe_tpu.
 """
@@ -45,14 +47,14 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def training_step(cs, kw):
-    """chip_smoke.py's bf16 HSC training step on the acceptance stack."""
+def training_step(cs, kw, dtype):
+    """chip_smoke.py's HSC training step on the acceptance stack, in
+    ``dtype`` (bf16 as trained there by default)."""
     import numpy as np
     import torch
     from eoe_tpu_torch.models.clip import CLIP, VIT_B32
     ds, _ = cs._combined(np.random.default_rng(cs.SEED), cs.ACCEPTANCE_SPECS)
-    trainer = cs._trainer(CLIP(VIT_B32, dtype=torch.bfloat16, **kw), cs.ACCEPTANCE_SPECS, None,
-                          torch.bfloat16)
+    trainer = cs._trainer(CLIP(VIT_B32, dtype=dtype, **kw), cs.ACCEPTANCE_SPECS, None, dtype)
     state = trainer.init_state(cs.SEED, ds, 1)
     dev = trainer.device
     xn = torch.from_numpy(ds.train_set.gather_all()).to(dev)
@@ -96,6 +98,8 @@ def main():
                         help="the attention route the model takes")
     parser.add_argument("--serving", action="store_true",
                         help="profile an fp32 scoring request of 256 images, not a training step")
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                        help="the training step's compute dtype")
     parser.add_argument("--trace", default="", help="write a chrome trace here")
     args = parser.parse_args()
 
@@ -107,10 +111,15 @@ def main():
     from eoe_tpu_torch.ops import attention
 
     card = cs.phase_card()
-    print(f"profile: route {args.route}, {'serving' if args.serving else 'training'}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dtype = getattr(torch, args.dtype)
+    print(f"profile: route {args.route}, "
+          f"{'serving fp32' if args.serving else 'training ' + args.dtype}")
     attention.GROUP_GRID = args.route == "group"
     kw = {"attention_fn": attention.flash_attention} if args.route == "flash" else {}
-    step, images = (serving_step if args.serving else training_step)(cs, kw)
+    step, images = (serving_step(cs, kw) if args.serving else
+                    training_step(cs, kw, dtype))
 
     for i in range(2):
         step(i)

@@ -9,6 +9,9 @@ compared with the plain versions on a card by tests/test_torch_kernels.py and
 chip_smoke.py.
 """
 
+import os
+import subprocess
+import sys
 import types
 
 import jax
@@ -17,13 +20,20 @@ import numpy as np
 import pytest
 import torch
 
+import eoe_tpu.ops.attention as JA
 from eoe_tpu.models.clip.model import default_attention as jax_default_attention
 from eoe_tpu.ops.attention import fused_qkv_attention as jax_fused_qkv_attention
 from eoe_tpu_torch.ops import attention as A
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 # (n, s, heads, d, causal): the JAX tests' shapes plus both CLIP encoders'
 CASES = [(3, 50, 4, 64, False), (2, 21, 2, 64, True), (2, 10, 2, 128, True),
          (2, 50, 12, 64, False), (2, 77, 8, 64, True)]
+# and where the fp32 backward kernel changes its design: the last sequence
+# whose P and dS tables fit beside four tiles at d=64, and two at d=128 past
+# that limit, where the kernel recomputes them (the longest among them)
+BWD_CASES = CASES + [(2, 96, 2, 64, True), (2, 97, 2, 128, False), (2, 128, 2, 128, True)]
 
 
 def _qkv(n, s, h, d, seed=0):
@@ -111,6 +121,45 @@ def test_fused_qkv_ok_honours_eoe_tpu_fused_attn(monkeypatch):
         assert A.fused_qkv_ok(4, 50, 12, 64, on_card) is applies
 
 
+@pytest.mark.parametrize("max_r", [16, 48, 64, 80, 96, 128])
+def test_gate_honours_max_r(monkeypatch, max_r):
+    """``MAX_R`` (``EOE_TPU_ATTN_MAX_R``) bounds the fused path as in the
+    JAX package: for every sequence up to the kernels' 128 rows the port's
+    gate says what the JAX shape condition says (round_up(s, 16) <= MAX_R),
+    above 128 it says no, and the port's ``_check_fused_shape`` raises
+    exactly where the JAX one does."""
+    monkeypatch.setattr(A, "MAX_R", max_r)
+    monkeypatch.setattr(JA, "MAX_R", max_r)
+    on_card = types.SimpleNamespace(is_cuda=True, dtype=torch.float32)
+    for s in range(1, 141):
+        try:
+            JA._check_fused_shape(8, 64, s)
+            jax_takes = True
+        except ValueError:
+            jax_takes = False
+        assert A.fused_qkv_ok(4, s, 8, 64, on_card) is (jax_takes and s <= 128), s
+        try:
+            A._check_fused_shape(8, 64, s)
+            port_takes = True
+        except ValueError:
+            port_takes = False
+        assert port_takes is jax_takes, s
+
+
+def test_max_r_is_read_from_the_environment_at_import():
+    """``EOE_TPU_ATTN_MAX_R=64`` at import sends the text tower (s=77, 80
+    padded rows) to ``default_attention`` and keeps the image tower (s=50,
+    64 rows) on the kernels."""
+    code = ("import types; from eoe_tpu_torch.ops import attention as A; "
+            "c = types.SimpleNamespace(is_cuda=True); "
+            "print(A.MAX_R, A.fused_qkv_ok(4, 77, 8, 64, c), A.fused_qkv_ok(4, 50, 12, 64, c))")
+    env = dict(os.environ, EOE_TPU_ATTN_MAX_R="64", EOE_TPU_FUSED_ATTN="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["64", "False", "True"]
+
+
 def _dout(n, s, h, d, seed=2):
     return np.random.default_rng(seed).normal(0, 1, (n, s, h * d)).astype(np.float32)
 
@@ -120,7 +169,7 @@ def _jax_bwd(qkv, dout, h, causal, dtype):
     return np.asarray(vjp(jnp.asarray(dout, dtype))[0], np.float32)
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: "n{}-s{}-h{}-d{}-{}".format(
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "n{}-s{}-h{}-d{}-{}".format(
     *c[:4], "causal" if c[4] else "full"))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_ref_matches_jax(case, dtype):

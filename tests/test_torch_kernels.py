@@ -93,7 +93,8 @@ def test_fp16_attention_on_card_raises(cuda):
 
 
 def _bwd_tol(dtype, ref):
-    """fp32: the kernel and the plain version differ in summation order only.
+    """fp32: the kernel and the plain version differ in summation order and in
+    P's normalisation (by the reciprocal sum, not a division: an ulp of P).
     bf16: an order flip can move dS across a rounding boundary before the
     second products, and the output is rounded once more; 2^-5 of the largest
     gradient covers both."""
@@ -184,8 +185,9 @@ def test_group_backward_matches_ref_and_monolithic(cuda, case, dtype):
 @pytest.mark.parametrize("case", [(256, 50, 12, 64, False), (64, 77, 8, 64, True)])
 def test_group_grid_bf16_is_monolithic_bit_for_bit(cuda, case):
     """In bf16 both grids run the same tensor-core code per head, so the
-    group kernels give the monolithic kernels' bits, forward and backward,
-    at the main path's full batches (the tests above take small ones)."""
+    group kernels give the monolithic kernels' bits, forward and backward
+    (both backwards write the packed d(qkv)), at the main path's full
+    batches (the tests above take small ones)."""
     n, s, h, d, causal = case
     g = torch.Generator(device=cuda).manual_seed(4)
     qkv = torch.randn(n, s, 3 * h * d, generator=g, device=cuda).bfloat16()
@@ -235,6 +237,31 @@ def test_fp32_forward_tiles_on_both_grids(cuda, s, d, causal):
     assert torch.equal(out, A._group_fwd_kernel(qkv, 2, causal))
     ref = A.fused_qkv_attention_fwd_ref(qkv, 2, causal)
     assert (out - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 50, 64, 77, 96, 97, 127, 128])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp32_backward_tiles_on_both_grids(cuda, s, d, causal):
+    """The fp32 backward's register tiles at the edges of the 32-row chunks
+    and the quads, and across its two designs (P and dS kept beside four
+    tiles up to s=96 at d=64 and s=64 at d=128, which covers both CLIP
+    towers; P and dS recomputed above): the design each grid's launcher
+    reports, the plain version within 2e-5 of the largest gradient, and the
+    group grid equal to the monolithic one bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    qkv = torch.randn(3, s, 3 * 2 * d, generator=g, device=cuda)
+    dout = torch.randn(3, s, 2 * d, generator=g, device=cuda)
+    fq = A.fused_qkv_attention
+    before = (fq.resident_bwd_launches, fq.recompute_bwd_launches)
+    dqkv = A._bwd_kernel(qkv, dout, 2, causal)
+    assert torch.equal(dqkv, A._group_bwd_kernel(qkv, dout, 2, causal))
+    resident = s <= (96 if d == 64 else 64)
+    assert (fq.resident_bwd_launches - before[0], fq.recompute_bwd_launches - before[1]) == (
+        (2, 0) if resident else (0, 2))
+    ref = A.fused_qkv_attention_bwd_ref(qkv, dout, 2, causal)
+    assert (dqkv - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
 
 
 @pytest.mark.cuda
