@@ -46,7 +46,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
      group backward per step, no monolithic launch), 3 fp32 steps (36 group
      launches each way, the backward's resident, counted as a path) against
      3 on the monolithic grid,
-     and the snapshot served through ``AnomalyScorer``.
+     and the snapshot served through ``AnomalyScorer``;
+  8. conv_training: CNN32 in fp32 (TF32 off) with HSC on the JAX package's
+     benchmark CIFAR-10 stack (bench.py:91-103), 2048 + 2048 seeded raw
+     32x32 images for 2 epochs of 128 + 128, img/s per epoch, the snapshot
+     served through ``AnomalyScorer`` against ``eval_cls``; then one class
+     and one epoch by name (cifar10 with cifar100 as OE, the synthetic data
+     of ``EOE_TPU_FAKE_DATA=1``) of hsc, bce (``clf=True``), dsvdd and ae
+     (AE32): finite losses and a results.json;
+  9. wrn_training: WideResNet+CBAM in bf16 with HSC on the benchmark's
+     ImageNet-30 stack (bench.py:71-90), 512 + 512 raw 256x256 images for 8
+     steps, served back; the fused stem in fp32 at (8, 224, 224, 3) and at
+     the full batch of 256: its forward (the plain stem's own code) against
+     torch's ``F.batch_norm`` composition to 1e-5 of its max, its backward
+     against the plain stem under autograd to 1e-4; one fp32 step with the
+     fused stem against one with ``EOE_TPU_FUSED_STEM=0`` at phase 5's
+     limits.
+     No kernel of the repository lies on phases 8 and 9: their counts must
+     all be 0.
 Each path's launch counts (every kernel's) are set to 0 just before it and
 read just after.
 
@@ -70,7 +87,7 @@ REQUESTS = (256, 100, 37)
 # in bf16, and the fp32 training steps of the parity holds
 PATH_DTYPES = {"serving": "fp32", "training": "bf16", "training_fp32": "fp32",
                "flash_serving": "fp32", "flash_training": "bf16", "group_training": "bf16",
-               "group_training_fp32": "fp32"}
+               "group_training_fp32": "fp32", "conv_training": "fp32", "wrn_training": "bf16"}
 BATCH = 128
 SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
@@ -875,6 +892,286 @@ def phase_group(card: str, data) -> tuple:
     return training, fp32_counts
 
 
+# ---------------------------------------------------------------- conv models
+
+# the reference CIFAR-10 stack of the JAX package's benchmark (bench.py:91-103)
+CIFAR_SPECS = [
+    {"op": "color_jitter", "brightness": 0.01, "contrast": 0.01, "saturation": 0.01,
+     "hue": 0.01},
+    {"op": "random_hflip", "p": 0.5},
+    {"op": "random_crop", "size": 32, "padding": 4},
+    {"op": "gaussian_noise", "std": 0.001},
+    "normalize"]
+# the reference ImageNet-30 stack of the same benchmark (bench.py:71-90)
+WRN_SPECS = [
+    {"op": "resize", "size": 256},
+    {"op": "random_hflip", "p": 0.5},
+    {"op": "random_crop", "size": 224, "resample_degenerate": True},
+    "normalize"]
+WRN_TEST_SPECS = [{"op": "resize", "size": 256}, {"op": "center_crop", "size": 224}, "normalize"]
+CONV_N, CONV_TEST, CONV_EPOCHS = 2048, 256, 2      # CNN32: bench.py uses 8192 and 8 epochs
+WRN_N, WRN_TEST, WRN_EPOCHS = 512, 128, 2          # WideResNet: bench.py uses 2048 and 6
+
+
+def _pinned(rng, hw, n, n_test, train_specs, test_specs):
+    """``n`` normal + ``n`` OE + ``n_test`` test raw uint8 images of hw x hw;
+    test labels alternate normal / anomalous. The ``normalize`` placeholder
+    takes each split's statistics, as in the JAX package's benchmark."""
+    import numpy as np
+    from eoe_tpu_torch.datasets.bases import ArraySource, CombinedDataset, GenericADDataset
+    x = rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8)
+    xo = rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8)
+    xt = rng.integers(0, 256, (n_test, hw, hw, 3), dtype=np.uint8)
+    kw = dict(root="", train_specs=train_specs, test_specs=test_specs, n_classes=2,
+              raw_shape=(hw, hw, 3))
+    normal = GenericADDataset(ArraySource(x, np.zeros(n)), ArraySource(xt, np.arange(n_test) % 2),
+                              normal_classes=(0,), nominal_label=0, **kw)
+    oe = GenericADDataset(ArraySource(xo, np.ones(n)), None, normal_classes=(1,),
+                          nominal_label=1, **kw)
+    return CombinedDataset(normal, oe), xt
+
+
+def _conv_trainer(objective, model, train_specs, test_specs, logger, dtype, epochs,
+                  datapath=""):
+    """The JAX package's benchmark trainer settings (bench.py:123-127)."""
+    from eoe_tpu_torch.training import TRAINER
+    return TRAINER[objective](model=model, train_specs=train_specs, test_specs=test_specs,
+                              dataset="cifar10", oe_dataset="cifar100", datapath=datapath,
+                              logger=logger, epochs=epochs, lr=1e-4, wdk=1e-3, milestones=[],
+                              batch_size=BATCH, compute_dtype=dtype)
+
+
+def _train_pinned(card, label, trainer, data, n, n_test, serve) -> dict:
+    """``train_cls``, ``eval_cls`` and a snapshot on a pinned set, counted;
+    the snapshot served through ``AnomalyScorer`` by ``serve(path)`` and held
+    against ``eval_cls``'s scores. Returns the launch counts (no kernel of
+    the repository lies on the conv path: all must be 0)."""
+    import numpy as np
+    ds, x_test = data
+    trainer.ds = ds
+    steps = trainer.epochs * (n // BATCH)
+    _zero_counts()
+    t0 = time.perf_counter()
+    state, roc = trainer.train_cls(ds, 0, "airplane", 0, seed=SEED)
+    t_train = time.perf_counter() - t0
+    eroc, _ = trainer.eval_cls(state, ds, 0, "airplane", 0)
+    path = trainer.snapshot("snapshot_cls0_it0", state, trainer.epochs, ds.ds_statistics)
+    counts = _counts()
+    check_counts(counts, {}, f"{label} (the conv path runs no kernel of the repository)")
+    losses = trainer.step_losses
+    check(len(losses) == steps and np.isfinite(losses).all(),
+          f"{label}: expected {steps} finite losses, got {losses}")
+    eval_scores = np.array([v for _, v in sorted(
+        (int(k), v) for k, v in _read_json(trainer.logger.dir, "eval_cls0_it0_anomaly_scores")
+        .items())])
+    check(eval_scores.shape == (n_test,) and np.isfinite(eval_scores).all(),
+          f"{label}: eval_cls gave bad scores")
+    served = serve(path).score(x_test)
+    serve_err = float(np.abs(served - eval_scores).max())
+    check(serve_err <= 1e-4, f"{label}: served snapshot differs from eval_cls by {serve_err}")
+    rates = [round(r, 1) for r in trainer.epoch_rates]
+    print(f"{label}: {steps} steps of {BATCH}+{BATCH} images in {t_train:.2f} s; img/s per "
+          f"epoch {rates}; losses {[round(x, 5) for x in losses]}; train AUROC {roc.auc:.4f}, "
+          f"synthetic eval AUROC {eroc.auc:.4f}; snapshot served through AnomalyScorer, max "
+          f"score difference to eval_cls {serve_err:.3g} (tol 1e-4); launches {counts} [{card}]")
+    return counts
+
+
+def _by_name(card, label, objective, model, specs, logdir) -> dict:
+    """``Trainer.run`` of one class and one epoch by name (cifar10 with
+    cifar100 as OE, the synthetic data of ``EOE_TPU_FAKE_DATA=1``), counted:
+    finite losses and a results.json."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.utils.logger import Logger
+    os.environ["EOE_TPU_FAKE_DATA"] = "1"
+    try:
+        trainer = _conv_trainer(objective, model, specs, ["normalize"],
+                                Logger(logdir, noname=True), torch.float32, 1, datapath=logdir)
+        _zero_counts()
+        t0 = time.perf_counter()
+        _, res = trainer.run(run_classes=[0])
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        os.environ.pop("EOE_TPU_FAKE_DATA", None)
+    check_counts(counts, {}, f"{label} {objective} by name")
+    losses = trainer.step_losses
+    check(len(losses) > 0 and np.isfinite(losses).all(),
+          f"{label} {objective} by name: losses {losses}")
+    results = _read_json(logdir, "results")
+    check(np.isfinite(results["eval_mean_auc"]), f"{label} {objective}: results.json {results}")
+    print(f"{label} {objective} by name (cifar10 class 0, cifar100 OE, synthetic data): "
+          f"{len(losses)} steps in {seconds:.2f} s, losses {[round(x, 5) for x in losses]}, "
+          f"synthetic AUROC {res['mean_auc']:.4f}; results.json written [{card}]")
+    return counts
+
+
+def phase_conv_training(card: str) -> dict:
+    """CNN32 in fp32 with HSC on the benchmark's CIFAR-10 stack, then every
+    conv objective by name."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.inference import AnomalyScorer
+    from eoe_tpu_torch.models import AE32, CNN32
+    from eoe_tpu_torch.utils.logger import Logger
+
+    data = _pinned(np.random.default_rng(SEED), 32, CONV_N, CONV_TEST, CIFAR_SPECS,
+                   ["normalize"])
+    with tempfile.TemporaryDirectory() as logdir:
+        trainer = _conv_trainer("hsc", CNN32(), CIFAR_SPECS, ["normalize"],
+                                Logger(logdir, noname=True), torch.float32, CONV_EPOCHS)
+        counts = _train_pinned(card, "conv train hsc fp32 CNN32", trainer, data, CONV_N,
+                               CONV_TEST, lambda path: AnomalyScorer(
+                                   path, CNN32(), test_specs=["normalize"], batch_size=BATCH))
+    for objective, model in (("hsc", CNN32()), ("bce", CNN32(clf=True)), ("dsvdd", CNN32()),
+                             ("ae", AE32())):
+        with tempfile.TemporaryDirectory() as logdir:
+            by_name = _by_name(card, "conv train", objective, model, ["normalize"], logdir)
+        counts = {k: counts[k] + by_name[k] for k in counts}
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _rel_err(a, b) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30)).item()
+
+
+def _stem_hold(card, n):
+    """The fused stem in fp32 on (n, 224, 224, 3) images that require a
+    gradient. Its forward is the plain stem's own code, so the forward is
+    held against torch's composition instead (``F.batch_norm`` in train mode,
+    ReLU, ``F.max_pool2d``; ``var_mean`` for the statistics): outputs and
+    batch statistics to 1e-5 of their max. Its backward is held against the
+    plain stem under autograd: dW, dgamma, dbeta and dx to 1e-4 of theirs."""
+    import torch
+    import torch.nn.functional as F
+    from eoe_tpu_torch.ops.stem import EPS, fused_stem_train, plain_stem
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(n, 224, 224, 3, device="cuda", generator=g).permute(0, 3, 1, 2)
+    w = torch.randn(64, 3, 7, 7, device="cuda", generator=g) * (2.0 / (64 * 49)) ** 0.5
+    gamma = 1.0 + 0.1 * torch.randn(64, device="cuda", generator=g)
+    beta = 0.1 * torch.randn(64, device="cuda", generator=g)
+    cot = torch.randn(n, 64, 56, 56, device="cuda", generator=g)
+    with torch.no_grad():
+        xc = F.conv2d(x, w, stride=2, padding=3)
+        var_ref, mu_ref = torch.var_mean(xc, dim=(0, 2, 3), unbiased=False)
+        ref = F.max_pool2d(F.relu(F.batch_norm(xc, None, None, gamma, beta, True, 0.0, EPS)),
+                           3, 2, 1)
+        del xc
+    grads = []
+    for fn in (fused_stem_train, plain_stem):
+        leaves = [t.clone().requires_grad_() for t in (w, gamma, beta, x)]
+        out, mu, var = fn(*leaves)
+        if fn is fused_stem_train:
+            fwd = {"out": _rel_err(out.detach(), ref), "mu": _rel_err(mu, mu_ref),
+                   "var": _rel_err(var, var_ref)}
+        out.backward(cot)
+        grads.append([t.grad for t in leaves])
+        del out, leaves
+    errs = {**fwd, **{k: _rel_err(a, b) for k, a, b in zip(("dW", "dgamma", "dbeta", "dx"),
+                                                             *grads)}}
+    for k, e in errs.items():
+        tol = 1e-5 if k in fwd else 1e-4
+        check(e <= tol, f"fused stem at n={n}: {k} differs by {e} of its max (tol {tol})")
+    print(f"wrn stem fp32, ({n}, 224, 224, 3): forward vs torch's batch_norm composition "
+          + ", ".join(f"{k} {fwd[k]:.3g}" for k in fwd) + " of max (tol 1e-5); backward vs "
+          "the plain stem under autograd " + ", ".join(f"{k} {errs[k]:.3g}" for k in errs
+                                                       if k not in fwd)
+          + f" of max (tol 1e-4) [{card}]")
+    del grads, ref
+    torch.cuda.empty_cache()
+
+
+def _wrn_step(ds, fused: bool) -> tuple:
+    """One fp32 HSC step of a WideResNet from seed 0 on ``ds``'s first batch,
+    with SGD at the trainer's rate (Adam would turn float noise in near-zero
+    gradients into updates of the learning rate's size): (loss, gradients,
+    parameters after)."""
+    import torch
+    from eoe_tpu_torch.models import WideResNet
+    from eoe_tpu_torch.training import TrainState
+    from eoe_tpu_torch.training.optim import make_optimizer
+    os.environ["EOE_TPU_FUSED_STEM"] = "1" if fused else "0"
+    try:
+        tr = _conv_trainer("hsc", WideResNet(), WRN_TEST_SPECS, WRN_TEST_SPECS, None,
+                           torch.float32, 1)
+        tr.init_weights(SEED)
+        model = tr.model.to(tr.device)
+        check(model.train().uses_fused_stem() == fused, "the stem switch did not take")
+        names, params = zip(*model.named_parameters())
+        st = TrainState(model, make_optimizer("sgd", params, tr.lr, tr.wdk, [], 1))
+        dev = tr.device
+        xn = torch.from_numpy(ds.train_set.gather_all()[:BATCH]).to(dev)
+        xo = torch.from_numpy(ds.oe.train_set.gather_all()[:BATCH]).to(dev)
+        ln = torch.zeros(BATCH, dtype=torch.int64, device=dev)
+        lo = torch.ones(BATCH, dtype=torch.int64, device=dev)
+        loss, *_ = tr.train_step(st, ds, xn, ln, xo, lo, torch.ones(BATCH, device=dev), None)
+        grads = {n: p.grad.clone() for n, p in zip(names, params)}
+        return loss.item(), grads, [p.detach().clone() for p in params]
+    finally:
+        os.environ.pop("EOE_TPU_FUSED_STEM", None)
+        torch.cuda.empty_cache()
+
+
+def phase_wrn_training(card: str) -> dict:
+    """WideResNet+CBAM in bf16 with HSC on the benchmark's ImageNet-30 stack;
+    the fused stem held against the plain one, and one fp32 step with it
+    against one with ``EOE_TPU_FUSED_STEM=0``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.inference import AnomalyScorer
+    from eoe_tpu_torch.models import WideResNet
+    from eoe_tpu_torch.utils.logger import Logger
+
+    data = _pinned(np.random.default_rng(SEED), 256, WRN_N, WRN_TEST, WRN_SPECS, WRN_TEST_SPECS)
+    with tempfile.TemporaryDirectory() as logdir:
+        trainer = _conv_trainer("hsc", WideResNet(), WRN_SPECS, WRN_TEST_SPECS,
+                                Logger(logdir, noname=True), torch.bfloat16, WRN_EPOCHS)
+        counts = _train_pinned(card, "wrn train hsc bf16 WideResNet+CBAM", trainer, data, WRN_N,
+                               WRN_TEST, lambda path: AnomalyScorer(
+                                   path, WideResNet(dtype=torch.bfloat16),
+                                   test_specs=WRN_TEST_SPECS, batch_size=BATCH,
+                                   compute_dtype=torch.bfloat16))
+        del trainer
+    torch.cuda.empty_cache()
+    for n in (8, 2 * BATCH):
+        _stem_hold(card, n)
+    # the deterministic test pipeline on both halves: both steps see the same
+    # inputs; cuDNN's deterministic algorithms, so that the layers above the
+    # stem give both steps the same bits (its atomics would differ by ~1e-4
+    # of a gradient's max)
+    ds32 = _pinned(np.random.default_rng(SEED + 1), 256, BATCH, 8, WRN_TEST_SPECS,
+                   WRN_TEST_SPECS)[0]
+    torch.backends.cudnn.deterministic = True
+    try:
+        _zero_counts()
+        run = _wrn_step(ds32, fused=True)
+        control = _wrn_step(ds32, fused=False)
+        check_counts(_counts(), {}, "wrn fp32 steps")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lk, gk, pk), (lp, gp, pp) = run, control
+    errs = {n: _rel_err(gk[n], gp[n]) for n in gp}
+    worst = max(errs, key=errs.get)
+    g_err = errs[worst]
+    l_err = abs(lk - lp) / abs(lp)
+    p_err = max((a - b).abs().max().item() for a, b in zip(pk, pp))
+    check(g_err <= 1e-4, f"wrn fp32 fused stem: gradients differ by {g_err} of their max")
+    check(l_err <= 1e-5, f"wrn fp32 fused stem: losses differ by {l_err} (relative)")
+    check(p_err <= 1e-5, f"wrn fp32 fused stem: parameters differ by {p_err} after the step")
+    print(f"wrn train hsc fp32 fused stem vs EOE_TPU_FUSED_STEM=0, 1 step of {BATCH}+{BATCH}: "
+          f"loss {lk:.6f} vs {lp:.6f}, err {l_err:.3g} rel (tol 1e-5), gradient err "
+          f"{g_err:.3g} of max ({worst}; conv1 {errs['conv1.weight']:.3g}, bn1 "
+          f"{errs['bn1.weight']:.3g} / {errs['bn1.bias']:.3g}; tol 1e-4), parameter err "
+          f"{p_err:.3g} (tol 1e-5) [{card}]")
+    return counts
+
+
 def _read_json(logdir: str, name: str) -> dict:
     with open(os.path.join(logdir, f"{name}.json")) as f:
         return json.load(f)
@@ -905,6 +1202,9 @@ def main():
     paths["training"], paths["training_fp32"] = phase_train(card, data)
     paths["flash_serving"], paths["flash_training"] = phase_flash(card, data)
     paths["group_training"], paths["group_training_fp32"] = phase_group(card, data)
+    del data
+    paths["conv_training"] = phase_conv_training(card)
+    paths["wrn_training"] = phase_wrn_training(card)
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}

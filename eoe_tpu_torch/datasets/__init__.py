@@ -1,13 +1,20 @@
-"""Datasets of the port: the class-label tables of the JAX package's
-registry (eoe_tpu/datasets/__init__.py) and, in ``bases``, the AD dataset
-layer over in-memory sources.
+"""Datasets of the port: the registry and factory of
+eoe_tpu/datasets/__init__.py, and in ``bases`` the AD dataset layer over
+in-memory sources.
 
-The on-disk dataset loaders (``load_dataset``: CIFAR, MNIST, ImageNet, the
-folder datasets) are not ported yet; the trainers take a pinned dataset
-(``trainer.ds``) built from ``bases``.
+``load_dataset`` builds CIFAR-10, CIFAR-100, MNIST, EMNIST (letters) and
+Fashion-MNIST by name (``cifar``, ``mnist``), with an OE dataset beside the
+normal one as the JAX package does. The other registry entries (ImageNet,
+the folder datasets, tiny images, MVTec, DTD, CUB, custom) are not ported
+yet and raise; so do multi-scale modes (``MSM`` parses and prints them).
+The trainers also take a pinned dataset (``trainer.ds``).
 """
 
-from typing import Dict, List
+import importlib
+from copy import deepcopy
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
 
 CIFAR10_LABELS = [
     "airplane", "automobile", "bird", "cat", "deer", "dog", "frog", "horse", "ship", "truck",
@@ -77,3 +84,133 @@ def str_labels(dataset_name: str) -> List[str]:
 
 def no_classes(dataset_name: str) -> int:
     return len(str_labels(dataset_name))
+
+
+# string ids of the filter transforms usable in MSMs
+MSM_TRANSFORMS = ("blur", "sharpen", "hpf", "lpf")
+TRAIN_NOMINAL_ID, TRAIN_OE_ID, TEST_NOMINAL_ID, TEST_ANOMALOUS_ID = 0, 1, 2, 3
+DS_PARTS = {
+    "train_nominal": TRAIN_NOMINAL_ID, "train_oe": TRAIN_OE_ID,
+    "test_nominal": TEST_NOMINAL_ID, "test_anomalous": TEST_ANOMALOUS_ID,
+}
+
+_PORTED = {"cifar10": ("cifar", "ADCIFAR10"), "cifar100": ("cifar", "ADCIFAR100"),
+           "mnist": ("mnist", "ADMNIST"), "emnist": ("mnist", "ADEMNIST"),
+           "fmnist": ("mnist", "ADFMNIST")}
+
+# the JAX package's registry: raw size, class count, OE-only; ``module`` and
+# ``cls`` are None where the dataset is not ported yet
+DS_CHOICES: Dict[str, dict] = {
+    name: dict(module=f"eoe_tpu_torch.datasets.{_PORTED[name][0]}" if name in _PORTED else None,
+               cls=_PORTED[name][1] if name in _PORTED else None,
+               default_size=size, no_classes=n, oe_only=oe_only)
+    for name, size, n, oe_only in (
+        ("cifar10", 32, 10, False), ("cifar100", 32, 100, False), ("mnist", 28, 10, False),
+        ("emnist", 28, 26, False), ("fmnist", 28, 10, False), ("imagenet", 256, 30, False),
+        ("imagenet21k", 256, 21811, False), ("imagenet21ksubset", 256, 21811, False),
+        ("imagenetoe", 256, 1000, True), ("tinyimages", 32, 1, False), ("mvtec", 256, 15, False),
+        ("dtd", 256, 47, False), ("cub", 256, 200, False), ("custom", 256, None, False))
+}
+
+
+def _resolve_class(name: str):
+    entry = DS_CHOICES[name]
+    if entry["module"] is None:
+        raise NotImplementedError(f"the {name!r} dataset is not ported yet")
+    return getattr(importlib.import_module(entry["module"]), entry["cls"])
+
+
+class MSM:
+    """Multi-scale mode: a filter transform on one dataset part, in the
+    string form 'TRANSFORM+DSPART--M'. Parsed and printed as the JAX
+    package does; applying one is not ported yet."""
+
+    def __init__(self, transform: str, ds_part: str, magnitude: Optional[int] = None):
+        assert transform in MSM_TRANSFORMS, f"{transform} not in {MSM_TRANSFORMS}"
+        assert ds_part in DS_PARTS, f"{ds_part} not in {list(DS_PARTS)}"
+        self.transform_str = transform
+        self.ds_part_str = ds_part
+        self.ds_part = DS_PARTS[ds_part]
+        self.magnitude = magnitude
+
+    def set_magnitude(self, magnitude: int) -> "MSM":
+        self.magnitude = magnitude
+        return self
+
+    def get_spec(self) -> dict:
+        """The transform spec of ``ops.preprocess``."""
+        assert self.magnitude is not None, "MSM magnitude not set"
+        if self.transform_str == "blur":
+            return {"op": "blur", "sigma": float(self.magnitude)}
+        if self.transform_str == "sharpen":
+            return {"op": "sharpen", "percent": float(self.magnitude) * 100.0}
+        return {"op": self.transform_str, "magnitude": int(self.magnitude)}
+
+    def __str__(self):
+        return "+".join((self.transform_str, self.ds_part_str)) + f"--M{self.magnitude}"
+
+    __repr__ = __str__
+
+    @staticmethod
+    def load(msm: str, load_magnitude: bool = True) -> "MSM":
+        transform, ds_part = msm.split("+")
+        magnitude = None
+        if "--M" in ds_part:
+            ds_part, magnitude = ds_part.split("--M")
+        res = MSM(transform, ds_part)
+        if load_magnitude and magnitude is not None and magnitude != "None":
+            res.set_magnitude(int(magnitude))
+        return res
+
+
+def get_raw_shape(train_specs: Sequence, dataset_name: str) -> Tuple[int, int, int]:
+    """The raw NHWC image shape: from a leading resize spec, else the
+    registry's default size."""
+    specs = list(train_specs or ())
+    if specs:
+        s = specs[0] if isinstance(specs[0], dict) else {"op": specs[0]}
+        if s.get("op") == "resize":
+            size = s["size"]
+            return (size, size, 3) if isinstance(size, int) else (*tuple(size), 3)
+    size = DS_CHOICES[dataset_name]["default_size"]
+    return (size, size, 3)
+
+
+def load_dataset(dataset_name: str, data_path: str, normal_classes: List[int],
+                 nominal_label: int, train_specs: Sequence, test_specs: Sequence, logger=None,
+                 oe_name: Optional[str] = None,
+                 oe_limit_samples: Union[int, float, Sequence[int]] = float("inf"),
+                 oe_limit_classes: Union[int, float] = float("inf"),
+                 msms: Sequence[MSM] = (), ds_statistics: Optional[dict] = None,
+                 rng: Optional[np.random.Generator] = None):
+    """The normal dataset, and with ``oe_name`` a ``CombinedDataset`` of it
+    and an OE dataset. The OE dataset takes the normal one's pipeline specs
+    and statistics, trains with the flipped label, owns ``oe_limit_samples``,
+    and with ``oe_limit_classes`` keeps that many of its classes, drawn
+    from ``rng``."""
+    from eoe_tpu_torch.datasets.bases import CombinedDataset
+    assert dataset_name in DS_CHOICES, f"{dataset_name} is not in {sorted(DS_CHOICES)}"
+    if msms:
+        raise NotImplementedError("multi-scale modes (MSM) are not ported yet")
+    if DS_CHOICES[dataset_name]["oe_only"]:
+        raise ValueError(f"{dataset_name} can only be used as OE!")
+    rng = rng if rng is not None else np.random.default_rng()
+    raw_shape = get_raw_shape(train_specs, dataset_name)
+    dataset = _resolve_class(dataset_name)(
+        data_path, list(normal_classes), nominal_label, list(train_specs or ()),
+        list(test_specs or ()), raw_shape, logger, float("inf"), (), (), ds_statistics, rng)
+    if oe_name is None:
+        return dataset
+
+    oe_cls = _resolve_class(oe_name)
+    n_oe_classes = DS_CHOICES[oe_name]["no_classes"]
+    if oe_limit_classes < float("inf"):
+        oe_classes = sorted(rng.choice(np.arange(n_oe_classes),
+                                       min(n_oe_classes, int(oe_limit_classes)),
+                                       replace=False).tolist())
+    else:
+        oe_classes = list(range(n_oe_classes))
+    oe = oe_cls(data_path, oe_classes, 1 - nominal_label, deepcopy(dataset.train_specs),
+                deepcopy(dataset.test_specs), raw_shape, logger, oe_limit_samples, (), None,
+                dataset.ds_statistics, rng)
+    return CombinedDataset(dataset, oe)

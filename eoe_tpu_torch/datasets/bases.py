@@ -9,19 +9,42 @@ random subset) or an explicit index list that overrides the filter.
 The sampler is numpy, as in the JAX package: the same seed gives the same
 index plans bit for bit. Sources hold uint8 images in host memory; the
 trainer moves each split to the device once and gathers batches there.
-Statistics extraction for the ``normalize`` placeholders (which needs
-``metrics.channel_stats``) is not ported yet; no CLIP pipeline uses it.
+
+A pipeline with a ``normalize`` (or ``gcn-normalize``) placeholder and no
+``ds_statistics`` takes its statistics from the raw normal train split
+(``metrics.channel_stats``; for GCN the range of the L1 global-contrast-
+normalised images) and caches them per dataset class, norm mode and normal
+classes in ``<root>/stats_cache.json``, the JAX package's file.
 """
 
+import json
+import os
+import os.path as pt
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
+from eoe_tpu_torch.ops.metrics import channel_stats
 from eoe_tpu_torch.ops.preprocess import DatasetStats, compile_conditional, compile_pipeline
 
 INF = float("inf")
+STD_NORM = 0
+GCN_NORM = 1
 _STATS_PLACEHOLDERS = ("norm", "normalise", "normalize",
                        "gcn-norm", "gcn-normalize", "gcn-normalise")
+
+
+def _op(spec) -> str:
+    return (spec if isinstance(spec, str) else spec.get("op", "")).lower()
+
+
+def _gcn_l1(images: torch.Tensor) -> torch.Tensor:
+    """Per-image global contrast normalisation: subtract the image's mean,
+    divide by its mean absolute deviation."""
+    flat = images.reshape(images.shape[0], -1)
+    flat = flat - flat.mean(dim=1, keepdim=True)
+    return (flat / flat.abs().mean(dim=1, keepdim=True)).reshape(images.shape)
 
 
 class DataSource:
@@ -136,25 +159,82 @@ class ADDataset:
             normal_idcs = np.asarray(self.limit_samples, dtype=np.int64)
         return Subset(source, normal_idcs)
 
-    def finalize(self):
-        """Compile all pipelines; call after the train and test sets are set.
-        Pipelines with a normalization placeholder need statistics, whose
-        extraction is not ported yet: pass ``ds_statistics``."""
-        def _op(s):
-            return (s if isinstance(s, str) else s.get("op", "")).lower()
+    def _get_raw_train_set(self) -> Optional[Subset]:
+        """The raw (unaugmented) normal train split the statistics come from."""
+        return self._train_set
 
+    def finalize(self):
+        """Extract statistics if a pipeline holds a normalization placeholder
+        and none were given, then compile all pipelines. Call after the train
+        and test sets are set."""
         needs_stats = any(_op(s) in _STATS_PLACEHOLDERS
                           for s in self.train_specs + self.test_specs)
         if needs_stats and self._stats is None:
-            raise NotImplementedError(
-                "extracting dataset statistics for a 'normalize' placeholder is not ported "
-                "yet; pass ds_statistics")
+            self._stats = self._extract_stats()
         guard = self.degenerate_crop_guard
         self._train_pipeline = compile_pipeline(self.train_specs, self._stats, guard)
         self._test_pipeline = compile_pipeline(self.test_specs, self._stats, guard)
         self._train_cond_pipeline = compile_conditional(self.train_conditional, self._stats, guard)
         self._test_cond_pipeline = compile_conditional(self.test_conditional, self._stats, guard)
         return self
+
+    def _extract_stats(self) -> DatasetStats:
+        mode = GCN_NORM if any(_op(s).startswith("gcn")
+                               for s in self.train_specs + self.test_specs) else STD_NORM
+        cached = self._load_cached_stats(mode)
+        if cached is not None:
+            if self.logger is not None:
+                self.logger.print(f"Use cached stats of training dataset with normal classes "
+                                  f"{self.normal_classes}")
+            return cached
+        raw = self._get_raw_train_set()
+        if raw is None:
+            raise ValueError(
+                "pipeline contains a normalization placeholder but this dataset cannot provide "
+                "a raw train split to extract statistics from")
+        images = raw.gather_all()
+        if mode == STD_NORM:
+            mean, std = channel_stats(images)
+            stats = DatasetStats(tuple(mean.tolist()), tuple(std.tolist()), STD_NORM)
+        else:
+            x = _gcn_l1(torch.from_numpy(images).float() / 255.0)
+            tmin, tmax = float(x.min()), float(x.max())
+            c = images.shape[-1]
+            stats = DatasetStats((tmin,) * c, (tmax - tmin,) * c, GCN_NORM)
+        self._cache_stats(stats, mode)
+        return stats
+
+    def _stats_cache_file(self) -> Optional[str]:
+        return pt.join(self.root, "stats_cache.json") if self.root else None
+
+    def _load_cached_stats(self, mode: int) -> Optional[DatasetStats]:
+        file = self._stats_cache_file()
+        if not file or not pt.exists(file):
+            return None
+        try:
+            with open(file) as r:
+                cache = json.load(r)
+            entry = cache[type(self).__name__][str(mode)][json.dumps(list(self.normal_classes))]
+            return DatasetStats(tuple(entry[0]), tuple(entry[1]), mode)
+        except (KeyError, json.JSONDecodeError):
+            return None
+
+    def _cache_stats(self, stats: DatasetStats, mode: int):
+        file = self._stats_cache_file()
+        if not file:
+            return
+        cache = {}
+        if pt.exists(file):
+            try:
+                with open(file) as r:
+                    cache = json.load(r)
+            except json.JSONDecodeError:
+                cache = {}
+        cache.setdefault(type(self).__name__, {}).setdefault(str(mode), {})[
+            json.dumps(list(self.normal_classes))] = (list(stats.mean), list(stats.std))
+        os.makedirs(pt.dirname(file), exist_ok=True)
+        with open(file, "w") as w:
+            json.dump(cache, w)
 
     @property
     def train_set(self) -> Subset:

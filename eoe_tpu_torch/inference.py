@@ -1,5 +1,6 @@
 """Serving API: batched anomaly scoring, the port of eoe_tpu/inference.py.
 
+    scorer = AnomalyScorer(snapshot, model=CNN32(), test_specs=["normalize"])
     scorer = AnomalyScorer(snapshot, model=CLIP(VIT_B32), objective="clip",
                            center=prompt_center(...))
     scores = scorer.score(images)   # (n,) float32, larger = more anomalous
@@ -7,8 +8,11 @@
 ``snapshot`` is a port snapshot (the path of a ``torch.save`` of
 ``{"params": state_dict, "ds_statistics": ..., "setup": ...}``), such a dict
 in memory, or a bare ``state_dict``. The JAX package's flax msgpack
-snapshots carry across through ``models.clip.convert.from_flax``. The model
-runs on ``device``, ``cuda`` unless the caller asks for another one.
+snapshots carry across through ``models.clip.convert.from_flax`` (CLIP) and
+``models.convert.from_flax`` (the conv models, batch statistics included).
+The ``normalize`` placeholder takes the statistics stored in the snapshot.
+The model runs on ``device``, ``cuda`` unless the caller asks for another
+one.
 """
 
 from typing import Optional, Sequence, Union
@@ -33,8 +37,8 @@ class AnomalyScorer:
         @param objective: anomaly-score definition (OBJECTIVES key).
         @param test_specs: preprocessing spec list; defaults to the specs
             recorded in the snapshot's setup.
-        @param center: objective reference tensor (CLIP text features) when
-            the objective needs one.
+        @param center: objective reference tensor (the DSVDD feature centre,
+            CLIP's text features) when the objective needs one.
         """
         self.device = resolve_device(device)
         payload = torch.load(snapshot, map_location="cpu", weights_only=True) \
@@ -46,7 +50,8 @@ class AnomalyScorer:
         self.compute_dtype = compute_dtype
         if self.objective.needs_center and center is None:
             raise ValueError(
-                f"objective '{objective}' needs a center (CLIP text-feature matrix); "
+                f"objective '{objective}' needs a center (DSVDD feature center / "
+                f"CLIP text-feature matrix); "
                 f"pass it via the `center` argument")
         self.center = None if center is None else center.to(self.device)
 
@@ -62,7 +67,8 @@ class AnomalyScorer:
     def _score_batch(self, x: torch.Tensor) -> torch.Tensor:
         x = self._pipeline(x).to(self.compute_dtype)
         feats = self.model(x).float()
-        return self.objective.score(feats, self.center).reshape(-1)
+        kw = {"inputs": x} if self.objective.uses_inputs else {}
+        return self.objective.score(feats, self.center, **kw).reshape(-1)
 
     def score(self, images: np.ndarray) -> np.ndarray:
         """Score (n, h, w, c) uint8 or float images; any n (the last chunk is

@@ -1,16 +1,17 @@
-"""Anomaly-detection objectives of the ported trainers: the port of
-eoe_tpu/ops/losses.py for HSC and CLIP.
+"""Anomaly-detection objectives of the trainers: the port of
+eoe_tpu/ops/losses.py (HSC, BCE, focal, DSVDD, DSAD, AE and CLIP).
 
 Each objective provides
   * ``loss(features, labels, center, *, nominal_label=0, weights=None)`` -- the
     scalar training loss over a batch of model outputs,
   * ``score(features, center, *, nominal_label=0)`` -- per-sample anomaly
     scores of shape ``(n,)``; larger is more anomalous.
+The AE objective's loss and score also take ``inputs=``, the images the
+model reconstructs.
 
 Every loss takes an optional 0/1 ``weights`` mask per sample (padding slots
 of a ragged batch, unlabeled samples) and averages over the kept samples, as
-the JAX package does. bce, focal, dsvdd, dsad and ae come with the models
-that use them.
+the JAX package does.
 """
 
 from typing import Optional
@@ -45,6 +46,84 @@ def hsc_loss(features: torch.Tensor, labels: torch.Tensor,
     scores = 1.0 - torch.exp(-dists)
     losses = torch.where(labels == nominal_label, dists, -torch.log(scores + _EPS))
     return _masked_mean(losses, weights)
+
+
+def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    return logits.clamp(min=0.0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+
+
+def bce_score(features: torch.Tensor, center: Optional[torch.Tensor] = None, *,
+              nominal_label: int = 0, **_) -> torch.Tensor:
+    scores = torch.sigmoid(features.reshape(features.shape[0]))
+    return scores if nominal_label == 0 else 1.0 - scores
+
+
+def bce_loss(features: torch.Tensor, labels: torch.Tensor,
+             center: Optional[torch.Tensor] = None, *, nominal_label: int = 0,
+             weights: Optional[torch.Tensor] = None, **_) -> torch.Tensor:
+    logits = features.reshape(features.shape[0])
+    return _masked_mean(_bce_with_logits(logits, labels.to(logits.dtype)), weights)
+
+
+def focal_score(features: torch.Tensor, center: Optional[torch.Tensor] = None, *,
+                nominal_label: int = 0, **_) -> torch.Tensor:
+    return bce_score(features, center, nominal_label=nominal_label)
+
+
+def focal_loss(features: torch.Tensor, labels: torch.Tensor,
+               center: Optional[torch.Tensor] = None, *, nominal_label: int = 0,
+               gamma: float = 2.0, eps: float = 1e-7,
+               weights: Optional[torch.Tensor] = None, **_) -> torch.Tensor:
+    logits = features.reshape(features.shape[0])
+    bce = _bce_with_logits(logits, labels.to(logits.dtype))
+    pt = torch.exp(-bce).clamp(eps, 1.0 - eps)
+    return _masked_mean((1.0 - pt) ** gamma * bce, weights)
+
+
+def dsvdd_score(features: torch.Tensor, center: torch.Tensor, *, nominal_label: int = 0,
+                **_) -> torch.Tensor:
+    return (features - center).square().sum(dim=-1)
+
+
+def dsvdd_loss(features: torch.Tensor, labels: torch.Tensor, center: torch.Tensor, *,
+               nominal_label: int = 0, weights: Optional[torch.Tensor] = None,
+               **_) -> torch.Tensor:
+    return _masked_mean((features - center).square().sum(dim=-1), weights)
+
+
+def dsvdd_center(feature_sums: torch.Tensor, count, *, eps: float = 1e-1) -> torch.Tensor:
+    """The DSVDD centre from the summed features of the normal samples: their
+    mean, with entries of magnitude under ``eps`` pushed to +-eps by their
+    sign (exact zeros stay zero, as in the JAX package)."""
+    center = feature_sums / max(float(count), 1.0)
+    small = center.abs() < eps
+    center = torch.where(small & (center < 0), torch.full_like(center, -eps), center)
+    return torch.where(small & (center > 0), torch.full_like(center, eps), center)
+
+
+def dsad_score(features: torch.Tensor, center: Optional[torch.Tensor] = None, *,
+               nominal_label: int = 0, **_) -> torch.Tensor:
+    return hsc_score(features, center, nominal_label=nominal_label)
+
+
+def dsad_loss(features: torch.Tensor, labels: torch.Tensor,
+              center: Optional[torch.Tensor] = None, *, nominal_label: int = 0,
+              weights: Optional[torch.Tensor] = None, **_) -> torch.Tensor:
+    sq = features.reshape(features.shape[0], -1).square().sum(dim=-1)
+    losses = torch.where(labels == nominal_label, sq, 1.0 / (sq + _EPS))
+    return _masked_mean(losses, weights)
+
+
+def ae_score(features: torch.Tensor, center: Optional[torch.Tensor] = None, *,
+             inputs: torch.Tensor, nominal_label: int = 0, **_) -> torch.Tensor:
+    return (features - inputs).reshape(features.shape[0], -1).square().sum(dim=-1)
+
+
+def ae_loss(features: torch.Tensor, labels: torch.Tensor,
+            center: Optional[torch.Tensor] = None, *, inputs: torch.Tensor,
+            nominal_label: int = 0, weights: Optional[torch.Tensor] = None,
+            **_) -> torch.Tensor:
+    return _masked_mean(ae_score(features, inputs=inputs), weights)
 
 
 def clip_score(image_features: torch.Tensor, text_features: torch.Tensor, *,
@@ -98,5 +177,10 @@ class Objective:
 
 OBJECTIVES = {
     "hsc": Objective("hsc", hsc_loss, hsc_score),
+    "bce": Objective("bce", bce_loss, bce_score, clf_head=True),
+    "focal": Objective("focal", focal_loss, focal_score, clf_head=True),
+    "dsvdd": Objective("dsvdd", dsvdd_loss, dsvdd_score, needs_center=True),
+    "dsad": Objective("dsad", dsad_loss, dsad_score),
+    "ae": Objective("ae", ae_loss, ae_score, uses_inputs=True),
     "clip": Objective("clip", clip_loss, clip_score, needs_center=True, is_clip=True),
 }

@@ -258,8 +258,8 @@ def gaussian_noise(images: torch.Tensor, noise: torch.Tensor, std: float) -> tor
 
 
 def normalize(images: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
-    mean = torch.tensor(mean, dtype=images.dtype, device=images.device)
-    std = torch.tensor(std, dtype=images.dtype, device=images.device)
+    mean = torch.as_tensor(mean, dtype=images.dtype, device=images.device)
+    std = torch.as_tensor(std, dtype=images.dtype, device=images.device)
     return (images - mean) / std
 
 

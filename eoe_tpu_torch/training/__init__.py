@@ -1,7 +1,7 @@
 """Trainers of the port: the registry of the JAX package's objective names.
-
-``hsc`` and ``clip`` are ported; bce, focal, dsvdd, dsad and ae wait for the
-models that use them and raise here.
+``clip`` is ``ClipTrainer``; every other objective is ``Trainer`` with that
+objective (bce and focal want a model with a one-neuron head, ``clf=True``;
+ae an autoencoder, ``AE32``).
 """
 
 from functools import partial
@@ -15,14 +15,8 @@ def _clip_trainer(*args, **kwargs):
     return ClipTrainer(*args, **kwargs)
 
 
-def _not_ported(name):
-    def make(*args, **kwargs):
-        raise NotImplementedError(f"the {name} trainer is not ported yet")
-    return make
-
-
 TRAINER = {
-    "hsc": partial(Trainer, objective="hsc"),
+    **{name: partial(Trainer, objective=name)
+       for name in ("hsc", "bce", "dsvdd", "dsad", "focal", "ae")},
     "clip": _clip_trainer,
-    **{name: _not_ported(name) for name in ("bce", "dsvdd", "dsad", "focal", "ae")},
 }

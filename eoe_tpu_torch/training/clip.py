@@ -101,7 +101,7 @@ class ClipTrainer(Trainer):
         """The given CLIP weights, copied in anew for every class-seed."""
         self.model.load_state_dict(self._clip_state_dict)
 
-    def _loss_kwargs(self):
+    def _loss_kwargs(self, inputs):
         return {"nominal_label": self.nominal_label, "ad_mode": self.ad_mode}
 
     def prepare_metric(self, clsstr: str, ds, state: TrainState, seed: int) -> torch.Tensor:

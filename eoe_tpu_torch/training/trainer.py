@@ -9,12 +9,18 @@ batch weights are ``w * (labels >= 0)``, so padding slots and unlabeled
 samples do not count. Train and test splits live on the device; a batch is
 an index gather there, following the sampler's numpy plans.
 
-The grid (``run``) trains seeds one after another and retries a class-seed
-whose anomaly scores turned NaN up to five times (``NanGradientsError``). It
-writes the JAX package's run directory (see ``utils.logger``). Not ported,
+The grid (``run``) builds each class-seed's dataset by name
+(``datasets.load_dataset``, from the numpy rng of (seed, class, seed index),
+as the JAX package does) unless one is pinned with ``trainer.ds``, trains
+seeds one after another and retries a class-seed whose anomaly scores turned
+NaN up to five times (``NanGradientsError``). It writes the JAX package's run
+directory (see ``utils.logger``). Models with batch norm update their
+running averages in the train step and use them in eval; a conv model built
+with ``dtype=None`` computes in the trainer's compute dtype. DSVDD's centre
+is the mean feature of the normal train split under the initial weights
+(``prepare_metric``); the AE objective gets the model's inputs. Not ported,
 being JAX dispatch machinery or later work: ``lax.scan`` epochs, the jit
-cache, meshes, vmapped seeds, the HLO dump, preview images, the DSVDD centre,
-MSMs, and loading datasets by name (pin one with ``trainer.ds``).
+cache, meshes, vmapped seeds, the HLO dump, preview images and MSMs.
 
 Deviation: the sampler's seed comes from a numpy ``SeedSequence`` of
 (seed, class, seed index) instead of a JAX key, and augmentations draw from
@@ -29,12 +35,13 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from eoe_tpu_torch.datasets import no_classes, str_labels
+from eoe_tpu_torch.datasets import load_dataset, no_classes, str_labels
 from eoe_tpu_torch.datasets.bases import INF, BalancedEpochSampler, CombinedDataset
 from eoe_tpu_torch.device import resolve_device
 from eoe_tpu_torch.models.clip import CLIP
+from eoe_tpu_torch.models.layers import with_compute_dtype
 from eoe_tpu_torch.ops import metrics as M
-from eoe_tpu_torch.ops.losses import OBJECTIVES, Objective
+from eoe_tpu_torch.ops.losses import OBJECTIVES, Objective, dsvdd_center
 from eoe_tpu_torch.training.optim import ScheduledOptimizer, make_optimizer
 from eoe_tpu_torch.utils.logger import Logger
 
@@ -94,10 +101,10 @@ def _to_cpu(obj):
 
 
 class Trainer:
-    """The experiment-grid trainer. ``model`` is a port module (the CLIP
-    image tower is what this slice trains); its weights are drawn anew for
-    every class-seed with ``reset_parameters``. ``device`` is ``cuda`` unless
-    the caller asks for another one."""
+    """The experiment-grid trainer. ``model`` is a port module (CLIP, or a
+    conv model of ``models``); its weights are drawn anew for every
+    class-seed with ``reset_parameters``. ``device`` is ``cuda`` unless the
+    caller asks for another one."""
 
     def __init__(self, model: torch.nn.Module, train_specs: Sequence, test_specs: Sequence,
                  dataset: str, oe_dataset: Optional[str], datapath: str, logger: Optional[Logger],
@@ -111,7 +118,7 @@ class Trainer:
         if msms:
             raise NotImplementedError("multi-scale modes (MSM) are not ported yet")
         self.device = resolve_device(device)
-        self.model = model
+        self.model = model if model is None else with_compute_dtype(model, compute_dtype)
         self.objective: Objective = OBJECTIVES[objective] if isinstance(objective, str) \
             else objective
         self.train_specs = list(train_specs or ())
@@ -223,8 +230,11 @@ class Trainer:
         return (torch.tensor(stats.mean, device=self.device),
                 torch.tensor(stats.std, device=self.device))
 
-    def _loss_kwargs(self):
-        return {"nominal_label": self.nominal_label}
+    def _loss_kwargs(self, inputs):
+        kw = {"nominal_label": self.nominal_label}
+        if self.objective.uses_inputs:
+            kw["inputs"] = inputs
+        return kw
 
     def train_step(self, state: TrainState, ds, xn, ln, xo, lo, w,
                    generator: Optional[torch.Generator], center=None, rt_stats=None):
@@ -242,12 +252,13 @@ class Trainer:
         x = x.to(self.compute_dtype)
         model = state.model.train()
         feats = model(x).float()
-        loss = self.objective.loss(feats, labels, center, weights=weights, **self._loss_kwargs())
+        loss = self.objective.loss(feats, labels, center, weights=weights,
+                                   **self._loss_kwargs(x))
         state.optimizer.zero_grad()
         loss.backward()
         state.optimizer.step()
         with torch.no_grad():
-            scores = self.objective.score(feats, center, **self._loss_kwargs()).reshape(-1)
+            scores = self.objective.score(feats, center, **self._loss_kwargs(x)).reshape(-1)
         return loss.detach(), scores, labels, weights
 
     @torch.no_grad()
@@ -255,17 +266,32 @@ class Trainer:
         x = self._preprocess(ds, x, labels, None, False, "normal", rt_stats)
         x = x.to(self.compute_dtype)
         feats = state.model.eval()(x).float()
-        return self.objective.score(feats, center, **self._loss_kwargs()).reshape(-1)
+        return self.objective.score(feats, center, **self._loss_kwargs(x)).reshape(-1)
 
     # ------------------------------------------------------------- metric prep
 
+    @torch.no_grad()
     def prepare_metric(self, clsstr: str, ds, state: TrainState, seed: int):
-        """The objective's centre; HSC needs none. The DSVDD centre is not
-        ported yet."""
-        if self.objective.needs_center:
-            raise NotImplementedError(
-                f"the {self.objective.name} centre is not ported yet")
-        return None
+        """The objective's centre: for DSVDD the mean feature of the normal
+        train split under the initial model in eval mode, each batch scaled
+        to [0, 1] and through the train (conditional ->) pipeline, then
+        ``dsvdd_center``. Every other objective here needs none."""
+        if self.objective.name != "dsvdd":
+            return None
+        normal_ds = ds.normal if isinstance(ds, CombinedDataset) else ds
+        X = torch.from_numpy(np.ascontiguousarray(ds.train_set.gather_all())).to(self.device)
+        rt_stats = self._rt_stats(ds)
+        generator = torch.Generator(device=self.device).manual_seed(_seed(self.seed, seed, 3))
+        model = state.model.eval()
+        feat_sum, B = None, self.batch_size
+        for i in range(0, len(X), B):
+            x = X[i:i + B].float() / 255.0
+            labels = torch.full((len(x),), self.nominal_label, device=self.device)
+            x = normal_ds.train_conditional_pipeline(x, labels, rt_stats, generator=generator)
+            x = normal_ds.train_pipeline(x, rt_stats, generator=generator)
+            s = model(x.to(self.compute_dtype)).float().sum(dim=0)
+            feat_sum = s if feat_sum is None else feat_sum + s
+        return dsvdd_center(feat_sum, len(X))
 
     # ------------------------------------------------------------- class x seed grid
 
@@ -292,7 +318,8 @@ class Trainer:
                 self.logger.print(f'------ start training cls {c} "{cstr}" (seed {it}) ------')
                 cur_load = load[c][it] if load is not None and len(load) > c \
                     and len(load[c]) > it else None
-                ds = self._build_dataset(c, cur_load)
+                rng = np.random.default_rng([max(self.seed, 0), c, it])
+                ds = self._build_dataset(c, rng, cur_load)
                 state = roc = None
                 for attempt in range(5):
                     seed = _seed(self.seed, c, it, attempt)
@@ -307,6 +334,7 @@ class Trainer:
                         self.logger.warning(
                             f'Gradients got NaN for class {c} "{cstr}" and seed {it}. '
                             f'Happened {attempt} times so far. Try once more.')
+                        ds = self._build_dataset(c, rng, None)
                         if attempt == 4:
                             state, roc = None, None
                             self.logger.warning(
@@ -374,12 +402,23 @@ class Trainer:
                          for cr in eval_cls_rocs],
         }
 
-    def _build_dataset(self, c: int, cur_load: Optional[str]):
+    def _build_dataset(self, c: int, rng: np.random.Generator, cur_load: Optional[str]):
+        """The pinned dataset, or the normal (+ OE) dataset of class ``c`` by
+        name, with the statistics of the snapshot being resumed."""
         if self.ds is not None:
             return self.ds
-        raise NotImplementedError(
-            "loading datasets by name is not ported yet; pin a dataset built from "
-            "eoe_tpu_torch.datasets.bases with trainer.ds")
+        return load_dataset(
+            self.dsstr, self.datapath, self.get_nominal_classes(c), self.nominal_label,
+            self.train_specs, self.test_specs, self.logger, self.oe_dsstr,
+            self.oe_limit_samples, self.oe_limit_classes, self.msms,
+            ds_statistics=self.load_ds_statistics(cur_load), rng=rng)
+
+    def load_ds_statistics(self, path: Optional[str]) -> Optional[dict]:
+        """The dataset statistics stored in a snapshot, if any."""
+        if path is None:
+            return None
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        return payload.get("ds_statistics") or None
 
     def _init_or_load(self, ds, seed: int, cur_load: Optional[str],
                       steps_per_epoch: int) -> Tuple[TrainState, int]:

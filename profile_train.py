@@ -3,7 +3,8 @@
 on one NVIDIA GPU.
 
     python3 profile_train.py [--steps 3] [--route fused|group|flash] [--serving]
-                             [--dtype bfloat16|float32] [--trace train_trace.json]
+                             [--dtype bfloat16|float32] [--model clip|cnn32|wrn]
+                             [--trace train_trace.json]
 
 Builds chip_smoke.py's training configuration (full-width ViT-B/32 in bf16,
 HSC, the acceptance augmentation stack, 128 normal + 128 OE images per
@@ -19,8 +20,12 @@ float32`` trains the same step in fp32 (TF32 off, as the parity runs of
 chip_smoke.py), which takes the fp32 kernels. With ``--serving`` each step
 is instead one fp32 request of 256 raw 32x32 images through
 ``AnomalyScorer`` with the CLIP objective (chip_smoke.py's serving
-phase, the prompt centre computed once before). Needs one card; imports
-nothing of JAX or eoe_tpu.
+phase, the prompt centre computed once before). ``--model cnn32`` profiles
+chip_smoke.py's conv_training step instead (CNN32, fp32, HSC, the
+benchmark's CIFAR-10 stack on 32x32 images), ``--model wrn`` its
+wrn_training step (WideResNet+CBAM, bf16, HSC, the ImageNet-30 stack on
+256x256 images, the fused stem); ``--dtype`` then overrides the step's own
+dtype only when given. Needs one card; imports nothing of JAX or eoe_tpu.
 """
 
 import argparse
@@ -37,6 +42,11 @@ def kernel_class(name: str) -> str:
         return "attention backward (port kernel)"
     if "fused_qkv_fwd" in low:
         return "attention forward (port kernel)"
+    if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad", "winograd", "cudnn",
+                              "nchwtonhwc", "nhwctonchw")):
+        return "convolutions (cuDNN)"
+    if "pool" in low:
+        return "pooling"
     if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas", "sm90_")):
         return "matrix products (cuBLAS)"
     if "layer_norm" in low or "layernorm" in low:
@@ -51,24 +61,48 @@ def training_step(cs, kw, dtype):
     """chip_smoke.py's HSC training step on the acceptance stack, in
     ``dtype`` (bf16 as trained there by default)."""
     import numpy as np
-    import torch
     from eoe_tpu_torch.models.clip import CLIP, VIT_B32
     ds, _ = cs._combined(np.random.default_rng(cs.SEED), cs.ACCEPTANCE_SPECS)
     trainer = cs._trainer(CLIP(VIT_B32, dtype=dtype, **kw), cs.ACCEPTANCE_SPECS, None, dtype)
     state = trainer.init_state(cs.SEED, ds, 1)
+    return _steps(trainer, state, ds, cs.BATCH), 2 * cs.BATCH
+
+
+def conv_step(cs, model_name, dtype):
+    """chip_smoke.py's conv_training (CNN32) or wrn_training (WideResNet)
+    step, in ``dtype`` if given, else the path's own (fp32, bf16)."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.models import CNN32, WideResNet
+    if model_name == "cnn32":
+        model, hw, n, specs, test_specs = CNN32(), 32, cs.CONV_N, cs.CIFAR_SPECS, ["normalize"]
+        dtype = dtype or torch.float32
+    else:
+        model, hw, n, specs, test_specs = (WideResNet(), 256, cs.WRN_N, cs.WRN_SPECS,
+                                           cs.WRN_TEST_SPECS)
+        dtype = dtype or torch.bfloat16
+    ds, _ = cs._pinned(np.random.default_rng(cs.SEED), hw, n, 8, specs, test_specs)
+    trainer = cs._conv_trainer("hsc", model, specs, test_specs, None, dtype, 1)
+    state = trainer.init_state(cs.SEED, ds, 1)
+    return _steps(trainer, state, ds, cs.BATCH), 2 * cs.BATCH
+
+
+def _steps(trainer, state, ds, batch):
+    """A step function over the pinned set's batches, in turn."""
+    import torch
     dev = trainer.device
     xn = torch.from_numpy(ds.train_set.gather_all()).to(dev)
     xo = torch.from_numpy(ds.oe.train_set.gather_all()).to(dev)
     ln = torch.zeros(len(xn), dtype=torch.int64, device=dev)
     lo = torch.ones(len(xo), dtype=torch.int64, device=dev)
-    w = torch.ones(cs.BATCH, device=dev)
-    g = torch.Generator(device=dev).manual_seed(cs.SEED)
-    n_batches = len(xn) // cs.BATCH
+    w = torch.ones(batch, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    n_batches = len(xn) // batch
 
     def step(i):
-        sl = slice((i % n_batches) * cs.BATCH, (i % n_batches + 1) * cs.BATCH)
+        sl = slice((i % n_batches) * batch, (i % n_batches + 1) * batch)
         return trainer.train_step(state, ds, xn[sl], ln[sl], xo[sl], lo[sl], w, g)
-    return step, 2 * cs.BATCH
+    return step
 
 
 def serving_step(cs, kw):
@@ -98,8 +132,10 @@ def main():
                         help="the attention route the model takes")
     parser.add_argument("--serving", action="store_true",
                         help="profile an fp32 scoring request of 256 images, not a training step")
-    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
-                        help="the training step's compute dtype")
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
+                        help="the training step's compute dtype (CLIP: bfloat16 by default)")
+    parser.add_argument("--model", choices=("clip", "cnn32", "wrn"), default="clip",
+                        help="the model whose training step is profiled")
     parser.add_argument("--trace", default="", help="write a chrome trace here")
     args = parser.parse_args()
 
@@ -113,13 +149,19 @@ def main():
     card = cs.phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dtype = getattr(torch, args.dtype)
-    print(f"profile: route {args.route}, "
-          f"{'serving fp32' if args.serving else 'training ' + args.dtype}")
+    dtype = getattr(torch, args.dtype) if args.dtype else None
     attention.GROUP_GRID = args.route == "group"
     kw = {"attention_fn": attention.flash_attention} if args.route == "flash" else {}
-    step, images = (serving_step(cs, kw) if args.serving else
-                    training_step(cs, kw, dtype))
+    if args.model != "clip":
+        what = f"training {args.model} {args.dtype or 'in its own dtype'}"
+        step, images = conv_step(cs, args.model, dtype)
+    elif args.serving:
+        what = "serving fp32"
+        step, images = serving_step(cs, kw)
+    else:
+        what = f"training {args.dtype or 'bfloat16'}"
+        step, images = training_step(cs, kw, dtype or torch.bfloat16)
+    print(f"profile: model {args.model}, route {args.route}, {what}")
 
     for i in range(2):
         step(i)

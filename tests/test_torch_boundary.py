@@ -2,6 +2,7 @@
 points run on CUDA unless the caller asks for the CPU."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -11,6 +12,7 @@ import torch
 
 from eoe_tpu_torch import resolve_device
 from eoe_tpu_torch.inference import AnomalyScorer
+from eoe_tpu_torch.models import AE32, CNN32
 from eoe_tpu_torch.models.clip import CLIP, ClipConfig
 from eoe_tpu_torch.training import TRAINER
 from eoe_tpu_torch.training.clip import CIFAR10_LABELS, prompt_center
@@ -18,14 +20,14 @@ from eoe_tpu_torch.training.clip import CIFAR10_LABELS, prompt_center
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import eoe_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(eoe_tpu_torch.__path__, "eoe_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "eoe_tpu"))
-print(len(names), leaked)
+print(json.dumps([names, leaked]))
 """
 
 
@@ -33,9 +35,12 @@ def test_port_imports_neither_jax_nor_eoe_tpu():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, leaked = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 19
-    assert leaked.strip() == "[]"
+    names, leaked = json.loads(out.stdout)
+    conv_path = {f"eoe_tpu_torch.{m}" for m in (
+        "models.layers", "models.cnn", "models.ae", "models.cbam", "models.resnet",
+        "models.convert", "ops.stem", "datasets.cifar", "datasets.mnist")}
+    assert len(names) >= 30 and conv_path <= set(names)
+    assert leaked == []
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "profile_train.py", "attention_variants.py"])
@@ -93,5 +98,8 @@ def test_trainers_default_to_cuda(monkeypatch):
     with pytest.raises(FileNotFoundError):  # the OpenAI checkpoint loader is not ported
         TRAINER["clip"](None, None, None, device="cpu", **kw)
     for name in ("bce", "focal", "dsvdd", "dsad", "ae"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TRAINER[name](model=CLIP(tiny), train_specs=[], test_specs=[], **kw)
+        model = AE32() if name == "ae" else CNN32(clf=name in ("bce", "focal"))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TRAINER[name](model=model, train_specs=[], test_specs=[], **kw)
+        assert TRAINER[name](model=model, train_specs=[], test_specs=[], device="cpu",
+                             **kw).device == torch.device("cpu")

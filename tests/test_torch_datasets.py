@@ -1,6 +1,10 @@
 """The port's dataset layer against the JAX package's: the sampler's index
 plans bit for bit over three epochs, binary targets, normal/anomalous
-counts, subsets and the class-label tables."""
+counts, subsets, the class-label tables, the statistics of the ``normalize``
+placeholders and their cache, and ``load_dataset`` by name on the
+synthetic data (``EOE_TPU_FAKE_DATA=1``)."""
+
+import json
 
 import numpy as np
 import pytest
@@ -61,15 +65,124 @@ def test_targets_and_counts_equal_jax(limit):
     assert ours.raw_shape == theirs.raw_shape and ours.ds_statistics is None
 
 
+# The JAX package sums the pixels in fp32 (one XLA reduction): on the
+# synthetic CIFAR classes its mean is up to 2.5e-6 and its std up to 8.6e-6
+# (relative) off an fp64 numpy reference; the port accumulates per-chunk
+# fp32 sums in fp64 and stays within 4e-7 of it.
+STATS_TOL = 2e-5
+EXACT_TOL = 1e-6
+
+
+def _stats_close(ours, theirs):
+    assert ours["mode"] == theirs["mode"]
+    for key in ("mean", "std"):
+        np.testing.assert_allclose(ours[key], theirs[key], rtol=STATS_TOL, atol=1e-7)
+
+
+def _exact_stats(images):
+    f = images.astype(np.float64).reshape(-1, images.shape[-1]) / 255.0
+    return f.mean(0), f.std(0, ddof=1)
+
+
 def test_normalize_placeholder_needs_statistics():
-    x = np.zeros((4, 8, 8, 3), np.uint8)
+    """Without ``ds_statistics`` the placeholder takes its statistics from the
+    normal train split, equal to the JAX package's; given ones are kept."""
+    x = np.random.default_rng(3).integers(0, 256, (12, 8, 8, 3), dtype=np.uint8)
+    y = np.arange(12) % 2
     kw = dict(root="", train_specs=["normalize"], test_specs=[], n_classes=2,
               raw_shape=(8, 8, 3), normal_classes=(0,), nominal_label=0)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        B.GenericADDataset(B.ArraySource(x, np.zeros(4)), None, **kw)
-    ds = B.GenericADDataset(B.ArraySource(x, np.zeros(4)), None,
+    ours = B.GenericADDataset(B.ArraySource(x, y), None, **kw)
+    theirs = JB.GenericADDataset(JB.ArraySource(x, y), None, **kw)
+    _stats_close(ours.ds_statistics, theirs.ds_statistics)
+    for got, want in zip((ours.ds_statistics["mean"], ours.ds_statistics["std"]),
+                         _exact_stats(x[y == 0])):
+        np.testing.assert_allclose(got, want, rtol=EXACT_TOL)
+    ds = B.GenericADDataset(B.ArraySource(x, y), None,
                             ds_statistics={"mean": [0.5] * 3, "std": [0.2] * 3}, **kw)
     assert ds.ds_statistics == {"mean": [0.5] * 3, "std": [0.2] * 3, "mode": 0}
+
+
+def test_gcn_statistics_and_cache_equal_jax(tmp_path):
+    """The GCN mode's statistics (the range of the L1-normalised images), and
+    ``stats_cache.json``: the port writes the JAX package's file and reads
+    it back (and the JAX package reads the port's)."""
+    x = np.random.default_rng(4).integers(0, 256, (10, 8, 8, 3), dtype=np.uint8)
+    kw = dict(train_specs=[], test_specs=[], n_classes=2, raw_shape=(8, 8, 3),
+              normal_classes=(1,), nominal_label=0)
+    stats = {}
+    for name, mod in (("port", B), ("jax", JB)):
+        root = tmp_path / name
+        ds = mod.GenericADDataset(mod.ArraySource(x, np.ones(10)), None, root=str(root), **kw)
+        for specs in (["gcn-normalize"], ["normalize"]):
+            ds.train_specs = specs
+            stats[name, specs[0]] = ds._extract_stats().to_json()
+        stats[name, "file"] = json.loads((root / "stats_cache.json").read_text())
+    for specs in ("gcn-normalize", "normalize"):
+        _stats_close(stats["port", specs], stats["jax", specs])
+    assert stats["port", "file"].keys() == stats["jax", "file"].keys()
+    # a cached entry wins over the data
+    cached = B.GenericADDataset(B.ArraySource(np.zeros_like(x), np.ones(10)), None,
+                                root=str(tmp_path / "jax"), **dict(kw, train_specs=["normalize"]))
+    _stats_close(cached.ds_statistics, stats["jax", "normalize"])
+
+
+def _by_name(mod, name, oe_name, seed, **kw):
+    return mod.load_dataset(name, "", [1], 0, ["normalize"], ["normalize"], None, oe_name,
+                            rng=np.random.default_rng([seed, 1, 0]), **kw)
+
+
+@pytest.mark.parametrize("name,oe_name,kw", [
+    ("cifar10", "cifar100", dict(oe_limit_classes=3)),
+    ("cifar10", "cifar100", dict(oe_limit_samples=50)),
+    ("fmnist", "mnist", dict(oe_limit_classes=2, oe_limit_samples=30)),
+    ("emnist", None, {}),
+])
+def test_load_dataset_by_name_equals_jax(name, oe_name, kw, monkeypatch):
+    """The same subsets, targets, OE classes and statistics as the JAX
+    package's factory, from the same rng."""
+    monkeypatch.setenv("EOE_TPU_FAKE_DATA", "1")
+    ours, theirs = _by_name(D, name, oe_name, 5, **kw), _by_name(jax_datasets, name, oe_name, 5,
+                                                                 **kw)
+    parts = ("normal", "oe") if oe_name else (None,)
+    for part in parts:
+        o = getattr(ours, part) if part else ours
+        t = getattr(theirs, part) if part else theirs
+        assert type(o).__name__ == type(t).__name__
+        assert o.normal_classes == t.normal_classes and o.nominal_label == t.nominal_label
+        assert o.raw_shape == t.raw_shape
+        _stats_close(o.ds_statistics, t.ds_statistics)
+        if part != "oe":
+            for got, want in zip((o.ds_statistics["mean"], o.ds_statistics["std"]),
+                                 _exact_stats(o.train_set.gather_all())):
+                np.testing.assert_allclose(got, want, rtol=EXACT_TOL)
+        for subset in ("train_set", "test_set"):
+            so, st = getattr(o, subset), getattr(t, subset)
+            np.testing.assert_array_equal(so.indices, st.indices)
+            np.testing.assert_array_equal(so.gather_all(), st.gather_all())
+            np.testing.assert_array_equal(o.binary_targets(so), t.binary_targets(st))
+    if oe_name:
+        assert ours.oe.ds_statistics == ours.normal.ds_statistics   # the normal set's
+        assert len(ours.oe.normal_classes) == kw.get("oe_limit_classes",
+                                                     D.no_classes(oe_name))
+
+
+def test_load_dataset_refuses_what_is_not_ported():
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        D.load_dataset("imagenet", "", [0], 0, [], [])
+    with pytest.raises(ValueError, match="only be used as OE"):
+        D.load_dataset("imagenetoe", "", [0], 0, [], [])
+    msm = D.MSM.load("blur+train_oe--M3")
+    assert str(msm) == str(jax_datasets.MSM.load("blur+train_oe--M3"))
+    assert msm.get_spec() == jax_datasets.MSM.load("blur+train_oe--M3").get_spec()
+    with pytest.raises(NotImplementedError, match="MSM"):
+        D.load_dataset("cifar10", "", [0], 0, [], [], msms=[msm])
+    for specs, name in (([{"op": "resize", "size": 64}], "cifar10"), ([], "mnist"),
+                        (["normalize"], "imagenet")):
+        assert D.get_raw_shape(specs, name) == jax_datasets.get_raw_shape(specs, name)
+    for name, entry in jax_datasets.DS_CHOICES.items():
+        ours = D.DS_CHOICES[name]
+        assert [ours[k] for k in ("default_size", "no_classes", "oe_only")] == \
+            [entry[k] for k in ("default_size", "no_classes", "oe_only")]
 
 
 def test_label_tables_equal_jax():
