@@ -87,7 +87,8 @@ REQUESTS = (256, 100, 37)
 # in bf16, and the fp32 training steps of the parity holds
 PATH_DTYPES = {"serving": "fp32", "training": "bf16", "training_fp32": "fp32",
                "flash_serving": "fp32", "flash_training": "bf16", "group_training": "bf16",
-               "group_training_fp32": "fp32", "conv_training": "fp32", "wrn_training": "bf16"}
+               "group_training_fp32": "fp32", "conv_training": "fp32", "wrn_training": "bf16",
+               "cli_clip": "bf16", "cli_conv": "fp32"}
 BATCH = 128
 SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
@@ -1172,6 +1173,202 @@ def phase_wrn_training(card: str) -> dict:
     return counts
 
 
+# (filter, argument) pairs held on the card against the CPU: every MSM
+# filter at the default CIFAR sweep's magnitudes (16 and 32 are NaN in both
+# packages: every frequency zeroed, then 0/0), GCN, min-max and grayscale
+FILTER_CASES = ([("gaussian_blur", dict(sigma=s)) for s in (1.0, 4.0, 16.0)]
+                + [("unsharp_mask", dict(percent=p)) for p in (100.0, 800.0)]
+                + [(f, dict(magnitude=m)) for f in ("high_pass_filter", "low_pass_filter")
+                   for m in (1, 8, 15, 16, 32)]
+                + [("global_contrast_normalization", dict(scale=s)) for s in ("l1", "l2")]
+                + [("minmax_norm", {}), ("grayscale", {})])
+
+
+def phase_filters(card: str):
+    """Each filter of ``ops.filters`` on the card (cuDNN convolutions, cuFFT)
+    against the same call on the CPU (pocketfft), on 256 CIFAR-sized images:
+    to 1e-5 of max(1, the CPU result's largest magnitude), NaN exactly where
+    the CPU result is NaN."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.ops import filters
+    cpu = torch.from_numpy(np.random.default_rng(SEED).uniform(0, 1, (256, 32, 32, 3))
+                           .astype(np.float32))
+    gpu = cpu.cuda()
+    report = []
+    for name, kw in FILTER_CASES:
+        fn = getattr(filters, name)
+        want, got = fn(cpu, **kw), fn(gpu, **kw).cpu()
+        nan = torch.isnan(want)
+        check(torch.equal(nan, torch.isnan(got)), f"filter {name}{kw}: NaN where the CPU's is not")
+        scale = max(1.0, want[~nan].abs().max().item()) if (~nan).any() else 1.0
+        err = (got[~nan] - want[~nan]).abs().max().item() if (~nan).any() else 0.0
+        check(err <= 1e-5 * scale, f"filter {name}{kw}: {err} off the CPU (tol {1e-5 * scale})")
+        report.append(f"{name}{list(kw.values()) or ''} {'NaN' if nan.all() else f'{err:.3g}'}")
+    print(f"filters on the card against the CPU (tol 1e-5 of max(1, |max|)): "
+          f"{'; '.join(report)} [{card}]")
+
+
+def _epoch_rates(run: str) -> list:
+    """img/s per epoch, as the trainer printed them into the run's print.txt."""
+    import re
+    with open(os.path.join(run, "print.txt")) as f:
+        return [float(r) for r in re.findall(r"epoch \d+/\d+: .*, (\d+) img/s", f.read())]
+
+
+def _run_dirs(root: str, pattern: str) -> list:
+    import glob
+    return sorted(glob.glob(os.path.join(root, "results", "**", pattern), recursive=True))
+
+
+def _cli_clip(card: str, tmp: str) -> dict:
+    """``train_clip_cifar`` through its ``main``, at full ViT-B/32 width from
+    an OpenAI-format fp16 checkpoint made from seed 0, counted; its scores
+    served back through ``AnomalyScorer`` from the run's snapshot."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.datasets import load_dataset
+    from eoe_tpu_torch.inference import AnomalyScorer
+    from eoe_tpu_torch.main import train_clip_cifar
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32, to_openai
+    from eoe_tpu_torch.training.clip import CIFAR10_LABELS, prompt_center
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "ViT-B-32.pt")
+    weights = CLIP(VIT_B32, generator=torch.Generator().manual_seed(SEED)).state_dict()
+    torch.save(to_openai(weights, VIT_B32), ckpt)
+    del weights
+    print(f"cli: OpenAI-format fp16 ViT-B/32 checkpoint from seed {SEED}, "
+          f"{os.path.getsize(ckpt) / 2 ** 20:.1f} MiB, in {time.perf_counter() - t0:.1f} s")
+    os.environ["EOE_TPU_CLIP_CHECKPOINT"] = ckpt
+    epochs = 2
+    normal = load_dataset("cifar10", os.path.join(tmp, "datasets"), [0], 0, [], [])
+    steps = epochs * -(-len(normal.train_set) // BATCH)
+    n_test = len(normal.test_set)
+    eval_batches = -(-n_test // BATCH)
+    layers, text_layers = VIT_B32.vision_layers, VIT_B32.transformer_layers
+
+    # ---- the main path, counted
+    _zero_counts()
+    t0 = time.perf_counter()
+    _, res = train_clip_cifar.main(["--epochs", str(epochs), "--classes", "0", "-it", "1",
+                                    "--datapath", tmp])
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    # ---- end of the counted run
+    check_counts(counts, {"fwd": text_layers + layers * (steps + eval_batches),
+                          "bwd": layers * steps},
+                 f"cli train_clip_cifar ({text_layers} prompt launches, {steps} steps, "
+                 f"{eval_batches} eval batch)")
+    run = _run_dirs(tmp, "log_*_clip_cifar10_one_vs_rest_E2")[0]
+    results = _read_json(run, "results")
+    check(np.isfinite(results["eval_mean_auc"]), f"cli train_clip_cifar: results {results}")
+    setup = _read_json(run, "setup")
+    check(setup["compute_dtype"] == "bfloat16" and setup["oe_dataset"] == "tinyimages",
+          f"cli train_clip_cifar: setup {setup}")
+    eval_scores = np.array([v for _, v in sorted(
+        (int(k), v) for k, v in _read_json(run, "eval_cls0_it0_anomaly_scores").items())])
+
+    model = CLIP(VIT_B32, dtype=torch.bfloat16)
+    snapshot = torch.load(os.path.join(run, "snapshots", "snapshot_cls0_it0.pt"),
+                          map_location="cpu", weights_only=True)
+    model.load_state_dict(snapshot["params"])
+    center = prompt_center(model, CIFAR10_LABELS[0], CIFAR10_LABELS)
+    scorer = AnomalyScorer(snapshot, model, objective="clip", batch_size=BATCH, center=center,
+                           compute_dtype=torch.bfloat16,
+                           test_specs=[{"op": "clip_pil_preprocessing",
+                                        "resolution": VIT_B32.image_resolution},
+                                       {"op": "clip_tensor_preprocessing"}])
+    served = scorer.score(normal.test_set.gather_all())
+    serve_err = float(np.abs(served - eval_scores).max())
+    check(eval_scores.shape == (n_test,) and serve_err <= 1e-4,
+          f"cli train_clip_cifar: AnomalyScorer differs from the run's scores by {serve_err}")
+    print(f"cli train_clip_cifar (ViT-B/32 bf16, cifar10 class 0, tinyimages OE, synthetic "
+          f"data): {steps} steps in {seconds:.2f} s with the checkpoint load, img/s per epoch "
+          f"{_epoch_rates(run)}; synthetic AUROC {results['eval_mean_auc']:.4f}; snapshot "
+          f"served through AnomalyScorer, max score difference {serve_err:.3g} (tol 1e-4); "
+          f"launches {counts} [{card}]")
+    del model, scorer, snapshot
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _cli_conv(card: str, tmp: str) -> dict:
+    """``train_cifar``, ``train_fmnist`` and two ``multiscale_cifar`` sweeps
+    through their ``main``, counted (no kernel of the repository lies on
+    them); the test-only sweep must evaluate its magnitude-0 snapshot at
+    magnitude 8 without training."""
+    import glob
+
+    import numpy as np
+    from eoe_tpu_torch.main import multiscale_cifar, train_cifar, train_fmnist
+
+    one = ["--classes", "0", "--datapath", tmp]
+    runs = [("train_cifar", train_cifar.main, ["-e", "2", "-it", "2"] + one,
+             "log_*_hsc_cifar10_one_vs_rest"),
+            ("train_fmnist", train_fmnist.main, ["-e", "2", "-it", "1"] + one,
+             "log_*_hsc_fmnist_one_vs_rest"),
+            ("multiscale_cifar lpf+train_nominal", multiscale_cifar.main,
+             ["--ms-mode", "lpf+train_nominal", "--magnitudes", "0", "8", "-e", "1", "-it", "1"]
+             + one, "log_*_MULTISCALE_hsc_lpf+train_nominal_OEinf"),
+            ("multiscale_cifar hpf+test_anomalous", multiscale_cifar.main,
+             ["--ms-mode", "hpf+test_anomalous", "--magnitudes", "0", "8", "-e", "1", "-it", "1"]
+             + one, "log_*_MULTISCALE_hsc_hpf+test_anomalous_OEinf")]
+    # ---- the main path, counted
+    _zero_counts()
+    out = []
+    for label, main, argv, _ in runs:
+        t0 = time.perf_counter()
+        out.append((main(argv), time.perf_counter() - t0))
+    counts = _counts()
+    # ---- end of the counted run
+    check_counts(counts, {}, "cli conv runners (no kernel of the repository)")
+    for (label, _, argv, pattern), (result, seconds) in zip(runs, out):
+        run = _run_dirs(tmp, pattern)[0]
+        if label.startswith("multiscale"):
+            aucs = [a for a, _ in result]
+            check(len(aucs) == 2 and np.isfinite(aucs).all(), f"cli {label}: AUROCs {result}")
+            trained = []
+            magnitude_runs = [glob.glob(os.path.join(run, f"log_*_magnitude_{m}"))[0]
+                              for m in (0, 8)]
+            for r in magnitude_runs:
+                with open(os.path.join(r, "print.txt")) as f:
+                    printed = f.read()
+                trained.append(("epoch 1/1" in printed, "Loaded snapshot" in printed))
+            reuse = "test_anomalous" in label
+            check(trained == [(True, False), (not reuse, reuse)],
+                  f"cli {label}: (trained, loaded) per magnitude {trained}")
+            rates = [_epoch_rates(r) for r in magnitude_runs]
+            what = (f"AUROC at magnitudes 0, 8: {[round(a, 4) for a in aucs]}; img/s per "
+                    f"epoch {rates}" + ("; magnitude 8 evaluated the magnitude-0 snapshot "
+                                        "with epochs=0" if reuse else ""))
+        else:
+            check(np.isfinite(result[1]["mean_auc"]), f"cli {label}: {result[1]}")
+            what = (f"synthetic AUROC {result[1]['mean_auc']:.4f}; img/s per epoch "
+                    f"{_epoch_rates(run)}")
+        print(f"cli {label} ({' '.join(argv[:-4])}): {seconds:.2f} s; {what} [{card}]")
+    return counts
+
+
+def phase_cli(card: str) -> tuple:
+    """The port's runners through ``main(argv)`` on the card, on the synthetic
+    data of ``EOE_TPU_FAKE_DATA=1`` with Tiny Images as the CIFAR-10 OE set."""
+    import tempfile
+    saved = {k: os.environ.get(k) for k in ("EOE_TPU_FAKE_DATA", "EOE_TPU_CLIP_CHECKPOINT")}
+    os.environ["EOE_TPU_FAKE_DATA"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            clip = _cli_clip(card, tmp)
+            conv = _cli_conv(card, tmp)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return clip, conv
+
+
 def _read_json(logdir: str, name: str) -> dict:
     with open(os.path.join(logdir, f"{name}.json")) as f:
         return json.load(f)
@@ -1190,21 +1387,33 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    card = phase_card()
-    phase_build()
-    rows = phase_kernels(card)
-    bwd_rows = phase_kernels_bwd(card)
-    group_rows, group_bwd_rows = phase_kernels_group(card)
-    flash_rows = phase_kernels_flash(card)
-    paths = {"serving": phase_slice(card)}
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"phase {name}: {seconds[name]} s")
+        return out
+
+    card = timed("card", phase_card)
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, card)
+    bwd_rows = timed("kernels_bwd", phase_kernels_bwd, card)
+    group_rows, group_bwd_rows = timed("kernels_group", phase_kernels_group, card)
+    flash_rows = timed("kernels_flash", phase_kernels_flash, card)
+    paths = {"serving": timed("serving", phase_slice, card)}
     import numpy as np
     data = _combined(np.random.default_rng(SEED), ACCEPTANCE_SPECS)
-    paths["training"], paths["training_fp32"] = phase_train(card, data)
-    paths["flash_serving"], paths["flash_training"] = phase_flash(card, data)
-    paths["group_training"], paths["group_training_fp32"] = phase_group(card, data)
+    paths["training"], paths["training_fp32"] = timed("training", phase_train, card, data)
+    paths["flash_serving"], paths["flash_training"] = timed("flash", phase_flash, card, data)
+    paths["group_training"], paths["group_training_fp32"] = timed("group", phase_group, card,
+                                                                  data)
     del data
-    paths["conv_training"] = phase_conv_training(card)
-    paths["wrn_training"] = phase_wrn_training(card)
+    paths["conv_training"] = timed("conv_training", phase_conv_training, card)
+    paths["wrn_training"] = timed("wrn_training", phase_wrn_training, card)
+    timed("filters", phase_filters, card)
+    paths["cli_clip"], paths["cli_conv"] = timed("cli", phase_cli, card)
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}
@@ -1265,6 +1474,7 @@ def main():
          "variants_by_path": variants_by_path("group_bwd"), **group_bwd_rows[main_shape],
          "fp32": fp32(group_bwd_rows[f32_shape])},
     ]
+    print(f"phases (s): {seconds}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

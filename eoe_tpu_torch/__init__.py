@@ -5,8 +5,9 @@ reference. This package imports ``torch`` and never ``jax`` or ``eoe_tpu``.
 The first slice is CLIP ViT-B/32 anomaly scoring (``inference.AnomalyScorer``),
 the second HSC and CLIP fine-tuning (``training.Trainer``,
 ``training.clip.ClipTrainer``); the fused-QKV attention forward and backward
-are hand-written CUDA kernels (``ops.attention``). Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+are hand-written CUDA kernels (``ops.attention``). The command-line runners
+are ``eoe_tpu_torch.main`` (``python -m eoe_tpu_torch.main.train_cifar``).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

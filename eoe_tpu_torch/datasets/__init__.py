@@ -2,12 +2,13 @@
 eoe_tpu/datasets/__init__.py, and in ``bases`` the AD dataset layer over
 in-memory sources.
 
-``load_dataset`` builds CIFAR-10, CIFAR-100, MNIST, EMNIST (letters) and
-Fashion-MNIST by name (``cifar``, ``mnist``), with an OE dataset beside the
-normal one as the JAX package does. The other registry entries (ImageNet,
-the folder datasets, tiny images, MVTec, DTD, CUB, custom) are not ported
-yet and raise; so do multi-scale modes (``MSM`` parses and prints them).
-The trainers also take a pinned dataset (``trainer.ds``).
+``load_dataset`` builds CIFAR-10, CIFAR-100, MNIST, EMNIST (letters),
+Fashion-MNIST (``cifar``, ``mnist``) and 80 Million Tiny Images
+(``tinyimages``) by name, with an OE dataset beside the normal one and the
+multi-scale modes (``MSM``) as label-conditional pipelines, as the JAX
+package does. The other registry entries (ImageNet, the folder datasets,
+MVTec, DTD, CUB, custom) are not ported yet and raise. The trainers also
+take a pinned dataset (``trainer.ds``).
 """
 
 import importlib
@@ -96,7 +97,7 @@ DS_PARTS = {
 
 _PORTED = {"cifar10": ("cifar", "ADCIFAR10"), "cifar100": ("cifar", "ADCIFAR100"),
            "mnist": ("mnist", "ADMNIST"), "emnist": ("mnist", "ADEMNIST"),
-           "fmnist": ("mnist", "ADFMNIST")}
+           "fmnist": ("mnist", "ADFMNIST"), "tinyimages": ("tinyimages", "ADTinyImages")}
 
 # the JAX package's registry: raw size, class count, OE-only; ``module`` and
 # ``cls`` are None where the dataset is not ported yet
@@ -121,9 +122,8 @@ def _resolve_class(name: str):
 
 
 class MSM:
-    """Multi-scale mode: a filter transform on one dataset part, in the
-    string form 'TRANSFORM+DSPART--M'. Parsed and printed as the JAX
-    package does; applying one is not ported yet."""
+    """Multi-scale mode: a filter transform (``ops.filters``) on one dataset
+    part, in the string form 'TRANSFORM+DSPART--M'."""
 
     def __init__(self, transform: str, ds_part: str, magnitude: Optional[int] = None):
         assert transform in MSM_TRANSFORMS, f"{transform} not in {MSM_TRANSFORMS}"
@@ -187,18 +187,27 @@ def load_dataset(dataset_name: str, data_path: str, normal_classes: List[int],
     and an OE dataset. The OE dataset takes the normal one's pipeline specs
     and statistics, trains with the flipped label, owns ``oe_limit_samples``,
     and with ``oe_limit_classes`` keeps that many of its classes, drawn
-    from ``rng``."""
+    from ``rng``. Each MSM becomes a conditional on its part: train_nominal
+    on the normal train images (label ``nominal_label``), test_nominal and
+    test_anomalous on the test images of that label or of the other, and
+    train_oe on every OE train image."""
     from eoe_tpu_torch.datasets.bases import CombinedDataset
     assert dataset_name in DS_CHOICES, f"{dataset_name} is not in {sorted(DS_CHOICES)}"
-    if msms:
-        raise NotImplementedError("multi-scale modes (MSM) are not ported yet")
-    if DS_CHOICES[dataset_name]["oe_only"]:
-        raise ValueError(f"{dataset_name} can only be used as OE!")
     rng = rng if rng is not None else np.random.default_rng()
     raw_shape = get_raw_shape(train_specs, dataset_name)
+    train_conditional = [(nominal_label, [m.get_spec()], None)
+                         for m in msms if m.ds_part == TRAIN_NOMINAL_ID]
+    test_conditional = [
+        (nominal_label,
+         [m.get_spec()] if m.ds_part == TEST_NOMINAL_ID else None,
+         [m.get_spec()] if m.ds_part == TEST_ANOMALOUS_ID else None)
+        for m in msms if m.ds_part in (TEST_NOMINAL_ID, TEST_ANOMALOUS_ID)]
+    if DS_CHOICES[dataset_name]["oe_only"]:
+        raise ValueError(f"{dataset_name} can only be used as OE!")
     dataset = _resolve_class(dataset_name)(
         data_path, list(normal_classes), nominal_label, list(train_specs or ()),
-        list(test_specs or ()), raw_shape, logger, float("inf"), (), (), ds_statistics, rng)
+        list(test_specs or ()), raw_shape, logger, float("inf"), train_conditional,
+        test_conditional, ds_statistics, rng)
     if oe_name is None:
         return dataset
 
@@ -210,7 +219,9 @@ def load_dataset(dataset_name: str, data_path: str, normal_classes: List[int],
                                        replace=False).tolist())
     else:
         oe_classes = list(range(n_oe_classes))
+    oe_train_conditional = [(nominal_label, [m.get_spec()], [m.get_spec()])
+                            for m in msms if m.ds_part == TRAIN_OE_ID]
     oe = oe_cls(data_path, oe_classes, 1 - nominal_label, deepcopy(dataset.train_specs),
-                deepcopy(dataset.test_specs), raw_shape, logger, oe_limit_samples, (), None,
-                dataset.ds_statistics, rng)
+                deepcopy(dataset.test_specs), raw_shape, logger, oe_limit_samples,
+                oe_train_conditional, None, dataset.ds_statistics, rng)
     return CombinedDataset(dataset, oe)

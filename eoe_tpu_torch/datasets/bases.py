@@ -25,26 +25,18 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from eoe_tpu_torch.ops.filters import global_contrast_normalization
 from eoe_tpu_torch.ops.metrics import channel_stats
-from eoe_tpu_torch.ops.preprocess import DatasetStats, compile_conditional, compile_pipeline
+from eoe_tpu_torch.ops.preprocess import (GCN_PLACEHOLDERS, NORM_PLACEHOLDERS, DatasetStats,
+                                          compile_conditional, compile_pipeline)
 
 INF = float("inf")
 STD_NORM = 0
 GCN_NORM = 1
-_STATS_PLACEHOLDERS = ("norm", "normalise", "normalize",
-                       "gcn-norm", "gcn-normalize", "gcn-normalise")
 
 
 def _op(spec) -> str:
     return (spec if isinstance(spec, str) else spec.get("op", "")).lower()
-
-
-def _gcn_l1(images: torch.Tensor) -> torch.Tensor:
-    """Per-image global contrast normalisation: subtract the image's mean,
-    divide by its mean absolute deviation."""
-    flat = images.reshape(images.shape[0], -1)
-    flat = flat - flat.mean(dim=1, keepdim=True)
-    return (flat / flat.abs().mean(dim=1, keepdim=True)).reshape(images.shape)
 
 
 class DataSource:
@@ -63,6 +55,12 @@ class DataSource:
     @property
     def raw_shape(self) -> Tuple[int, int, int]:
         raise NotImplementedError
+
+    @property
+    def resident(self) -> bool:
+        """Whether a split of this source is moved to the device whole; the
+        trainer gathers a streaming source's batches on the host instead."""
+        return True
 
 
 class ArraySource(DataSource):
@@ -167,7 +165,7 @@ class ADDataset:
         """Extract statistics if a pipeline holds a normalization placeholder
         and none were given, then compile all pipelines. Call after the train
         and test sets are set."""
-        needs_stats = any(_op(s) in _STATS_PLACEHOLDERS
+        needs_stats = any(_op(s) in NORM_PLACEHOLDERS + GCN_PLACEHOLDERS
                           for s in self.train_specs + self.test_specs)
         if needs_stats and self._stats is None:
             self._stats = self._extract_stats()
@@ -197,7 +195,7 @@ class ADDataset:
             mean, std = channel_stats(images)
             stats = DatasetStats(tuple(mean.tolist()), tuple(std.tolist()), STD_NORM)
         else:
-            x = _gcn_l1(torch.from_numpy(images).float() / 255.0)
+            x = global_contrast_normalization(torch.from_numpy(images).float() / 255.0, "l1")
             tmin, tmax = float(x.min()), float(x.max())
             c = images.shape[-1]
             stats = DatasetStats((tmin,) * c, (tmax - tmin,) * c, GCN_NORM)

@@ -1,0 +1,48 @@
+"""CLI runner: CIFAR-10 anomaly-detection benchmark.
+
+The port of eoe_tpu/main/train_cifar.py: its defaults and pipelines.
+Run: python -m eoe_tpu_torch.main.train_cifar [flags]
+"""
+
+from eoe_tpu_torch.main import default_argsparse, run_default_training
+
+DEFAULTS = dict(
+    comment='{obj}_cifar10_{admode}{oelimit}',
+    objective='hsc',
+    dataset='cifar10',
+    oe_dataset='tinyimages',
+    epochs=200,
+    learning_rate=0.001,
+    weight_decay=0,
+    milestones=[100, 150],
+    batch_size=128,
+    classes=None,
+    iterations=10,
+)
+
+TRAIN_SPECS = [{'op': 'color_jitter', 'brightness': 0.01, 'contrast': 0.01, 'saturation': 0.01, 'hue': 0.01}, {'op': 'random_hflip', 'p': 0.5}, {'op': 'random_crop', 'size': 32, 'padding': 4}, {'op': 'gaussian_noise', 'std': 0.001}, 'normalize']
+TEST_SPECS = ['normalize']
+
+
+def build_model(args):
+    from eoe_tpu_torch.models import CNN32
+    return CNN32(bias=True, clf=args.objective in ("bce", "focal"))
+
+
+def main(argv=None, device=None):
+    """``device``: ``cuda`` unless the caller asks for another one."""
+    def modify_parser(parser):
+        parser.set_defaults(**DEFAULTS)
+
+    args = default_argsparse(
+        lambda s: f"{s} This specific script comes with a default configuration for CIFAR-10.",
+        modify_parser, argv=argv)
+    args.comment = args.comment.format(
+        obj=args.objective, admode=args.ad_mode, epochs=args.epochs,
+        oelimit=f"_OE{args.oe_size}" if args.oe_size < float("inf") else "")
+    return run_default_training(args, build_model(args), TRAIN_SPECS, TEST_SPECS,
+                                device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,48 @@
+"""CLI runner: Fashion-MNIST anomaly-detection benchmark.
+
+The port of eoe_tpu/main/train_fmnist.py: its defaults and pipelines.
+Run: python -m eoe_tpu_torch.main.train_fmnist [flags]
+"""
+
+from eoe_tpu_torch.main import default_argsparse, run_default_training
+
+DEFAULTS = dict(
+    comment='{obj}_fmnist_{admode}{oelimit}',
+    objective='hsc',
+    dataset='fmnist',
+    oe_dataset='cifar100',
+    epochs=200,
+    learning_rate=0.001,
+    weight_decay=0,
+    milestones=[100, 150],
+    batch_size=128,
+    classes=None,
+    iterations=5,
+)
+
+TRAIN_SPECS = ['grayscale', {'op': 'random_hflip', 'p': 0.5}, {'op': 'random_crop', 'size': 28, 'padding': 3}, {'op': 'gaussian_noise', 'std': 0.001}, 'normalize']
+TEST_SPECS = ['grayscale', 'normalize']
+
+
+def build_model(args):
+    from eoe_tpu_torch.models import CNN28
+    return CNN28(bias=True, clf=args.objective in ("bce", "focal"))
+
+
+def main(argv=None, device=None):
+    """``device``: ``cuda`` unless the caller asks for another one."""
+    def modify_parser(parser):
+        parser.set_defaults(**DEFAULTS)
+
+    args = default_argsparse(
+        lambda s: f"{s} This specific script comes with a default configuration for Fashion-MNIST.",
+        modify_parser, argv=argv)
+    args.comment = args.comment.format(
+        obj=args.objective, admode=args.ad_mode, epochs=args.epochs,
+        oelimit=f"_OE{args.oe_size}" if args.oe_size < float("inf") else "")
+    return run_default_training(args, build_model(args), TRAIN_SPECS, TEST_SPECS,
+                                device=device)
+
+
+if __name__ == "__main__":
+    main()

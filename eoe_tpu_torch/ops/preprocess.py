@@ -24,16 +24,21 @@ Resizes use ``F.interpolate`` with ``antialias=True``: that matches
 for both up- and downscaling, where ``antialias=False`` misses by 0.1-0.2
 (tests/test_torch_preprocess.py).
 
-The filters (grayscale, blur, sharpen, hpf, lpf, minmax_norm, gcn) and
-label-conditional pipelines are not ported yet; they raise ``PipelineError``.
+The filters (grayscale, blur, sharpen, hpf, lpf, minmax_norm, gcn and the
+``gcn-normalize`` placeholder: GCN-l1, then the statistics) are
+``ops.filters``. ``compile_conditional`` compiles label-conditional
+pipelines, the multi-scale modes' (MSM) filters on one dataset part.
 """
 
 import dataclasses
+import json
 from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from eoe_tpu_torch.ops import filters as Fil
 
 Spec = Union[str, Dict[str, Any]]
 
@@ -42,8 +47,7 @@ CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 NORM_PLACEHOLDERS = ("norm", "normalise", "normalize")
-NOT_PORTED = ("grayscale", "blur", "sharpen", "hpf", "lpf", "minmax_norm",
-              "gcn", "gcn-norm", "gcn-normalize", "gcn-normalise")
+GCN_PLACEHOLDERS = ("gcn-norm", "gcn-normalize", "gcn-normalise")
 HFLIP_OPS = ("random_hflip", "random_horizontal_flip")
 _MODES = {"linear": "bilinear", "bilinear": "bilinear", "cubic": "bicubic", "bicubic": "bicubic"}
 
@@ -332,15 +336,30 @@ def compile_pipeline(specs: Sequence[Spec], stats: Optional[DatasetStats] = None
             steps.append(_Step(partial(normalize, mean=CLIP_MEAN, std=CLIP_STD)))
         elif op == "normalize_with":
             steps.append(_Step(partial(normalize, mean=tuple(s["mean"]), std=tuple(s["std"]))))
-        elif op in NORM_PLACEHOLDERS:
+        elif op == "grayscale":
+            steps.append(_Step(Fil.grayscale))
+        elif op == "blur":
+            steps.append(_Step(partial(Fil.gaussian_blur, sigma=float(s["sigma"]))))
+        elif op == "sharpen":
+            steps.append(_Step(partial(Fil.unsharp_mask, percent=float(s["percent"]))))
+        elif op == "hpf":
+            steps.append(_Step(partial(Fil.high_pass_filter, magnitude=int(s["magnitude"]))))
+        elif op == "lpf":
+            steps.append(_Step(partial(Fil.low_pass_filter, magnitude=int(s["magnitude"]))))
+        elif op == "minmax_norm":
+            steps.append(_Step(Fil.minmax_norm))
+        elif op == "gcn":
+            steps.append(_Step(partial(Fil.global_contrast_normalization,
+                                       scale=s.get("scale", "l1"))))
+        elif op in NORM_PLACEHOLDERS + GCN_PLACEHOLDERS:
             if stats is None:
                 raise PipelineError(
-                    "pipeline contains 'normalize' but no dataset statistics were provided; "
+                    f"pipeline contains {op!r} but no dataset statistics were provided; "
                     "they are extracted from the raw normal train split")
+            if op in GCN_PLACEHOLDERS:
+                steps.append(_Step(partial(Fil.global_contrast_normalization, scale="l1")))
             steps.append(_Step(partial(_normalize_rt, mean=stats.mean, std=stats.std),
                                takes_stats=True))
-        elif op in NOT_PORTED:
-            raise PipelineError(f"transform op {op!r} is not ported yet")
         elif op == "lambda":
             raise PipelineError("arbitrary lambdas are not serializable; add a named op instead")
         else:
@@ -375,14 +394,41 @@ def compile_pipeline(specs: Sequence[Spec], stats: Optional[DatasetStats] = None
 
 def compile_conditional(conditionals: Sequence, stats: Optional[DatasetStats] = None,
                         degenerate_crop_guard: bool = False) -> Callable[..., torch.Tensor]:
-    """Label-conditional transforms (the JAX ``compile_conditional``). Only
-    the empty list is ported: it is the identity, and passes uint8 through."""
-    if conditionals:
-        raise PipelineError("label-conditional transforms (MSM) are not ported yet")
+    """Compile label-conditional transforms, a list of ``(cond, specs_eq,
+    specs_neq)``, into ``fn(images, labels, rt_stats=None, *, generator=None,
+    draws=None)``. As in the JAX package, both branches run on the whole
+    batch and merge with ``torch.where`` on ``labels == cond``, one
+    conditional after another; uint8 images convert to float first, unless
+    the list is empty: then the images pass through as they came, so the
+    main pipeline's index-only prefix still runs on the bytes. Random specs
+    in a branch draw in spec order, the first branch's before the second's
+    (``fn.random_ops``; ``draws`` gives one dict per random op)."""
+    compiled = [(cond, compile_pipeline(t1 or [], stats, degenerate_crop_guard),
+                 compile_pipeline(t2 or [], stats, degenerate_crop_guard))
+                for cond, t1, t2 in (conditionals or ())]
+    random_ops = [op for _, f1, f2 in compiled for op in f1.random_ops + f2.random_ops]
 
-    def apply(images: torch.Tensor, labels=None, rt_stats=None, *, generator=None
-              ) -> torch.Tensor:
+    def apply(images: torch.Tensor, labels: torch.Tensor, rt_stats=None, *,
+              generator: Optional[torch.Generator] = None,
+              draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None) -> torch.Tensor:
+        if compiled:
+            images = _to_float(images)
+        ki = 0
+        for cond, f1, f2 in compiled:
+            branches = []
+            for f in (f1, f2):
+                k = len(f.random_ops)
+                d = draws[ki:ki + k] if draws is not None else None
+                ki += k
+                branches.append(f(images, rt_stats, generator=generator, draws=d))
+            images = torch.where(labels.reshape(-1, 1, 1, 1) == cond, *branches)
         return images
 
-    apply.conditionals = []
+    apply.random_ops = random_ops
     return apply
+
+
+def specs_repr(specs: Sequence[Spec]) -> str:
+    """The canonical string of a spec list, as setup.json matching compares it."""
+    return json.dumps([{"op": s} if isinstance(s, str) else dict(s) for s in (specs or ())],
+                      sort_keys=True)

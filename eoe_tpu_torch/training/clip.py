@@ -12,11 +12,15 @@ leave-one-out every other class's ``"a photo of a {c}"`` then the anomaly
 prompt. Their text features, L2-normalised, are the "center" that
 ``clip_loss`` and ``clip_score`` take, anomaly prompt last.
 
-Weights come as a port ``state_dict`` (``clip_state_dict=``, e.g. through
-``models.clip.convert.from_flax``). Loading the OpenAI checkpoint file is not
-ported yet.
+Weights: the OpenAI ViT checkpoint at ``checkpoint_path``, else at
+``$EOE_TPU_CLIP_CHECKPOINT``, else at ``~/.cache/clip/ViT-B-32.pt``, its
+architecture read from its shapes (``models.clip.convert``); nothing is
+downloaded. Tests pass a port ``state_dict`` instead (``clip_state_dict=``,
+with ``clip_config=``).
 """
 
+import os
+import os.path as pt
 from typing import List, Optional, Sequence
 
 import torch
@@ -24,10 +28,22 @@ import torch
 from eoe_tpu_torch.datasets import CIFAR10_LABELS, str_labels  # noqa: F401
 from eoe_tpu_torch.device import resolve_device
 from eoe_tpu_torch.models.clip import CLIP, VIT_B32, ClipConfig
+from eoe_tpu_torch.models.clip.convert import config_from_state_dict, from_openai, load_checkpoint
 from eoe_tpu_torch.models.clip.tokenizer import tokenize
 from eoe_tpu_torch.training.trainer import TrainState, Trainer
 
 CLIP_SPECS = [{"op": "clip_pil_preprocessing"}, {"op": "clip_tensor_preprocessing"}]
+DEFAULT_CHECKPOINT = "~/.cache/clip/ViT-B-32.pt"
+
+
+def resolve_checkpoint(path: Optional[str] = None) -> Optional[str]:
+    """The first of ``path``, ``$EOE_TPU_CLIP_CHECKPOINT`` and the default
+    location that exists."""
+    for cand in (path, os.environ.get("EOE_TPU_CLIP_CHECKPOINT"),
+                 pt.expanduser(DEFAULT_CHECKPOINT)):
+        if cand and pt.exists(cand):
+            return cand
+    return None
 
 
 def prompt_texts(clsstr: str, class_names: Sequence[str], ad_mode: str = "one_vs_rest",
@@ -60,17 +76,24 @@ def prompt_center(model, clsstr: str, class_names: Sequence[str],
 class ClipTrainer(Trainer):
     def __init__(self, model, train_specs, test_specs, *args,
                  anom_tkn_ptn: str = "a photo of something",
+                 checkpoint_path: Optional[str] = None,
                  clip_config: Optional[ClipConfig] = None,
                  clip_state_dict: Optional[dict] = None,
                  compute_dtype: torch.dtype = torch.float32, **kwargs):
         assert model is None, "CLIP-AD always uses the CLIP model"
         assert not test_specs, "CLIP-AD always uses CLIP's test transform"
-        if clip_state_dict is None:
-            raise FileNotFoundError(
-                "No CLIP weights given. Loading the OpenAI ViT-B/32 checkpoint file is not "
-                "ported yet: pass clip_state_dict (a port state_dict, e.g. converted with "
-                "eoe_tpu_torch.models.clip.convert.from_flax).")
-        config = clip_config or VIT_B32
+        if clip_state_dict is not None:
+            config = clip_config or VIT_B32
+        else:
+            ckpt = resolve_checkpoint(checkpoint_path)
+            if ckpt is None:
+                raise FileNotFoundError(
+                    "No CLIP checkpoint found. Place the OpenAI ViT-B/32 weights at "
+                    f"{DEFAULT_CHECKPOINT} or set EOE_TPU_CLIP_CHECKPOINT (nothing is "
+                    "downloaded).")
+            sd = load_checkpoint(ckpt)
+            config = config_from_state_dict(sd)
+            clip_state_dict = from_openai(sd)
         self._clip_state_dict = {k: v.detach().cpu().clone() for k, v in clip_state_dict.items()}
         clip_model = CLIP(config, dtype=compute_dtype)
         # setup.json records the raw specs; placeholders resolve below

@@ -18,9 +18,13 @@ directory (see ``utils.logger``). Models with batch norm update their
 running averages in the train step and use them in eval; a conv model built
 with ``dtype=None`` computes in the trainer's compute dtype. DSVDD's centre
 is the mean feature of the normal train split under the initial weights
-(``prepare_metric``); the AE objective gets the model's inputs. Not ported,
-being JAX dispatch machinery or later work: ``lax.scan`` epochs, the jit
-cache, meshes, vmapped seeds, the HLO dump, preview images and MSMs.
+(``prepare_metric``); the AE objective gets the model's inputs. The
+multi-scale modes (``msms``) are label-conditional pipelines that each
+half-batch passes before the main pipeline, in training and in eval. A
+streaming OE source (Tiny Images) is gathered on the host step by step;
+every other split lives on the device. Not ported, being JAX dispatch
+machinery or later work: ``lax.scan`` epochs, the jit cache, meshes,
+vmapped seeds, the HLO dump and preview images.
 
 Deviation: the sampler's seed comes from a numpy ``SeedSequence`` of
 (seed, class, seed index) instead of a JAX key, and augmentations draw from
@@ -115,8 +119,6 @@ class Trainer:
                  workers: int = 0, seed: int = 0, nominal_label: int = 0,
                  compute_dtype: torch.dtype = torch.float32, device=None):
         assert ad_mode in AD_MODES, f"AD mode {ad_mode} unknown. Known modes are {AD_MODES}."
-        if msms:
-            raise NotImplementedError("multi-scale modes (MSM) are not ported yet")
         self.device = resolve_device(device)
         self.model = model if model is None else with_compute_dtype(model, compute_dtype)
         self.objective: Objective = OBJECTIVES[objective] if isinstance(objective, str) \
@@ -449,7 +451,10 @@ class Trainer:
         normal_ds = ds.normal if combined else ds
         Xn, Ln = self._on_device(train_set, normal_ds.binary_targets(train_set))
         Xo = Lo = None
-        if has_oe:
+        stream_oe = has_oe and not oe_set.source.resident
+        if stream_oe:
+            oe_targets = ds.oe.binary_targets(oe_set)
+        elif has_oe:
             Xo, Lo = self._on_device(oe_set, ds.oe.binary_targets(oe_set))
         generator = torch.Generator(device=self.device).manual_seed(_seed(seed, 2))
 
@@ -463,8 +468,12 @@ class Trainer:
             outs = []
             for s in range(sampler.steps):
                 i_n, i_o, w_s = plan[0, s], plan[1, s], plan[2, s].float()
-                xo = Xo[i_o] if has_oe else None
-                lo = Lo[i_o] if has_oe else None
+                xo = lo = None
+                if stream_oe:
+                    xo = torch.from_numpy(oe_set.gather(idx_o[s])).to(self.device)
+                    lo = torch.from_numpy(oe_targets[idx_o[s]]).to(self.device)
+                elif has_oe:
+                    xo, lo = Xo[i_o], Lo[i_o]
                 outs.append(self.train_step(state, ds, Xn[i_n], Ln[i_n], xo, lo, w_s,
                                             generator, center, rt_stats))
             # one download per epoch: a per-step sync would stall the card

@@ -39,7 +39,11 @@ def test_port_imports_neither_jax_nor_eoe_tpu():
     conv_path = {f"eoe_tpu_torch.{m}" for m in (
         "models.layers", "models.cnn", "models.ae", "models.cbam", "models.resnet",
         "models.convert", "ops.stem", "datasets.cifar", "datasets.mnist")}
-    assert len(names) >= 30 and conv_path <= set(names)
+    cli = {f"eoe_tpu_torch.main.{m}" for m in (
+        "train_cifar", "train_mnist", "train_fmnist", "train_clip_cifar", "train_clip_mnist",
+        "train_clip_fmnist", "multiscale_cifar")} | {
+        "eoe_tpu_torch.main", "eoe_tpu_torch.ops.filters", "eoe_tpu_torch.datasets.tinyimages"}
+    assert len(names) >= 30 and conv_path <= set(names) and cli <= set(names)
     assert leaked == []
 
 
@@ -95,7 +99,9 @@ def test_trainers_default_to_cuda(monkeypatch):
                           **kw).device == torch.device("cpu")
     assert TRAINER["clip"](None, None, None, clip_config=tiny, clip_state_dict=weights,
                            device="cpu", **kw).device == torch.device("cpu")
-    with pytest.raises(FileNotFoundError):  # the OpenAI checkpoint loader is not ported
+    monkeypatch.setenv("HOME", "/nonexistent")
+    monkeypatch.delenv("EOE_TPU_CLIP_CHECKPOINT", raising=False)
+    with pytest.raises(FileNotFoundError):  # no checkpoint file anywhere
         TRAINER["clip"](None, None, None, device="cpu", **kw)
     for name in ("bce", "focal", "dsvdd", "dsad", "ae"):
         model = AE32() if name == "ae" else CNN32(clf=name in ("bce", "focal"))
@@ -103,3 +109,23 @@ def test_trainers_default_to_cuda(monkeypatch):
             TRAINER[name](model=model, train_specs=[], test_specs=[], **kw)
         assert TRAINER[name](model=model, train_specs=[], test_specs=[], device="cpu",
                              **kw).device == torch.device("cpu")
+
+
+def test_runners_default_to_cuda(tmp_path, monkeypatch):
+    """The CLI runners run on ``cuda`` (``device`` is a keyword of ``main``,
+    not a flag) and raise where there is no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from eoe_tpu_torch.main import multiscale_cifar, train_cifar, train_clip_cifar
+    base = ["-e", "1", "-it", "1", "--classes", "0", "--datapath", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cifar.main(base)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multiscale_cifar.main(base + ["--ms-mode", "lpf+train_nominal", "--magnitudes", "0"])
+    tiny = ClipConfig(embed_dim=16, image_resolution=16, vision_layers=1, vision_width=64,
+                      vision_patch_size=8, context_length=8, vocab_size=64,
+                      transformer_width=64, transformer_heads=1, transformer_layers=1)
+    from eoe_tpu_torch.models.clip import to_openai
+    torch.save(to_openai(CLIP(tiny).state_dict(), tiny), tmp_path / "ckpt.pt")
+    monkeypatch.setenv("EOE_TPU_CLIP_CHECKPOINT", str(tmp_path / "ckpt.pt"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_clip_cifar.main(base)

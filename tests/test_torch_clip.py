@@ -120,3 +120,103 @@ def test_tokenizer_ids_match_jax():
 def test_unported_variants_raise():
     with pytest.raises(NotImplementedError):
         CLIP(ClipConfig(vision_layers=(3, 4, 6, 3), vision_width=64, vision_patch_size=None))
+
+
+# ---------------------------------------------------------------- OpenAI checkpoints
+
+def _openai_sd():
+    """A tiny OpenAI-format state dict in fp16, as the published checkpoints
+    store it (heads of 64: the loader derives width // 64), from seed 1."""
+    from eoe_tpu_torch.models.clip import to_openai
+    cfg = ClipConfig(**dict(TINY, vision_heads_override=None))
+    sd = to_openai(CLIP(cfg, generator=torch.Generator().manual_seed(1)).state_dict(), cfg)
+    assert {v.dtype for v in sd.values()} == {torch.float16}
+    assert sd["visual.transformer.resblocks.0.attn.in_proj_weight"].shape == (384, 128)
+    assert sd["visual.conv1.weight"].shape == (128, 3, 8, 8)
+    return {**sd, "input_resolution": torch.tensor(32), "context_length": torch.tensor(77),
+            "vocab_size": torch.tensor(49408)}
+
+
+def test_openai_conversion_equals_jax():
+    """``config_from_state_dict`` equals the JAX package's, and
+    ``from_openai`` gives exactly the weights of the JAX converter
+    (``to_flax``) carried over with ``from_flax``."""
+    import dataclasses
+
+    from eoe_tpu.models.clip.convert import config_from_state_dict as jax_config, to_flax
+    from eoe_tpu_torch.models.clip import config_from_state_dict, from_openai
+    sd = _openai_sd()
+    meta = ("input_resolution", "context_length", "vocab_size")
+    cfg = config_from_state_dict({k: v for k, v in sd.items() if k not in meta})
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_config(sd))
+    ours, theirs = from_openai(sd), from_flax(to_flax(sd)["params"])
+    assert ours.keys() == theirs.keys()
+    for k in ours:
+        assert ours[k].dtype == torch.float32 and torch.equal(ours[k], theirs[k]), k
+    with pytest.raises(KeyError, match="unexpected"):
+        from_openai({**sd, "visual.extra": torch.zeros(1)})
+    resnet = {k: v for k, v in sd.items() if k != "visual.proj"}
+    with pytest.raises(NotImplementedError, match="ModifiedResNet is not ported yet"):
+        config_from_state_dict(resnet)
+
+
+def test_openai_checkpoint_features_match_jax(tmp_path):
+    """The checkpoint file through ``load_checkpoint`` and ``from_openai``:
+    CLIP's image and text features at 1e-4 against the JAX CLIP with the
+    JAX converter's variables, and one image block's and one text block's
+    attention output (the joint q|k|v rows read per head) at 1e-5."""
+    from eoe_tpu.models.clip.convert import to_flax
+    from eoe_tpu.models.clip.model import MultiHeadAttention as JaxMHA
+    from eoe_tpu_torch.models.clip import config_from_state_dict, from_openai, load_checkpoint
+    path = str(tmp_path / "ViT-tiny.pt")
+    torch.save(_openai_sd(), path)
+    sd = load_checkpoint(path)
+    model = CLIP(config_from_state_dict(sd))
+    model.load_state_dict(from_openai(sd))
+    params = to_flax(sd)["params"]
+    images, tokens = _inputs(seed=2)
+    with torch.no_grad():
+        img = model.encode_image(torch.from_numpy(images)).numpy()
+        txt = model.encode_text(torch.from_numpy(tokens).long()).numpy()
+    np.testing.assert_allclose(img, _jax(params, "encode_image", jnp.asarray(images)), atol=1e-4)
+    np.testing.assert_allclose(txt, _jax(params, "encode_text", jnp.asarray(tokens)), atol=1e-4)
+    x = np.random.default_rng(3).normal(0, 1, (3, 17, 128)).astype(np.float32)
+    for tower, block, causal in (("visual", model.visual.transformer.blocks[0], False),
+                                 ("text", model.transformer.blocks[0], True)):
+        p = (params["visual"]["transformer"] if tower == "visual" else params["transformer"])
+        mask = torch.full((17, 17), float("-inf")).triu(1) if causal else None
+        with torch.no_grad():
+            ours = block.attn(torch.from_numpy(x), mask, causal).numpy()
+        ref = JaxMHA(128, 2).apply({"params": p["block0"]["attn"]}, jnp.asarray(x),
+                                   None if mask is None else jnp.asarray(mask.numpy()), causal)
+        np.testing.assert_allclose(ours, np.asarray(ref), atol=1e-5)
+
+
+def test_clip_trainer_finds_its_checkpoint(tmp_path, monkeypatch):
+    """``checkpoint_path``, then ``$EOE_TPU_CLIP_CHECKPOINT``, then
+    ``~/.cache/clip/ViT-B-32.pt``; none of them: FileNotFoundError."""
+    from eoe_tpu_torch.models.clip import from_openai
+    from eoe_tpu_torch.training import TRAINER
+    from eoe_tpu_torch.training.clip import resolve_checkpoint
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    monkeypatch.delenv("EOE_TPU_CLIP_CHECKPOINT", raising=False)
+    kw = dict(dataset="cifar10", oe_dataset=None, datapath="", logger=None, epochs=0, lr=1e-3,
+              wdk=0.0, milestones=[], batch_size=4, device="cpu")
+    with pytest.raises(FileNotFoundError, match="EOE_TPU_CLIP_CHECKPOINT"):
+        TRAINER["clip"](None, None, None, **kw)
+    sd = _openai_sd()
+    default = tmp_path / "home" / ".cache" / "clip" / "ViT-B-32.pt"
+    default.parent.mkdir(parents=True)
+    torch.save(sd, default)
+    env, arg = tmp_path / "env.pt", tmp_path / "arg.pt"
+    torch.save(sd, env)
+    torch.save(sd, arg)
+    assert resolve_checkpoint() == str(default)
+    monkeypatch.setenv("EOE_TPU_CLIP_CHECKPOINT", str(env))
+    assert resolve_checkpoint() == str(env)
+    assert resolve_checkpoint(str(arg)) == str(arg)
+    assert resolve_checkpoint(str(tmp_path / "missing.pt")) == str(env)
+    trainer = TRAINER["clip"](None, None, None, checkpoint_path=str(arg), **kw)
+    assert trainer.model.config.vision_width == 128 and trainer.model.config.vision_heads == 2
+    weights = from_openai(sd)
+    assert all(torch.equal(trainer._clip_state_dict[k], weights[k]) for k in weights)

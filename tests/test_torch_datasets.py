@@ -174,8 +174,9 @@ def test_load_dataset_refuses_what_is_not_ported():
     msm = D.MSM.load("blur+train_oe--M3")
     assert str(msm) == str(jax_datasets.MSM.load("blur+train_oe--M3"))
     assert msm.get_spec() == jax_datasets.MSM.load("blur+train_oe--M3").get_spec()
-    with pytest.raises(NotImplementedError, match="MSM"):
-        D.load_dataset("cifar10", "", [0], 0, [], [], msms=[msm])
+    # MSMs apply now: tests/test_torch_datasets.py::test_load_dataset_msms_match_jax
+    ds = D.load_dataset("cifar10", "", [0], 0, [], [], None, "cifar100", msms=[msm])
+    assert ds.oe.train_conditional == [(0, [msm.get_spec()], [msm.get_spec()])]
     for specs, name in (([{"op": "resize", "size": 64}], "cifar10"), ([], "mnist"),
                         (["normalize"], "imagenet")):
         assert D.get_raw_shape(specs, name) == jax_datasets.get_raw_shape(specs, name)
@@ -191,3 +192,126 @@ def test_label_tables_equal_jax():
         assert D.no_classes(name) == jax_datasets.no_classes(name)
     with pytest.raises(NotImplementedError):
         D.str_labels("cub")
+
+
+MSM_CASES = ["lpf+train_nominal--M4", "blur+train_oe--M2", "hpf+test_nominal--M8",
+             "sharpen+test_anomalous--M3"]
+
+
+@pytest.mark.parametrize("msm", MSM_CASES)
+def test_load_dataset_msms_match_jax(msm, monkeypatch):
+    """Each dataset part's MSM becomes the same conditionals as in the JAX
+    package, and they compute the same images from the same raw images and
+    labels (1e-5 of max(1, the largest magnitude))."""
+    import jax.numpy as jnp
+    import torch
+    monkeypatch.setenv("EOE_TPU_FAKE_DATA", "1")
+    ours = _by_name(D, "cifar10", "cifar100", 5, msms=[D.MSM.load(msm)])
+    theirs = _by_name(jax_datasets, "cifar10", "cifar100", 5, msms=[jax_datasets.MSM.load(msm)])
+    checked = 0
+    for part, subset, cond in (("normal", "train_set", "train_conditional"),
+                               ("normal", "test_set", "test_conditional"),
+                               ("oe", "train_set", "train_conditional")):
+        o, t = getattr(ours, part), getattr(theirs, part)
+        assert getattr(o, cond) == list(getattr(t, cond) or ())
+        so, st = getattr(o, subset), getattr(t, subset)
+        images, labels = so.gather_all()[:24], o.binary_targets(so)[:24]
+        np.testing.assert_array_equal(images, st.gather_all()[:24])
+        got = getattr(o, cond + "_pipeline")(torch.from_numpy(images), torch.from_numpy(labels))
+        want = np.asarray(getattr(t, cond + "_pipeline")(jnp.asarray(images),
+                                                          jnp.asarray(labels)))
+        np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                                   atol=1e-5 * max(1.0, float(np.abs(want).max())))
+        checked += bool(getattr(o, cond))
+    assert checked == 1   # one part only takes the MSM
+
+
+def test_tinyimages_fake_bytes_equal_jax(monkeypatch):
+    """``EOE_TPU_FAKE_DATA=1`` gives the JAX package's 512 images byte for
+    byte, also as the OE set of CIFAR-10, subsampled from the same rng."""
+    monkeypatch.setenv("EOE_TPU_FAKE_DATA", "1")
+    kw = dict(oe_limit_samples=100)
+    ours = _by_name(D, "cifar10", "tinyimages", 3, **kw)
+    theirs = _by_name(jax_datasets, "cifar10", "tinyimages", 3, **kw)
+    assert type(ours.oe).__name__ == "ADTinyImages" and len(ours.oe.train_set) == 100
+    assert len(ours.oe.train_set.source) == 512 and ours.oe.test_set is None
+    np.testing.assert_array_equal(ours.oe.train_set.indices, theirs.oe.train_set.indices)
+    np.testing.assert_array_equal(ours.oe.train_set.gather_all(),
+                                  theirs.oe.train_set.gather_all())
+    np.testing.assert_array_equal(ours.oe.train_set.source.images,
+                                  theirs.oe.train_set.source.images)
+
+
+def _write_tiny_bin(root, n=20):
+    folder = root / "tinyimages"
+    folder.mkdir(parents=True)
+    raw = np.random.default_rng(6).integers(0, 256, n * 3072, dtype=np.uint8)
+    (folder / "tiny_images.bin").write_bytes(raw.tobytes())
+    (folder / "80mn_cifar_idxs.txt").write_text("1\n5\n7\n99\n")   # 1-based; 99 past the end
+
+
+def test_tinyimages_bin_equals_jax(tmp_path, monkeypatch):
+    """The memory-mapped bin: the same surviving indices (duplicates listed
+    1-based, entries past a partial bin's end ignored) and the same images."""
+    from eoe_tpu.datasets.tinyimages import ADTinyImages as JaxTiny
+    from eoe_tpu_torch.datasets.tinyimages import ADTinyImages
+    monkeypatch.setenv("EOE_TPU_FAKE_DATA", "0")
+    _write_tiny_bin(tmp_path)
+    args = ([0], 1, [], [], (32, 32, 3))
+    ours, theirs = ADTinyImages(str(tmp_path), *args), JaxTiny(str(tmp_path), *args)
+    assert not ours.train_set.source.resident
+    np.testing.assert_array_equal(ours.train_set.source.valid, theirs.train_set.source.valid)
+    assert len(ours.train_set) == 17
+    np.testing.assert_array_equal(ours.train_set.gather_all(), theirs.train_set.gather_all())
+    with pytest.raises(FileNotFoundError, match="tiny_images.bin"):
+        ADTinyImages(str(tmp_path / "elsewhere"), *args)
+
+
+def test_streaming_oe_trains(tmp_path, monkeypatch):
+    """A streaming OE source (the bin) trains: its batches are gathered on
+    the host step by step; the normal split lives on the device."""
+    import torch
+    from eoe_tpu_torch.datasets.tinyimages import ADTinyImages
+    from eoe_tpu_torch.models import CNN32
+    from eoe_tpu_torch.training import TRAINER
+    from eoe_tpu_torch.utils.logger import Logger
+    _write_tiny_bin(tmp_path)
+    monkeypatch.setenv("EOE_TPU_FAKE_DATA", "1")
+    normal = D.load_dataset("cifar10", "", [0], 0, ["normalize"], ["normalize"])
+    monkeypatch.setenv("EOE_TPU_FAKE_DATA", "0")
+    oe = ADTinyImages(str(tmp_path), [0], 1, ["normalize"], ["normalize"], (32, 32, 3),
+                      ds_statistics=normal.ds_statistics)
+    trainer = TRAINER["hsc"](model=CNN32(rep_dim=16), train_specs=["normalize"],
+                             test_specs=["normalize"], dataset="cifar10", oe_dataset=None,
+                             datapath="", logger=Logger(str(tmp_path / "run"), noname=True),
+                             epochs=2, lr=1e-3, wdk=0.0, milestones=[], batch_size=8,
+                             device="cpu")
+    trainer.ds = D.bases.CombinedDataset(normal, oe)
+    gathered = []
+    real_gather = oe.train_set.gather
+    monkeypatch.setattr(oe.train_set, "gather",
+                        lambda pos: gathered.append(len(pos)) or real_gather(pos))
+    _, res = trainer.run(run_classes=[0])
+    steps = 2 * -(-len(normal.train_set) // 8)
+    assert gathered == [8] * steps
+    assert len(trainer.step_losses) == steps and np.isfinite(trainer.step_losses).all()
+    assert np.isfinite(res["mean_auc"]) and torch.isfinite(torch.tensor(trainer.step_losses)).all()
+
+
+def test_grayscale_statistics_equal_jax(monkeypatch):
+    """train_fmnist's pipelines: ``normalize`` after ``grayscale`` takes one
+    channel's statistics, as in the JAX package, and the 3-channel CIFAR-100
+    OE images come out of the OE pipeline at the normal set's 28x28x1."""
+    import torch
+    from eoe_tpu.main.train_fmnist import TEST_SPECS, TRAIN_SPECS
+    monkeypatch.setenv("EOE_TPU_FAKE_DATA", "1")
+    args = ("fmnist", "", [2], 0, TRAIN_SPECS, TEST_SPECS, None, "cifar100")
+    ours = D.load_dataset(*args, rng=np.random.default_rng(1))
+    theirs = jax_datasets.load_dataset(*args, rng=np.random.default_rng(1))
+    assert len(ours.ds_statistics["mean"]) == 1
+    _stats_close(ours.ds_statistics, theirs.ds_statistics)
+    g = torch.Generator().manual_seed(0)
+    x = torch.from_numpy(ours.oe.train_set.gather_all()[:4])
+    assert ours.oe.train_pipeline(x, generator=g).shape == (4, 28, 28, 1)
+    x = torch.from_numpy(ours.test_set.gather_all()[:4])
+    assert ours.normal.test_pipeline(x).shape == (4, 28, 28, 1)

@@ -1,0 +1,192 @@
+"""The port's CLI (``eoe_tpu_torch.main``) against the JAX package's: each
+runner's defaults, pipelines, model and parsed arguments, ``load_setup``,
+and the runners end to end on the CPU (the port alone: the JAX runners are
+held end to end by tests/test_main.py, a slow module)."""
+
+import argparse
+import glob
+import importlib
+import json
+import os
+import os.path as pt
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import eoe_tpu.main as jax_main
+import eoe_tpu_torch.main as port_main
+
+REPO = pt.dirname(pt.dirname(pt.abspath(__file__)))
+RUNNERS = ["train_cifar", "train_mnist", "train_fmnist", "train_clip_cifar",
+           "train_clip_mnist", "train_clip_fmnist", "multiscale_cifar"]
+ARGVS = [
+    [],
+    ["--ad-mode", "loo", "-oe", "none", "-b", "64", "--oe-size", "100", "-e", "3"],
+    ["--compute-dtype", "bfloat16", "--classes", "1", "2", "-it", "3", "--no-vmap-seeds",
+     "-o", "bce", "--milestones", "5", "--comment", "{obj}-{admode}", "--superdir", "s"],
+    ["-ds", "fmnist", "-oe", "cifar100", "--ad-mode", "ff", "-lr", "0.5", "-wdk", "0",
+     "--datapath", "/data", "-d", "1", "--load", "/runs/x"],
+]
+MS_ARGVS = [["--ms-mode", "lpf+train_nominal", "hpf+test_anomalous", "--magnitudes", "0", "8"],
+            ["--ms-mode", "blur+train_oe", "--oe-size", "500", "-o", "dsvdd"],
+            ["--ms-mode", "sharpen+test_nominal", "--magnitude", "3"],   # refused
+            ["--ms-mode", "lpf+train_oe", "--load", "/runs/y"]]          # refused
+
+
+def _parsed(mod, argv, monkeypatch):
+    """The runner's namespace, as its ``main`` would hand it on (the tail
+    that trains is replaced by one that returns the arguments)."""
+    tail = "multiscale_experiment" if hasattr(mod, "multiscale_experiment") \
+        else "run_default_training"
+    monkeypatch.setattr(mod, tail, lambda args, *a, **kw: args)
+    try:
+        args = mod.main(argv)
+    except ValueError as e:   # the runner's own guards
+        return type(e), str(e)
+    out = dict(vars(args))
+    if "ms_mode" in out:
+        out["ms_mode"] = [str(m) for m in out["ms_mode"]]
+    return out
+
+
+@pytest.mark.parametrize("runner", RUNNERS)
+def test_runner_matches_jax(runner, monkeypatch, capsys):
+    """Defaults, pipelines and model as the JAX runner's; for every argv the
+    same namespace, comment included, which names the run directory."""
+    ours = importlib.import_module(f"eoe_tpu_torch.main.{runner}")
+    theirs = importlib.import_module(f"eoe_tpu.main.{runner}")
+    assert ours.DEFAULTS == theirs.DEFAULTS
+    assert ours.TRAIN_SPECS == theirs.TRAIN_SPECS and ours.TEST_SPECS == theirs.TEST_SPECS
+    argvs = MS_ARGVS if runner.startswith("multiscale") else ARGVS
+    for argv in argvs:
+        got, want = _parsed(ours, argv, monkeypatch), _parsed(theirs, argv, monkeypatch)
+        assert got == want, argv
+        if runner.startswith("multiscale") or "-oe" in argv:
+            continue
+        args = argparse.Namespace(**got)
+        model, jax_model = ours.build_model(args), theirs.build_model(args)
+        assert type(model).__name__ == type(jax_model).__name__
+        if model is not None:
+            assert model.clf == jax_model.clf
+
+
+def test_ms_argsparse_matches_jax():
+    for argv in (["--ms-mode", "sharpen+test_nominal", "--magnitude", "3"], []):
+        ours = port_main.ms_argsparse(lambda s: s, argv=argv)
+        theirs = jax_main.ms_argsparse(lambda s: s, argv=argv)
+        assert [str(m) for m in ours.ms_mode] == [str(m) for m in theirs.ms_mode]
+        assert {k: v for k, v in vars(ours).items() if k != "ms_mode"} == \
+            {k: v for k, v in vars(theirs).items() if k != "ms_mode"}
+    assert port_main.AD_MODE_MAP == jax_main.AD_MODE_MAP
+
+
+@pytest.mark.parametrize("runner", RUNNERS)
+def test_runner_help_needs_no_card(runner):
+    out = subprocess.run([sys.executable, "-m", f"eoe_tpu_torch.main.{runner}", "--help"],
+                         cwd=REPO, capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode == 0, out.stderr
+    assert "--compute-dtype" in out.stdout and "--vmap-seeds" in out.stdout
+
+
+def _base(tmp_path, extra=()):
+    return ["-e", "1", "-it", "1", "--classes", "0", "-b", "32", "--datapath", str(tmp_path),
+            *extra]
+
+
+def test_one_card_flags_raise(tmp_path):
+    from eoe_tpu_torch.main import train_cifar
+    with pytest.raises(NotImplementedError, match="DDP"):
+        train_cifar.main(_base(tmp_path, ["-d", "2"]), device="cpu")
+    with pytest.raises(NotImplementedError, match="--vmap-seeds"):
+        train_cifar.main(_base(tmp_path, ["--vmap-seeds"]), device="cpu")
+
+
+def _runs(root, pattern="log_*"):
+    return sorted(glob.glob(str(root / "results" / "**" / pattern), recursive=True))
+
+
+def test_train_cifar_runs_and_resumes(tmp_path, monkeypatch):
+    """train_cifar on the CPU (synthetic CIFAR-10, Tiny Images as OE), then
+    ``--load``: the snapshot re-evaluated into ``<run>---CNTD`` with the same
+    AUROC; ``load_setup`` reads the run's setup.json as the JAX package's
+    does, and refuses other pipelines, datasets and objectives."""
+    from eoe_tpu_torch.main import train_cifar
+    monkeypatch.setenv("EOE_TPU_FAKE_DATA", "1")
+    _, res = train_cifar.main(_base(tmp_path), device="cpu")
+    assert np.isfinite(res["mean_auc"])
+    run = _runs(tmp_path)[0]
+    assert pt.basename(run).endswith("_hsc_cifar10_one_vs_rest")
+    assert pt.exists(pt.join(run, "snapshots", "snapshot_cls0_it0.pt"))
+    assert json.load(open(pt.join(run, "setup.json")))["oe_dataset"] == "tinyimages"
+
+    args = port_main.default_argsparse(lambda s: s, argv=["-ds", "cifar10"])
+    jargs = jax_main.default_argsparse(lambda s: s, argv=["-ds", "cifar10"])
+    snaps, path = port_main.load_setup(run, args, train_cifar.TRAIN_SPECS,
+                                       train_cifar.TEST_SPECS)
+    jax_main.load_setup(run, jargs, train_cifar.TRAIN_SPECS, train_cifar.TEST_SPECS)
+    assert vars(args) == vars(jargs) and path == run
+    assert snaps[0] == [pt.join(run, "snapshots", "snapshot_cls0_it0.pt")]
+    assert all(s == [None] for s in snaps[1:])
+    for specs, ds, obj, what in ((["normalize", "gcn"], "cifar10", "hsc", "transformation"),
+                                 (train_cifar.TRAIN_SPECS, "mnist", "hsc", "dataset"),
+                                 (train_cifar.TRAIN_SPECS, "cifar10", "bce", "objective")):
+        with pytest.raises(AssertionError, match=what):
+            port_main.load_setup(run, argparse.Namespace(dataset=ds, objective=obj), specs,
+                                 train_cifar.TEST_SPECS)
+
+    _, res2 = train_cifar.main(_base(tmp_path, ["--load", run]), device="cpu")
+    assert pt.isdir(run + "---CNTD")
+    assert res2["mean_auc"] == pytest.approx(res["mean_auc"], abs=1e-6)
+
+
+def test_multiscale_runs_and_reuses_magnitude0(tmp_path, monkeypatch):
+    """multiscale_cifar on the CPU: a train_nominal sweep over magnitudes 0
+    and 2 trains twice; a test_anomalous sweep trains magnitude 0 only and
+    evaluates its snapshot at magnitude 2 with epochs=0."""
+    from eoe_tpu_torch.main import multiscale_cifar
+    monkeypatch.setenv("EOE_TPU_FAKE_DATA", "1")
+    aucs = multiscale_cifar.main(_base(tmp_path, ["--ms-mode", "lpf+train_nominal",
+                                                  "--magnitudes", "0", "2"]), device="cpu")
+    assert len(aucs) == 2 and all(np.isfinite(a) for a, _ in aucs)
+    aucs = multiscale_cifar.main(_base(tmp_path, ["--ms-mode", "hpf+test_anomalous",
+                                                  "--magnitudes", "0", "2"]), device="cpu")
+    assert len(aucs) == 2 and all(np.isfinite(a) for a, _ in aucs)
+    outer = [d for d in _runs(tmp_path, "log_*_MULTISCALE_*")]
+    assert [pt.basename(d).split("_", 2)[2] for d in outer] == [
+        "MULTISCALE_hsc_lpf+train_nominal_OEinf", "MULTISCALE_hsc_hpf+test_anomalous_OEinf"]
+    res = json.load(open(pt.join(outer[1], "results.json")))
+    assert res["magnitudes"] == [0, 2] and res["ms_mode"] == ["hpf+test_anomalous--M2"]
+    for d, trained in ((outer[0], (True, True)), (outer[1], (True, False))):
+        runs = [glob.glob(pt.join(d, f"log_*_magnitude_{m}"))[0] for m in (0, 2)]
+        for run, t in zip(runs, trained):
+            printed = open(pt.join(run, "print.txt")).read()
+            assert ("epoch 1/1" in printed) == t and ("Loaded snapshot" in printed) != t
+    setup = json.load(open(pt.join(runs[1], "setup.json")))
+    assert setup["msms"] == ["hpf+test_anomalous--M2"]
+
+
+def test_train_clip_cifar_from_a_checkpoint_file(tmp_path, monkeypatch):
+    """train_clip_cifar on the CPU from a tiny OpenAI-format checkpoint named
+    by ``EOE_TPU_CLIP_CHECKPOINT``: finite AUROC, bf16 by default, the raw
+    runner specs in setup.json."""
+    from eoe_tpu_torch.main import train_clip_cifar
+    from eoe_tpu_torch.models.clip import CLIP, ClipConfig, to_openai
+    cfg = ClipConfig(embed_dim=32, image_resolution=32, vision_layers=1, vision_width=64,
+                     vision_patch_size=8, context_length=77, vocab_size=49408,
+                     transformer_width=64, transformer_heads=1, transformer_layers=1)
+    ckpt = tmp_path / "ViT-tiny.pt"
+    torch.save(to_openai(CLIP(cfg, generator=torch.Generator().manual_seed(0)).state_dict(),
+                         cfg), ckpt)
+    monkeypatch.setenv("EOE_TPU_FAKE_DATA", "1")
+    monkeypatch.setenv("EOE_TPU_CLIP_CHECKPOINT", str(ckpt))
+    _, res = train_clip_cifar.main(_base(tmp_path, ["--oe-size", "64"]), device="cpu")
+    assert np.isfinite(res["mean_auc"])
+    run = _runs(tmp_path)[0]
+    assert pt.basename(run).endswith("_clip_cifar10_one_vs_rest_E1")
+    setup = json.load(open(pt.join(run, "setup.json")))
+    assert setup["compute_dtype"] == "bfloat16" and setup["oe_limit_samples"] == 64
+    assert setup["train_specs"] == train_clip_cifar.TRAIN_SPECS and setup["test_specs"] == []

@@ -104,13 +104,14 @@ def test_uint8_order():
 
 
 def test_unported_and_unknown_specs_raise():
+    # the filters compile (tests/test_torch_filters.py holds them against JAX)
     for spec in ["grayscale", {"op": "blur", "sigma": 1.0}, "gcn"]:
-        with pytest.raises(P.PipelineError, match="not ported yet"):
-            P.compile_pipeline([spec])
+        assert P.compile_pipeline([spec]).specs == [spec]
     with pytest.raises(P.PipelineError, match="unknown"):
         P.compile_pipeline(["no_such_op"])
-    with pytest.raises(P.PipelineError, match="statistics"):
-        P.compile_pipeline(["normalize"])
+    for placeholder in ("normalize", "gcn-normalize"):
+        with pytest.raises(P.PipelineError, match="statistics"):
+            P.compile_pipeline([placeholder])
     assert P.DatasetStats.from_json(P.DatasetStats((0.1,), (0.2,)).to_json()) == \
         P.DatasetStats((0.1,), (0.2,), 0)
 
@@ -246,5 +247,9 @@ def test_conditional_pipelines():
     identity = P.compile_conditional([])
     images = torch.zeros(2, 4, 4, 3, dtype=torch.uint8)
     assert identity(images, torch.zeros(2)) is images
-    with pytest.raises(P.PipelineError, match="not ported yet"):
-        P.compile_conditional([(0, ["grayscale"], None)])
+    # a non-empty list converts, and each label takes its branch
+    images = torch.stack([torch.zeros(4, 4, 3, dtype=torch.uint8),
+                          torch.full((4, 4, 3), 255, dtype=torch.uint8)])
+    out = P.compile_conditional([(0, ["grayscale"], None)])(images, torch.tensor([0, 1]))
+    assert out.dtype == torch.float32 and out.shape == (2, 4, 4, 3)
+    assert out[0].eq(0).all() and out[1].eq(1).all()
