@@ -88,7 +88,8 @@ REQUESTS = (256, 100, 37)
 PATH_DTYPES = {"serving": "fp32", "training": "bf16", "training_fp32": "fp32",
                "flash_serving": "fp32", "flash_training": "bf16", "group_training": "bf16",
                "group_training_fp32": "fp32", "conv_training": "fp32", "wrn_training": "bf16",
-               "cli_clip": "bf16", "cli_conv": "fp32"}
+               "cli_clip": "bf16", "cli_conv": "fp32", "folder_clip": "bf16",
+               "folder_conv": "fp32"}
 BATCH = 128
 SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
@@ -1369,6 +1370,258 @@ def phase_cli(card: str) -> tuple:
     return clip, conv
 
 
+# the folder phase's synthetic data, in the JAX package's on-disk layouts
+FOLDER_HW = 256
+IN30_TRAIN0, IN30_TRAIN_OTHER, IN30_VAL = 256, 8, 10   # images a class
+IN21K_WNIDS, IN21K_PER_WNID = 16, 32
+IN21K_1K = ("n12267677", "n02690373")                  # ImageNet-1k synsets: left out
+MVTEC_TRAIN, MVTEC_TEST = 64, 16                        # good train; good and broken test
+CUSTOM_CLASSES, CUSTOM_TRAIN, CUSTOM_TEST, CUSTOM_BATCH = ("nut", "screw"), 48, 12, 16
+
+
+def _write_blob(folder: str, classes: list, per_class: list, rng):
+    """A class-folder tree's blob (``_eoe_blob_256x256.npy``) and its .json
+    sidecar, as ``datasets.folder.build_blob`` writes them, from seeded
+    random images (the paths name files that are never read)."""
+    import numpy as np
+    os.makedirs(folder, exist_ok=True)
+    n = sum(per_class)
+    arr = np.lib.format.open_memmap(
+        os.path.join(folder, f"_eoe_blob_{FOLDER_HW}x{FOLDER_HW}.npy"), mode="w+",
+        dtype=np.uint8, shape=(n, FOLDER_HW, FOLDER_HW, 3))
+    for i in range(0, n, 128):
+        arr[i:i + 128] = rng.integers(0, 256, arr[i:i + 128].shape, dtype=np.uint8)
+    arr.flush()
+    del arr
+    targets = [c for c, k in enumerate(per_class) for _ in range(k)]
+    paths = [f"{classes[c]}/{i:05d}.JPEG" for c, k in enumerate(per_class) for i in range(k)]
+    with open(os.path.join(folder, f"_eoe_blob_{FOLDER_HW}x{FOLDER_HW}.npy.json"), "w") as f:
+        json.dump({"classes": classes, "targets": targets, "paths": paths}, f)
+    return n
+
+
+def _png(img) -> bytes:
+    """An RGB uint8 image as PNG bytes, written with zlib alone."""
+    import struct
+    import zlib
+    h, w, _ = img.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+    raw = b"".join(b"\x00" + row.tobytes() for row in img)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def _folder_data(ds: str) -> dict:
+    """ImageNet-30 train and val and ImageNet-21k as 256x256 blobs, one
+    MVTec-AD class as its .npz blob, and a custom tree of 64x64 PNG files in
+    the general layout; returns the sizes."""
+    import numpy as np
+    from eoe_tpu_torch.datasets.imagenet import AD_CLASSES
+    from eoe_tpu_torch.datasets.mvtec import ENLARGE
+    rng = np.random.default_rng(SEED)
+    n_train = _write_blob(os.path.join(ds, "imagenet_ad", "train"), AD_CLASSES,
+                          [IN30_TRAIN0] + [IN30_TRAIN_OTHER] * 29, rng)
+    n_val = _write_blob(os.path.join(ds, "imagenet_ad", "val"), AD_CLASSES,
+                        [IN30_VAL] * 30, rng)
+    wnids = sorted(list(IN21K_1K) + [f"n{9000000 + i:08d}" for i in range(IN21K_WNIDS - 2)])
+    n_21k = _write_blob(os.path.join(ds, "imagenet22k", "fall11_whole_extracted"), wnids,
+                        [IN21K_PER_WNID] * IN21K_WNIDS, rng)
+    mv = os.path.join(ds, "mvtec")
+    os.makedirs(mv)
+    shape = (FOLDER_HW, FOLDER_HW, 3)
+    np.savez(os.path.join(mv, f"admvtec_{FOLDER_HW}x{FOLDER_HW}.npz"),
+             train_data=rng.integers(0, 256, (MVTEC_TRAIN, *shape), dtype=np.uint8),
+             train_labels=np.zeros(MVTEC_TRAIN, np.int64),
+             test_data=rng.integers(0, 256, (2 * MVTEC_TEST, *shape), dtype=np.uint8),
+             test_labels=np.zeros(2 * MVTEC_TEST, np.int64),
+             test_anomaly_labels=np.repeat(np.arange(2), MVTEC_TEST),
+             anomaly_label_strings=np.asarray(["good", "bottle_broken"]))
+    for split, folders in (("train", (("normal", CUSTOM_TRAIN),)),
+                           ("test", (("anomalous", CUSTOM_TEST), ("normal", CUSTOM_TEST)))):
+        for cls in CUSTOM_CLASSES:
+            for sub, k in folders:
+                folder = os.path.join(ds, "custom", split, cls, sub)
+                os.makedirs(folder)
+                for i in range(k):
+                    with open(os.path.join(folder, f"{i:03d}.png"), "wb") as f:
+                        f.write(_png(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)))
+    mib = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ds) for f in fs)
+    return {"imagenet30_train": n_train, "imagenet30_val": n_val, "imagenet21k": n_21k,
+            "mvtec_train": MVTEC_TRAIN * ENLARGE, "mvtec_test": 2 * MVTEC_TEST,
+            "custom_files": len(CUSTOM_CLASSES) * (CUSTOM_TRAIN + 2 * CUSTOM_TEST),
+            "MiB": round(mib / 2 ** 20, 1)}
+
+
+def _folder_clip(card: str, tmp: str) -> dict:
+    """``train_clip_imagenet`` through its ``main`` with its JAX defaults
+    (bf16, 128 + 128, ImageNet-21k as OE) at full ViT-B/32 width from an
+    OpenAI-format fp16 checkpoint made from seed 0, class 0, one seed, 2
+    epochs, counted; its scores served back through ``AnomalyScorer``."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.datasets import load_dataset
+    from eoe_tpu_torch.datasets.imagenet import AD_CLASSES
+    from eoe_tpu_torch.inference import AnomalyScorer
+    from eoe_tpu_torch.main import train_clip_imagenet
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32, to_openai
+    from eoe_tpu_torch.training.clip import prompt_center
+
+    ckpt = os.path.join(tmp, "ViT-B-32.pt")
+    weights = CLIP(VIT_B32, generator=torch.Generator().manual_seed(SEED)).state_dict()
+    torch.save(to_openai(weights, VIT_B32), ckpt)
+    del weights
+    os.environ["EOE_TPU_CLIP_CHECKPOINT"] = ckpt
+    epochs = 2
+    steps = epochs * -(-IN30_TRAIN0 // BATCH)
+    n_test = 30 * IN30_VAL
+    eval_batches = -(-n_test // BATCH)
+    layers, text_layers = VIT_B32.vision_layers, VIT_B32.transformer_layers
+    expected = {"fwd": text_layers + layers * (steps + eval_batches), "bwd": layers * steps}
+
+    # ---- the main path, counted
+    _zero_counts()
+    t0 = time.perf_counter()
+    _, res = train_clip_imagenet.main(["--epochs", str(epochs), "--classes", "0", "-it", "1",
+                                       "--datapath", tmp])
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    # ---- end of the counted run
+    check_counts(counts, expected,
+                 f"folder train_clip_imagenet ({text_layers} prompt launches, {steps} steps, "
+                 f"{eval_batches} eval batches)")
+    check(np.isfinite(res["mean_auc"]), f"folder train_clip_imagenet: results {res}")
+    run = _run_dirs(tmp, "log_*_clip_imagenet_one_vs_rest_E2")[0]
+    setup = _read_json(run, "setup")
+    check(setup["compute_dtype"] == "bfloat16" and setup["oe_dataset"] == "imagenet21k",
+          f"folder train_clip_imagenet: setup {setup}")
+    eval_scores = np.array([v for _, v in sorted(
+        (int(k), v) for k, v in _read_json(run, "eval_cls0_it0_anomaly_scores").items())])
+
+    model = CLIP(VIT_B32, dtype=torch.bfloat16)
+    snapshot = torch.load(os.path.join(run, "snapshots", "snapshot_cls0_it0.pt"),
+                          map_location="cpu", weights_only=True)
+    model.load_state_dict(snapshot["params"])
+    center = prompt_center(model, AD_CLASSES[0], AD_CLASSES)
+    scorer = AnomalyScorer(snapshot, model, objective="clip", batch_size=BATCH, center=center,
+                           compute_dtype=torch.bfloat16,
+                           test_specs=[{"op": "clip_pil_preprocessing",
+                                        "resolution": VIT_B32.image_resolution},
+                                       {"op": "clip_tensor_preprocessing"}])
+    test_set = load_dataset("imagenet", os.path.join(tmp, "datasets"), [0], 0,
+                            train_clip_imagenet.TRAIN_SPECS, []).test_set
+    served = scorer.score(test_set.gather_all())
+    serve_err = float(np.abs(served - eval_scores).max())
+    check(eval_scores.shape == (n_test,) and serve_err <= 1e-4,
+          f"folder train_clip_imagenet: AnomalyScorer differs from the run's scores by "
+          f"{serve_err}")
+    print(f"folder train_clip_imagenet (ViT-B/32 bf16, imagenet class 0 from 256x256 blobs, "
+          f"imagenet21k OE blob, 1k synsets left out): {steps} steps in {seconds:.2f} s of main "
+          f"with the checkpoint load, img/s per epoch {_epoch_rates(run)}; synthetic AUROC "
+          f"{res['mean_auc']:.4f}; snapshot served through AnomalyScorer, max score "
+          f"difference {serve_err:.3g} (tol 1e-4); launches {counts}, expected {expected} "
+          f"[{card}]")
+    del model, scorer, snapshot
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _folder_conv(card: str, tmp: str) -> dict:
+    """``train_imagenet`` (WideResNet+CBAM) and ``train_mvtec`` (gcn-normalize)
+    on the blobs, and ``train_custom`` on the PNG tree with the folder cache
+    at 0, through their ``main``, counted (no kernel of the repository lies
+    on them). The custom run must stream its normal half step by step and
+    its test split batch by batch (``Subset.gather``), never whole."""
+    import numpy as np
+    from eoe_tpu_torch.datasets import bases
+    from eoe_tpu_torch.datasets.folder import FolderSource
+    from eoe_tpu_torch.main import train_custom, train_imagenet, train_mvtec
+
+    one = ["-e", "1", "--classes", "0", "-it", "1", "--datapath", tmp]
+    runs = [("train_imagenet", train_imagenet.main, one, "log_*_hsc_imagenet_one_vs_rest"),
+            ("train_mvtec", train_mvtec.main, one, "log_*_hsc_mvtec_one_vs_rest"),
+            ("train_custom", train_custom.main, ["-b", str(CUSTOM_BATCH)] + one,
+             "log_*_hsc_custom_")]
+    gathers = []
+    saved = {name: getattr(bases.Subset, name) for name in ("gather", "gather_all")}
+
+    def recorded(name):
+        def gather(self, *args):
+            gathers.append((name, type(self.source).__name__, len(self.source),
+                            len(args[0]) if args else len(self)))
+            return saved[name](self, *args)
+        return gather
+
+    cache = FolderSource.DEFAULT_CACHE_BYTES
+    # ---- the main path, counted
+    _zero_counts()
+    out = []
+    for label, main, argv, _ in runs:
+        t0 = time.perf_counter()
+        if label == "train_custom":
+            FolderSource.DEFAULT_CACHE_BYTES = 0
+            for name in saved:
+                setattr(bases.Subset, name, recorded(name))
+        try:
+            out.append((main(argv), time.perf_counter() - t0))
+        finally:
+            FolderSource.DEFAULT_CACHE_BYTES = cache
+            for name, fn in saved.items():
+                setattr(bases.Subset, name, fn)
+    counts = _counts()
+    # ---- end of the counted run
+    check_counts(counts, {}, "folder conv runners (no kernel of the repository)")
+    n_train_src = len(CUSTOM_CLASSES) * CUSTOM_TRAIN
+    n_test_src = len(CUSTOM_CLASSES) * 2 * CUSTOM_TEST
+    steps = -(-CUSTOM_TRAIN // CUSTOM_BATCH)
+    eval_batches = -(-2 * CUSTOM_TEST // CUSTOM_BATCH)
+    folder = [g for g in gathers if g[1] == "FolderSource"]
+    train_steps = [g for g in folder if g[:3] == ("gather", "FolderSource", n_train_src)]
+    test_batches = [g for g in folder if g[2] == n_test_src]
+    check(len(train_steps) == steps and all(g[3] == CUSTOM_BATCH for g in train_steps)
+          and len(test_batches) == eval_batches
+          and all(g[0] == "gather" and g[3] == CUSTOM_BATCH for g in test_batches),
+          f"folder train_custom did not stream ({steps} train steps and {eval_batches} eval "
+          f"batches of {CUSTOM_BATCH} expected): host gathers {folder}")
+    for (label, _, argv, pattern), ((_, res), seconds) in zip(runs, out):
+        check(np.isfinite(res["mean_auc"]), f"folder {label}: {res}")
+        run = _run_dirs(tmp, pattern)[0]
+        extra = ""
+        if label == "train_custom":
+            keys = list(_read_json(run, "eval_cls0_it0_anomaly_scores"))
+            check(keys[0] == "nut/anomalous/000.png" and len(keys) == 2 * CUSTOM_TEST,
+                  f"folder train_custom: score keys {keys[:3]}")
+            extra = (f"; streamed: {len(train_steps)} host gathers of the normal half, "
+                     f"{len(test_batches)} of the test split; scores keyed by file "
+                     f"({keys[0]}, ...)")
+        print(f"folder {label} ({' '.join(argv[:-2])}): {seconds:.2f} s of main; synthetic "
+              f"AUROC {res['mean_auc']:.4f}; img/s per epoch {_epoch_rates(run)}{extra} "
+              f"[{card}]")
+    return counts
+
+
+def phase_folder(card: str) -> tuple:
+    """The folder-image data layer's runners through ``main(argv)`` on the
+    card, on synthetic data written in the JAX package's layouts."""
+    import tempfile
+    saved = os.environ.get("EOE_TPU_CLIP_CHECKPOINT")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            sizes = _folder_data(os.path.join(tmp, "datasets"))
+            print(f"folder data: {sizes} in {time.perf_counter() - t0:.1f} s")
+            clip = _folder_clip(card, tmp)
+            conv = _folder_conv(card, tmp)
+    finally:
+        if saved is None:
+            os.environ.pop("EOE_TPU_CLIP_CHECKPOINT", None)
+        else:
+            os.environ["EOE_TPU_CLIP_CHECKPOINT"] = saved
+    return clip, conv
+
+
 def _read_json(logdir: str, name: str) -> dict:
     with open(os.path.join(logdir, f"{name}.json")) as f:
         return json.load(f)
@@ -1414,6 +1667,7 @@ def main():
     paths["wrn_training"] = timed("wrn_training", phase_wrn_training, card)
     timed("filters", phase_filters, card)
     paths["cli_clip"], paths["cli_conv"] = timed("cli", phase_cli, card)
+    paths["folder_clip"], paths["folder_conv"] = timed("folder", phase_folder, card)
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}

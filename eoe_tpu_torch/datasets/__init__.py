@@ -2,13 +2,18 @@
 eoe_tpu/datasets/__init__.py, and in ``bases`` the AD dataset layer over
 in-memory sources.
 
-``load_dataset`` builds CIFAR-10, CIFAR-100, MNIST, EMNIST (letters),
-Fashion-MNIST (``cifar``, ``mnist``) and 80 Million Tiny Images
-(``tinyimages``) by name, with an OE dataset beside the normal one and the
-multi-scale modes (``MSM``) as label-conditional pipelines, as the JAX
-package does. The other registry entries (ImageNet, the folder datasets,
-MVTec, DTD, CUB, custom) are not ported yet and raise. The trainers also
-take a pinned dataset (``trainer.ds``).
+``load_dataset`` builds every registry entry by name: CIFAR-10, CIFAR-100,
+MNIST, EMNIST (letters), Fashion-MNIST (``cifar``, ``mnist``), 80 Million
+Tiny Images (``tinyimages``), ImageNet-30, ImageNet-21k and its prepared
+subset (``imagenet``), ImageNet-1k as OE only (``imagenetoe``), MVTec-AD
+(``mvtec``), DTD (``dtd``), CUB-200-2011 (``cub``) and custom image folders
+(``custom``), with an OE dataset beside the normal one and the multi-scale
+modes (``MSM``) as label-conditional pipelines, as the JAX package does. The
+folder datasets read their images through ``folder`` (blobs, or decode with
+a RAM cache). CUB's class names are read from its metadata when the dataset
+is first built; the custom dataset's classes are its folders, which the
+runners write into ``DS_CHOICES["custom"]``. The trainers also take a pinned
+dataset (``trainer.ds``).
 """
 
 import importlib
@@ -69,22 +74,33 @@ DTD_LABELS = [
     "wrinkled", "zigzagged",
 ]
 
+# the fixed class-label tables; CUB's names come from its metadata, the
+# custom dataset's from its folders (``DS_CHOICES[...]["str_labels"]``)
 STR_LABELS: Dict[str, List[str]] = {
     "cifar10": CIFAR10_LABELS, "cifar100": CIFAR100_LABELS, "mnist": MNIST_LABELS,
     "emnist": [str(i) for i in range(26)], "fmnist": FMNIST_LABELS,
-    "imagenet": IMAGENET30_LABELS, "tinyimages": ["tiny_image"], "mvtec": MVTEC_LABELS,
-    "dtd": DTD_LABELS,
+    "imagenet": IMAGENET30_LABELS, "imagenet21k": [str(i) for i in range(21811)],
+    "imagenet21ksubset": [str(i) for i in range(21811)],
+    "imagenetoe": [str(i) for i in range(1000)], "tinyimages": ["tiny_image"],
+    "mvtec": MVTEC_LABELS, "dtd": DTD_LABELS,
 }
 
 
 def str_labels(dataset_name: str) -> List[str]:
-    if dataset_name not in STR_LABELS:
-        raise NotImplementedError(f"the class labels of {dataset_name!r} are not ported yet")
-    return STR_LABELS[dataset_name]
+    labels = DS_CHOICES[dataset_name]["str_labels"]
+    if labels is None and dataset_name == "cub":
+        labels = importlib.import_module("eoe_tpu_torch.datasets.cub").cub_labels()
+    if labels is None:
+        raise ValueError(f"class labels of '{dataset_name}' depend on the data folder")
+    return labels
 
 
 def no_classes(dataset_name: str) -> int:
-    return len(str_labels(dataset_name))
+    n = DS_CHOICES[dataset_name]["no_classes"]
+    if n is None:
+        raise ValueError(f"number of classes of '{dataset_name}' depends on the data folder; "
+                         f"use ADCustomDS.determine_classes")
+    return n
 
 
 # string ids of the filter transforms usable in MSMs
@@ -97,14 +113,19 @@ DS_PARTS = {
 
 _PORTED = {"cifar10": ("cifar", "ADCIFAR10"), "cifar100": ("cifar", "ADCIFAR100"),
            "mnist": ("mnist", "ADMNIST"), "emnist": ("mnist", "ADEMNIST"),
-           "fmnist": ("mnist", "ADFMNIST"), "tinyimages": ("tinyimages", "ADTinyImages")}
+           "fmnist": ("mnist", "ADFMNIST"), "imagenet": ("imagenet", "ADImageNet"),
+           "imagenet21k": ("imagenet", "ADImageNet21k"),
+           "imagenet21ksubset": ("imagenet", "ADImageNet21kSubSet"),
+           "imagenetoe": ("imagenetoe", "ADImageNetOE"),
+           "tinyimages": ("tinyimages", "ADTinyImages"), "mvtec": ("mvtec", "ADMvTec"),
+           "dtd": ("dtd", "ADDTD"), "cub": ("cub", "ADCUB"), "custom": ("custom", "ADCustomDS")}
 
-# the JAX package's registry: raw size, class count, OE-only; ``module`` and
-# ``cls`` are None where the dataset is not ported yet
+# the JAX package's registry: module and class (resolved at first use), raw
+# size, class count, OE-only, class labels
 DS_CHOICES: Dict[str, dict] = {
-    name: dict(module=f"eoe_tpu_torch.datasets.{_PORTED[name][0]}" if name in _PORTED else None,
-               cls=_PORTED[name][1] if name in _PORTED else None,
-               default_size=size, no_classes=n, oe_only=oe_only)
+    name: dict(module=f"eoe_tpu_torch.datasets.{_PORTED[name][0]}", cls=_PORTED[name][1],
+               default_size=size, no_classes=n, oe_only=oe_only,
+               str_labels=STR_LABELS.get(name))
     for name, size, n, oe_only in (
         ("cifar10", 32, 10, False), ("cifar100", 32, 100, False), ("mnist", 28, 10, False),
         ("emnist", 28, 26, False), ("fmnist", 28, 10, False), ("imagenet", 256, 30, False),
@@ -116,8 +137,6 @@ DS_CHOICES: Dict[str, dict] = {
 
 def _resolve_class(name: str):
     entry = DS_CHOICES[name]
-    if entry["module"] is None:
-        raise NotImplementedError(f"the {name!r} dataset is not ported yet")
     return getattr(importlib.import_module(entry["module"]), entry["cls"])
 
 
@@ -187,10 +206,12 @@ def load_dataset(dataset_name: str, data_path: str, normal_classes: List[int],
     and an OE dataset. The OE dataset takes the normal one's pipeline specs
     and statistics, trains with the flipped label, owns ``oe_limit_samples``,
     and with ``oe_limit_classes`` keeps that many of its classes, drawn
-    from ``rng``. Each MSM becomes a conditional on its part: train_nominal
-    on the normal train images (label ``nominal_label``), test_nominal and
-    test_anomalous on the test images of that label or of the other, and
-    train_oe on every OE train image."""
+    from ``rng``. The custom dataset as its own OE set takes the anomalous
+    folders of the normal classes, with the nominal label (its samples carry
+    their own labels), and refuses ``oe_limit_classes``. Each MSM becomes a
+    conditional on its part: train_nominal on the normal train images (label
+    ``nominal_label``), test_nominal and test_anomalous on the test images of
+    that label or of the other, and train_oe on every OE train image."""
     from eoe_tpu_torch.datasets.bases import CombinedDataset
     assert dataset_name in DS_CHOICES, f"{dataset_name} is not in {sorted(DS_CHOICES)}"
     rng = rng if rng is not None else np.random.default_rng()
@@ -213,15 +234,24 @@ def load_dataset(dataset_name: str, data_path: str, normal_classes: List[int],
 
     oe_cls = _resolve_class(oe_name)
     n_oe_classes = DS_CHOICES[oe_name]["no_classes"]
-    if oe_limit_classes < float("inf"):
-        oe_classes = sorted(rng.choice(np.arange(n_oe_classes),
-                                       min(n_oe_classes, int(oe_limit_classes)),
-                                       replace=False).tolist())
+    is_custom_oe = dataset_name == "custom" and oe_name == "custom"
+    if is_custom_oe:
+        if oe_limit_classes < float("inf"):
+            raise ValueError("Using the custom dataset with its own OE part cannot be "
+                             "combined with limiting the OE classes.")
+        oe_classes, oe_label = list(normal_classes), nominal_label
     else:
-        oe_classes = list(range(n_oe_classes))
+        if oe_limit_classes < float("inf") and n_oe_classes is not None:
+            oe_classes = sorted(rng.choice(np.arange(n_oe_classes),
+                                           min(n_oe_classes, int(oe_limit_classes)),
+                                           replace=False).tolist())
+        else:
+            oe_classes = list(range(n_oe_classes)) if n_oe_classes is not None else []
+        oe_label = 1 - nominal_label
     oe_train_conditional = [(nominal_label, [m.get_spec()], [m.get_spec()])
                             for m in msms if m.ds_part == TRAIN_OE_ID]
-    oe = oe_cls(data_path, oe_classes, 1 - nominal_label, deepcopy(dataset.train_specs),
+    oe = oe_cls(data_path, oe_classes, oe_label, deepcopy(dataset.train_specs),
                 deepcopy(dataset.test_specs), raw_shape, logger, oe_limit_samples,
-                oe_train_conditional, None, dataset.ds_statistics, rng)
+                oe_train_conditional, None, dataset.ds_statistics, rng,
+                **({"oe": True} if is_custom_oe else {}))
     return CombinedDataset(dataset, oe)

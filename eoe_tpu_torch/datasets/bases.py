@@ -7,8 +7,11 @@ datasets carry the flipped nominal label; ``limit_samples`` is an int (a
 random subset) or an explicit index list that overrides the filter.
 
 The sampler is numpy, as in the JAX package: the same seed gives the same
-index plans bit for bit. Sources hold uint8 images in host memory; the
-trainer moves each split to the device once and gathers batches there.
+index plans bit for bit. Sources hold uint8 images in host memory or read
+them from disk. A split is resident when its source says so (array sources
+always; folder sources and blobs within their byte budgets, ``folder``):
+the trainer moves it to the device once and gathers batches there, and
+streams every other split from the host batch by batch.
 
 A pipeline with a ``normalize`` (or ``gcn-normalize``) placeholder and no
 ``ds_statistics`` takes its statistics from the raw normal train split
@@ -58,9 +61,16 @@ class DataSource:
 
     @property
     def resident(self) -> bool:
-        """Whether a split of this source is moved to the device whole; the
-        trainer gathers a streaming source's batches on the host instead."""
-        return True
+        """Whether any split of this source may be moved to the device whole
+        (array-backed sources)."""
+        return False
+
+    def fits_resident(self, n_items: int) -> bool:
+        """Whether a split of ``n_items`` of this source may be gathered once
+        and moved to the device whole. A split that may not streams: the
+        trainer gathers its batches on the host. Cached folder sources accept
+        splits within their RAM budget, blobs within theirs."""
+        return self.resident
 
 
 class ArraySource(DataSource):
@@ -79,6 +89,10 @@ class ArraySource(DataSource):
     @property
     def raw_shape(self):
         return tuple(self.images.shape[1:])
+
+    @property
+    def resident(self):
+        return True
 
 
 class Subset:

@@ -16,7 +16,8 @@ three flags differ:
     package's setup.json.
 Snapshots are the port's ``.pt`` files. The runners and the functions below
 take ``device`` as a keyword (``cuda`` unless the caller asks for another
-one); it is not a flag. The evolutionary and random OE search are not
+one); it is not a flag. The evolutionary and random OE search, and the
+custom-model workflow (``train_only_custom``, ``inference_custom``), are not
 ported yet.
 """
 
@@ -142,7 +143,10 @@ def create_trainer(trainer: str, comment: str, dataset: str, oe_dataset: Optiona
                    **kwargs) -> Trainer:
     """The trainer and its logger: a new run directory under
     ``<dataset_path>/results/<superdir>`` (or ``logpath``), or with
-    ``continue_run`` the directory ``<continue_run>---CNTD``."""
+    ``continue_run`` the directory ``<continue_run>---CNTD``. The data lie
+    under ``<dataset_path>/datasets``; for the custom dataset its classes are
+    read from its train folders into ``DS_CHOICES["custom"]`` (its split-less
+    layouts lie directly under ``<dataset_path>``)."""
     if devices is not None and devices > 1:
         raise NotImplementedError(
             f"--devices {devices}: data parallelism over several GPUs is not ported yet "
@@ -157,9 +161,18 @@ def create_trainer(trainer: str, comment: str, dataset: str, oe_dataset: Optiona
                         else logpath, comment)
     else:
         logger = Logger(continue_run + "---CNTD", noname=True)
+    if dataset == "custom" or oe_dataset == "custom":
+        from eoe_tpu_torch.datasets.custom import ADCustomDS
+        if not (ADCustomDS.train_only or ADCustomDS.eval_only):
+            datapath = pt.join(datapath, "datasets")
+        classes = ADCustomDS.determine_classes(datapath)
+        DS_CHOICES["custom"]["str_labels"] = classes
+        DS_CHOICES["custom"]["no_classes"] = len(classes)
+    else:
+        datapath = pt.join(datapath, "datasets")
     return TRAINER[trainer](
         model=model, train_specs=train_specs, test_specs=test_specs, dataset=dataset,
-        oe_dataset=oe_dataset, datapath=pt.join(datapath, "datasets"), logger=logger,
+        oe_dataset=oe_dataset, datapath=datapath, logger=logger,
         epochs=epochs, lr=lr, wdk=wdk, milestones=milestones, batch_size=batch_size,
         ad_mode=ad_mode, oe_limit_samples=oe_limit_samples,
         oe_limit_classes=oe_limit_classes, msms=msm,

@@ -1,0 +1,47 @@
+"""CLI runner: CLIP on MVTec-AD anomaly-detection benchmark.
+
+The port of eoe_tpu/main/train_clip_mvtec.py: its defaults and pipelines.
+Run: python -m eoe_tpu_torch.main.train_clip_mvtec [flags]
+"""
+
+from eoe_tpu_torch.main import default_argsparse, run_default_training
+
+DEFAULTS = dict(
+    comment='{obj}_mvtec_{admode}_E{epochs}',
+    objective='clip',
+    dataset='mvtec',
+    oe_dataset='imagenet21k',
+    epochs=80,
+    learning_rate=0.0001,
+    weight_decay=0.001,
+    milestones=[50, 60, 70, 75],
+    batch_size=128,
+    classes=None,
+    iterations=2,
+)
+
+TRAIN_SPECS = [{'op': 'resize', 'size': 256}, {'op': 'color_jitter', 'brightness': 0.01, 'contrast': 0.01, 'saturation': 0.01, 'hue': 0.01}, {'op': 'random_crop', 'size': 224}, {'op': 'random_hflip', 'p': 0.5}, {'op': 'clip_pil_preprocessing'}, {'op': 'gaussian_noise', 'std': 0.001}, {'op': 'clip_tensor_preprocessing'}]
+TEST_SPECS = []
+
+
+def build_model(args):
+    return None
+
+
+def main(argv=None, device=None):
+    """``device``: ``cuda`` unless the caller asks for another one."""
+    def modify_parser(parser):
+        parser.set_defaults(**DEFAULTS)
+
+    args = default_argsparse(
+        lambda s: f"{s} This specific script comes with a default configuration for CLIP on MVTec-AD.",
+        modify_parser, argv=argv)
+    args.comment = args.comment.format(
+        obj=args.objective, admode=args.ad_mode, epochs=args.epochs,
+        oelimit=f"_OE{args.oe_size}" if args.oe_size < float("inf") else "")
+    return run_default_training(args, build_model(args), TRAIN_SPECS, TEST_SPECS,
+                                device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -21,8 +21,12 @@ is the mean feature of the normal train split under the initial weights
 (``prepare_metric``); the AE objective gets the model's inputs. The
 multi-scale modes (``msms``) are label-conditional pipelines that each
 half-batch passes before the main pipeline, in training and in eval. A
-streaming OE source (Tiny Images) is gathered on the host step by step;
-every other split lives on the device. Not ported, being JAX dispatch
+split is resident when its source is (an array) or its source takes a split
+of its size (``fits_resident``: a folder source within its RAM budget, a
+blob within its own): it moves to the device once and its batches are
+gathered there. Any other split streams: the normal and OE halves are
+gathered on the host step by step, the test split batch by batch, and the
+DSVDD centre's normal split likewise. Not ported, being JAX dispatch
 machinery or later work: ``lax.scan`` epochs, the jit cache, meshes,
 vmapped seeds, the HLO dump and preview images.
 
@@ -92,6 +96,11 @@ class TrainState:
 def _seed(*parts: int) -> int:
     """A 32-bit seed from non-negative integers."""
     return int(np.random.SeedSequence([max(int(p), 0) for p in parts]).generate_state(1)[0])
+
+
+def _is_resident(subset) -> bool:
+    """Whether a split moves to the device whole, or streams from the host."""
+    return subset.source.resident or subset.source.fits_resident(len(subset))
 
 
 def _to_cpu(obj):
@@ -281,19 +290,23 @@ class Trainer:
         if self.objective.name != "dsvdd":
             return None
         normal_ds = ds.normal if isinstance(ds, CombinedDataset) else ds
-        X = torch.from_numpy(np.ascontiguousarray(ds.train_set.gather_all())).to(self.device)
+        train_set = ds.train_set
+        n = len(train_set)
+        X = self._to_device(train_set.gather_all()) if _is_resident(train_set) else None
         rt_stats = self._rt_stats(ds)
         generator = torch.Generator(device=self.device).manual_seed(_seed(self.seed, seed, 3))
         model = state.model.eval()
         feat_sum, B = None, self.batch_size
-        for i in range(0, len(X), B):
-            x = X[i:i + B].float() / 255.0
+        for i in range(0, n, B):
+            x = X[i:i + B] if X is not None else \
+                self._to_device(train_set.gather(np.arange(i, min(i + B, n))))
+            x = x.float() / 255.0
             labels = torch.full((len(x),), self.nominal_label, device=self.device)
             x = normal_ds.train_conditional_pipeline(x, labels, rt_stats, generator=generator)
             x = normal_ds.train_pipeline(x, rt_stats, generator=generator)
             s = model(x.to(self.compute_dtype)).float().sum(dim=0)
             feat_sum = s if feat_sum is None else feat_sum + s
-        return dsvdd_center(feat_sum, len(X))
+        return dsvdd_center(feat_sum, n)
 
     # ------------------------------------------------------------- class x seed grid
 
@@ -432,10 +445,8 @@ class Trainer:
 
     # ------------------------------------------------------------- train one cls
 
-    def _on_device(self, subset, binary_targets) -> Tuple[torch.Tensor, torch.Tensor]:
-        """A whole split and its binary labels, moved to the device once."""
-        return (torch.from_numpy(np.ascontiguousarray(subset.gather_all())).to(self.device),
-                torch.from_numpy(binary_targets).to(self.device))
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def train_cls(self, ds, cls: int, clsstr: str, it: int, seed: int,
                   cur_load: Optional[str] = None) -> Tuple[TrainState, Optional[M.ROC]]:
@@ -449,13 +460,15 @@ class Trainer:
         center = self.center = self.prepare_metric(clsstr, ds, state, it)
         rt_stats = self._rt_stats(ds)
         normal_ds = ds.normal if combined else ds
-        Xn, Ln = self._on_device(train_set, normal_ds.binary_targets(train_set))
-        Xo = Lo = None
-        stream_oe = has_oe and not oe_set.source.resident
-        if stream_oe:
-            oe_targets = ds.oe.binary_targets(oe_set)
-        elif has_oe:
-            Xo, Lo = self._on_device(oe_set, ds.oe.binary_targets(oe_set))
+        # a resident half moves to the device once; a streaming one keeps its
+        # images on the host (X is None) and its labels in numpy
+        Ln = normal_ds.binary_targets(train_set)
+        Lo = ds.oe.binary_targets(oe_set) if has_oe else None
+        Xn = Xo = None
+        if _is_resident(train_set):
+            Xn, Ln = self._to_device(train_set.gather_all()), self._to_device(Ln)
+        if has_oe and _is_resident(oe_set):
+            Xo, Lo = self._to_device(oe_set.gather_all()), self._to_device(Lo)
         generator = torch.Generator(device=self.device).manual_seed(_seed(seed, 2))
 
         cls_roc = None
@@ -468,13 +481,18 @@ class Trainer:
             outs = []
             for s in range(sampler.steps):
                 i_n, i_o, w_s = plan[0, s], plan[1, s], plan[2, s].float()
+                if Xn is not None:
+                    xn, ln = Xn[i_n], Ln[i_n]
+                else:
+                    xn = self._to_device(train_set.gather(idx_n[s]))
+                    ln = self._to_device(Ln[idx_n[s]])
                 xo = lo = None
-                if stream_oe:
-                    xo = torch.from_numpy(oe_set.gather(idx_o[s])).to(self.device)
-                    lo = torch.from_numpy(oe_targets[idx_o[s]]).to(self.device)
-                elif has_oe:
+                if Xo is not None:
                     xo, lo = Xo[i_o], Lo[i_o]
-                outs.append(self.train_step(state, ds, Xn[i_n], Ln[i_n], xo, lo, w_s,
+                elif has_oe:
+                    xo = self._to_device(oe_set.gather(idx_o[s]))
+                    lo = self._to_device(Lo[idx_o[s]])
+                outs.append(self.train_step(state, ds, xn, ln, xo, lo, w_s,
                                             generator, center, rt_stats))
             # one download per epoch: a per-step sync would stall the card
             ep_losses = torch.stack([o[0] for o in outs]).cpu().numpy()
@@ -508,19 +526,23 @@ class Trainer:
 
     def eval_scores(self, state: TrainState, ds) -> np.ndarray:
         """Anomaly scores of the whole test split, in batches of the batch
-        size (the last one padded by repeating its last image)."""
+        size (the last one padded by repeating its last image). A resident
+        split moves to the device once; a streaming one batch by batch."""
         test_set = ds.test_set
         normal_ds = ds.normal if isinstance(ds, CombinedDataset) else ds
         labels = normal_ds.binary_targets(test_set)
         n, B = len(test_set), self.batch_size
         total = -(-n // B) * B
-        X, L = self._on_device(test_set, labels)
-        if total > n:
-            pad = torch.full((total - n,), n - 1, device=self.device)
-            X, L = torch.cat([X, X[pad]]), torch.cat([L, L[pad]])
+        pad = np.concatenate([np.arange(n), np.full(total - n, n - 1)])
         rt_stats = self._rt_stats(ds)
-        outs = [self.eval_step(state, ds, X[i:i + B], L[i:i + B], self.center, rt_stats)
-                for i in range(0, total, B)]
+        if _is_resident(test_set):
+            X = self._to_device(test_set.gather_all())[self._to_device(pad)]
+            L = self._to_device(labels[pad])
+            batches = ((X[i:i + B], L[i:i + B]) for i in range(0, total, B))
+        else:
+            batches = ((self._to_device(test_set.gather(pad[i:i + B])),
+                        self._to_device(labels[pad[i:i + B]])) for i in range(0, total, B))
+        outs = [self.eval_step(state, ds, x, lb, self.center, rt_stats) for x, lb in batches]
         return torch.cat(outs).cpu().numpy()[:n]
 
     def eval_cls(self, state: TrainState, ds, cls: int, clsstr: str, it: int,

@@ -27,7 +27,8 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "eoe_tpu"))
-print(json.dumps([names, leaked]))
+native_built = sys.modules["eoe_tpu_torch.native"]._tried
+print(json.dumps([names, leaked, native_built]))
 """
 
 
@@ -35,16 +36,22 @@ def test_port_imports_neither_jax_nor_eoe_tpu():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    names, leaked = json.loads(out.stdout)
+    names, leaked, native_built = json.loads(out.stdout)
     conv_path = {f"eoe_tpu_torch.{m}" for m in (
         "models.layers", "models.cnn", "models.ae", "models.cbam", "models.resnet",
         "models.convert", "ops.stem", "datasets.cifar", "datasets.mnist")}
     cli = {f"eoe_tpu_torch.main.{m}" for m in (
         "train_cifar", "train_mnist", "train_fmnist", "train_clip_cifar", "train_clip_mnist",
-        "train_clip_fmnist", "multiscale_cifar")} | {
+        "train_clip_fmnist", "multiscale_cifar", "train_imagenet", "train_imagenet_fast",
+        "train_clip_imagenet", "multiscale_imagenet", "train_mvtec", "train_clip_mvtec",
+        "train_dtd", "train_clip_dtd", "train_cub", "train_clip_cub", "train_custom")} | {
         "eoe_tpu_torch.main", "eoe_tpu_torch.ops.filters", "eoe_tpu_torch.datasets.tinyimages"}
-    assert len(names) >= 30 and conv_path <= set(names) and cli <= set(names)
+    folder = {f"eoe_tpu_torch.{m}" for m in (
+        "datasets.folder", "datasets.imagenet", "datasets.imagenetoe", "datasets.mvtec",
+        "datasets.dtd", "datasets.cub", "datasets.custom", "native", "utils.caching")}
+    assert len(names) >= 50 and conv_path | cli | folder <= set(names)
     assert leaked == []
+    assert not native_built   # the native decoder builds at first use, not at import
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "profile_train.py", "attention_variants.py"])
@@ -115,10 +122,14 @@ def test_runners_default_to_cuda(tmp_path, monkeypatch):
     """The CLI runners run on ``cuda`` (``device`` is a keyword of ``main``,
     not a flag) and raise where there is no card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    from eoe_tpu_torch.main import multiscale_cifar, train_cifar, train_clip_cifar
+    from eoe_tpu_torch.main import (multiscale_cifar, train_cifar, train_clip_cifar,
+                                    train_clip_imagenet, train_imagenet, train_mvtec)
     base = ["-e", "1", "-it", "1", "--classes", "0", "--datapath", str(tmp_path)]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cifar.main(base)
+    for runner in (train_imagenet, train_mvtec):   # before any data is read
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            runner.main(base)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         multiscale_cifar.main(base + ["--ms-mode", "lpf+train_nominal", "--magnitudes", "0"])
     tiny = ClipConfig(embed_dim=16, image_resolution=16, vision_layers=1, vision_width=64,
@@ -127,5 +138,6 @@ def test_runners_default_to_cuda(tmp_path, monkeypatch):
     from eoe_tpu_torch.models.clip import to_openai
     torch.save(to_openai(CLIP(tiny).state_dict(), tiny), tmp_path / "ckpt.pt")
     monkeypatch.setenv("EOE_TPU_CLIP_CHECKPOINT", str(tmp_path / "ckpt.pt"))
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        train_clip_cifar.main(base)
+    for runner in (train_clip_cifar, train_clip_imagenet):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            runner.main(base)

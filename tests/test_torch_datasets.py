@@ -167,8 +167,11 @@ def test_load_dataset_by_name_equals_jax(name, oe_name, kw, monkeypatch):
 
 
 def test_load_dataset_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        D.load_dataset("imagenet", "", [0], 0, [], [])
+    """Every registry name resolves to the JAX package's dataset class (by
+    name); ImageNet-1k is refused as the normal set, being OE only; the
+    registry's sizes, class counts and flags are the JAX package's."""
+    for name in jax_datasets.DS_CHOICES:
+        assert D._resolve_class(name).__name__ == jax_datasets._resolve_class(name).__name__
     with pytest.raises(ValueError, match="only be used as OE"):
         D.load_dataset("imagenetoe", "", [0], 0, [], [])
     msm = D.MSM.load("blur+train_oe--M3")
@@ -182,16 +185,26 @@ def test_load_dataset_refuses_what_is_not_ported():
         assert D.get_raw_shape(specs, name) == jax_datasets.get_raw_shape(specs, name)
     for name, entry in jax_datasets.DS_CHOICES.items():
         ours = D.DS_CHOICES[name]
-        assert [ours[k] for k in ("default_size", "no_classes", "oe_only")] == \
-            [entry[k] for k in ("default_size", "no_classes", "oe_only")]
+        assert [ours[k] for k in ("default_size", "no_classes", "oe_only", "str_labels")] == \
+            [entry[k] for k in ("default_size", "no_classes", "oe_only", "str_labels")]
 
 
-def test_label_tables_equal_jax():
+def test_label_tables_equal_jax(monkeypatch):
+    """The label tables; CUB's names (placeholders before a CUB dataset is
+    built, as in the JAX package: tests/test_torch_folder_datasets.py holds
+    the real ones); the custom dataset's classes depend on its folders."""
+    from eoe_tpu.datasets import cub as jax_cub
+    from eoe_tpu_torch.datasets import cub as port_cub
     for name in D.STR_LABELS:
         assert D.str_labels(name) == jax_datasets.str_labels(name)
         assert D.no_classes(name) == jax_datasets.no_classes(name)
-    with pytest.raises(NotImplementedError):
-        D.str_labels("cub")
+    monkeypatch.setattr(port_cub, "_CUB_LABELS_CACHE", [])
+    monkeypatch.setattr(jax_cub, "_CUB_LABELS_CACHE", [])
+    assert D.str_labels("cub") == jax_datasets.str_labels("cub")
+    assert D.no_classes("cub") == jax_datasets.no_classes("cub") == 200
+    for fn in (D.str_labels, D.no_classes):
+        with pytest.raises(ValueError, match="depend"):
+            fn("custom")
 
 
 MSM_CASES = ["lpf+train_nominal--M4", "blur+train_oe--M2", "hpf+test_nominal--M8",

@@ -1,7 +1,9 @@
 """The port's CLI (``eoe_tpu_torch.main``) against the JAX package's: each
 runner's defaults, pipelines, model and parsed arguments, ``load_setup``,
 and the runners end to end on the CPU (the port alone: the JAX runners are
-held end to end by tests/test_main.py, a slow module)."""
+held end to end by tests/test_main.py, a slow module): the CIFAR runners on
+synthetic data, ``train_clip_imagenet`` on a tiny tree of blobs and
+``train_custom`` on a tiny PNG tree."""
 
 import argparse
 import glob
@@ -21,7 +23,10 @@ import eoe_tpu_torch.main as port_main
 
 REPO = pt.dirname(pt.dirname(pt.abspath(__file__)))
 RUNNERS = ["train_cifar", "train_mnist", "train_fmnist", "train_clip_cifar",
-           "train_clip_mnist", "train_clip_fmnist", "multiscale_cifar"]
+           "train_clip_mnist", "train_clip_fmnist", "multiscale_cifar", "train_imagenet",
+           "train_imagenet_fast", "train_clip_imagenet", "multiscale_imagenet", "train_mvtec",
+           "train_clip_mvtec", "train_dtd", "train_clip_dtd", "train_cub", "train_clip_cub",
+           "train_custom"]
 ARGVS = [
     [],
     ["--ad-mode", "loo", "-oe", "none", "-b", "64", "--oe-size", "100", "-e", "3"],
@@ -190,3 +195,110 @@ def test_train_clip_cifar_from_a_checkpoint_file(tmp_path, monkeypatch):
     setup = json.load(open(pt.join(run, "setup.json")))
     assert setup["compute_dtype"] == "bfloat16" and setup["oe_limit_samples"] == 64
     assert setup["train_specs"] == train_clip_cifar.TRAIN_SPECS and setup["test_specs"] == []
+
+
+TINY_CLIP = dict(embed_dim=32, image_resolution=32, vision_layers=1, vision_width=64,
+                 vision_patch_size=8, context_length=77, vocab_size=49408,
+                 transformer_width=64, transformer_heads=1, transformer_layers=1)
+
+
+def _imagenet_blobs(root, rng):
+    """ImageNet-30 train/val and an ImageNet-21k tree (one wnid of the 1k,
+    left out), each decoded into its 256x256 blob."""
+    from PIL import Image
+    from eoe_tpu_torch.datasets.folder import build_blob
+
+    def write(folder, n):
+        os.makedirs(folder, exist_ok=True)
+        for i in range(n):
+            Image.fromarray(rng.integers(0, 256, (24, 24, 3), np.uint8)).save(
+                pt.join(folder, f"{i}.png"))
+
+    ds = root / "datasets"
+    for cls, n_train in (("acorn", 6), ("airliner", 2), ("banjo", 2)):
+        write(ds / "imagenet_ad" / "train" / cls, n_train)
+        write(ds / "imagenet_ad" / "val" / cls, 2)
+    for wnid in ("n00000001", "n02690373", "n00000002"):
+        write(ds / "imagenet22k" / "fall11_whole_extracted" / wnid, 3)
+    for folder in ("imagenet_ad/train", "imagenet_ad/val", "imagenet22k/fall11_whole_extracted"):
+        build_blob(str(ds / folder), (256, 256))
+
+
+def test_train_clip_imagenet_from_a_checkpoint_file(tmp_path, monkeypatch, rng):
+    """train_clip_imagenet on the CPU on a tiny tree of blobs (ImageNet-21k as
+    OE), from a tiny OpenAI-format checkpoint: finite AUROC, and
+    ``AnomalyScorer`` on the run's snapshot gives the run's scores to 1e-4."""
+    from eoe_tpu_torch.datasets import load_dataset
+    from eoe_tpu_torch.datasets.imagenet import AD_CLASSES
+    from eoe_tpu_torch.inference import AnomalyScorer
+    from eoe_tpu_torch.main import train_clip_imagenet
+    from eoe_tpu_torch.models.clip import CLIP, ClipConfig, to_openai
+    from eoe_tpu_torch.training.clip import prompt_center
+    cfg = ClipConfig(**TINY_CLIP)
+    ckpt = tmp_path / "ViT-tiny.pt"
+    torch.save(to_openai(CLIP(cfg, generator=torch.Generator().manual_seed(0)).state_dict(),
+                         cfg), ckpt)
+    monkeypatch.setenv("EOE_TPU_CLIP_CHECKPOINT", str(ckpt))
+    _imagenet_blobs(tmp_path, rng)
+    _, res = train_clip_imagenet.main(_base(tmp_path, ["-b", "4"]), device="cpu")
+    assert np.isfinite(res["mean_auc"])
+    run = _runs(tmp_path)[0]
+    assert pt.basename(run).endswith("_clip_imagenet_one_vs_rest_E1")
+    setup = json.load(open(pt.join(run, "setup.json")))
+    assert setup["oe_dataset"] == "imagenet21k" and setup["compute_dtype"] == "bfloat16"
+    scores = json.load(open(pt.join(run, "eval_cls0_it0_anomaly_scores.json")))
+    scores = np.asarray([scores[k] for k in sorted(scores, key=int)])
+    test_set = load_dataset("imagenet", str(tmp_path / "datasets"), [0], 0,
+                            train_clip_imagenet.TRAIN_SPECS, []).test_set
+    assert len(scores) == len(test_set) == 6
+    model = CLIP(cfg, dtype=torch.bfloat16)
+    snapshot = torch.load(pt.join(run, "snapshots", "snapshot_cls0_it0.pt"),
+                          map_location="cpu", weights_only=True)
+    model.load_state_dict(snapshot["params"])
+    center = prompt_center(model, AD_CLASSES[0], AD_CLASSES, device="cpu")
+    scorer = AnomalyScorer(snapshot, model, objective="clip", batch_size=4, center=center,
+                           compute_dtype=torch.bfloat16, device="cpu",
+                           test_specs=[{"op": "clip_pil_preprocessing",
+                                        "resolution": cfg.image_resolution},
+                                       {"op": "clip_tensor_preprocessing"}])
+    np.testing.assert_allclose(scorer.score(test_set.gather_all()), scores, rtol=0, atol=1e-4)
+
+
+def test_train_custom_streams_and_keys_scores_by_file(tmp_path, monkeypatch, rng):
+    """train_custom on the CPU on a general-layout PNG tree with the folder
+    cache at 0 (the normal half and the test split stream) and the custom
+    set as its own OE: finite AUROC, the per-file score keys of the JAX
+    package's dataset, the classes read from the folders."""
+    from PIL import Image
+    from eoe_tpu.datasets.custom import ADCustomDS as JaxCustom
+    from eoe_tpu_torch.datasets import DS_CHOICES
+    from eoe_tpu_torch.datasets.custom import ADCustomDS
+    from eoe_tpu_torch.datasets.folder import FolderSource
+    from eoe_tpu_torch.main import train_custom
+    for split in ("train", "test"):
+        for cls in ("screw", "nut"):
+            for sub, n in (("normal", 3), ("anomalous", 2)):
+                folder = tmp_path / "datasets" / "custom" / split / cls / sub
+                os.makedirs(folder)
+                for i in range(n):
+                    Image.fromarray(rng.integers(0, 256, (20, 20, 3), np.uint8)).save(
+                        str(folder / f"{i}.png"))
+    for cls in (ADCustomDS, JaxCustom):
+        monkeypatch.setattr(cls, "classes", [])
+        monkeypatch.setattr(cls, "ovr", False)
+    monkeypatch.setitem(DS_CHOICES, "custom", dict(DS_CHOICES["custom"]))
+    monkeypatch.setattr(FolderSource, "DEFAULT_CACHE_BYTES", 0)
+    _, res = train_custom.main(_base(tmp_path, ["-b", "2", "-oe", "custom",
+                                                "--custom-dataset-default-size", "64"]),
+                               device="cpu")
+    assert np.isfinite(res["mean_auc"])
+    assert DS_CHOICES["custom"]["str_labels"] == ["nut", "screw"]
+    run = _runs(tmp_path)[0]
+    assert pt.basename(run).endswith("_hsc_custom_")
+    scores = json.load(open(pt.join(run, "eval_cls0_it0_anomaly_scores.json")))
+    JaxCustom.classes = []
+    want = JaxCustom(str(tmp_path / "datasets"), [0], 0, [], [], (8, 8, 3)).test_set
+    assert list(scores) == want.sample_keys == [
+        "nut/anomalous/0.png", "nut/anomalous/1.png", "nut/normal/0.png", "nut/normal/1.png",
+        "nut/normal/2.png"]
+    assert np.isfinite(list(scores.values())).all()
