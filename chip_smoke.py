@@ -89,7 +89,7 @@ PATH_DTYPES = {"serving": "fp32", "training": "bf16", "training_fp32": "fp32",
                "flash_serving": "fp32", "flash_training": "bf16", "group_training": "bf16",
                "group_training_fp32": "fp32", "conv_training": "fp32", "wrn_training": "bf16",
                "cli_clip": "bf16", "cli_conv": "fp32", "folder_clip": "bf16",
-               "folder_conv": "fp32"}
+               "folder_conv": "fp32", "evolve": "fp32", "custom": "fp32"}
 BATCH = 128
 SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
@@ -1578,13 +1578,17 @@ def _folder_conv(card: str, tmp: str) -> dict:
     steps = -(-CUSTOM_TRAIN // CUSTOM_BATCH)
     eval_batches = -(-2 * CUSTOM_TEST // CUSTOM_BATCH)
     folder = [g for g in gathers if g[1] == "FolderSource"]
+    # the preview grids gather first: 40 normal train images, then each
+    # binary class of the test split
     train_steps = [g for g in folder if g[:3] == ("gather", "FolderSource", n_train_src)]
     test_batches = [g for g in folder if g[2] == n_test_src]
-    check(len(train_steps) == steps and all(g[3] == CUSTOM_BATCH for g in train_steps)
-          and len(test_batches) == eval_batches
-          and all(g[0] == "gather" and g[3] == CUSTOM_BATCH for g in test_batches),
+    check([g[3] for g in train_steps] == [min(40, CUSTOM_TRAIN)] + [CUSTOM_BATCH] * steps
+          and [(g[0], g[3]) for g in test_batches]
+          == [("gather", CUSTOM_TEST)] * 2 + [("gather", CUSTOM_BATCH)] * eval_batches,
           f"folder train_custom did not stream ({steps} train steps and {eval_batches} eval "
-          f"batches of {CUSTOM_BATCH} expected): host gathers {folder}")
+          f"batches of {CUSTOM_BATCH} expected after the previews' gathers): host gathers "
+          f"{folder}")
+    train_steps, test_batches = train_steps[1:], test_batches[2:]
     for (label, _, argv, pattern), ((_, res), seconds) in zip(runs, out):
         check(np.isfinite(res["mean_auc"]), f"folder {label}: {res}")
         run = _run_dirs(tmp, pattern)[0]
@@ -1620,6 +1624,272 @@ def phase_folder(card: str) -> tuple:
         else:
             os.environ["EOE_TPU_CLIP_CHECKPOINT"] = saved
     return clip, conv
+
+
+# the evolve and custom phases' cuts of the runners' JAX defaults
+EV_CIFAR = ["--ev-generation-pool", "8", "--ev-generations", "2", "--epochs", "2",
+            "--ev-mutation-pool", "1000"]      # defaults: 64, 50, 30, 10000
+EV_IMAGENET = ["--ev-generation-pool", "2", "--ev-generations", "1", "--epochs", "1"]
+EV_RANDOM_SAMPLES = 4                          # default 2000
+EV_ONEOFKBEST = 50                             # evolve_oe_cifar's default
+CUSTOM_NORMAL, CUSTOM_ANOMALOUS = 48, 16       # seeded 64x64 PNGs of two colours
+
+
+def _evaluated(run: str) -> int:
+    """Individuals an evolution run trained, from its print.txt."""
+    with open(os.path.join(run, "print.txt")) as f:
+        return f.read().count("Evaluate ind")
+
+
+def _distance_hold(card: str, oeds, pop: list) -> str:
+    """The GA's mutation distances on the card against the CPU (1e-5
+    relative) and its oneofkbest picks from the same draws: equal, or where
+    not, tied within the measured error."""
+    import numpy as np
+    from eoe_tpu_torch import evolve as ev
+    ind = [i for individual in pop for i in individual]
+    cand = [int(i) for i in np.random.default_rng(SEED).integers(0, len(oeds), 1000)]
+    d = {dev: ev._sq_dists(ev._gather_f32(oeds, ind, dev), ev._gather_f32(oeds, cand, dev))
+         for dev in ("cuda", "cpu")}
+    # a candidate that is the sample itself lies at 0 on both
+    rel = float((np.abs(d["cuda"] - d["cpu"]) / np.maximum(np.abs(d["cpu"]), 1e-30)).max())
+    check(d["cuda"].dtype == np.float32 and rel <= 1e-5,
+          f"evolve: mutation distances on the card differ from the CPU's by {rel} (tol 1e-5)")
+    err = float(np.abs(d["cuda"] - d["cpu"]).max())
+    same = ties = 0
+    for n in range(len(ind)):
+        for draw in range(8):
+            picks = []
+            for dev in ("cuda", "cpu"):
+                ev.seed_evolution((SEED, n, draw))
+                picks.append(ev._nearest_excl_self(d[dev][n], EV_ONEOFKBEST))
+            if cand[picks[0]] == cand[picks[1]]:
+                same += 1
+                continue
+            gap = abs(float(d["cpu"][n][picks[0]]) - float(d["cpu"][n][picks[1]]))
+            check(gap <= 2 * err, f"evolve: the card picked candidate {cand[picks[0]]}, the "
+                  f"CPU {cand[picks[1]]}, {gap} apart (distance error {err})")
+            ties += 1
+    return (f"mutation distances of {len(ind)} individuals to 1000 candidates on the card vs "
+            f"the CPU: max relative difference {rel:.3g} (tol 1e-5); oneofkbest={EV_ONEOFKBEST} "
+            f"picks equal in {same} of {same + ties} draws, the rest tied within {err:.3g}")
+
+
+def phase_evolve(card: str) -> dict:
+    """The evolutionary OE search through its runners' ``main`` on the card:
+    ``evolve_oe_cifar`` (CNN32, CIFAR-10 with Tiny Images as OE) with its
+    JAX defaults cut in population, generations, epochs and mutation pool;
+    a resume of a copy with its last generation dropped, which must redraw
+    that generation exactly; ``random_oe_cifar``; ``evolve_oe_imagenet``
+    (WideResNet+CBAM on ImageNet-30 blobs with ImageNet-21k as OE). Then the
+    mutation distances on the card against the CPU. Counted: no kernel of
+    the repository lies on this path."""
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from eoe_tpu_torch.datasets import load_dataset
+    from eoe_tpu_torch.main import evolve_oe_cifar, evolve_oe_imagenet, random_oe_cifar
+
+    saved = os.environ.get("EOE_TPU_FAKE_DATA")
+    os.environ["EOE_TPU_FAKE_DATA"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            _folder_data(os.path.join(tmp, "datasets"))
+            one = ["--classes", "0", "--datapath", tmp]
+            # ---- the main path, counted
+            _zero_counts()
+            t0 = time.perf_counter()
+            h1, _ = evolve_oe_cifar.main(EV_CIFAR + one + ["--superdir", f"{tmp}/ev"])
+            t_cifar = time.perf_counter() - t0
+            run = glob.glob(os.path.join(tmp, "ev", "log_*_evolve_*"))[0]
+            resumed = os.path.join(tmp, "resume")
+            shutil.copytree(run, resumed)
+            with open(os.path.join(resumed, "results.json")) as f:
+                cut = json.load(f)
+            for k in ("pop", "fit", "mean_fit", "std_fit", "max_fit", "min_fit"):
+                cut[k] = cut[k][:-1]
+            with open(os.path.join(resumed, "results.json"), "w") as f:
+                json.dump(cut, f)
+            t0 = time.perf_counter()
+            h2, _ = evolve_oe_cifar.main(EV_CIFAR + one + ["--superdir", f"{tmp}/ev",
+                                                           "--ev-continue-run", resumed])
+            t_resume = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            h3, _ = random_oe_cifar.main(["--ev-samples", str(EV_RANDOM_SAMPLES), "-e", "2"]
+                                         + one + ["--superdir", f"{tmp}/rand"])
+            t_random = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            h4, _ = evolve_oe_imagenet.main(EV_IMAGENET + one + ["--superdir", f"{tmp}/in"])
+            t_imagenet = time.perf_counter() - t0
+            counts = _counts()
+            # ---- end of the counted run
+            check_counts(counts, {}, "evolve runners (no kernel of the repository)")
+            check(len(h1["pop"]) == 2 and h2["pop"] == h1["pop"] and h2["fit"][0] == h1["fit"][0],
+                  f"evolve: the resumed run's populations {h2['pop']} differ from the "
+                  f"uninterrupted run's {h1['pop']}")
+            for label, h, shape in (("evolve_oe_cifar", h1, (2, 8)), ("resume", h2, (2, 8)),
+                                    ("random_oe_cifar", h3, (1, EV_RANDOM_SAMPLES)),
+                                    ("evolve_oe_imagenet", h4, (1, 2))):
+                fits = np.asarray(h["fit"], dtype=np.float64)
+                check(fits.shape == shape and np.isfinite(fits).all()
+                      and ((fits >= 0) & (fits <= 1)).all(), f"evolve {label}: fitness {fits}")
+            runs = {label: glob.glob(os.path.join(tmp, sub, "log_*_evolve_*"))
+                    for label, sub in (("cifar", "ev"), ("random", "rand"),
+                                       ("imagenet", "in"))}
+            check(os.path.isdir(resumed + "---CNTD"), f"evolve: no {resumed}---CNTD")
+            n_cifar = _evaluated(run)
+            n_resume = _evaluated(resumed + "---CNTD")
+            n_random = _evaluated(runs["random"][0])
+            n_imagenet = _evaluated(runs["imagenet"][0])
+            try:     # the genealogy and the overviews are drawn with matplotlib
+                import matplotlib  # noqa: F401
+                figures = ("genealogy.png", "overview_best.png", "overview_worst.png")
+            except ImportError:
+                figures = ()
+            for r in (run, runs["imagenet"][0]):
+                for name in ("results.json", "evolution.json", "individuals") + figures:
+                    check(os.path.exists(os.path.join(r, name)), f"evolve: {r} lacks {name}")
+            oeds = load_dataset("cifar10", os.path.join(tmp, "datasets"), [0], 0,
+                                evolve_oe_cifar.TRAIN_SPECS, evolve_oe_cifar.TEST_SPECS,
+                                oe_name="tinyimages").oe.train_set
+            hold = _distance_hold(card, oeds, h1["pop"][-1][:4])
+    finally:
+        if saved is None:
+            os.environ.pop("EOE_TPU_FAKE_DATA", None)
+        else:
+            os.environ["EOE_TPU_FAKE_DATA"] = saved
+    for label, seconds, n, h in (("evolve_oe_cifar", t_cifar, n_cifar, h1),
+                                 ("resume", t_resume, n_resume, h2),
+                                 ("random_oe_cifar", t_random, n_random, h3),
+                                 ("evolve_oe_imagenet", t_imagenet, n_imagenet, h4)):
+        print(f"evolve {label}: {seconds:.2f} s of main, {n} individuals trained, "
+              f"{seconds / max(n, 1):.3f} s per individual; fitness of the last generation "
+              f"{[round(f, 4) for f in h['fit'][-1]]} [{card}]")
+    print(f"evolve: resumed run redrew generation {len(h1['pop']) - 1} exactly: "
+          f"{h2['pop'][-1]}; figures drawn: {list(figures) or 'none (no matplotlib)'}")
+    print(f"evolve: {hold} [{card}]")
+    return counts
+
+
+def _custom_images(root: str):
+    """A split-less custom tree: dark normal and bright anomalous 64x64 PNGs."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    for folder, n, level in (("normal", CUSTOM_NORMAL, 40), ("anomalous", CUSTOM_ANOMALOUS, 200)):
+        os.makedirs(os.path.join(root, folder))
+        for i in range(n):
+            img = np.full((64, 64, 3), level, np.uint8) + rng.integers(0, 30, (64, 64, 3),
+                                                                       dtype=np.uint8)
+            with open(os.path.join(root, folder, f"{i:03d}.png"), "wb") as f:
+                f.write(_png(img))
+
+
+def phase_custom(card: str) -> dict:
+    """The custom-model workflow through its runners' ``main`` on the card:
+    ``train_only_custom`` trains ``WideResNetCustom`` (the WideResNet+CBAM
+    feature model and a prediction head) with the feature model frozen,
+    then once more from a feature-model-only snapshot of that run;
+    ``inference_custom`` scores the second run's snapshot, held against
+    ``AnomalyScorer`` on the same images. Counted: no kernel of the
+    repository lies on this path."""
+    import argparse
+    import glob
+    import tempfile
+
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.datasets import DS_CHOICES, load_dataset
+    from eoe_tpu_torch.datasets.custom import ADCustomDS
+    from eoe_tpu_torch.inference import AnomalyScorer
+    from eoe_tpu_torch.main import inference_custom, train_only_custom
+    from eoe_tpu_torch.models.custom import WideResNetCustom
+    from eoe_tpu_torch.training.trainer import Trainer
+
+    saved_cls = {k: getattr(ADCustomDS, k) for k in ("train_only", "eval_only", "base_folder",
+                                                     "classes")}
+    saved_choice = dict(DS_CHOICES["custom"])
+    loaded = []
+    init_or_load = Trainer._init_or_load
+
+    def recorded(self, *args, **kwargs):
+        state, epoch = init_or_load(self, *args, **kwargs)
+        loaded.append({k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()})
+        return state, epoch
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data = os.path.join(tmp, "data")
+            _custom_images(data)
+            common = ["--custom-dataset-path", data, "--custom-model-add-prediction-head"]
+            train = common + ["-e", "2", "-it", "1", "--custom-model-freeze"]
+            Trainer._init_or_load = recorded
+            # ---- the main path, counted
+            _zero_counts()
+            seconds = {}
+            t0 = time.perf_counter()
+            train_only_custom.main(train + ["--log-path", f"{tmp}/frozen"])
+            seconds["train_only_custom"] = time.perf_counter() - t0
+            snap1 = glob.glob(f"{tmp}/frozen/**/snapshot_cls0_it0.pt", recursive=True)[0]
+            params1 = torch.load(snap1, map_location="cpu", weights_only=True)["params"]
+            features = {k.split(".", 1)[1]: v for k, v in params1.items()
+                        if k.startswith("feature_model.")}
+            torch.save(features, os.path.join(tmp, "features.pt"))
+            t0 = time.perf_counter()
+            train_only_custom.main(train + ["--log-path", f"{tmp}/features",
+                                            "--custom-model-snapshot",
+                                            os.path.join(tmp, "features.pt")])
+            seconds["train_only_custom from features"] = time.perf_counter() - t0
+            snap2 = glob.glob(f"{tmp}/features/**/snapshot_cls0_it0.pt", recursive=True)[0]
+            ADCustomDS.train_only, ADCustomDS.base_folder, ADCustomDS.classes = False, "custom", []
+            t0 = time.perf_counter()
+            _, res = inference_custom.main(common + ["--log-path", f"{tmp}/infer",
+                                                     "--custom-model-snapshot", snap2])
+            seconds["inference_custom"] = time.perf_counter() - t0
+            counts = _counts()
+            # ---- end of the counted run
+            Trainer._init_or_load = init_or_load
+            check_counts(counts, {}, "custom runners (no kernel of the repository)")
+            params2 = torch.load(snap2, map_location="cpu", weights_only=True)["params"]
+            for label, start, params in (("fresh", loaded[0], params1),
+                                         ("from features", loaded[1], params2)):
+                names = dict(WideResNetCustom(prediction_head=True).named_parameters())
+                for k, v in params.items():
+                    if k.startswith("feature_model.") and k in names:
+                        check(torch.equal(v, start[k]), f"custom {label}: frozen {k} moved")
+                    else:
+                        check(not torch.equal(v, start[k]), f"custom {label}: {k} did not move")
+            check(all(torch.equal(loaded[1][f"feature_model.{k}"], v) for k, v in features.items()),
+                  "custom: the feature-model snapshot was not loaded")
+            with open(glob.glob(f"{tmp}/features/log_*/print.txt")[0]) as f:
+                check("Loaded pre-trained weights for feature model of CustomNet." in f.read(),
+                      "custom: no feature-model load message")
+            run = glob.glob(f"{tmp}/infer/log_*")[0]
+            scores = _read_json(run, "eval_cls0_it0_anomaly_scores")
+            specs = train_only_custom.build_specs(
+                argparse.Namespace(image_resize=(256,), image_crop=(224, 224)), train=False)
+            test_set = load_dataset("custom", data, [0], 0, specs, specs).test_set
+            scorer = AnomalyScorer(snap2, WideResNetCustom(prediction_head=True),
+                                   test_specs=specs, batch_size=BATCH)
+            served = scorer.score(test_set.gather_all())
+            got = np.asarray([scores[k] for k in test_set.sample_keys])
+            serve_err = float(np.abs(served - got).max())
+            check(len(scores) == CUSTOM_NORMAL + CUSTOM_ANOMALOUS and serve_err <= 1e-4,
+                  f"custom inference_custom: AnomalyScorer differs by {serve_err} (tol 1e-4)")
+            check(np.isfinite(res["mean_auc"]), f"custom inference_custom: AUROC {res}")
+    finally:
+        Trainer._init_or_load = init_or_load
+        for k, v in saved_cls.items():
+            setattr(ADCustomDS, k, v)
+        DS_CHOICES["custom"] = saved_choice
+    print(f"custom (WideResNetCustom, {CUSTOM_NORMAL} normal + {CUSTOM_ANOMALOUS} anomalous "
+          f"64x64 PNGs at 224 px, frozen feature model): seconds of main "
+          f"{ {k: round(v, 2) for k, v in seconds.items()} }; every feature_model parameter "
+          f"unchanged, the head and the batch-norm averages moved, in both runs; "
+          f"inference_custom AUROC {res['mean_auc']:.4f}, its {len(scores)} scores keyed by "
+          f"file equal AnomalyScorer's to {serve_err:.3g} (tol 1e-4) [{card}]")
+    return counts
 
 
 def _read_json(logdir: str, name: str) -> dict:
@@ -1668,6 +1938,8 @@ def main():
     timed("filters", phase_filters, card)
     paths["cli_clip"], paths["cli_conv"] = timed("cli", phase_cli, card)
     paths["folder_clip"], paths["folder_conv"] = timed("folder", phase_folder, card)
+    paths["evolve"] = timed("evolve", phase_evolve, card)
+    paths["custom"] = timed("custom", phase_custom, card)
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}

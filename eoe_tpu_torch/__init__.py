@@ -6,7 +6,9 @@ The first slice is CLIP ViT-B/32 anomaly scoring (``inference.AnomalyScorer``),
 the second HSC and CLIP fine-tuning (``training.Trainer``,
 ``training.clip.ClipTrainer``); the fused-QKV attention forward and backward
 are hand-written CUDA kernels (``ops.attention``). The command-line runners
-are ``eoe_tpu_torch.main`` (``python -m eoe_tpu_torch.main.train_cifar``).
+are ``eoe_tpu_torch.main`` (``python -m eoe_tpu_torch.main.train_cifar``);
+the evolutionary OE search is ``evolve`` (``main.evolve_oe_cifar`` and its
+siblings), and plug-in models subclass ``models.custom_base.CustomNet``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

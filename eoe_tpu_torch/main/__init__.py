@@ -1,11 +1,13 @@
 """Experiment orchestration of the port: the argument parsers, the trainer
-factory, the multiscale sweep and the resume loader of eoe_tpu/main, which
-the runners in this package share (``python -m eoe_tpu_torch.main.<runner>``).
+factories, the multiscale sweep, the evolutionary search's setup and the
+resume loaders of eoe_tpu/main, which the runners in this package share
+(``python -m eoe_tpu_torch.main.<runner>``).
 
 The flags, their defaults and the on-disk layout are the JAX package's: data
 under ``<datapath>/datasets``, runs under ``<datapath>/results/<superdir>``,
-a resumed run (``--load``) continued in ``<old run>---CNTD``. On one card
-three flags differ:
+a resumed run (``--load``) continued in ``<old run>---CNTD``, an evolution
+run in ``<superdir>/log_<time>_evolve_<comment>`` (``--ev-continue-run``:
+``<old run>---CNTD``). On one card four flags differ:
   * ``-d/--devices`` counts GPUs. None and 1 run on the one card; more raise
     (data parallelism is not ported yet);
   * ``--vmap-seeds`` parses as in the JAX package. Auto and
@@ -13,18 +15,24 @@ three flags differ:
     ``--vmap-seeds`` raises (not ported yet);
   * ``--compute-dtype`` maps ``float32`` / ``bfloat16`` to the torch dtypes
     and is written under the same names, so ``load_setup`` reads either
-    package's setup.json.
+    package's setup.json;
+  * ``--ev-vmap`` (the evolutionary search's vectorised fitness) parses as
+    in the JAX package and raises (not ported yet); the candidates train
+    one after another.
 Snapshots are the port's ``.pt`` files. The runners and the functions below
 take ``device`` as a keyword (``cuda`` unless the caller asks for another
-one); it is not a flag. The evolutionary and random OE search, and the
-custom-model workflow (``train_only_custom``, ``inference_custom``), are not
-ported yet.
+one); it is not a flag. The evolutionary search keeps the JAX package's
+``results.json`` history (the ``geneation_pool`` key included) and
+``evolution.json`` tree, so either package resumes the other's run
+(``--ev-continue-run``, ``load_evolve``).
 """
 
 import json
 import os
 import os.path as pt
+import time
 from argparse import ArgumentParser, BooleanOptionalAction, Namespace
+from copy import deepcopy
 from itertools import product
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
@@ -33,6 +41,11 @@ import torch
 from eoe_tpu_torch.datasets import (DS_CHOICES, DS_PARTS, MSM, MSM_TRANSFORMS,
                                     TRAIN_NOMINAL_ID, TRAIN_OE_ID, no_classes)
 from eoe_tpu_torch.datasets.bases import INF
+from eoe_tpu_torch.evolve import (Individual, Toolbox, evaluate, evaluate_individual, evolve,
+                                  init_individual, mate_individuals, mutate_individual,
+                                  replace_individuals_randomly, seed_evolution,
+                                  select_individual)
+from eoe_tpu_torch.evolve.tree import EvolNode, Individual as TreeIndividual, Tree
 from eoe_tpu_torch.ops.preprocess import specs_repr
 from eoe_tpu_torch.training import TRAINER, Trainer
 from eoe_tpu_torch.utils.logger import Logger
@@ -133,6 +146,52 @@ def ms_argsparse(modify_descr, modify_parser=None, modify_args=None, argv=None):
     return default_argsparse(modify_descr, combined_parser, combined_args, argv)
 
 
+def evolve_argsparse(modify_descr, modify_parser=None, modify_args=None, argv=None):
+    """``ms_argsparse`` with the ``--ev-*`` flags of the evolutionary search."""
+
+    def evolve_descr(s):
+        s += ("Repeats this complete procedure with different fixed Outlier Exposure "
+              "(OE) subsets chosen by an evolutionary algorithm optimizing mean AUC. ")
+        return modify_descr(s) if modify_descr is not None else s
+
+    def evolve_parser(parser):
+        parser.add_argument("--ev-oesize", type=int, default=1)
+        parser.add_argument("--ev-generation-pool", type=int, default=16)
+        parser.add_argument("--ev-mutation-pool", type=int, default=100)
+        parser.add_argument("--ev-mutation-indp", type=float, default=1.0)
+        parser.add_argument("--ev-mutation-oneofkbest", type=int, default=3)
+        parser.add_argument("--ev-mutation-chance", type=float, default=0.5)
+        parser.add_argument("--ev-mate-chance", type=float, default=0.2)
+        parser.add_argument("--ev-generations", type=int, default=30)
+        parser.add_argument("--ev-select-toursize", type=int, default=3)
+        parser.add_argument("--ev-minimize-fitness", action="store_true")
+        parser.add_argument("--ev-seed", type=int, default=0,
+                            help="Seed for all stochastic GA decisions (init, "
+                                 "mutation, mating, selection). Same-seed runs "
+                                 "reproduce byte-identically; each generation's "
+                                 "stream derives from (seed, gen), so resumes "
+                                 "replay the uninterrupted run.")
+        parser.add_argument("--ev-vmap", action="store_true",
+                            help="Train all candidates of a generation as one batched "
+                                 "program: not ported yet. Without it the candidates "
+                                 "train one after another.")
+        parser.add_argument("--ev-continue-run", type=str, default=None)
+        if modify_parser is not None:
+            modify_parser(parser)
+
+    def evolve_args(args):
+        if args.load is not None:
+            raise ValueError("For the evolutionary algorithm, `--load` has no impact. "
+                             "Use `--ev-continue-run` instead.")
+        if args.oe_size != INF:
+            raise ValueError("For the evolutionary algorithm, `--oe-size` has no impact. "
+                             "Use `--ev-oesize` instead.")
+        if modify_args is not None:
+            modify_args(args)
+
+    return ms_argsparse(evolve_descr, evolve_parser, evolve_args, argv)
+
+
 def create_trainer(trainer: str, comment: str, dataset: str, oe_dataset: Optional[str],
                    epochs: int, lr: float, wdk: float, milestones: List[int],
                    batch_size: int, ad_mode: str, devices: Optional[int], model,
@@ -177,6 +236,208 @@ def create_trainer(trainer: str, comment: str, dataset: str, oe_dataset: Optiona
         ad_mode=ad_mode, oe_limit_samples=oe_limit_samples,
         oe_limit_classes=oe_limit_classes, msms=msm,
         compute_dtype=COMPUTE_DTYPES[dtype_name], device=device, **kwargs)
+
+
+def evolve_trainer(trainer: str, comment: str, dataset: str, oe_dataset: Optional[str],
+                   epochs: int, lr: float, wdk: float, milestones: List[int],
+                   batch_size: int, ad_mode: str, devices: Optional[int], model,
+                   train_specs: Sequence, test_specs: Sequence,
+                   oe_limit_samples: Union[int, List[int]] = INF,
+                   oe_limit_classes: Union[int, float] = INF,
+                   msms: Sequence[MSM] = (), evolve_tag: str = "", logpath: str = None,
+                   classes: Optional[List[int]] = None, device=None, **kwargs):
+    """A trainer with the dataset of one class pinned (``trainer.ds``), its OE
+    train split (the individuals' pool), and the outer logger of the
+    evolution run ``<superdir>/log_<time>_evolve_<evolve_tag>`` (or
+    ``<continue_run>---CNTD``); each individual's runs log inside it."""
+    from eoe_tpu_torch.datasets import load_dataset
+
+    evolve_dir = pt.join(kwargs.pop("superdir", "."),
+                         f"log_{time.strftime('%Y%m%d%H%M%S')}_evolve_{evolve_tag}")
+    continue_run = kwargs.pop("continue_run", None)
+    if continue_run is not None:
+        evolve_dir = continue_run + "---CNTD"
+    trainer_obj = create_trainer(
+        trainer, comment, dataset, oe_dataset, epochs, lr, wdk, milestones, batch_size,
+        ad_mode, devices, model, train_specs, test_specs, oe_limit_samples,
+        oe_limit_classes, msms, logpath, device=device, superdir=evolve_dir,
+        continue_run=None, **kwargs)
+    if classes is None or len(classes) != 1:
+        raise NotImplementedError(
+            "Evolve for multiple classes at once does not work: individuals pin "
+            "trainer.ds.oe.train_set.indices, which a per-class dataset rebuild would "
+            "discard.")
+    trainer_obj.ds = load_dataset(
+        trainer_obj.dsstr, trainer_obj.datapath, trainer_obj.get_nominal_classes(classes[0]),
+        0, trainer_obj.train_specs, trainer_obj.test_specs, trainer_obj.logger,
+        trainer_obj.oe_dsstr, trainer_obj.oe_limit_samples, trainer_obj.oe_limit_classes,
+        trainer_obj.msms)
+    oeds = trainer_obj.ds.oe.train_set
+    outer_logger = Logger(pt.join(trainer_obj.logger.dir, ".."), noname=True)
+    return trainer_obj, oeds, outer_logger
+
+
+def _make_history(**setup) -> dict:
+    return {"pop": [], "fit": [], "mean_fit": [], "std_fit": [], "max_fit": [],
+            "min_fit": [], "setup": setup}
+
+
+def _toolbox(trainer: Trainer, oeds, args: Namespace, mutation_pool: int, mutation_indp: float,
+             mutation_oneofkbest: int, select, select_kw: dict) -> Toolbox:
+    toolbox = Toolbox()
+    toolbox.register("evaluate", evaluate_individual, trainer=trainer, args=args,
+                     toolbox=toolbox)
+    for name, fn in (("mate", mate_individuals), ("mutate", mutate_individual)):
+        toolbox.register(name, fn, oeds=oeds, poolsize=mutation_pool, indp=mutation_indp,
+                         oneofkbest=mutation_oneofkbest, device=trainer.device)
+    toolbox.register("select", select, **select_kw)
+    return toolbox
+
+
+def _first_population(oeds, oesize: int, generation_pool: int, maxfit: bool) -> tuple:
+    weight = 1.0 if maxfit else -1.0
+    pop = [Individual([init_individual(oeds) for _ in range(oesize)], weight)
+           for _ in range(generation_pool)]
+    return pop, Tree(*[EvolNode(TreeIndividual(list(ind))) for ind in pop])
+
+
+def evolve_setup(oesize: int, generation_pool: int, mutation_pool: int,
+                 mutation_indp: float, mutation_oneofkbest: int, mutation_chance: float,
+                 mate_chance: float, generations: int, select_toursize: int,
+                 trainer: Trainer, oeds, args: Namespace, maxfit: bool = True,
+                 vmap_candidates: bool = False, seed: Optional[int] = None):
+    """The GA's toolbox, history and first population (generation 0) with its
+    tree. ``seed`` seeds every stochastic decision and is recorded in the
+    history's setup, whose keys (the JAX package's ``geneation_pool`` typo
+    included) a resume checks."""
+    if vmap_candidates:
+        raise NotImplementedError(
+            "--ev-vmap: training the candidates of a generation as one batched program is "
+            "not ported yet (ROADMAP.md Queue 1); without it they train one after another")
+    if seed is not None:
+        seed_evolution(seed)
+    history = _make_history(
+        oesize=oesize, geneation_pool=generation_pool, mutation_pool=mutation_pool,
+        mutation_indp=mutation_indp, mutation_oneofkbest=mutation_oneofkbest,
+        mutation_chance=mutation_chance, mate_chance=mate_chance,
+        generations=generations, oeds=trainer.oe_dsstr, select_toursize=select_toursize,
+        ev_seed=seed)
+    toolbox = _toolbox(trainer, oeds, args, mutation_pool, mutation_indp, mutation_oneofkbest,
+                       select_individual, {"tournsize": select_toursize})
+    pop, tree = _first_population(oeds, oesize, generation_pool, maxfit)
+    return pop, 0, toolbox, history, tree
+
+
+def rand_pick_setup(oesize: int, generation_pool: int, trainer: Trainer, oeds,
+                    args: Namespace, maxfit: bool = True, seed: Optional[int] = None):
+    """The random-search baseline: ``generation_pool`` random subsets, no
+    mating or mutation."""
+    if seed is not None:
+        seed_evolution(seed)
+    history = _make_history(oesize=oesize, ev_seed=seed)
+    toolbox = _toolbox(trainer, oeds, args, 0, 0.0, 0, replace_individuals_randomly,
+                       {"oeds": oeds})
+    pop, tree = _first_population(oeds, oesize, generation_pool, maxfit)
+    return pop, 0, toolbox, history, tree
+
+
+def evolve_experiment(descr: str, defaults: dict, train_specs, test_specs, build_model,
+                      argv=None, device=None):
+    """The body of the evolve_oe_<dataset> runners: parse (``descr`` ends the
+    description, ``defaults`` are the runner's), resume a run with
+    ``--ev-continue-run``, evaluate generation 0 and evolve the rest; the
+    history, the tree, the genealogy and the best/worst overviews are written
+    however the loop ends. Returns (history, tree)."""
+    def modify_parser(parser):
+        parser.set_defaults(**defaults)
+
+    args = evolve_argsparse(lambda s: f"{s} {descr}", modify_parser, argv=argv)
+    args.comment = args.comment.format(
+        obj=args.objective, admode=args.ad_mode,
+        classes="+".join(str(c) for c in args.classes), its=args.iterations)
+    if args.ev_continue_run is not None:
+        dirs = [pt.join(args.ev_continue_run, f) for f in os.listdir(args.ev_continue_run)
+                if pt.isdir(pt.join(args.ev_continue_run, f)) and f.startswith("log_")]
+        if not dirs:
+            raise ValueError(f"Could not find a training log directory in "
+                             f"{args.ev_continue_run}.")
+        load_setup(dirs[0], args, train_specs, test_specs)
+    print("Program started with:\n", vars(args))
+    trainer, ds, logger = evolve_trainer(
+        args.objective, "", args.dataset, args.oe_dataset, args.epochs,
+        args.learning_rate, args.weight_decay, args.milestones, args.batch_size,
+        args.ad_mode, args.devices, build_model(args), train_specs, test_specs,
+        evolve_tag=args.comment, classes=args.classes, msms=args.ms_mode,
+        superdir=args.superdir, continue_run=args.ev_continue_run,
+        dataset_path=args.datapath, device=device)
+    pop, start_gen, toolbox, history, tree = evolve_setup(
+        args.ev_oesize, args.ev_generation_pool, args.ev_mutation_pool,
+        args.ev_mutation_indp, args.ev_mutation_oneofkbest, args.ev_mutation_chance,
+        args.ev_mate_chance, args.ev_generations, args.ev_select_toursize, trainer, ds,
+        args, not args.ev_minimize_fitness, vmap_candidates=args.ev_vmap,
+        seed=args.ev_seed)
+    if args.ev_continue_run is not None:
+        history, pop, start_gen, logger, toolbox = load_evolve(
+            args.ev_continue_run, tree, history, pop, start_gen, logger, trainer, ds,
+            args, trainer.train_specs, trainer.test_specs)
+    try:
+        if start_gen == 0:
+            evaluate(pop, pop, start_gen, toolbox, history, tree, ds, logger)
+            start_gen += 1
+        for gen in range(start_gen, args.ev_generations):
+            evolve(pop, gen, toolbox, args.ev_mate_chance, args.ev_mutation_chance,
+                   history, tree, ds, logger, seed=args.ev_seed)
+    finally:
+        _save_evolution(logger, history, tree, ds, args)
+    return history, tree
+
+
+def random_oe_experiment(descr: str, defaults: dict, train_specs, test_specs, build_model,
+                         argv=None, device=None):
+    """The body of the random_oe_<dataset> runners: ``--ev-samples`` random OE
+    subsets of ``--ev-oesize`` images, each trained and evaluated once.
+    Returns (history, tree)."""
+    def modify_parser(parser):
+        parser.add_argument("--ev-oesize", type=int, default=1,
+                            help="The size of the OE subsets.")
+        parser.add_argument("--ev-samples", type=int, default=2000,
+                            help="The number of OE subsets that are randomly chosen.")
+        parser.add_argument("--ev-seed", type=int, default=0,
+                            help="Seed for the random subset draws (reproducible).")
+        parser.set_defaults(**defaults)
+
+    args = ms_argsparse(
+        lambda s: f"{s} Repeats this complete procedure with different randomly chosen "
+                  f"OE subsets. {descr}", modify_parser, argv=argv)
+    if args.oe_size != INF:
+        raise ValueError("For finding random OE subsets, `--oe-size` has no impact. "
+                         "Use `--ev-oesize` instead.")
+    args.comment = args.comment.format(
+        obj=args.objective, admode=args.ad_mode, classes=args.classes,
+        its=args.iterations)
+    print("Program started with:\n", vars(args))
+    trainer, ds, logger = evolve_trainer(
+        args.objective, "", args.dataset, args.oe_dataset, args.epochs,
+        args.learning_rate, args.weight_decay, args.milestones, args.batch_size,
+        args.ad_mode, args.devices, build_model(args), train_specs, test_specs,
+        evolve_tag=args.comment, classes=args.classes, msms=args.ms_mode,
+        superdir=args.superdir, dataset_path=args.datapath, device=device)
+    pop, start_gen, toolbox, history, tree = rand_pick_setup(
+        args.ev_oesize, args.ev_samples, trainer, ds, args,
+        not getattr(args, "ev_minimize_fitness", False), seed=args.ev_seed)
+    try:
+        evaluate(pop, pop, start_gen, toolbox, history, tree, ds, logger)
+    finally:
+        _save_evolution(logger, history, tree, ds, args)
+    return history, tree
+
+
+def _save_evolution(logger: Logger, history: dict, tree: Tree, oeds, args: Namespace):
+    logger.logjson("results", history)
+    tree.save(pt.join(logger.dir, "evolution"))
+    tree.render(pt.join(logger.dir, "genealogy.png"), oeds=oeds)
+    tree.imsave_collection_best(logger, args.ms_mode, oeds=oeds)
+    logger.flush_scalars()
 
 
 def multiscale_experiment(args: Namespace, model, train_specs, test_specs,
@@ -318,3 +579,70 @@ def load_setup(path: Optional[str], args: Namespace, check_train_specs,
             snap = pt.join(path, "snapshots", f"snapshot_cls{c}_it{i}.pt")
             snapshots[-1].append(snap if c in classes and pt.exists(snap) else None)
     return snapshots, path
+
+
+def load_evolve(path: Optional[str], tree: Tree, history: dict, pop: list, gen: int,
+                logger: Logger, trainer: Trainer, dataset, args: Namespace,
+                check_train_specs, check_test_specs):
+    """Resume an evolution run from its results.json (the history, whose setup
+    must have this run's keys) and evolution.json (the tree): the population
+    of the last finished generation with its fitness, the next generation's
+    number, and a fresh toolbox. The configuration comes from the
+    most-continued inner run. Deviation: an individual takes its fitness
+    from the history's last row, where the JAX package takes that of the
+    first tree node with its values, which has none where the values occur
+    in more than one node and ``evaluate`` gave the fitness to another."""
+    if path is None:
+        return history, pop, gen, logger, None
+
+    print(f"Load evolve setup from {path}")
+    with open(pt.join(path, "results.json")) as r:
+        loaded_history = json.load(r)
+    setup = deepcopy(loaded_history["setup"])
+    for k in setup:
+        assert k in history["setup"], f"{k} is in loaded setup but not in setup!"
+    for k in history["setup"]:
+        # ev_seed is optional: runs recorded before it existed can still resume
+        assert k in setup or k == "ev_seed", f"{k} is in setup but not in loaded setup!"
+    args.ev_seed = setup.pop("ev_seed", getattr(args, "ev_seed", None))
+    args.ev_oesize = setup.pop("oesize")
+    args.ev_generation_pool = setup.pop("geneation_pool")
+    args.ev_mutation_pool = setup.pop("mutation_pool")
+    args.ev_mutation_indp = setup.pop("mutation_indp")
+    args.ev_mutation_oneofkbest = setup.pop("mutation_oneofkbest")
+    args.ev_mutation_chance = setup.pop("mutation_chance")
+    args.ev_mate_chance = setup.pop("mate_chance")
+    args.ev_generations = setup.pop("generations")
+    setup.pop("oeds")
+    args.ev_select_toursize = setup.pop("select_toursize")
+    assert len(setup) == 0, f"setup contains unexpected keys ({setup.keys()})"
+    history = loaded_history
+
+    inner = [d for d in os.listdir(path)
+             if pt.isdir(pt.join(path, d)) and d.startswith("log_")]
+    if inner:
+        # a ---CNTD continuation makes a second inner run directory: resume
+        # from the most-continued (then newest) one
+        inner.sort(key=lambda d: (d.count("---CNTD"), d))
+        load_setup(pt.join(path, inner[-1]), args, check_train_specs, check_test_specs)
+
+    tree.load(pt.join(path, "evolution.json"))
+    if len(history["pop"]) == 0:
+        raise ValueError(f"The loaded experiment at {path} has no finished generation "
+                         f"that can be used to continue it.")
+    weight = -1.0 if args.ev_minimize_fitness else 1.0
+    pop = []
+    for values, fit in zip(history["pop"][-1], history["fit"][-1]):
+        ind = Individual(values, weight)
+        ind.fitness.values = (fit,)
+        ind.file = tree.get(values).content.file
+        pop.append(ind)
+    gen = len(history["pop"])
+
+    _, _, toolbox, _, _ = evolve_setup(
+        args.ev_oesize, args.ev_generation_pool, args.ev_mutation_pool,
+        args.ev_mutation_indp, args.ev_mutation_oneofkbest, args.ev_mutation_chance,
+        args.ev_mate_chance, args.ev_generations, args.ev_select_toursize, trainer,
+        dataset, args, not args.ev_minimize_fitness,
+        vmap_candidates=getattr(args, "ev_vmap", False), seed=args.ev_seed)
+    return history, pop, gen, logger, toolbox

@@ -1,5 +1,6 @@
 """Weights carried between the JAX package's Flax conv models (CNN28, CNN32,
-AE32, CBAM, WideResNet) and the port's.
+AE32, CBAM, WideResNet, and a CustomNet: its ``feature_model`` subtree and
+``final_linear``) and the port's.
 
 ``from_flax`` takes Flax ``variables`` (``{"params": ..., "batch_stats":
 ...}``, numpy leaves, as ``jax.device_get`` or ``flax.serialization

@@ -60,8 +60,9 @@ class ScheduledOptimizer:
 def make_optimizer(kind: str, params: Iterable[torch.nn.Parameter], base_lr: float,
                    weight_decay: float, milestones: Sequence[int],
                    steps_per_epoch: int) -> ScheduledOptimizer:
-    """``kind``: "sgd" (Nesterov momentum 0.9) or "adam"."""
-    params = list(params)
+    """``kind``: "sgd" (Nesterov momentum 0.9) or "adam". ``params`` may be
+    empty (a frozen model without a head): the updates are then no-ops."""
+    params = [{"params": list(params)}]
     if kind == "sgd":
         opt = torch.optim.SGD(params, lr=base_lr, momentum=0.9, nesterov=True,
                               weight_decay=weight_decay)

@@ -26,9 +26,17 @@ of its size (``fits_resident``: a folder source within its RAM budget, a
 blob within its own): it moves to the device once and its batches are
 gathered there. Any other split streams: the normal and OE halves are
 gathered on the host step by step, the test split batch by batch, and the
-DSVDD centre's normal split likewise. Not ported, being JAX dispatch
-machinery or later work: ``lax.scan`` epochs, the jit cache, meshes,
-vmapped seeds, the HLO dump and preview images.
+DSVDD centre's normal split likewise. The first seed of a class writes
+preview grids of what the model sees (``training_cls{c}-{name}_preview.png``
+and ``eval_cls{c}-{name}_preview.png``: raw images through the step's
+pipelines, each image min-max normalised). A ``CustomNet`` with ``freeze``
+trains only its head: the feature model's parameters get no gradient and no
+decay, while its batch statistics still update. ``load`` takes a full
+snapshot, a feature-model-only state dict of a ``CustomNet``, or a
+trunk-only snapshot (a strict subset of the model's top-level modules; the
+rest keeps its fresh init). Not ported, being JAX dispatch machinery or
+later work: ``lax.scan`` epochs, the jit cache, meshes, vmapped seeds and
+the HLO dump.
 
 Deviation: the sampler's seed comes from a numpy ``SeedSequence`` of
 (seed, class, seed index) instead of a JAX key, and augmentations draw from
@@ -47,6 +55,7 @@ from eoe_tpu_torch.datasets import load_dataset, no_classes, str_labels
 from eoe_tpu_torch.datasets.bases import INF, BalancedEpochSampler, CombinedDataset
 from eoe_tpu_torch.device import resolve_device
 from eoe_tpu_torch.models.clip import CLIP
+from eoe_tpu_torch.models.custom_base import CustomNet, frozen_param_labels
 from eoe_tpu_torch.models.layers import with_compute_dtype
 from eoe_tpu_torch.ops import metrics as M
 from eoe_tpu_torch.ops.losses import OBJECTIVES, Objective, dsvdd_center
@@ -197,10 +206,15 @@ class Trainer:
         return None
 
     def _mark_trainable(self, model: torch.nn.Module) -> List[torch.nn.Parameter]:
+        """The parameters the optimizer updates; the others get no gradient.
+        A frozen CustomNet's feature model stays in train mode, so that its
+        batch statistics update as the JAX step's do."""
         keys = self.trainable_param_keys()
+        labels = frozen_param_labels(model, isinstance(model, CustomNet) and model.freeze)
         params = []
         for name, p in model.named_parameters():
-            p.requires_grad_(keys is None or name.split(".")[0] in keys)
+            p.requires_grad_((keys is None or name.split(".")[0] in keys)
+                             and labels[name] == "trainable")
             if p.requires_grad:
                 params.append(p)
         return params
@@ -241,6 +255,43 @@ class Trainer:
         return (torch.tensor(stats.mean, device=self.device),
                 torch.tensor(stats.std, device=self.device))
 
+    @torch.no_grad()
+    def _transformed_preview(self, ds, percls: int, train: bool) -> np.ndarray:
+        """What the model sees: up to ``percls`` raw images of each part
+        (train: the normal and OE halves in label order; eval: each binary
+        class of the test split) through the step's (conditional ->)
+        pipelines, each image min-max normalised for display. (n, h, w, c)
+        float in [0, 1]."""
+        combined = isinstance(ds, CombinedDataset)
+        normal_ds = ds.normal if combined else ds
+        rt = self._rt_stats(ds)
+        rows = []
+        if train:
+            parts = [("normal", ds.train_set, self.nominal_label)]
+            if combined and len(ds.oe.train_set) > 0:
+                parts.append(("oe", ds.oe.train_set, ds.anomalous_label))
+            parts.sort(key=lambda p: p[2])
+            for ki, (part, subset, label) in enumerate(parts):
+                pos = np.arange(min(percls, len(subset)))
+                gen = torch.Generator(device=self.device).manual_seed(ki)
+                rows.append(self._preview_part(ds, subset, pos, label, gen, True, part, rt))
+        else:
+            binary = normal_ds.binary_targets(ds.test_set)
+            for c in sorted(set(binary.tolist())):
+                pos = np.argwhere(binary == c).flatten()[:percls]
+                rows.append(self._preview_part(ds, ds.test_set, pos, c, None, False,
+                                               "normal", rt))
+        n = min(r.shape[0] for r in rows)
+        out = torch.cat([r[:n].float() for r in rows])
+        lo = out.amin(dim=(1, 2, 3), keepdim=True)
+        hi = out.amax(dim=(1, 2, 3), keepdim=True)
+        return ((out - lo) / (hi - lo).clamp_min(1e-9)).cpu().numpy()
+
+    def _preview_part(self, ds, subset, pos, label, generator, train, part, rt):
+        x = self._to_device(subset.gather(pos)).float() / 255.0
+        labels = torch.full((len(pos),), label, dtype=torch.int64, device=self.device)
+        return self._preprocess(ds, x, labels, generator, train, part, rt)
+
     def _loss_kwargs(self, inputs):
         kw = {"nominal_label": self.nominal_label}
         if self.objective.uses_inputs:
@@ -266,7 +317,8 @@ class Trainer:
         loss = self.objective.loss(feats, labels, center, weights=weights,
                                    **self._loss_kwargs(x))
         state.optimizer.zero_grad()
-        loss.backward()
+        if loss.requires_grad:   # False where every parameter is frozen
+            loss.backward()
         state.optimizer.step()
         with torch.no_grad():
             scores = self.objective.score(feats, center, **self._loss_kwargs(x)).reshape(-1)
@@ -342,7 +394,8 @@ class Trainer:
                         if train:
                             state, roc = self.train_cls(ds, c, cstr, it, seed, cur_load)
                         else:
-                            state, _ = self._init_or_load(ds, seed, cur_load, steps_per_epoch=1)
+                            state, _ = self._init_or_load(ds, seed, cur_load, steps_per_epoch=1,
+                                                          optimizer=False)
                             roc = None
                         break
                     except NanGradientsError:
@@ -436,11 +489,11 @@ class Trainer:
         return payload.get("ds_statistics") or None
 
     def _init_or_load(self, ds, seed: int, cur_load: Optional[str],
-                      steps_per_epoch: int) -> Tuple[TrainState, int]:
+                      steps_per_epoch: int, optimizer: bool = True) -> Tuple[TrainState, int]:
         state = self.init_state(seed, ds, steps_per_epoch)
         start_epoch = 0
         if cur_load is not None:
-            state, start_epoch = self.load(cur_load, state)
+            state, start_epoch = self.load(cur_load, state, optimizer)
         return state, start_epoch
 
     # ------------------------------------------------------------- train one cls
@@ -457,6 +510,11 @@ class Trainer:
         sampler = BalancedEpochSampler(len(train_set), len(oe_set) if has_oe else 0,
                                        self.batch_size, _seed(seed, 1))
         state, start_epoch = self._init_or_load(ds, seed, cur_load, sampler.steps)
+        if it == 0 and self.logger.active:
+            counts = ds.n_normal_anomalous()
+            self.logger.logimg(f"training_cls{cls}-{clsstr}_preview",
+                               self._transformed_preview(ds, 40, train=True),
+                               rowheaders=[str(counts[k]) for k in sorted(counts)])
         center = self.center = self.prepare_metric(clsstr, ds, state, it)
         rt_stats = self._rt_stats(ds)
         normal_ds = ds.normal if combined else ds
@@ -553,6 +611,11 @@ class Trainer:
         test_set = ds.test_set
         normal_ds = ds.normal if isinstance(ds, CombinedDataset) else ds
         labels = normal_ds.binary_targets(test_set)
+        if it == 0 and self.logger.active:
+            counts = ds.n_normal_anomalous(False)
+            self.logger.logimg(f"eval_cls{cls}-{clsstr}_preview",
+                               self._transformed_preview(ds, 20, train=False),
+                               rowheaders=[f"{k}: {v}" for k, v in sorted(counts.items())])
         scores = self.eval_scores(state, ds) if scores is None else np.asarray(scores)
         keep = labels >= 0
         for lbl, tag in ((0, "nominal"), (1, "anomalous")):
@@ -584,6 +647,8 @@ class Trainer:
 
     def snapshot(self, name: str, state: TrainState, epoch: int,
                  ds_statistics: Optional[dict]) -> str:
+        if not self.logger.active:
+            return ""
         payload = {
             "params": _to_cpu(state.model.state_dict()),
             "opt_state": _to_cpu(state.optimizer.state_dict()),
@@ -593,11 +658,46 @@ class Trainer:
         }
         return self.logger.snapshot(name, payload)
 
-    def load(self, path: str, state: TrainState) -> Tuple[TrainState, int]:
-        """Load a snapshot into an initialised state; returns (state, epoch)."""
+    def load(self, path: str, state: TrainState,
+             optimizer: bool = True) -> Tuple[TrainState, int]:
+        """Load a snapshot into an initialised state; returns (state, epoch).
+        A payload without "params" is a state dict of a CustomNet's feature
+        model alone (its parameters, and its batch statistics where it holds
+        them): loaded into ``feature_model``, epoch 0. A snapshot whose
+        top-level modules are a strict subset of the model's is a trunk-only
+        one: the stored modules and their batch statistics are restored, the
+        rest keeps its fresh init, and the optimizer starts anew at epoch 0.
+        An evaluation-only run (``optimizer=False``) leaves the optimizer
+        state alone: the snapshot may come from a run that trained other
+        parameters (a frozen feature model)."""
         payload = torch.load(path, map_location="cpu", weights_only=True)
-        state.model.load_state_dict(payload["params"])
-        if payload.get("opt_state"):
+        model = state.model
+        if "params" not in payload:
+            if not isinstance(model, CustomNet):
+                raise ValueError(f"{path} holds no 'params': a feature-model state dict "
+                                 f"loads only into a CustomNet")
+            feature_model = getattr(model, CustomNet.FEATURE_COLLECTION)
+            missing, unexpected = feature_model.load_state_dict(payload, strict=False)
+            params = dict(feature_model.named_parameters())
+            if unexpected or any(k in params for k in missing):
+                raise RuntimeError(
+                    f"{path} is not a state dict of the feature model: missing "
+                    f"{[k for k in missing if k in params]}, unexpected {unexpected}")
+            self.logger.print("Loaded pre-trained weights for feature model of CustomNet.")
+            return state, 0
+        stored = {k.split(".")[0] for k in payload["params"]}
+        modules = {k.split(".")[0] for k in model.state_dict()}
+        if stored < modules:
+            want = {k for k in model.state_dict() if k.split(".")[0] in stored}
+            if set(payload["params"]) != want:
+                raise RuntimeError(f"{path}: the stored modules {sorted(stored)} do not match "
+                                   f"the model's: {sorted(want ^ set(payload['params']))}")
+            model.load_state_dict(payload["params"], strict=False)
+            missing = sorted({k.split(".")[0] for k, _ in model.named_parameters()} - stored)
+            self.logger.print(f"Loaded trunk-only snapshot; fresh init kept for {missing}")
+            return state, 0
+        model.load_state_dict(payload["params"])
+        if optimizer and payload.get("opt_state"):
             state.optimizer.load_state_dict(payload["opt_state"])
         epoch = int(payload.get("epoch", 0))
         self.logger.print(f"Loaded snapshot at epoch {epoch}")

@@ -7,14 +7,17 @@ A run directory ``log_{YYYYMMDDHHMMSS}_{comment}`` holds
   results.json, eval_cls{i}_it{j}_anomaly_scores.json -- metrics
   scalars.json                            -- scalars and histograms
   *.pdf                                   -- ROC/PRC curves with mean curves
+  *.png                                   -- image grids (previews, OE samples)
   snapshots/snapshot_cls{i}_it{j}.pt      -- model + optimizer + epoch + stats
 
 Snapshots are ``torch.save`` files that ``torch.load(..., weights_only=True)``
 reads, as ``inference.AnomalyScorer`` does. PDFs are drawn only where
 matplotlib imports; the logger says so once in print.txt where it does not.
-There is no tensorboard writer: scalars go to scalars.json. Preview grids
-(PNG) are not ported yet. Writes happen inline, so ``drain()`` has nothing to
-wait for; it is kept for the JAX package's API.
+There is no tensorboard writer: scalars go to scalars.json. Image grids are
+the JAX package's (``logimg``: 2-pixel gutters, ``nrow`` columns, row
+headers drawn with PIL); they are written only where PIL imports. Writes
+happen inline, so ``drain()`` has nothing to wait for; it is kept for the
+JAX package's API.
 """
 
 import json
@@ -22,7 +25,7 @@ import os
 import os.path as pt
 import tarfile
 from datetime import datetime
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -171,6 +174,46 @@ class Logger:
         if self.active and self._scalars:
             with open(pt.join(self.dir, "scalars.json"), "w") as f:
                 json.dump(self._scalars, f, cls=JsonEncoder)
+
+    # ---------------------------------------------------------- images
+
+    def logimg(self, name: str, images, nrow: int = 8, rowheaders: Optional[List[str]] = None):
+        """Save an image grid as ``{name}.png`` with optional per-row header
+        captions. ``images`` is (n, h, w, c), uint8 or float in [0, 1] (a
+        numpy array or a tensor on any device)."""
+        if not self.active:
+            return
+        try:
+            import PIL  # noqa: F401
+        except ImportError:
+            return
+        if isinstance(images, torch.Tensor):
+            images = images.detach().cpu().numpy()
+        imgs = np.asarray(images)
+        if imgs.dtype != np.uint8:
+            imgs = (np.clip(imgs, 0, 1) * 255).astype(np.uint8)
+        self._render_img(name, imgs, nrow, rowheaders)
+
+    def _render_img(self, name: str, imgs: np.ndarray, nrow: int,
+                    rowheaders: Optional[List[str]]):
+        from PIL import Image, ImageDraw
+        n, h, w, c = imgs.shape
+        nrows = int(np.ceil(n / nrow))
+        header_w = max(10 * max(len(str(s)) for s in rowheaders) + 6, 40) if rowheaders else 0
+        grid = np.zeros((nrows * (h + 2), header_w + nrow * (w + 2), c), dtype=np.uint8)
+        for i in range(n):
+            r, col = divmod(i, nrow)
+            top, left = r * (h + 2) + 1, header_w + col * (w + 2) + 1
+            grid[top:top + h, left:left + w] = imgs[i]
+        img = Image.fromarray(grid[..., 0] if c == 1 else grid)
+        if rowheaders:
+            img = img.convert("RGB")
+            draw = ImageDraw.Draw(img)
+            for r, text in enumerate(rowheaders[:nrows]):
+                draw.text((3, r * (h + 2) + max(h // 2 - 5, 0)), str(text), fill=(255, 255, 255))
+        path = pt.join(self.dir, f"{name}.png")
+        os.makedirs(pt.dirname(path), exist_ok=True)
+        img.save(path, compress_level=1)   # the same pixels, encoded faster
 
     # ---------------------------------------------------------- curves
 

@@ -49,7 +49,12 @@ def test_port_imports_neither_jax_nor_eoe_tpu():
     folder = {f"eoe_tpu_torch.{m}" for m in (
         "datasets.folder", "datasets.imagenet", "datasets.imagenetoe", "datasets.mvtec",
         "datasets.dtd", "datasets.cub", "datasets.custom", "native", "utils.caching")}
-    assert len(names) >= 50 and conv_path | cli | folder <= set(names)
+    evolve_custom = {f"eoe_tpu_torch.{m}" for m in (
+        "evolve", "evolve.tree", "models.custom_base", "models.custom",
+        "main.evolve_oe_cifar", "main.evolve_oe_imagenet", "main.evolve_oe_custom",
+        "main.random_oe_cifar", "main.random_oe_imagenet", "main.train_only_custom",
+        "main.inference_custom")}
+    assert len(names) >= 60 and conv_path | cli | folder | evolve_custom <= set(names)
     assert leaked == []
     assert not native_built   # the native decoder builds at first use, not at import
 
@@ -141,3 +146,39 @@ def test_runners_default_to_cuda(tmp_path, monkeypatch):
     for runner in (train_clip_cifar, train_clip_imagenet):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             runner.main(base)
+
+
+def test_evolve_and_custom_runners_default_to_cuda(tmp_path, monkeypatch):
+    """The five evolutionary/random OE runners and the two custom-model
+    runners run on ``cuda`` and raise where there is no card, before any
+    data is read; the GA's distances default to the card too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    import numpy as np
+    from eoe_tpu_torch.datasets import DS_CHOICES
+    from eoe_tpu_torch.datasets.bases import ArraySource, Subset
+    from eoe_tpu_torch.datasets.custom import ADCustomDS
+    from eoe_tpu_torch.evolve import mate_individuals, mutate_individual
+    from eoe_tpu_torch.main import (evolve_oe_cifar, evolve_oe_custom, evolve_oe_imagenet,
+                                    inference_custom, random_oe_cifar, random_oe_imagenet,
+                                    train_only_custom)
+    for name in ("train_only", "eval_only", "base_folder", "classes"):
+        monkeypatch.setattr(ADCustomDS, name, getattr(ADCustomDS, name))
+    monkeypatch.setitem(DS_CHOICES, "custom", dict(DS_CHOICES["custom"]))
+    base = ["-e", "1", "-it", "1", "--datapath", str(tmp_path), "--superdir", str(tmp_path)]
+    for runner in (evolve_oe_cifar, evolve_oe_imagenet, random_oe_cifar, random_oe_imagenet):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            runner.main(base)
+    os.makedirs(tmp_path / "datasets" / "custom" / "train" / "a" / "normal")
+    os.makedirs(tmp_path / "datasets" / "custom" / "test" / "a" / "normal")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evolve_oe_custom.main(base)
+    os.makedirs(tmp_path / "flat" / "normal")
+    custom = ["--custom-dataset-path", str(tmp_path / "flat"), "--log-path", str(tmp_path)]
+    for runner in (train_only_custom, inference_custom):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            runner.main(custom)
+    oeds = Subset(ArraySource(np.zeros((4, 2, 2, 3), np.uint8), np.zeros(4)), np.arange(4))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mutate_individual([0], oeds, 2, 1.0, 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mate_individuals([0], [1], oeds, 2, 1.0, 1)

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from eoe_tpu.datasets import bases as JB
 from eoe_tpu.models.ae import AE32 as JaxAE32
@@ -186,8 +187,9 @@ RUN = dict(train_specs=[{"op": "random_hflip", "p": 0.5}, "normalize"], test_spe
 def test_run_by_name_writes_the_jax_run_directory(tmp_path, monkeypatch):
     """``Trainer.run`` loads cifar10 + cifar100 by name (synthetic data): the
     same datasets as the JAX trainer's (normal classes, OE classes, split
-    indices, statistics), the files the JAX package writes (previews and
-    tensorboard events are not ported), finite AUROC, and a snapshot that
+    indices, statistics), the files the JAX package writes (tensorboard
+    events are not ported; the previews' grids have the JAX package's
+    sizes), finite AUROC, and a snapshot that
     serves through ``AnomalyScorer`` with ``eval_cls``'s scores."""
     monkeypatch.setenv("EOE_TPU_FAKE_DATA", "1")
     jt = JaxTrainer(model=JaxCNN32(), objective="hsc", datapath=str(tmp_path / "jdata"),
@@ -209,8 +211,12 @@ def test_run_by_name_writes_the_jax_run_directory(tmp_path, monkeypatch):
     _, res = port.run(run_classes=[2], run_seeds=1)
     assert np.isfinite(res["mean_auc"]) and np.isfinite(port.step_losses).all()
     jax_files = {f.replace(".msgpack", ".pt") for f in _files(tmp_path / "jax")
-                 if not f.endswith(".png") and not f.startswith("tb")}
+                 if not f.startswith("tb")}
     assert _files(tmp_path / "port") == jax_files
+    for name in (f for f in jax_files if f.endswith(".png")):   # previews: other draws
+        with Image.open(tmp_path / "port" / name) as got, \
+                Image.open(tmp_path / "jax" / name) as want:
+            assert got.size == want.size and got.mode == want.mode
     for name in ("results.json", "setup.json", "eval_cls2_it0_anomaly_scores.json"):
         assert _read(tmp_path / "port" / name).keys() == _read(tmp_path / "jax" / name).keys()
     # both cached the statistics of class 2 under the JAX file's keys

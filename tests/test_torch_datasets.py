@@ -282,7 +282,8 @@ def test_tinyimages_bin_equals_jax(tmp_path, monkeypatch):
 
 def test_streaming_oe_trains(tmp_path, monkeypatch):
     """A streaming OE source (the bin) trains: its batches are gathered on
-    the host step by step; the normal split lives on the device."""
+    the host step by step, after the training preview's one gather; the
+    normal split lives on the device."""
     import torch
     from eoe_tpu_torch.datasets.tinyimages import ADTinyImages
     from eoe_tpu_torch.models import CNN32
@@ -306,7 +307,7 @@ def test_streaming_oe_trains(tmp_path, monkeypatch):
                         lambda pos: gathered.append(len(pos)) or real_gather(pos))
     _, res = trainer.run(run_classes=[0])
     steps = 2 * -(-len(normal.train_set) // 8)
-    assert gathered == [8] * steps
+    assert gathered == [min(40, len(oe.train_set))] + [8] * steps
     assert len(trainer.step_losses) == steps and np.isfinite(trainer.step_losses).all()
     assert np.isfinite(res["mean_auc"]) and torch.isfinite(torch.tensor(trainer.step_losses)).all()
 

@@ -453,10 +453,12 @@ def test_streamed_split_scores_equal_resident(tmp_path, rng, objective, monkeypa
     res_r, scores_r, calls_r = _run(tmp_path, 2048, objective, monkeypatch)
     res_s, scores_s, calls_s = _run(tmp_path, 0, objective, monkeypatch)
     n_train, n_test = 15, 10   # the ImageNet-30 train and val folders' images
-    # resident: each split gathered whole; streaming: batches of at most 4
+    # resident: each split gathered whole; streaming: batches of at most 4,
+    # after the eval preview's one gather per binary class of the test split
     assert ("gather_all", n_train, 3) in calls_r and ("gather_all", n_test, 8) in calls_r
     assert not any(n == "gather_all" and src in (n_train, n_test) for n, src, _ in calls_s)
-    assert {k for n, src, k in calls_s if src == n_test} == {4}
+    test_gathers = [k for n, src, k in calls_s if src == n_test]
+    assert len(test_gathers) == 4 and sum(test_gathers[:2]) == 8 and test_gathers[2:] == [4, 4]
     assert max(k for n, src, k in calls_s if src == n_train) == 4
     assert np.isfinite(scores_r).all() and len(scores_r) == 8
     np.testing.assert_allclose(scores_s, scores_r, rtol=1e-5, atol=1e-7)

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from eoe_tpu.datasets import bases as JB
 from eoe_tpu.models.clip import CLIP as JaxCLIP, ClipConfig as JaxConfig
@@ -243,7 +244,8 @@ def _read(path):
 
 def test_run_writes_the_jax_run_directory(tmp_path):
     """One class, one seed, two epochs: the port writes the files the JAX
-    package writes (previews and tensorboard events are not ported), and
+    package writes (tensorboard events are not ported; the previews' grids have
+    the JAX package's sizes), and
     its snapshot serves through ``AnomalyScorer`` with ``eval_cls``'s
     scores."""
     jt = JaxTrainer(model=JaxCLIP(JaxConfig(**TINY)), train_specs=SPECS, test_specs=SPECS,
@@ -256,8 +258,12 @@ def test_run_writes_the_jax_run_directory(tmp_path):
     assert np.isfinite(res["mean_auc"]) and len(port.step_losses) == 2 * N_NORMAL // BATCH
 
     jax_files = {f.replace(".msgpack", ".pt") for f in _files(tmp_path / "jax")
-                 if not f.endswith(".png") and not f.startswith("tb")}
+                 if not f.startswith("tb")}
     assert _files(tmp_path / "port") == jax_files
+    for name in (f for f in jax_files if f.endswith(".png")):   # previews: other draws
+        with Image.open(tmp_path / "port" / name) as got, \
+                Image.open(tmp_path / "jax" / name) as want:
+            assert got.size == want.size and got.mode == want.mode
     for name in ("results.json", "setup.json", "setup_v1.json",
                  "eval_cls0_it0_anomaly_scores.json"):
         assert _read(tmp_path / "port" / name).keys() == _read(tmp_path / "jax" / name).keys()
