@@ -64,6 +64,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      limits.
      No kernel of the repository lies on phases 8 and 9: their counts must
      all be 0.
+Later phases: filters, cli, folder, evolve and custom (the runners and data
+layers of later slices, see their docstrings), then
+ 15. vmapped: the vmapped engines. (a) ``train_cifar`` by ``main`` with 4
+     seeds of class 0 for 2 epochs (the runner's defaults: 10 seeds, 200
+     epochs) on the synthetic data, its default (which must log "trained 4
+     seeds of cls 0 vmapped") against ``--no-vmap-seeds`` (each seed's AUROC
+     to 1e-4), then 4 CNN32 seeds on phase 8's pinned stack both ways, with
+     Adam (each member's parameters against its seed's, over their change:
+     2^-4) and with SGD; (b)
+     two WideResNet+CBAM bf16 members with the fused stem for 3 steps, each
+     against its sequential seed (losses 2^-8, gradients 2^-4 of their max),
+     peak memory per member; (c) ``train_clip_cifar --vmap-seeds`` with two
+     seeds at full ViT-B/32 width: 12 fused forward and 12 backward launches
+     per step on the 2 x 256 folded images, losses within 2^-8 of
+     ``--no-vmap-seeds``; (d) ``evolve_oe_cifar --ev-vmap`` against the
+     sequential evaluator with sequential seeds at phase evolve's settings
+     (equal populations, each candidate's AUROC to 1e-4 or a tied test
+     pair), seconds per individual; (e) one folded call of each kernel at
+     K=2 against the unfolded kernel on each member; (f) ``train_imagenet``
+     with 10 WideResNet seeds both ways and ``evolve_oe_imagenet --ev-vmap``
+     with 16 candidates, in fp32 at 224 px, each program as many members as
+     the card holds by their measured peaks. (a) and (d) are timed through
+     ``utils.profiling.step_timer`` and profiled (the card's busy time);
+     each of (a)-(d) and (f) is a counted path;
+ 16. ga_distances: the GA's mutation and mating distances to 10,000 raw
+     256x256 candidates, chunked against unchunked: peak memory and values.
 Each path's launch counts (every kernel's) are set to 0 just before it and
 read just after.
 
@@ -77,6 +103,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12                                    # H100 SXM, data sheet
@@ -89,7 +116,9 @@ PATH_DTYPES = {"serving": "fp32", "training": "bf16", "training_fp32": "fp32",
                "flash_serving": "fp32", "flash_training": "bf16", "group_training": "bf16",
                "group_training_fp32": "fp32", "conv_training": "fp32", "wrn_training": "bf16",
                "cli_clip": "bf16", "cli_conv": "fp32", "folder_clip": "bf16",
-               "folder_conv": "fp32", "evolve": "fp32", "custom": "fp32"}
+               "folder_conv": "fp32", "evolve": "fp32", "custom": "fp32", "vm_conv": "fp32",
+               "vm_wrn": "bf16", "vm_clip": "bf16", "vm_evolve": "fp32",
+               "vm_wrn_runners": "fp32"}
 BATCH = 128
 SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
@@ -1726,6 +1755,12 @@ def phase_evolve(card: str) -> dict:
             counts = _counts()
             # ---- end of the counted run
             check_counts(counts, {}, "evolve runners (no kernel of the repository)")
+            # the WideResNet individuals' two seeds one after the other, as
+            # before the vmapped seeds
+            with _SequentialSeeds():
+                t0 = time.perf_counter()
+                h5, _ = evolve_oe_imagenet.main(EV_IMAGENET + one + ["--superdir", f"{tmp}/ins"])
+                t_imagenet_seq = time.perf_counter() - t0
             check(len(h1["pop"]) == 2 and h2["pop"] == h1["pop"] and h2["fit"][0] == h1["fit"][0],
                   f"evolve: the resumed run's populations {h2['pop']} differ from the "
                   f"uninterrupted run's {h1['pop']}")
@@ -1743,6 +1778,8 @@ def phase_evolve(card: str) -> dict:
             n_resume = _evaluated(resumed + "---CNTD")
             n_random = _evaluated(runs["random"][0])
             n_imagenet = _evaluated(runs["imagenet"][0])
+            run_seq = glob.glob(os.path.join(tmp, "ins", "log_*_evolve_*"))[0]
+            n_imagenet_seq = _evaluated(run_seq)
             try:     # the genealogy and the overviews are drawn with matplotlib
                 import matplotlib  # noqa: F401
                 figures = ("genealogy.png", "overview_best.png", "overview_worst.png")
@@ -1763,7 +1800,9 @@ def phase_evolve(card: str) -> dict:
     for label, seconds, n, h in (("evolve_oe_cifar", t_cifar, n_cifar, h1),
                                  ("resume", t_resume, n_resume, h2),
                                  ("random_oe_cifar", t_random, n_random, h3),
-                                 ("evolve_oe_imagenet", t_imagenet, n_imagenet, h4)):
+                                 ("evolve_oe_imagenet", t_imagenet, n_imagenet, h4),
+                                 ("evolve_oe_imagenet, sequential seeds", t_imagenet_seq,
+                                  n_imagenet_seq, h5)):
         print(f"evolve {label}: {seconds:.2f} s of main, {n} individuals trained, "
               f"{seconds / max(n, 1):.3f} s per individual; fitness of the last generation "
               f"{[round(f, 4) for f in h['fit'][-1]]} [{card}]")
@@ -1892,6 +1931,722 @@ def phase_custom(card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- vmapped engines
+
+VM_SEEDS, VM_EPOCHS = 4, 2           # train_cifar's defaults: 10 seeds, 200 epochs
+VM_CLIP_SEEDS, VM_CLIP_EPOCHS = 2, 2  # one step of 128 + 128 per epoch on the synthetic class
+VM_WRN_K, VM_WRN_STEPS = 2, 3
+VM_PINNED_N = 2048                   # CNN32 seeds on phase 8's pinned CIFAR-10 stack
+# the pinned Adam grid's hold: each member's parameters against its
+# sequential seed's, over how far those moved from their init. On the CPU
+# (128 + 128 CNN32 images, 2 epochs, 3 seeds) that reads 3.3e-3 to 3.9e-3
+# with Adam and 4.4e-4 to 1.9e-3 with SGD: float noise in the order of
+# summation. A member updated with another's moments or gradients drifts by
+# the order of its own change, 1.
+ADAM_DRIFT_TOL = 2 ** -4
+# (d): a test pair whose order differs between the two evaluators is a tie
+# when its two scores agree to 20 bits in both runs (16 fp32 ulps at their
+# size). The hsc scores saturate near 1 (on the CPU a candidate's spread
+# read 6.2e-5), so a tie there is a few ulps
+TIE_TOL = 2 ** -20
+VM_WRN_SEEDS, VM_WRN_POOL = 10, 16   # train_imagenet's seeds; one chunk of candidates
+GA_POOL, GA_HW = 10_000, 256         # evolve_oe_imagenet's mutation pool of raw images
+
+
+def _printed(run: str) -> str:
+    with open(os.path.join(run, "print.txt")) as f:
+        return f.read()
+
+
+def _member_losses(run: str, epochs: int) -> dict:
+    """Each epoch's loss of each seed, {(seed, epoch): loss}, as printed
+    into print.txt."""
+    import re
+    return {(int(k), int(e)): float(v) for k, e, v in re.findall(
+        rf"cls 0 seed (\d+) epoch (\d+)/{epochs}: loss ([0-9.]+)", _printed(run))}
+
+
+class _SgdTrainers:
+    """Within: every trainer updates with SGD at its own rate and schedule.
+    The held runs of (a) and (d) use it: Adam's first updates are +-lr on
+    every element, so float noise flips the sign of a near-zero gradient
+    entry into a 2*lr difference (on the CPU, ``evolve.vmapped`` against the
+    sequential evaluator at evolve_oe_cifar's settings: fitness 1.7e-8 apart
+    with SGD, 2.8e-2 with Adam)."""
+
+    def __enter__(self):
+        from eoe_tpu_torch.training import Trainer
+        from eoe_tpu_torch.training.optim import make_optimizer
+        self.saved = Trainer.make_optimizer
+        Trainer.make_optimizer = lambda tr, params, steps: make_optimizer(
+            "sgd", params, tr.lr, tr.wdk, tr.milestones, steps)
+
+    def __exit__(self, *exc):
+        from eoe_tpu_torch.training import Trainer
+        Trainer.make_optimizer = self.saved
+
+
+class _SequentialSeeds:
+    """Within: ``Trainer.run`` trains the seeds of a class one after another,
+    as it did before the vmapped seeds."""
+
+    def __enter__(self):
+        from eoe_tpu_torch.training import Trainer
+        self.saved = Trainer._try_vmap_seeds
+        Trainer._try_vmap_seeds = lambda *a, **k: None
+
+    def __exit__(self, *exc):
+        from eoe_tpu_torch.training import Trainer
+        Trainer._try_vmap_seeds = self.saved
+
+
+def _test_labels(tmp: str):
+    """The binary test labels of the synthetic CIFAR-10 class 0."""
+    from eoe_tpu_torch.datasets import load_dataset
+    normal = load_dataset("cifar10", os.path.join(tmp, "datasets"), [0], 0, [], [])
+    return normal.binary_targets(normal.test_set)
+
+
+def _member_drift(dirs: dict, seeds: list) -> list:
+    """Per CNN32 member: the L2 distance of its vmapped run's parameters from
+    its sequential seed's, over the distance the sequential seed's moved
+    from their init; ``dirs`` holds each run's logger directory."""
+    import torch
+    from eoe_tpu_torch.models import CNN32
+    names = [n for n, _ in CNN32().named_parameters()]
+    out = []
+    for k, seed in enumerate(seeds):
+        init = CNN32()
+        init.reset_parameters(torch.Generator().manual_seed(seed))
+        p0 = init.state_dict()
+        p = {m: torch.load(os.path.join(d, "snapshots", f"snapshot_cls0_it{k}.pt"),
+                           weights_only=True)["params"] for m, d in dirs.items()}
+        num = sum(((p["vmapped"][n] - p["sequential"][n]).double() ** 2).sum() for n in names)
+        den = sum(((p["sequential"][n] - p0[n]).double() ** 2).sum() for n in names)
+        out.append(float((num / den) ** 0.5))
+    return out
+
+
+def _timed_and_profiled(fn, logdir: str) -> tuple:
+    """``fn("timed")`` timed with ``step_timer`` (the card synchronised), then
+    ``fn("profiled")`` under ``profile``: (the first result, its seconds,
+    seconds the card was busy in the profiled run)."""
+    import torch
+    from eoe_tpu_torch.utils.profiling import device_seconds, profile, step_timer
+    times = []
+    with step_timer(times) as out:
+        result = fn("timed")
+        out["sync"] = torch.zeros(1, device="cuda")
+    with profile(logdir) as prof:
+        fn("profiled")
+        torch.cuda.synchronize()
+    return result, times[0], device_seconds(prof)
+
+
+def _vm_train_cifar(card: str, tmp: str) -> tuple:
+    """(a) ``train_cifar`` by ``main`` with 4 seeds of class 0 for 2 epochs
+    (SGD, see ``_SgdTrainers``), the default (vmapped) against
+    ``--no-vmap-seeds``: each seed's AUROC in results.json to 1e-4; then 4
+    CNN32 seeds with the trainer's Adam on phase 8's pinned 2048 + 2048
+    CIFAR-10 stack through ``Trainer.run``, both ways, each member's
+    parameters held against its sequential seed's (``ADAM_DRIFT_TOL``), and
+    the same grid with SGD for the drift's floor. Counted: no kernel of the
+    repository lies on this path."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.main import train_cifar
+    from eoe_tpu_torch.models import CNN32
+    from eoe_tpu_torch.utils.logger import Logger
+
+    argv = ["-e", str(VM_EPOCHS), "-it", str(VM_SEEDS), "--classes", "0", "--datapath", tmp]
+    out = {}
+    _zero_counts()
+    for mode, flag in (("vmapped", []), ("sequential", ["--no-vmap-seeds"])):
+        with _SgdTrainers():
+            out[mode] = _timed_and_profiled(
+                lambda tag: train_cifar.main(argv + flag + ["--superdir", f"{mode}_{tag}"]),
+                os.path.join(tmp, f"trace_{mode}"))
+    counts = _counts()
+    check_counts(counts, {}, "vmapped train_cifar (no kernel of the repository)")
+    runs = {m: _run_dirs(tmp, f"{m}_*/log_*_hsc_cifar10_one_vs_rest") for m in out}
+    check(all(len(r) == 2 for r in runs.values()), f"vmapped train_cifar: runs {runs}")
+    printed = [_printed(r) for r in runs["vmapped"]]
+    check(all(f"trained {VM_SEEDS} seeds of cls 0 vmapped" in p for p in printed),
+          "vmapped train_cifar: the default did not train the seeds vmapped")
+    check(not any("vmapped" in _printed(r) for r in runs["sequential"]),
+          "vmapped train_cifar: --no-vmap-seeds trained vmapped")
+    aucs = {m: np.array(_read_json(runs[m][0], "results")["eval_cls_rocs"][0]) for m in runs}
+    err = float(np.abs(aucs["vmapped"] - aucs["sequential"]).max())
+    check(aucs["vmapped"].shape == (VM_SEEDS,) and err <= 1e-4,
+          f"vmapped train_cifar: per-seed AUROCs {aucs} differ by {err} (tol 1e-4)")
+    for mode, (_, seconds, busy) in out.items():
+        print(f"vmapped (a) train_cifar {mode} (SGD): {VM_SEEDS} seeds x {VM_EPOCHS} epochs of "
+              f"class 0 (synthetic data) in {seconds:.3f} s of main; the card busy "
+              f"{busy:.3f} s in the profiled run ({100 * busy / seconds:.1f}% of the timed "
+              f"run) [{card}]")
+    print(f"vmapped (a) train_cifar: per-seed AUROCs {aucs['vmapped'].round(6).tolist()}, "
+          f"max difference to the sequential seeds {err:.3g} (tol 1e-4)")
+
+    # the same grid at a size where the steps count: 16 steps per epoch
+    from eoe_tpu_torch.training.trainer import _seed
+    data = _pinned(np.random.default_rng(SEED), 32, VM_PINNED_N, CONV_TEST, CIFAR_SPECS,
+                   ["normalize"])
+    pinned = {}
+
+    def run(mode, tag):
+        trainer = _conv_trainer("hsc", CNN32(), CIFAR_SPECS, ["normalize"],
+                                Logger(os.path.join(tmp, f"pinned_{mode}_{tag}"),
+                                       noname=True), torch.float32, VM_EPOCHS)
+        trainer.ds = data[0]
+        return trainer.run(run_classes=[0], run_seeds=VM_SEEDS,
+                           vmap_seeds=mode == "vmapped")[1]
+
+    _zero_counts()
+    for mode in ("vmapped", "sequential"):
+        pinned[mode] = _timed_and_profiled(lambda tag: run(mode, tag),
+                                           os.path.join(tmp, f"trace_pinned_{mode}"))
+    check_counts(_counts(), {}, "vmapped CNN32 pinned (no kernel of the repository)")
+    with _SgdTrainers():
+        for mode in ("vmapped", "sequential"):
+            run(mode, "sgd")
+    seeds = [_seed(0, 0, k, 0) for k in range(VM_SEEDS)]
+    drift = {opt: _member_drift({m: os.path.join(tmp, f"pinned_{m}_{tag}")
+                                 for m in ("vmapped", "sequential")}, seeds)
+             for opt, tag in (("Adam", "timed"), ("SGD", "sgd"))}
+    check(max(drift["Adam"]) <= ADAM_DRIFT_TOL,
+          f"vmapped CNN32 pinned (Adam): members' parameters drift {drift['Adam']} of their "
+          f"change from their sequential seeds' (tol {ADAM_DRIFT_TOL:.3g})")
+    pin_aucs = {m: np.array(r[0]["cls_aucs"][0]) for m, r in pinned.items()}
+    check(all(np.isfinite(a).all() and a.shape == (VM_SEEDS,) for a in pin_aucs.values()),
+          f"vmapped CNN32 pinned: AUROCs {pin_aucs}")
+    pin_err = float(np.abs(pin_aucs["vmapped"] - pin_aucs["sequential"]).max())
+    for mode, (_, seconds, busy) in pinned.items():
+        print(f"vmapped (a) CNN32 fp32 pinned {VM_PINNED_N}+{VM_PINNED_N} CIFAR-10 stack, "
+              f"{VM_SEEDS} seeds x {VM_EPOCHS} epochs through Trainer.run, {mode}: "
+              f"{seconds:.3f} s; the card busy {busy:.3f} s in the profiled run "
+              f"({100 * busy / seconds:.1f}% of the timed run) [{card}]")
+    print(f"vmapped (a) CNN32 pinned: per-seed synthetic AUROCs vmapped "
+          f"{pin_aucs['vmapped'].round(6).tolist()}, max difference to the sequential seeds "
+          f"{pin_err:.3g} (not held); each member's parameters against its sequential "
+          f"seed's, over their change from the init: Adam "
+          f"{[round(d, 6) for d in drift['Adam']]} (tol {ADAM_DRIFT_TOL:.3g}), SGD "
+          f"{[round(d, 6) for d in drift['SGD']]} [{card}]")
+    return counts
+
+
+def _vm_wrn(card: str) -> dict:
+    """(b) The WideResNet+CBAM bf16 step with the fused stem, two members for
+    3 steps of 128 + 128 on the ImageNet-30 stack, each held against its
+    sequential seed: losses to 2^-8 (relative), the first step's gradients
+    to 2^-4 of their max; SGD at the trainer's rate. Peak memory per member,
+    vmapped and sequential."""
+    import torch
+    import numpy as np
+    from eoe_tpu_torch.models import WideResNet
+    from eoe_tpu_torch.training import TrainState, vmapped_seeds as V
+    from eoe_tpu_torch.training.optim import make_optimizer
+    from eoe_tpu_torch.training.trainer import _seed
+    from eoe_tpu_torch.utils.profiling import step_timer
+
+    ds = _pinned(np.random.default_rng(SEED), 256, VM_WRN_STEPS * BATCH, 8, WRN_SPECS,
+                 WRN_TEST_SPECS)[0]
+    tr = _conv_trainer("hsc", WideResNet(), WRN_SPECS, WRN_TEST_SPECS, None, torch.bfloat16, 1)
+    tr.make_optimizer = lambda params, steps: make_optimizer("sgd", params, tr.lr, tr.wdk, [],
+                                                             steps)
+    seeds = [_seed(SEED, 0, it, 0) for it in range(VM_WRN_K)]
+    dev, rt = tr.device, tr._rt_stats(ds)
+    Xn = torch.from_numpy(ds.train_set.gather_all()).to(dev)
+    Xo = torch.from_numpy(ds.oe.train_set.gather_all()).to(dev)
+    ln = torch.zeros(VM_WRN_K, BATCH, dtype=torch.int64, device=dev)
+    lo = torch.ones(VM_WRN_K, BATCH, dtype=torch.int64, device=dev)
+    w = torch.ones(VM_WRN_K, BATCH, device=dev)
+
+    def batch(i):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        return (Xn[sl].expand(VM_WRN_K, *Xn[sl].shape),
+                Xo[sl].expand(VM_WRN_K, *Xo[sl].shape))
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    stack = tr.init_states_stacked(seeds, VM_WRN_STEPS)
+    gens = [torch.Generator(device=dev).manual_seed(_seed(s, 2)) for s in seeds]
+    losses, times, grads = [], [], None
+    for i in range(VM_WRN_STEPS):
+        xn, xo = batch(i)
+        with step_timer(times) as out:
+            if i == 0:   # the first step's gradients, from generators in the same state
+                g0 = [torch.Generator(device=dev).manual_seed(_seed(s, 2)) for s in seeds]
+                x = torch.cat([V.preprocess_members(tr, ds, xn, ln, g0, "normal", rt),
+                               V.preprocess_members(tr, ds, xo, lo, g0, "oe", rt)], 1)
+                grads = stack.grads(x.to(torch.bfloat16), torch.cat([ln, lo], 1),
+                                    torch.cat([w, w], 1), None)[0]
+                del x
+            loss, *_ = V.stacked_step(tr, ds, stack, xn, ln, xo, lo, w, gens, None, rt)
+            out["sync"] = loss
+        losses.append(loss.float().cpu())
+    counts = _counts()
+    check_counts(counts, {}, "vmapped WideResNet (no kernel of the repository)")
+    peak_vm = (torch.cuda.max_memory_allocated() - base) / VM_WRN_K
+    del stack
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    seq_losses, seq_times, l_err, g_diff, g_max, g_worst = [], [], 0.0, 0.0, 0.0, ""
+    t_err, t_worst = 0.0, ""
+    for k, seed in enumerate(seeds):
+        st = tr.init_state(seed, ds, VM_WRN_STEPS)
+        gen = torch.Generator(device=dev).manual_seed(_seed(seed, 2))
+        for i in range(VM_WRN_STEPS):
+            xn, xo = batch(i)
+            with step_timer(seq_times) as out:
+                loss, *_ = tr.train_step(st, ds, xn[0], ln[0], xo[0], lo[0], w[0], gen)
+                out["sync"] = loss
+            l_err = max(l_err, abs(loss.item() - losses[i][k].item()) / abs(loss.item()))
+            if i == 0:   # the largest difference over the largest gradient entry
+                for n, p in st.model.named_parameters():
+                    ref = p.grad.float()
+                    diff = (grads[n][k].float() - ref).abs().max().item()
+                    own = ref.abs().max().item()
+                    g_max = max(g_max, own)
+                    if diff > g_diff:
+                        g_diff, g_worst = diff, f"{n}, whose own max is {own:.3g}"
+                    if diff / max(own, 1e-30) > t_err:
+                        t_err, t_worst = diff / max(own, 1e-30), n
+        seq_losses.append(loss.item())
+        del st
+    peak_seq = torch.cuda.max_memory_allocated() - base
+    g_err = g_diff / max(g_max, 1e-30)
+    check(l_err <= 2 ** -8, f"vmapped WideResNet: member losses differ by {l_err} (tol 2^-8)")
+    check(g_err <= 2 ** -4, f"vmapped WideResNet: gradients differ by {g_err} of their max "
+          f"({g_worst}; tol 2^-4)")
+    print(f"vmapped (b) WideResNet+CBAM bf16 fused stem, {VM_WRN_K} members x {VM_WRN_STEPS} "
+          f"steps of {BATCH}+{BATCH}: losses {[l.tolist() for l in losses]}, vs the "
+          f"sequential seeds {l_err:.3g} rel (tol 2^-8); first-step gradients {g_err:.3g} of "
+          f"max ({g_worst}; tol 2^-4; tensor by tensor, {t_worst} {t_err:.3g} of its own "
+          f"max, not held); step {np.median(times[1:]) * 1e3:.1f} ms vmapped vs "
+          f"{np.median(seq_times) * 1e3:.1f} ms per sequential seed step (median of the "
+          f"steps after the first, host clock, synchronised); peak memory per member "
+          f"{peak_vm / 2 ** 30:.2f} GiB vmapped, {peak_seq / 2 ** 30:.2f} GiB sequential "
+          f"[{card}]")
+    del grads
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _vm_clip(card: str, tmp: str) -> dict:
+    """(c) ``train_clip_cifar --vmap-seeds`` with two seeds at full ViT-B/32
+    width in bf16, counted: the fused forward and backward launch once per
+    layer and step on the K*256 folded images (12 + 12 per step, not twice
+    that), once per layer and eval batch on K*128, and once per text layer
+    for each member's prompt centre; the memory probe adds a step of one
+    member (on 256) and one of two (on 512) and one prompt centre. Each
+    member's loss of each epoch within 2^-8 of ``--no-vmap-seeds``'s seed
+    (a program of both: the run logs no "per program")."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.main import train_clip_cifar
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32, to_openai
+    from eoe_tpu_torch.ops import attention as A
+
+    ckpt = os.path.join(tmp, "ViT-B-32.pt")
+    weights = CLIP(VIT_B32, generator=torch.Generator().manual_seed(SEED)).state_dict()
+    torch.save(to_openai(weights, VIT_B32), ckpt)
+    del weights
+    os.environ["EOE_TPU_CLIP_CHECKPOINT"] = ckpt
+    argv = ["--epochs", str(VM_CLIP_EPOCHS), "--classes", "0", "-it", str(VM_CLIP_SEEDS),
+            "--datapath", tmp]
+    K, layers, text_layers = VM_CLIP_SEEDS, VIT_B32.vision_layers, VIT_B32.transformer_layers
+    steps, eval_batches = VM_CLIP_EPOCHS, 1   # 20 synthetic normal images, 100 test images
+    shapes, launch = [], A._fwd_kernel
+
+    def recorded(qkv, heads, causal):
+        shapes.append((qkv.shape[0], qkv.shape[1]))
+        return launch(qkv, heads, causal)
+
+    A._fwd_kernel = recorded
+    try:
+        # ---- the main path, counted
+        _zero_counts()
+        t0 = time.perf_counter()
+        train_clip_cifar.main(argv + ["--vmap-seeds", "--superdir", "clip_vm"])
+        t_vm = time.perf_counter() - t0
+        counts = _counts()
+        # ---- end of the counted run
+    finally:
+        A._fwd_kernel = launch
+    # the memory probe (vmapped_seeds.seeds_per_program): one step of one
+    # member and one of two, and the prompt centre once
+    probe = {"fwd": text_layers + 2 * layers, "bwd": 2 * layers}
+    check_counts(counts, {"fwd": (K + 1) * text_layers + layers * (steps + eval_batches + 2),
+                          "bwd": layers * (steps + 2)},
+                 f"vmapped train_clip_cifar ({K} members: {K * text_layers} prompt launches, "
+                 f"{steps} folded steps, {eval_batches} folded eval batch; the probe {probe})")
+    image = Counter(n for n, s in shapes if s != 77)
+    check(image == {K * 2 * BATCH: layers * (steps + 1), K * BATCH: layers * (eval_batches + 1)},
+          f"vmapped train_clip_cifar: image-tower launches by n {dict(image)}, expected "
+          f"{layers * (steps + 1)} on {K * 2 * BATCH} (the steps and the probe's two members) "
+          f"and {layers * (eval_batches + 1)} on {K * BATCH} (eval and the probe's one)")
+    _zero_counts()
+    t0 = time.perf_counter()
+    train_clip_cifar.main(argv + ["--no-vmap-seeds", "--superdir", "clip_seq"])
+    t_seq = time.perf_counter() - t0
+    seq_counts = _counts()
+    runs = {m: _run_dirs(tmp, f"clip_{m}/log_*") for m in ("vm", "seq")}
+    check(f"trained {K} seeds of cls 0 vmapped\n" in _printed(runs["vm"][0]),
+          "vmapped train_clip_cifar: --vmap-seeds did not train the seeds vmapped")
+    lv, ls = (_member_losses(runs[m][0], VM_CLIP_EPOCHS) for m in ("vm", "seq"))
+    check(sorted(lv) == sorted(ls) == [(k, e + 1) for k in range(K)
+                                       for e in range(VM_CLIP_EPOCHS)],
+          f"vmapped CLIP: losses {lv}, {ls}")
+    l_err = max(abs(lv[k] - ls[k]) / abs(ls[k]) for k in ls)
+    check(l_err <= 2 ** -8, f"vmapped CLIP: member losses {lv} differ from the sequential "
+          f"seeds' {ls} by {l_err} (tol 2^-8)")
+    aucs = {m: _read_json(runs[m][0], "results")["eval_cls_rocs"][0] for m in runs}
+    print(f"vmapped (c) train_clip_cifar ViT-B/32 bf16 --vmap-seeds, {K} seeds x {steps} steps "
+          f"of {BATCH}+{BATCH}: {t_vm:.2f} s of main vs {t_seq:.2f} s with --no-vmap-seeds "
+          f"(checkpoint load included); launches {counts} (the probe's {probe}) vs "
+          f"{seq_counts}; image-tower launches by n {dict(image)}; losses by (seed, epoch) "
+          f"{lv} vs {ls}, {l_err:.3g} rel "
+          f"(tol 2^-8); "
+          f"synthetic AUROCs {aucs['vm']} vs {aucs['seq']} [{card}]")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _recorded_scores(mode: str, into: list):
+    """Patches that record every test score array of an evolution run in
+    ``into``: the sequential evaluator's ``Trainer.eval_scores`` (one per
+    candidate and seed), or the vmapped evaluator's ``StackedState.scores``
+    (one per chunk and test batch) grouped by ``evaluate_population`` call.
+    Returns the function that restores them."""
+    from eoe_tpu_torch.evolve.vmapped import VmappedEvaluator
+    from eoe_tpu_torch.training import Trainer
+    from eoe_tpu_torch.training.vmapped_seeds import StackedState
+    if mode == "sequential":
+        own = Trainer.eval_scores
+
+        def eval_scores(self, state, ds):
+            into.append(own(self, state, ds))
+            return into[-1]
+        Trainer.eval_scores = eval_scores
+        return lambda: setattr(Trainer, "eval_scores", own)
+    own, population = StackedState.scores, VmappedEvaluator.evaluate_population
+
+    def scores(self, x, center):
+        out = own(self, x, center)
+        into[-1].append(out.cpu().numpy())
+        return out
+
+    def evaluate_population(self, individuals):
+        into.append([])
+        return population(self, individuals)
+    StackedState.scores, VmappedEvaluator.evaluate_population = scores, evaluate_population
+
+    def restore():
+        StackedState.scores, VmappedEvaluator.evaluate_population = own, population
+    return restore
+
+
+def _by_candidate(mode: str, recorded: list, iterations: int, n_test: int):
+    """The recorded scores as (evaluated candidate, seed, test image)."""
+    import numpy as np
+    if mode == "sequential":
+        return np.stack(recorded).reshape(-1, iterations, n_test)
+    calls = []
+    for call in recorded:   # chunks in order, each its (padded) test batches in order
+        chunks = []
+        for arr in call:
+            if not chunks or sum(a.shape[1] for a in chunks[-1]) >= n_test:
+                chunks.append([])
+            chunks[-1].append(arr)
+        rows = np.concatenate([np.concatenate(c, 1)[:, :n_test] for c in chunks])
+        calls.append(rows.reshape(iterations, -1, n_test).transpose(1, 0, 2))
+    return np.concatenate(calls)
+
+
+def _vm_evolve(card: str, tmp: str) -> dict:
+    """(d) ``evolve_oe_cifar --ev-vmap`` at phase evolve's settings against
+    the sequential evaluator with sequential seeds (``_SequentialSeeds``),
+    both with SGD (``_SgdTrainers``): the same populations (the GA's picks)
+    and each evaluated candidate's AUROC of each seed to 1e-4, or where not,
+    every test pair whose order differs a tie (``TIE_TOL``), printed with
+    its scores; seconds per evaluated individual and the card's busy time,
+    each way; the peak memory per candidate. Counted: no kernel of the
+    repository lies on this path."""
+    import glob
+    import re
+
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.main import evolve_oe_cifar
+    from eoe_tpu_torch.ops.metrics import roc_curve
+
+    one = ["--classes", "0", "--datapath", tmp]
+    out, peaks, recorded = {}, {}, {}
+    _zero_counts()
+    for mode, flag in (("vmapped", ["--ev-vmap"]), ("sequential", [])):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        recorded[mode] = []
+
+        def run(tag):
+            if tag == "timed":
+                restore = _recorded_scores(mode, recorded[mode])
+            try:
+                with _SgdTrainers(), _SequentialSeeds():
+                    return evolve_oe_cifar.main(EV_CIFAR + one + flag + [
+                        "--superdir", f"{tmp}/ev_{mode}_{tag}"])
+            finally:
+                if tag == "timed":
+                    restore()
+        out[mode] = _timed_and_profiled(run, os.path.join(tmp, f"trace_ev_{mode}"))
+        peaks[mode] = torch.cuda.max_memory_allocated() - base
+    counts = _counts()
+    check_counts(counts, {}, "vmapped evolve (no kernel of the repository)")
+    (hv, _), (hs, _) = out["vmapped"][0], out["sequential"][0]
+    check(hv["pop"] == hs["pop"], f"vmapped evolve: populations {hv['pop']} differ from the "
+          f"sequential evaluator's {hs['pop']}")
+    fit_err = float(np.abs(np.asarray(hv["fit"]) - np.asarray(hs["fit"])).max())
+    labels = _test_labels(tmp)
+    normal, anomalous = np.flatnonzero(labels == 0), np.flatnonzero(labels == 1)
+    sc = {m: _by_candidate(m, recorded[m], 2, len(labels)) for m in recorded}
+    check(sc["vmapped"].shape == sc["sequential"].shape,
+          f"vmapped evolve: recorded scores {sc['vmapped'].shape} vs {sc['sequential'].shape}")
+    err, ties = 0.0, []
+    for j, it in np.ndindex(*sc["vmapped"].shape[:2]):
+        s = {m: sc[m][j, it] for m in sc}
+        auc = {m: roc_curve(labels, v).auc for m, v in s.items()}
+        d = abs(auc["vmapped"] - auc["sequential"])
+        err = max(err, d)
+        if d <= 1e-4:
+            continue
+        order = {m: np.sign(v[anomalous][None] - v[normal][:, None]) for m, v in s.items()}
+        for a, b in zip(*np.nonzero(order["vmapped"] != order["sequential"])):
+            na, nb = normal[a], anomalous[b]
+            for m, v in s.items():
+                size = max(abs(float(v[na])), abs(float(v[nb])))
+                check(abs(float(v[nb]) - float(v[na])) <= TIE_TOL * size,
+                      f"vmapped evolve: candidate {j} seed {it} AUROC differs by {d}; test pair "
+                      f"({na}, {nb}) is ordered differently, {m} scores {v[na]}, {v[nb]} "
+                      f"(more than {TIE_TOL:.3g} of their size apart)")
+            ties.append(f"candidate {j} seed {it} ({d:.3g}): test images {na} (normal), {nb} "
+                        f"(anomalous) scored {s['vmapped'][na]:.9g}, {s['vmapped'][nb]:.9g} "
+                        f"vmapped, {s['sequential'][na]:.9g}, {s['sequential'][nb]:.9g} "
+                        f"sequential")
+    n_eval = {}
+    for mode in out:
+        printed = "".join(_printed(r) for r in glob.glob(
+            os.path.join(tmp, f"ev_{mode}_timed", "log_*_evolve_*")))
+        n_eval[mode] = (sum(int(n) for n in re.findall(r"Evaluate (\d+) individuals", printed))
+                        + printed.count("Evaluate ind"))
+    check(n_eval["vmapped"] == n_eval["sequential"] == sc["vmapped"].shape[0] > 0,
+          f"vmapped evolve: evaluated {n_eval}, scores of {sc['vmapped'].shape[0]}")
+    for mode, (_, seconds, busy) in out.items():
+        print(f"vmapped (d) evolve_oe_cifar {mode} ({' '.join(EV_CIFAR)}, SGD, sequential "
+              f"seeds): {seconds:.3f} s of main, {n_eval[mode]} individuals, "
+              f"{seconds / n_eval[mode]:.4f} s per individual (PERF.md: phase evolve "
+              f"took 0.121-0.127 s before the vmapped engines); the card busy {busy:.3f} s in the profiled run "
+              f"({100 * busy / seconds:.1f}% of the timed run); peak memory "
+              f"{peaks[mode] / 2 ** 20:.1f} MiB [{card}]")
+    print(f"vmapped (d) evolve: populations equal; each candidate's AUROC of each seed max "
+          f"difference {err:.3g} (tol 1e-4, else ties within {TIE_TOL:.3g} relative: "
+          f"{'; '.join(ties) or 'none'}); fitness max difference {fit_err:.3g}; peak memory "
+          f"per candidate of a chunk of {EV_CIFAR[1]}: "
+          f"{peaks['vmapped'] / int(EV_CIFAR[1]) / 2 ** 20:.1f} MiB")
+    return counts
+
+
+def _vm_folded_calls(card: str):
+    """(e) One folded call of each kernel under ``torch.func.vmap`` at K=2 on
+    the training shape, against the unfolded kernel on each member: exact for
+    the fused kernels (both grids, forward and backward), 1e-5 for flash in
+    fp32 (bf16: 2^-8 of the max)."""
+    import torch
+    from torch.func import vmap
+    from eoe_tpu_torch.ops import attention as A
+
+    n, s, h, d, causal = SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    before = _counts()
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(2, n, s, 3 * h * d, generator=g, device="cuda").to(dtype)
+        dout = torch.randn(2, n, s, h * d, generator=g, device="cuda").to(dtype)
+        for name, fwd, bwd in (("monolithic", A._fwd_kernel, A._bwd_kernel),
+                               ("group", A._group_fwd_kernel, A._group_bwd_kernel)):
+            folded = vmap(lambda x: A._QkvAttention.apply(x, h, causal, fwd, bwd))(qkv)
+            folded_b = vmap(lambda x, y: A._QkvAttentionBwd.apply(x, y, h, causal, bwd))(
+                qkv, dout)
+            for k in range(2):
+                check(torch.equal(folded[k], fwd(qkv[k], h, causal)),
+                      f"folded {name} forward {dtype}: member {k} differs")
+                check(torch.equal(folded_b[k], bwd(qkv[k], dout[k], h, causal)),
+                      f"folded {name} backward {dtype}: member {k} differs")
+            lines.append(f"{name} {str(dtype)[6:]} fwd+bwd exact")
+        q, k_, v = (torch.randn(2, n, h, s, d, generator=g, device="cuda").to(dtype)
+                    for _ in range(3))
+        folded = vmap(lambda a, b, c: A._FlashAttention.apply(a, b, c, None, A._flash_kernel))(
+            q, k_, v)
+        err = max((folded[m].float() - A._flash_kernel(q[m], k_[m], v[m], None).float())
+                  .abs().max().item() for m in range(2))
+        tol = 1e-5 if dtype == torch.float32 else 2 ** -8
+        check(err <= tol, f"folded flash {dtype}: members differ by {err} (tol {tol})")
+        lines.append(f"flash {str(dtype)[6:]} {err:.3g} (tol {tol:.3g})")
+    after = _counts()
+    folded_launches = {key: after[key] - before[key] for key in ("fwd", "bwd", "group_fwd",
+                                                                 "group_bwd", "flash")}
+    check(all(v == 6 for v in folded_launches.values()),
+          f"folded calls: launches {folded_launches}, expected 6 of each kernel (per dtype "
+          f"one folded call and one per member)")
+    print(f"vmapped (e) folded calls at K=2, n={n} s={s} H={h} d={d} (K*n={2 * n} in one "
+          f"launch) against each member's own launch: {'; '.join(lines)}; comparison "
+          f"launches {folded_launches} [{card}]")
+
+
+def _vm_wrn_runners(card: str, tmp: str) -> dict:
+    """(f) The WideResNet+CBAM runners in fp32 at their published width,
+    batch 128 + 128 at 224 px, on the ImageNet-30 and -21k blobs:
+    ``train_imagenet`` with its 10 seeds of class 0 for 1 epoch (2 steps;
+    the default: 150), OE cut to 256 images, by default against
+    ``--no-vmap-seeds``; then ``evolve_oe_imagenet --ev-vmap`` with one
+    generation of 16 candidates (the default: 64) for 1 epoch. The members
+    each program holds come from the measured peaks of one and of two
+    (``vmapped_seeds.members_that_fit``, printed); each run's peak memory and
+    seconds. Counted: no kernel of the repository lies on this path."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.main import evolve_oe_imagenet, train_imagenet
+    from eoe_tpu_torch.training import vmapped_seeds as V
+
+    _folder_data(os.path.join(tmp, "datasets"))
+    fits, fit = [], V.members_that_fit
+
+    def recorded(peaks, free, wanted):
+        fits.append((peaks, free, wanted, fit(peaks, free, wanted)))
+        return fits[-1][-1]
+
+    seeds = ["-e", "1", "-it", str(VM_WRN_SEEDS), "--oe-size", "256"]
+    runs = (("train_imagenet", "grid", train_imagenet.main, seeds),
+            ("train_imagenet --no-vmap-seeds", "grid_seq", train_imagenet.main,
+             seeds + ["--no-vmap-seeds"]),
+            ("evolve_oe_imagenet --ev-vmap", "ev_wrn", evolve_oe_imagenet.main,
+             ["--ev-vmap", "--ev-generation-pool", str(VM_WRN_POOL), "--ev-generations", "1",
+              "--epochs", "1"]))
+    out = {}
+    V.members_that_fit = recorded
+    try:
+        _zero_counts()
+        for label, sub, fn, argv in runs:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            n = len(fits)
+            t0 = time.perf_counter()
+            res = fn(argv + ["--classes", "0", "--datapath", tmp, "--superdir", sub])
+            seconds = time.perf_counter() - t0
+            out[label] = (res, seconds, torch.cuda.max_memory_allocated() - base, fits[n:])
+        counts = _counts()
+    finally:
+        V.members_that_fit = fit
+    check_counts(counts, {}, "vmapped WideResNet runners (no kernel of the repository)")
+    grid = {m: _run_dirs(tmp, f"{m}/log_*") for m in ("grid", "grid_seq")}
+    printed = _printed(grid["grid"][0])
+    check(f"trained {VM_WRN_SEEDS} seeds of cls 0 vmapped" in printed,
+          f"vmapped train_imagenet: the {VM_WRN_SEEDS} seeds did not train vmapped")
+    for label in ("train_imagenet", "train_imagenet --no-vmap-seeds"):
+        aucs = np.asarray(out[label][0][1]["cls_aucs"][0], dtype=np.float64)
+        check(aucs.shape == (VM_WRN_SEEDS,) and np.isfinite(aucs).all(),
+              f"{label}: AUROCs {aucs}")
+    fitness = np.asarray(out["evolve_oe_imagenet --ev-vmap"][0][0]["fit"], dtype=np.float64)
+    check(fitness.shape == (1, VM_WRN_POOL) and np.isfinite(fitness).all(),
+          f"evolve_oe_imagenet --ev-vmap: fitness {fitness}")
+    for label, (_, seconds, peak, measured) in out.items():
+        probe = "; ".join(
+            f"{wanted} wanted, {n} per program (one member {p[0] / 2 ** 30:.2f} GiB, two "
+            f"{p[1] / 2 ** 30:.2f} GiB, {(p[1] - p[0]) / 2 ** 30:.2f} GiB a member; "
+            f"{free / 2 ** 30:.2f} GiB free)" for p, free, wanted, n in measured[:1])
+        print(f"vmapped (f) {label} (WideResNet+CBAM fp32, {BATCH}+{BATCH} at 224 px): "
+              f"{seconds:.2f} s of main; peak memory {peak / 2 ** 30:.2f} GiB; "
+              f"{probe or 'no program sized'} [{card}]")
+    print(f"vmapped (f) train_imagenet: {printed.count('seeds of cls 0 vmapped')} vmapped "
+          f"class, log '{[ln for ln in printed.splitlines() if 'seeds of cls 0' in ln][0]}'; "
+          f"evolve_oe_imagenet --ev-vmap fitness {fitness.round(4).tolist()}")
+    return counts
+
+
+def phase_vmapped(card: str) -> tuple:
+    """The vmapped engines: (a) the CNN32 seed grid, (b) the WideResNet
+    members' step, (c) CLIP's seeds through the folded fused kernels, (d) the
+    evolve generation, (e) one folded call per kernel, (f) the WideResNet
+    runners sized to the card. Each of (a)-(d) and (f) is a counted path."""
+    import tempfile
+    saved = {k: os.environ.get(k) for k in ("EOE_TPU_FAKE_DATA", "EOE_TPU_CLIP_CHECKPOINT")}
+    os.environ["EOE_TPU_FAKE_DATA"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            conv = _vm_train_cifar(card, tmp)
+            wrn = _vm_wrn(card)
+            clip = _vm_clip(card, tmp)
+            evolve = _vm_evolve(card, tmp)
+            _vm_folded_calls(card)
+            runners = _vm_wrn_runners(card, tmp)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return conv, wrn, clip, evolve, runners
+
+
+def phase_ga_distances(card: str):
+    """The GA's mutation (one sample) and mating (a pair) distances to
+    evolve_oe_imagenet's mutation pool of 10,000 raw 256x256 images on the
+    card: the peak memory of the chunked distances against the unchunked
+    form (all candidates moved, differenced and squared at once), and their
+    values against each other."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch import evolve as ev
+    from eoe_tpu_torch.datasets.bases import ArraySource, Subset
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randint(0, 256, (GA_POOL, GA_HW, GA_HW, 3), generator=g, device="cuda",
+                      dtype=torch.uint8).cpu().numpy()
+    oeds = Subset(ArraySource(x, np.zeros(GA_POOL)), np.arange(GA_POOL))
+    ids = [int(i) for i in np.random.default_rng(SEED).integers(0, GA_POOL, GA_POOL)]
+    peaks, lines = {}, []
+    for what, rows in (("mutation", [7]), ("mating", [7, 11])):
+        a = ev._gather_f32(oeds, rows, "cuda")
+        d = {}
+        for form, fn in (("unchunked", lambda: ev._sq_dists(a, ev._gather_f32(oeds, ids, "cuda"))),
+                         ("chunked", lambda: ev._candidate_dists(a, oeds, ids, "cuda"))):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            d[form] = fn()
+            seconds = time.perf_counter() - t0
+            peaks[(what, form)] = torch.cuda.max_memory_allocated() - base
+            lines.append(f"{what} {form}: peak {peaks[(what, form)] / 2 ** 30:.3f} GiB, "
+                         f"{seconds:.2f} s")
+        rel = float((np.abs(d["chunked"] - d["unchunked"])
+                     / np.maximum(d["unchunked"], 1e-30)).max())
+        check(rel <= 1e-6, f"GA distances: chunked {what} differs by {rel} relative")
+        lines.append(f"{what} chunked vs unchunked {rel:.3g} relative")
+        del a, d
+    print(f"ga_distances, {GA_POOL} candidates of {GA_HW}x{GA_HW}x3 (DIST_CHUNK "
+          f"{ev.DIST_CHUNK}): " + "; ".join(lines) + f" [{card}]")
+    del x, oeds
+    torch.cuda.empty_cache()
+
+
 def _read_json(logdir: str, name: str) -> dict:
     with open(os.path.join(logdir, f"{name}.json")) as f:
         return json.load(f)
@@ -1940,6 +2695,9 @@ def main():
     paths["folder_clip"], paths["folder_conv"] = timed("folder", phase_folder, card)
     paths["evolve"] = timed("evolve", phase_evolve, card)
     paths["custom"] = timed("custom", phase_custom, card)
+    (paths["vm_conv"], paths["vm_wrn"], paths["vm_clip"], paths["vm_evolve"],
+     paths["vm_wrn_runners"]) = timed("vmapped", phase_vmapped, card)
+    timed("ga_distances", phase_ga_distances, card)
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}

@@ -11,7 +11,9 @@ element replaced by one of the ``oneofkbest`` nearest of ``poolsize`` random
 candidates, the sample itself excluded by distance > ``SELF_DIST``) and
 evaluates the changed offspring (``evolve``). ``evaluate`` records the
 history and the genealogy tree and writes the grids of the individuals,
-generations, selections, matings and mutations.
+generations, selections, matings and mutations. Where the toolbox holds an
+``evaluate_population`` (``evolve.vmapped.VmappedEvaluator``), the whole
+set of offspring without a fitness goes through it in one call.
 
 Every stochastic decision draws from one module-level numpy ``Generator``
 (PCG64), reseeded by ``seed_evolution`` and, per generation, from (seed,
@@ -21,7 +23,9 @@ mating are computed on the trainer's device (the card unless the caller asks
 for the CPU) as ``((a[:, None] - b[None]) ** 2).sum(-1)`` in fp32 over
 images scaled to [0, 1], the JAX package's formula; the expanded
 ||a||^2 + ||b||^2 - 2ab form would cancel digits and could reorder near
-neighbours.
+neighbours. The candidates are gathered, moved and compared ``DIST_CHUNK``
+at a time, which bounds the memory at a large mutation pool; each distance
+is still its own sum, so the chunking moves no pick.
 """
 
 import copy
@@ -36,6 +40,7 @@ from eoe_tpu_torch.device import resolve_device
 from eoe_tpu_torch.evolve.tree import EvolNode, Individual as TreeIndividual, Tree
 
 SELF_DIST = 100.0  # distances at most this are taken for the sample itself
+DIST_CHUNK = 256   # candidates per chunk of the mutation and mating distances
 
 _rng: np.random.Generator = np.random.default_rng()
 
@@ -125,6 +130,13 @@ def _sq_dists(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
     return ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1).cpu().numpy()
 
 
+def _candidate_dists(a: torch.Tensor, oeds, ids: Sequence[int], device) -> np.ndarray:
+    """Squared distances of every row of ``a`` to the OE-subset samples
+    ``ids``, ``DIST_CHUNK`` candidates at a time."""
+    return np.concatenate([_sq_dists(a, _gather_f32(oeds, ids[i:i + DIST_CHUNK], device))
+                           for i in range(0, len(ids), DIST_CHUNK)], axis=1)
+
+
 def _nearest_excl_self(dists: np.ndarray, oneofkbest: int) -> int:
     """Position of a random pick among the ``oneofkbest`` nearest with a
     distance above ``SELF_DIST``."""
@@ -177,7 +189,7 @@ def mutate_individual(ind, oeds, poolsize: int, indp: float, oneofkbest: int, de
     device = resolve_device(device)
     samples = _gather_f32(oeds, ind, device)
     new_ids = [int(_rng.integers(0, len(oeds))) for _ in range(poolsize)]
-    d = _sq_dists(samples, _gather_f32(oeds, new_ids, device))
+    d = _candidate_dists(samples, oeds, new_ids, device)
     for n in range(len(ind)):
         if _rng.random() < indp:
             ind[n] = new_ids[_nearest_excl_self(d[n], oneofkbest)]
@@ -220,7 +232,7 @@ def mate_individuals(ind1, ind2, oeds, poolsize: int, indp: float, oneofkbest: i
             for ind in (ind1, ind2):
                 if _rng.random() < indp:
                     new_ids = [int(_rng.integers(0, len(oeds))) for _ in range(poolsize)]
-                    d = _sq_dists(pair, _gather_f32(oeds, new_ids, device)).sum(0)
+                    d = _candidate_dists(pair, oeds, new_ids, device).sum(0)
                     ind[n] = new_ids[_nearest_excl_self(d, oneofkbest)]
     else:
         for i in range(len(ind1)):
@@ -259,13 +271,24 @@ def _pop_grid(oeds, pop) -> np.ndarray:
 
 def evaluate(offspring, pop, gen: int, toolbox, history: dict, tree: Tree, oeds, logger):
     """Evaluate the offspring without a fitness, then record the generation
-    in ``history`` and ``tree``, its grids and its statistics."""
-    invalid_ids = {id(ind) for ind in offspring if not ind.fitness.valid}
+    in ``history`` and ``tree``, its grids and its statistics. With a
+    registered ``evaluate_population`` the offspring without a fitness are
+    evaluated in one call."""
+    invalid = [ind for ind in offspring if not ind.fitness.valid]
+    invalid_ids = {id(ind) for ind in invalid}   # identity: equal values may differ in fitness
+    prefits = None
+    if "evaluate_population" in toolbox._ops and invalid:
+        logger.print(f"Evaluate {len(invalid)} individuals (vmapped)..")
+        prefits = dict(zip(map(id, invalid),
+                           toolbox.evaluate_population([list(ind) for ind in invalid])))
     for i, ind in enumerate(offspring):
         if id(ind) not in invalid_ids:
             continue
-        logger.print(f"Evaluate ind{i:03}..")
-        fit = toolbox.evaluate(ind)
+        if prefits is not None:
+            fit = prefits[id(ind)]
+        else:
+            logger.print(f"Evaluate ind{i:03}..")
+            fit = toolbox.evaluate(ind)
         name = f"gen{gen:03}_ind{i:03}_fit{fit * 100:06.3f}"
         logger.logimg(pt.join("individuals", name), oeds.gather(
             np.asarray(list(ind), np.int64) % len(oeds)), nrow=16)

@@ -7,18 +7,15 @@ The flags, their defaults and the on-disk layout are the JAX package's: data
 under ``<datapath>/datasets``, runs under ``<datapath>/results/<superdir>``,
 a resumed run (``--load``) continued in ``<old run>---CNTD``, an evolution
 run in ``<superdir>/log_<time>_evolve_<comment>`` (``--ev-continue-run``:
-``<old run>---CNTD``). On one card four flags differ:
+``<old run>---CNTD``). On one card two flags differ:
   * ``-d/--devices`` counts GPUs. None and 1 run on the one card; more raise
     (data parallelism is not ported yet);
-  * ``--vmap-seeds`` parses as in the JAX package. Auto and
-    ``--no-vmap-seeds`` train the seeds one after another; an explicit
-    ``--vmap-seeds`` raises (not ported yet);
   * ``--compute-dtype`` maps ``float32`` / ``bfloat16`` to the torch dtypes
     and is written under the same names, so ``load_setup`` reads either
-    package's setup.json;
-  * ``--ev-vmap`` (the evolutionary search's vectorised fitness) parses as
-    in the JAX package and raises (not ported yet); the candidates train
-    one after another.
+    package's setup.json.
+``--vmap-seeds`` / ``--no-vmap-seeds`` (default: auto) reach ``Trainer.run``
+and ``--ev-vmap`` trains the candidates of a generation as one program
+(``evolve.vmapped``), as in the JAX package.
 Snapshots are the port's ``.pt`` files. The runners and the functions below
 take ``device`` as a keyword (``cuda`` unless the caller asks for another
 one); it is not a flag. The evolutionary search keeps the JAX package's
@@ -110,9 +107,10 @@ def default_argsparse(modify_descr: Callable[[str], str],
     parser.add_argument("--datapath", type=str, default=None,
                         help="Data root (default: $EOE_TPU_DATAPATH or ./data).")
     parser.add_argument("--vmap-seeds", action=BooleanOptionalAction, default=None,
-                        help="Train all seeds of a class as one batched program: not "
-                             "ported yet. The default and --no-vmap-seeds train the "
-                             "seeds one after another.")
+                        help="Train all seeds of a class as one vmapped program on "
+                             "resident data. Default: on for several seeds trained from "
+                             "scratch without --load, CLIP excepted; --no-vmap-seeds "
+                             "trains them one after another.")
     if modify_parser is not None:
         modify_parser(parser)
     args = parser.parse_args(argv)
@@ -172,9 +170,9 @@ def evolve_argsparse(modify_descr, modify_parser=None, modify_args=None, argv=No
                                  "stream derives from (seed, gen), so resumes "
                                  "replay the uninterrupted run.")
         parser.add_argument("--ev-vmap", action="store_true",
-                            help="Train all candidates of a generation as one batched "
-                                 "program: not ported yet. Without it the candidates "
-                                 "train one after another.")
+                            help="Train the candidates of a generation as one vmapped "
+                                 "program (chunks of 16), all from one init per seed. "
+                                 "Without it the candidates train one after another.")
         parser.add_argument("--ev-continue-run", type=str, default=None)
         if modify_parser is not None:
             modify_parser(parser)
@@ -209,7 +207,7 @@ def create_trainer(trainer: str, comment: str, dataset: str, oe_dataset: Optiona
     if devices is not None and devices > 1:
         raise NotImplementedError(
             f"--devices {devices}: data parallelism over several GPUs is not ported yet "
-            "(DDP; ROADMAP.md Queue 1 item 9)")
+            "(DDP; ROADMAP.md Queue 1 item 8)")
     dtype_name = kwargs.pop("compute_dtype", None) or (
         "bfloat16" if trainer == "clip" else "float32")
     datapath = kwargs.pop("dataset_path", None) or default_datapath()
@@ -309,11 +307,9 @@ def evolve_setup(oesize: int, generation_pool: int, mutation_pool: int,
     """The GA's toolbox, history and first population (generation 0) with its
     tree. ``seed`` seeds every stochastic decision and is recorded in the
     history's setup, whose keys (the JAX package's ``geneation_pool`` typo
-    included) a resume checks."""
-    if vmap_candidates:
-        raise NotImplementedError(
-            "--ev-vmap: training the candidates of a generation as one batched program is "
-            "not ported yet (ROADMAP.md Queue 1); without it they train one after another")
+    included) a resume checks. ``vmap_candidates`` registers
+    ``VmappedEvaluator.evaluate_population``: a generation's candidates
+    train as one program."""
     if seed is not None:
         seed_evolution(seed)
     history = _make_history(
@@ -324,6 +320,9 @@ def evolve_setup(oesize: int, generation_pool: int, mutation_pool: int,
         ev_seed=seed)
     toolbox = _toolbox(trainer, oeds, args, mutation_pool, mutation_indp, mutation_oneofkbest,
                        select_individual, {"tournsize": select_toursize})
+    if vmap_candidates:
+        from eoe_tpu_torch.evolve.vmapped import VmappedEvaluator
+        toolbox.register("evaluate_population", VmappedEvaluator(trainer, args).evaluate_population)
     pop, tree = _first_population(oeds, oesize, generation_pool, maxfit)
     return pop, 0, toolbox, history, tree
 
@@ -506,11 +505,6 @@ def multiscale_experiment(args: Namespace, model, train_specs, test_specs,
 
 def run_default_training(args: Namespace, model, train_specs, test_specs, device=None):
     """The shared tail of every train_<dataset> runner: resume, build, run."""
-    if getattr(args, "vmap_seeds", None):
-        raise NotImplementedError(
-            "--vmap-seeds: training the seeds as one batched program is not ported yet "
-            "(ROADMAP.md Queue 1 item 8); --no-vmap-seeds or the default train them one "
-            "after another")
     snapshots, continue_run = load_setup(args.load, args, train_specs, test_specs)
     print("Program started with:\n", vars(args))
     trainer = create_trainer(
@@ -520,7 +514,8 @@ def run_default_training(args: Namespace, model, train_specs, test_specs, device
         oe_limit_samples=args.oe_size, continue_run=continue_run,
         superdir=args.superdir, dataset_path=args.datapath,
         compute_dtype=getattr(args, "compute_dtype", None), device=device)
-    return trainer.run(args.classes, args.iterations, snapshots)
+    return trainer.run(args.classes, args.iterations, snapshots,
+                       vmap_seeds=getattr(args, "vmap_seeds", None))
 
 
 def load_setup(path: Optional[str], args: Namespace, check_train_specs,

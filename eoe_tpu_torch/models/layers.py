@@ -17,11 +17,16 @@ clones such a model.
 and normalises in fp32 before the cast, and updates the running averages
 with the *biased* batch variance as ``momentum * old + (1 - momentum) * new``
 (Flax's momentum, 0.9 where torch would say 0.1, and torch's modules would
-take the unbiased variance).
+take the unbiased variance). Inside ``collect_averages()`` it works
+functionally, as the steps over stacked members (``torch.func``) need: in
+train mode it writes nothing, the new averages go to the collector, keyed by
+layer, and the step returns them as outputs; in eval mode it normalises with
+plain ops (vmap does not batch cuDNN's batch norm on a channels-last view).
 """
 
+import contextlib
 import math
-from typing import Callable, Optional
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +64,22 @@ def lecun_normal(t, fan_in, fan_out, g):
 
 def zeros(t, fan_in, fan_out, g):
     t.zero_()
+
+
+_COLLECTED: Optional[Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]]] = None
+
+
+@contextlib.contextmanager
+def collect_averages() -> Iterator[Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]]]:
+    """Run ``BatchNorm`` layers functionally: in train mode they hand their
+    new running averages to the yielded ``{layer: (mean, var)}`` instead of
+    writing them into their buffers."""
+    global _COLLECTED
+    outer, _COLLECTED = _COLLECTED, {}
+    try:
+        yield _COLLECTED
+    finally:
+        _COLLECTED = outer
 
 
 def _compute_dtype(dtype: Optional[torch.dtype], x: torch.Tensor) -> torch.dtype:
@@ -149,8 +170,23 @@ class BatchNorm(nn.Module):
     @torch.no_grad()
     def update_averages(self, mu: torch.Tensor, var: torch.Tensor):
         m = self.momentum
-        self.running_mean.copy_(m * self.running_mean + (1 - m) * mu)
-        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mean = m * self.running_mean + (1 - m) * mu
+        var = m * self.running_var + (1 - m) * var
+        if _COLLECTED is not None:
+            _COLLECTED[self] = (mean, var)
+        else:
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(var)
+
+    def _normalise(self, x):
+        """Eval mode's normalisation with the running averages, as plain ops
+        in fp32."""
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = (x.float() - self.running_mean.reshape(shape)) \
+            * torch.rsqrt(self.running_var.reshape(shape) + self.eps)
+        if self.weight is not None:
+            y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
+        return y
 
     def forward(self, x):
         # Flax's output dtype; normalising in the wider of it and the input's
@@ -158,12 +194,17 @@ class BatchNorm(nn.Module):
                              if self.weight is not None else x.dtype)
         x = x.to(torch.promote_types(x.dtype, out))
         if self.training:
+            if _COLLECTED is not None:
+                # the functional step: under vmap, the batched backward of a
+                # bf16 input with fp32 weights fails on mixed dtypes, so the
+                # statistics and the normalisation take the input in fp32
+                x = x.float()
             y, mu, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True,
                                                     0.0, self.eps)
             self.update_averages(mu.detach(), invstd.detach().pow(-2) - self.eps)
         else:
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                             False, 0.0, self.eps)
+                             False, 0.0, self.eps) if _COLLECTED is None else self._normalise(x)
         return y.to(out)
 
 

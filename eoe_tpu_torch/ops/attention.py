@@ -18,6 +18,12 @@ pair as one differentiable function, on any device. With ``GROUP_GRID`` set
 (``EOE_TPU_ATTN_GROUP_GRID=1``, as in the JAX package) the kernels run on the
 lane-group grid of ``_fwd_group_compute`` and ``_bwd_group_compute``.
 
+Under ``torch.func.vmap`` (the vmapped seed and candidate engines) the
+forward and the backward each launch their kernel once on the members
+folded into the image axis, (K, n, s, F) -> (K*n, s, F), as the JAX
+package's ``_vmappable_call`` does: each image is attended on its own, so
+this is exact.
+
 ``flash_attention`` is the port of the JAX package's opt-in
 ``flash_attention`` (``CLIP(attention_fn=flash_attention)``): its forward is
 the Pallas kernel ``_kernel``, here ``csrc/flash_attention.cu`` on a CUDA
@@ -173,19 +179,69 @@ def fused_qkv_attention_bwd_ref(qkv: torch.Tensor, dout: torch.Tensor, heads: in
     return dqkv.permute(1, 3, 0, 2, 4).reshape(n, s, F).to(qkv.dtype)
 
 
+def _fold(t: torch.Tensor, dim: Optional[int], size: int) -> torch.Tensor:
+    """A vmapped argument with its member axis first and folded into the
+    image axis: (K, n, ...) -> (K*n, ...). An unbatched one is broadcast to
+    every member first."""
+    t = t.expand(size, *t.shape) if dim is None else t.movedim(dim, 0)
+    return t.reshape(size * t.shape[1], *t.shape[2:])
+
+
 class _QkvAttention(torch.autograd.Function):
-    """One forward and one backward function; saves only ``qkv``."""
+    """The forward function; saves only ``qkv``. Its backward is
+    ``_QkvAttentionBwd``, a Function of its own, so that ``torch.func``
+    transforms reach the backward kernel through its vmap rule. Under
+    ``torch.func.vmap`` the rule folds the members into the image axis,
+    (K, n, s, F) -> (K*n, s, F), and launches the kernel once: each image is
+    attended on its own, so this is exact (the JAX package's
+    ``_vmappable_call``). The rule calls the Function again, so that nested
+    vmaps peel one level each."""
 
     @staticmethod
-    def forward(ctx, qkv, heads, causal, fwd, bwd):
+    def forward(qkv, heads, causal, fwd, bwd):
+        return fwd(qkv, heads, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        qkv, heads, causal, _fwd, bwd = inputs
         ctx.save_for_backward(qkv)
         ctx.heads, ctx.causal, ctx.bwd = heads, causal, bwd
-        return fwd(qkv, heads, causal)
 
     @staticmethod
     def backward(ctx, dout):
         (qkv,) = ctx.saved_tensors
-        return ctx.bwd(qkv, dout.contiguous(), ctx.heads, ctx.causal), None, None, None, None
+        return _QkvAttentionBwd.apply(qkv, dout, ctx.heads, ctx.causal, ctx.bwd), \
+            None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, qkv, heads, causal, fwd, bwd):
+        K = info.batch_size
+        out = _QkvAttention.apply(_fold(qkv, in_dims[0], K), heads, causal, fwd, bwd)
+        return out.reshape(K, -1, *out.shape[1:]), 0
+
+
+class _QkvAttentionBwd(torch.autograd.Function):
+    """The backward function: packed d(qkv) from ``qkv`` and ``dout``, with
+    the same folding vmap rule as the forward. Not differentiable again."""
+
+    @staticmethod
+    def forward(qkv, dout, heads, causal, bwd):
+        return bwd(qkv, dout.contiguous(), heads, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, _g):
+        raise RuntimeError("fused_qkv_attention is differentiable once")
+
+    @staticmethod
+    def vmap(info, in_dims, qkv, dout, heads, causal, bwd):
+        K = info.batch_size
+        out = _QkvAttentionBwd.apply(_fold(qkv, in_dims[0], K), _fold(dout, in_dims[1], K),
+                                     heads, causal, bwd)
+        return out.reshape(K, -1, *out.shape[1:]), 0
 
 
 def fused_qkv_attention_ref(qkv: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
@@ -417,25 +473,44 @@ def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _default_attention_vjp(q, k, v, mask, g):
+    """d(q, k, v) of ``default_attention`` with the mask, through
+    ``torch.func.vjp``, which also runs under ``torch.func`` transforms."""
+    _, vjp = torch.func.vjp(lambda q, k, v: default_attention(q, k, v, mask), q, k, v)
+    return vjp(g)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward: the flash kernel (the plain version on CPU tensors).
-    Backward: autograd through ``default_attention`` with the mask, as the
-    JAX package's ``_bwd`` takes ``jax.vjp`` of it (attention.py:646-650)."""
+    Backward: the vjp of ``default_attention`` with the mask, as the JAX
+    package's ``_bwd`` takes ``jax.vjp`` of it (attention.py:646-650). Under
+    ``torch.func.vmap`` the rule folds the members of q, k and v into the
+    image axis and launches the kernel once with the shared mask, as
+    ``pallas_call`` batches the JAX kernel; a mask that differs per member
+    is refused."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask):
+    def forward(q, k, v, mask, fwd):
+        return fwd(q, k, v, mask)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, mask, _fwd = inputs
         ctx.save_for_backward(q, k, v, mask)
-        if q.device.type == "cpu":
-            return flash_attention_ref(q, k, v, mask)
-        return _flash_kernel(q, k, v, mask)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, mask = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = default_attention(*inputs, mask)
-        return (*torch.autograd.grad(out, inputs, g), None)
+        return (*_default_attention_vjp(q, k, v, mask, g), None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, mask, fwd):
+        if in_dims[3] is not None:
+            raise ValueError("flash_attention takes one mask for every vmapped member")
+        K = info.batch_size
+        folded = (_fold(t, d, K) for t, d in zip((q, k, v), in_dims))
+        out = _FlashAttention.apply(*folded, mask, fwd)
+        return out.reshape(K, -1, *out.shape[1:]), 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -449,7 +524,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     register tiles; the rest took the CUDA-core variant."""
     if q.shape[2] > MAX_SINGLE_BLOCK:
         return default_attention(q, k, v, mask)
-    return _FlashAttention.apply(q, k, v, mask)
+    return _FlashAttention.apply(q, k, v, mask,
+                                 flash_attention_ref if q.device.type == "cpu" else _flash_kernel)
 
 
 flash_attention.launches = 0

@@ -111,15 +111,15 @@ def auroc_torch(labels: torch.Tensor, scores: torch.Tensor,
     order = torch.argsort(masked, stable=True)
     s_sorted, w_sorted = masked[order], weights[order]
     ranks_raw = torch.cumsum(w_sorted, 0)   # 1-based ranks over the kept samples
-    n = scores.shape[0]
-    new_grp = torch.ones(n, dtype=torch.bool, device=scores.device)
-    new_grp[1:] = s_sorted[1:] != s_sorted[:-1]
+    # out-of-place throughout, so that torch.func.vmap batches it
+    new_grp = torch.cat([torch.ones_like(s_sorted[:1], dtype=torch.bool),
+                         s_sorted[1:] != s_sorted[:-1]])
     grp_id = torch.cumsum(new_grp.long(), 0) - 1
-    grp_rank_sum = torch.zeros(n, device=scores.device).index_add_(0, grp_id, ranks_raw * w_sorted)
-    grp_w_sum = torch.zeros(n, device=scores.device).index_add_(0, grp_id, w_sorted)
+    grp_rank_sum = torch.zeros_like(w_sorted).index_add(0, grp_id, ranks_raw * w_sorted)
+    grp_w_sum = torch.zeros_like(w_sorted).index_add(0, grp_id, w_sorted)
     avg_rank = torch.where(grp_w_sum > 0, grp_rank_sum / grp_w_sum.clamp(min=1.0),
                            torch.zeros_like(grp_w_sum))[grp_id]
-    ranks = torch.zeros(n, device=scores.device).index_put_((order,), avg_rank)
+    ranks = torch.zeros_like(avg_rank).scatter(0, order, avg_rank)
 
     n_pos, n_neg = pos.sum(), neg.sum()
     u = (ranks * pos).sum() - n_pos * (n_pos + 1.0) / 2.0

@@ -15,9 +15,14 @@ offsets, flip bits, the noise tensor) come from ``generator``, a
 ``torch.Generator`` on the images' device, in spec order, as the JAX pipeline
 hands ``keys[i]`` to its i-th random op; ``draws`` replaces them by given
 tensors (one dict per random op, see ``fn.random_ops``), so a test can inject
-the JAX package's draws. The JAX peepholes ``random_crop_hflip`` and
-``color_jitter_crop_flip`` are bit-identical to the unfused ops; the port
-computes the unfused composition.
+the JAX package's draws. ``fn.draw(images, rt_stats, generator=...)`` makes
+the draws alone, in the same order and from the same generator calls as
+``fn`` would (the shapes each draw sees come from one image taken through
+the steps once per input shape, with draws of a generator of its own), so
+that a caller can draw for several batches and apply once to their
+concatenation: every op works on each image alone. The JAX peepholes
+``random_crop_hflip`` and ``color_jitter_crop_flip`` are bit-identical to
+the unfused ops; the port computes the unfused composition.
 
 Resizes use ``F.interpolate`` with ``antialias=True``: that matches
 ``jax.image.resize`` ("cubic" -> bicubic, "linear" -> bilinear) to ~1e-6
@@ -286,6 +291,26 @@ def _size(s: Dict[str, Any]) -> Tuple[int, int]:
     return (size, size) if isinstance(size, int) else tuple(size)
 
 
+def _rows(n: int, shape: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """A stand-in of ``n`` images of ``shape``: what a draw reads of its
+    images (their count, shape, dtype and device), without their memory."""
+    return torch.zeros((), dtype=dtype, device=device).expand(n, *shape)
+
+
+def _draw_inputs(cache: dict, images: torch.Tensor, run: Callable) -> list:
+    """(shape, dtype) of what each draw of a compiled function sees, from
+    one image taken through it once per input shape: ``run(x, generator,
+    record)`` applies the function, calling ``record`` on the input of
+    each stage that draws."""
+    key = (tuple(images.shape[1:]), images.dtype, images.device)
+    if key not in cache:
+        out = []
+        run(images[:1], torch.Generator(device=images.device),
+            lambda x: out.append((tuple(x.shape[1:]), x.dtype)))
+        cache[key] = out
+    return cache[key]
+
+
 @dataclasses.dataclass
 class _Step:
     fn: Callable                        # apply(images, **draws) for random steps
@@ -368,9 +393,11 @@ def compile_pipeline(specs: Sequence[Spec], stats: Optional[DatasetStats] = None
 
     def apply(images: torch.Tensor, rt_stats=None, *,
               generator: Optional[torch.Generator] = None,
-              draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None) -> torch.Tensor:
+              draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
+              record: Optional[Callable] = None) -> torch.Tensor:
         """``rt_stats``: optional (mean, std) overriding the baked statistics;
-        ``draws``: one dict of drawn tensors per random op, in spec order."""
+        ``draws``: one dict of drawn tensors per random op, in spec order;
+        ``record`` is called on each random step's input."""
         if random_ops and generator is None and draws is None:
             raise PipelineError("pipeline contains random ops but no generator was passed")
         ki = 0
@@ -378,6 +405,8 @@ def compile_pipeline(specs: Sequence[Spec], stats: Optional[DatasetStats] = None
             if not st.u8_safe:
                 images = _to_float(images)
             if st.draw is not None:
+                if record is not None:
+                    record(images)
                 d = draws[ki] if draws is not None else st.draw(images, generator)
                 ki += 1
                 images = st.fn(images, **d)
@@ -387,8 +416,20 @@ def compile_pipeline(specs: Sequence[Spec], stats: Optional[DatasetStats] = None
                 images = st.fn(images)
         return _to_float(images)
 
+    random_steps = [st for st in steps if st.draw is not None]
+    traced: Dict[tuple, list] = {}
+
+    def draw(images: torch.Tensor, rt_stats=None, *,
+             generator: torch.Generator) -> List[Dict[str, torch.Tensor]]:
+        """The draws ``apply`` would make for ``images``, without applying."""
+        inputs = _draw_inputs(traced, images, lambda x, g, record: apply(
+            x, rt_stats, generator=g, record=record))
+        return [st.draw(_rows(images.shape[0], shape, dtype, images.device), generator)
+                for st, (shape, dtype) in zip(random_steps, inputs)]
+
     apply.specs = list(specs or ())
     apply.random_ops = random_ops
+    apply.draw = draw
     return apply
 
 
@@ -410,11 +451,14 @@ def compile_conditional(conditionals: Sequence, stats: Optional[DatasetStats] = 
 
     def apply(images: torch.Tensor, labels: torch.Tensor, rt_stats=None, *,
               generator: Optional[torch.Generator] = None,
-              draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None) -> torch.Tensor:
+              draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
+              record: Optional[Callable] = None) -> torch.Tensor:
         if compiled:
             images = _to_float(images)
         ki = 0
         for cond, f1, f2 in compiled:
+            if record is not None:   # each conditional's input
+                record(images)
             branches = []
             for f in (f1, f2):
                 k = len(f.random_ops)
@@ -424,7 +468,22 @@ def compile_conditional(conditionals: Sequence, stats: Optional[DatasetStats] = 
             images = torch.where(labels.reshape(-1, 1, 1, 1) == cond, *branches)
         return images
 
+    traced: Dict[tuple, list] = {}
+
+    def draw(images: torch.Tensor, rt_stats=None, *,
+             generator: torch.Generator) -> List[Dict[str, torch.Tensor]]:
+        """The draws ``apply`` would make for ``images``, without applying."""
+        inputs = _draw_inputs(traced, images, lambda x, g, record: apply(
+            x, torch.zeros(1, device=x.device), rt_stats, generator=g, record=record))
+        n, out = images.shape[0], []
+        for (_, f1, f2), (shape, dtype) in zip(compiled, inputs):
+            for f in (f1, f2):
+                out.extend(f.draw(_rows(n, shape, dtype, images.device), rt_stats,
+                                  generator=generator))
+        return out
+
     apply.random_ops = random_ops
+    apply.draw = draw
     return apply
 
 

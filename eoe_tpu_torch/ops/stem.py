@@ -55,17 +55,30 @@ def plain_stem(w, gamma, beta, x):
 
 
 class FusedStem(torch.autograd.Function):
+    """The stem with the grid-stats backward, in the ``setup_context`` form
+    that ``torch.func`` takes. Its vmap rule is generated from the torch ops
+    of ``forward`` and ``backward``: each member of a vmapped batch keeps
+    its own BN statistics, as the JAX package's plain vmap of the stem does
+    (folding the members into the image axis would pool their statistics)."""
+
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, w, gamma, beta, x):
+    def forward(w, gamma, beta, x):
         xc = _conv7s2(x, w.to(x.dtype))
         y, mu, var = stats_bn_relu(xc, gamma, beta)
         out, idx = F.max_pool2d(y, 3, 2, 1, return_indices=True)
-        ctx.save_for_backward(w, gamma, beta, x, xc, y, mu, var, out, idx)
-        ctx.mark_non_differentiable(mu, var)
-        return out, mu, var
+        return out, mu, var, xc, y, idx
 
     @staticmethod
-    def backward(ctx, g, _dmu, _dvar):
+    def setup_context(ctx, inputs, output):
+        w, gamma, beta, x = inputs
+        out, mu, var, xc, y, idx = output
+        ctx.save_for_backward(w, gamma, beta, x, xc, y, mu, var, out, idx)
+        ctx.mark_non_differentiable(mu, var, xc, y, idx)
+
+    @staticmethod
+    def backward(ctx, g, _dmu, _dvar, _dxc, _dy, _didx):
         w, gamma, beta, x, xc, y, mu, var, M, idx = ctx.saved_tensors
         n_count = y.shape[0] * y.shape[2] * y.shape[3]
 
@@ -105,4 +118,5 @@ def fused_stem_train(w: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """Train-mode stem with the grid-stats backward: ``(pooled, mu, var)``.
     ``w`` is the conv weight (64, c, 7, 7), ``x`` the NCHW images in the
     compute dtype."""
-    return FusedStem.apply(w, gamma, beta, x)
+    out, mu, var = FusedStem.apply(w, gamma, beta, x)[:3]
+    return out, mu, var

@@ -13,7 +13,14 @@ The grid (``run``) builds each class-seed's dataset by name
 (``datasets.load_dataset``, from the numpy rng of (seed, class, seed index),
 as the JAX package does) unless one is pinned with ``trainer.ds``, trains
 seeds one after another and retries a class-seed whose anomaly scores turned
-NaN up to five times (``NanGradientsError``). It writes the JAX package's run
+NaN up to five times (``NanGradientsError``). With ``vmap_seeds`` (by
+default for several seeds of a model trained from scratch, not CLIP, without
+``load``) the seeds of a class whose train splits are resident train as one
+program (``training.vmapped_seeds``) on one dataset built from the rng of
+(seed, class, 0), as in the JAX package; on the card as many seeds a
+program as its memory holds (measured, ``vmapped_seeds.seeds_per_program``),
+sequentially where two do not fit. NaN scores, or the card running out of
+memory, fall back to the sequential seeds. It writes the JAX package's run
 directory (see ``utils.logger``). Models with batch norm update their
 running averages in the train step and use them in eval; a conv model built
 with ``dtype=None`` computes in the trainer's compute dtype. DSVDD's centre
@@ -35,8 +42,7 @@ decay, while its batch statistics still update. ``load`` takes a full
 snapshot, a feature-model-only state dict of a ``CustomNet``, or a
 trunk-only snapshot (a strict subset of the model's top-level modules; the
 rest keeps its fresh init). Not ported, being JAX dispatch machinery or
-later work: ``lax.scan`` epochs, the jit cache, meshes, vmapped seeds and
-the HLO dump.
+later work: ``lax.scan`` epochs, the jit cache, meshes and the HLO dump.
 
 Deviation: the sampler's seed comes from a numpy ``SeedSequence`` of
 (seed, class, seed index) instead of a JAX key, and augmentations draw from
@@ -164,6 +170,7 @@ class Trainer:
         self.ds = None  # a pinned, pre-built dataset
         self.epoch_rates: List[float] = []  # img/s per epoch
         self.step_losses: List[float] = []  # every step's loss, in order
+        self.member_peaks: dict = {}  # vmapped_seeds.members_per_program's, by shapes
         self.logger.logsetup(self.setup_dict(), step=0)
 
     # ------------------------------------------------------------- config
@@ -233,6 +240,29 @@ class Trainer:
         model = self.model.to(self.device)
         params = self._mark_trainable(model)
         return TrainState(model, self.make_optimizer(params, steps_per_epoch))
+
+    def init_states_stacked(self, seeds: Sequence[int], steps_per_epoch: int):
+        """The members of ``seeds`` as one ``StackedState``: each drawn on the
+        CPU as ``init_weights`` draws it, the state dicts stacked there and
+        moved to the device in one copy per dtype, one optimizer over the
+        stacked trainable parameters."""
+        from eoe_tpu_torch.training.vmapped_seeds import StackedState, upload_packed
+
+        model = self.model.cpu()
+        members = {}
+        for seed in dict.fromkeys(seeds):   # a repeated seed is drawn once
+            self.init_weights(seed)
+            members[seed] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        names = members[seeds[0]].keys()
+        stacked = upload_packed({k: torch.stack([members[s][k] for s in seeds]) for k in names},
+                                self.device)
+        model.to(self.device)
+        self._mark_trainable(model)
+        trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+        stacked = {n: torch.nn.Parameter(t) if n in trainable else t for n, t in stacked.items()}
+        optimizer = self.make_optimizer([stacked[n] for n in trainable], steps_per_epoch)
+        return StackedState(model, stacked, trainable, optimizer, self.objective,
+                            self._loss_kwargs)
 
     # ------------------------------------------------------------- steps
 
@@ -364,11 +394,17 @@ class Trainer:
 
     def run(self, run_classes: Optional[List[int]] = None, run_seeds: int = 1,
             load: Optional[List[List[str]]] = None, test: bool = True,
-            train: bool = True) -> Tuple[None, dict]:
+            train: bool = True, vmap_seeds: Optional[bool] = None) -> Tuple[None, dict]:
         """Iterate classes x seeds: build the dataset, train, evaluate,
         snapshot; write results.json. Returns (None, results): trained states
         are not kept in memory (the JAX package's KEEP_SNAPSHOT_IN_RAM is not
-        ported)."""
+        ported). ``vmap_seeds`` trains the seeds of a class as one program
+        where its splits are resident (else sequentially); None turns it on
+        for several seeds trained from scratch, CLIP excepted (the pretrained
+        weights make its members alike), as in the JAX package."""
+        if vmap_seeds is None:
+            vmap_seeds = train and run_seeds > 1 and load is None \
+                and not self.objective.is_clip
         self.logger.logsetup({"run_classes": run_classes, "run_seeds": run_seeds,
                               "load": load}, step=1)
         classes = str_labels(self.dsstr)
@@ -381,38 +417,52 @@ class Trainer:
 
         for c in run_classes:
             cstr = classes[c]
+            vmapped = first = None
+            if vmap_seeds and train and run_seeds > 1 and load is None:
+                # seed 0's dataset: every vmapped seed's, else seed 0's own
+                rng = np.random.default_rng([max(self.seed, 0), c, 0])
+                first = (self._build_dataset(c, rng, None), rng)
+                vmapped = self._try_vmap_seeds(c, cstr, run_seeds, first[0], test)
+            self._last_grid_vmapped = vmapped is not None
             for it in range(run_seeds):
                 self.logger.print(f'------ start training cls {c} "{cstr}" (seed {it}) ------')
-                cur_load = load[c][it] if load is not None and len(load) > c \
-                    and len(load[c]) > it else None
-                rng = np.random.default_rng([max(self.seed, 0), c, it])
-                ds = self._build_dataset(c, rng, cur_load)
-                state = roc = None
-                for attempt in range(5):
-                    seed = _seed(self.seed, c, it, attempt)
-                    try:
-                        if train:
-                            state, roc = self.train_cls(ds, c, cstr, it, seed, cur_load)
-                        else:
-                            state, _ = self._init_or_load(ds, seed, cur_load, steps_per_epoch=1,
-                                                          optimizer=False)
-                            roc = None
-                        break
-                    except NanGradientsError:
-                        self.logger.warning(
-                            f'Gradients got NaN for class {c} "{cstr}" and seed {it}. '
-                            f'Happened {attempt} times so far. Try once more.')
-                        ds = self._build_dataset(c, rng, None)
-                        if attempt == 4:
-                            state, roc = None, None
+                if vmapped is not None:
+                    ds, state, roc = first[0], None, vmapped[0][it]
+                else:
+                    cur_load = load[c][it] if load is not None and len(load) > c \
+                        and len(load[c]) > it else None
+                    if it == 0 and first is not None:
+                        ds, rng = first
+                    else:
+                        rng = np.random.default_rng([max(self.seed, 0), c, it])
+                        ds = self._build_dataset(c, rng, cur_load)
+                    state = roc = None
+                    for attempt in range(5):
+                        seed = _seed(self.seed, c, it, attempt)
+                        try:
+                            if train:
+                                state, roc = self.train_cls(ds, c, cstr, it, seed, cur_load)
+                            else:
+                                state, _ = self._init_or_load(ds, seed, cur_load,
+                                                              steps_per_epoch=1, optimizer=False)
+                                roc = None
+                            break
+                        except NanGradientsError:
                             self.logger.warning(
                                 f'Gradients got NaN for class {c} "{cstr}" and seed {it}. '
-                                f'Giving up.')
+                                f'Happened {attempt} times so far. Try once more.')
+                            ds = self._build_dataset(c, rng, None)
+                            if attempt == 4:
+                                state, roc = None, None
+                                self.logger.warning(
+                                    f'Gradients got NaN for class {c} "{cstr}" and seed {it}. '
+                                    f'Giving up.')
                 train_cls_rocs[c].append(roc)
                 self.logger.plot_many(train_cls_rocs.means(True), classes,
                                       name="training_intermediate_roc")
-                if test and state is not None:
-                    eroc, eprc = self.eval_cls(state, ds, c, cstr, it)
+                if test and (state is not None or vmapped is not None):
+                    eroc, eprc = self.eval_cls(state, ds, c, cstr, it, scores=None
+                                               if vmapped is None else vmapped[1][it])
                 else:
                     eroc, eprc = None, None
                 eval_cls_rocs[c].append(eroc)
@@ -422,6 +472,9 @@ class Trainer:
                 if state is not None:
                     self.snapshot(f"snapshot_cls{c}_it{it}", state, self.epochs,
                                   ds.ds_statistics)
+                elif vmapped is not None and vmapped[2] is not None:
+                    self._write_snapshot(f"snapshot_cls{c}_it{it}", *vmapped[2][it], self.epochs,
+                                         ds.ds_statistics)
 
             train_cls_rocs.set_mean(c, self.logger.plot_many(
                 train_cls_rocs[c], None, name=f"training_cls{c}-{cstr}_roc"))
@@ -470,6 +523,46 @@ class Trainer:
                          for cr in eval_cls_rocs],
         }
 
+    def _try_vmap_seeds(self, c: int, cstr: str, run_seeds: int, ds, test: bool):
+        """Train every seed of class ``c`` on ``ds`` as vmapped programs, as
+        many seeds each as the card holds (``vmapped_seeds.seeds_per_program``),
+        when its train splits are resident. Returns (train ROCs, test scores
+        (run_seeds, n_test) or None without ``test``, each seed's host state
+        for its snapshot or None with the logger off), or None: the caller
+        then trains the seeds sequentially."""
+        from eoe_tpu_torch.training import vmapped_seeds as V
+
+        oe_set = ds.oe.train_set if isinstance(ds, CombinedDataset) else None
+        if not (_is_resident(ds.train_set) and (oe_set is None or _is_resident(oe_set))):
+            return None
+        seeds = [_seed(self.seed, c, it, 0) for it in range(run_seeds)]
+        per = V.seeds_per_program(self, ds, cstr, seeds)
+        if per < 2:
+            self.logger.print(f"two seeds of cls {c} do not fit on the card as one program; "
+                              f"training them sequentially")
+            return None
+        rocs, scores, members = [], [], []
+        try:
+            for first in range(0, run_seeds, per):
+                chunk = seeds[first:first + per]
+                stack, chunk_rocs = V.train_cls_vmapped_seeds(self, ds, c, cstr, len(chunk),
+                                                              chunk, first=first)
+                rocs += chunk_rocs
+                if test:
+                    scores.append(V.eval_scores_vmapped(self, ds, stack, len(chunk)))
+                if self.logger.active:   # the snapshots' state, one download
+                    members += stack.host_members()
+                del stack
+        except (NanGradientsError, torch.cuda.OutOfMemoryError) as e:
+            what = "Gradients got NaN" if isinstance(e, NanGradientsError) else \
+                "The card ran out of memory"
+            self.logger.warning(f'{what} in the vmapped-seed run for class {c} "{cstr}"; '
+                                f"falling back to sequential training.")
+            return None
+        self.logger.print(f"trained {run_seeds} seeds of cls {c} vmapped"
+                          + (f", {per} per program" if per < run_seeds else ""))
+        return rocs, np.concatenate(scores) if test else None, members or None
+
     def _build_dataset(self, c: int, rng: np.random.Generator, cur_load: Optional[str]):
         """The pinned dataset, or the normal (+ OE) dataset of class ``c`` by
         name, with the statistics of the snapshot being resumed."""
@@ -510,11 +603,8 @@ class Trainer:
         sampler = BalancedEpochSampler(len(train_set), len(oe_set) if has_oe else 0,
                                        self.batch_size, _seed(seed, 1))
         state, start_epoch = self._init_or_load(ds, seed, cur_load, sampler.steps)
-        if it == 0 and self.logger.active:
-            counts = ds.n_normal_anomalous()
-            self.logger.logimg(f"training_cls{cls}-{clsstr}_preview",
-                               self._transformed_preview(ds, 40, train=True),
-                               rowheaders=[str(counts[k]) for k in sorted(counts)])
+        if it == 0:
+            self.write_train_preview(ds, cls, clsstr)
         center = self.center = self.prepare_metric(clsstr, ds, state, it)
         rt_stats = self._rt_stats(ds)
         normal_ds = ds.normal if combined else ds
@@ -580,28 +670,41 @@ class Trainer:
                 + f", {n_imgs / max(dt, 1e-9):.0f} img/s")
         return state, cls_roc
 
+    def write_train_preview(self, ds, cls: int, clsstr: str):
+        """``training_cls{cls}-{clsstr}_preview.png``, which the first seed of
+        a class writes."""
+        if self.logger.active:
+            counts = ds.n_normal_anomalous()
+            self.logger.logimg(f"training_cls{cls}-{clsstr}_preview",
+                               self._transformed_preview(ds, 40, train=True),
+                               rowheaders=[str(counts[k]) for k in sorted(counts)])
+
     # ------------------------------------------------------------- eval
 
-    def eval_scores(self, state: TrainState, ds) -> np.ndarray:
-        """Anomaly scores of the whole test split, in batches of the batch
-        size (the last one padded by repeating its last image). A resident
-        split moves to the device once; a streaming one batch by batch."""
+    def test_batches(self, ds):
+        """The test split's raw images and labels on the device, in batches of
+        the batch size (the last one padded by repeating its last image). A
+        resident split moves to the device once; a streaming one batch by
+        batch."""
         test_set = ds.test_set
         normal_ds = ds.normal if isinstance(ds, CombinedDataset) else ds
         labels = normal_ds.binary_targets(test_set)
         n, B = len(test_set), self.batch_size
         total = -(-n // B) * B
         pad = np.concatenate([np.arange(n), np.full(total - n, n - 1)])
-        rt_stats = self._rt_stats(ds)
         if _is_resident(test_set):
             X = self._to_device(test_set.gather_all())[self._to_device(pad)]
             L = self._to_device(labels[pad])
-            batches = ((X[i:i + B], L[i:i + B]) for i in range(0, total, B))
-        else:
-            batches = ((self._to_device(test_set.gather(pad[i:i + B])),
-                        self._to_device(labels[pad[i:i + B]])) for i in range(0, total, B))
-        outs = [self.eval_step(state, ds, x, lb, self.center, rt_stats) for x, lb in batches]
-        return torch.cat(outs).cpu().numpy()[:n]
+            return ((X[i:i + B], L[i:i + B]) for i in range(0, total, B))
+        return ((self._to_device(test_set.gather(pad[i:i + B])),
+                 self._to_device(labels[pad[i:i + B]])) for i in range(0, total, B))
+
+    def eval_scores(self, state: TrainState, ds) -> np.ndarray:
+        """Anomaly scores of the whole test split (``test_batches``)."""
+        rt_stats = self._rt_stats(ds)
+        outs = [self.eval_step(state, ds, x, lb, self.center, rt_stats)
+                for x, lb in self.test_batches(ds)]
+        return torch.cat(outs).cpu().numpy()[:len(ds.test_set)]
 
     def eval_cls(self, state: TrainState, ds, cls: int, clsstr: str, it: int,
                  scores: Optional[np.ndarray] = None
@@ -647,11 +750,16 @@ class Trainer:
 
     def snapshot(self, name: str, state: TrainState, epoch: int,
                  ds_statistics: Optional[dict]) -> str:
+        return self._write_snapshot(name, state.model.state_dict(),
+                                    state.optimizer.state_dict(), epoch, ds_statistics)
+
+    def _write_snapshot(self, name: str, params: dict, opt_state: dict, epoch: int,
+                        ds_statistics: Optional[dict]) -> str:
         if not self.logger.active:
             return ""
         payload = {
-            "params": _to_cpu(state.model.state_dict()),
-            "opt_state": _to_cpu(state.optimizer.state_dict()),
+            "params": _to_cpu(params),
+            "opt_state": _to_cpu(opt_state),
             "epoch": epoch,
             "ds_statistics": ds_statistics or {},
             "setup": self.setup_dict(),

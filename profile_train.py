@@ -4,7 +4,7 @@ on one NVIDIA GPU.
 
     python3 profile_train.py [--steps 3] [--route fused|group|flash] [--serving]
                              [--dtype bfloat16|float32] [--model clip|cnn32|wrn]
-                             [--trace train_trace.json]
+                             [--vmap K] [--trace train_trace.json]
 
 Builds chip_smoke.py's training configuration (full-width ViT-B/32 in bf16,
 HSC, the acceptance augmentation stack, 128 normal + 128 OE images per
@@ -25,7 +25,11 @@ chip_smoke.py's conv_training step instead (CNN32, fp32, HSC, the
 benchmark's CIFAR-10 stack on 32x32 images), ``--model wrn`` its
 wrn_training step (WideResNet+CBAM, bf16, HSC, the ImageNet-30 stack on
 256x256 images, the fused stem); ``--dtype`` then overrides the step's own
-dtype only when given. Needs one card; imports nothing of JAX or eoe_tpu.
+dtype only when given. ``--vmap K`` profiles the training step of K
+members stacked as the vmapped seed engine trains them
+(``training.vmapped_seeds``: one step updates every member, each on the
+same batch with its own augmentation draws), K x (128 + 128) images a
+step. Needs one card; imports nothing of JAX or eoe_tpu.
 """
 
 import argparse
@@ -57,18 +61,17 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def training_step(cs, kw, dtype):
+def training_step(cs, kw, dtype, k):
     """chip_smoke.py's HSC training step on the acceptance stack, in
     ``dtype`` (bf16 as trained there by default)."""
     import numpy as np
     from eoe_tpu_torch.models.clip import CLIP, VIT_B32
     ds, _ = cs._combined(np.random.default_rng(cs.SEED), cs.ACCEPTANCE_SPECS)
     trainer = cs._trainer(CLIP(VIT_B32, dtype=dtype, **kw), cs.ACCEPTANCE_SPECS, None, dtype)
-    state = trainer.init_state(cs.SEED, ds, 1)
-    return _steps(trainer, state, ds, cs.BATCH), 2 * cs.BATCH
+    return _steps(trainer, ds, cs.BATCH, k), 2 * cs.BATCH * k
 
 
-def conv_step(cs, model_name, dtype):
+def conv_step(cs, model_name, dtype, k):
     """chip_smoke.py's conv_training (CNN32) or wrn_training (WideResNet)
     step, in ``dtype`` if given, else the path's own (fp32, bf16)."""
     import numpy as np
@@ -83,25 +86,35 @@ def conv_step(cs, model_name, dtype):
         dtype = dtype or torch.bfloat16
     ds, _ = cs._pinned(np.random.default_rng(cs.SEED), hw, n, 8, specs, test_specs)
     trainer = cs._conv_trainer("hsc", model, specs, test_specs, None, dtype, 1)
-    state = trainer.init_state(cs.SEED, ds, 1)
-    return _steps(trainer, state, ds, cs.BATCH), 2 * cs.BATCH
+    return _steps(trainer, ds, cs.BATCH, k), 2 * cs.BATCH * k
 
 
-def _steps(trainer, state, ds, batch):
-    """A step function over the pinned set's batches, in turn."""
+def _steps(trainer, ds, batch, k):
+    """A step function over the pinned set's batches, in turn: one member
+    from seed 0 (``k`` = 1), or ``k`` stacked members from seeds 0..k-1."""
     import torch
+    from eoe_tpu_torch.training import vmapped_seeds as V
     dev = trainer.device
     xn = torch.from_numpy(ds.train_set.gather_all()).to(dev)
     xo = torch.from_numpy(ds.oe.train_set.gather_all()).to(dev)
     ln = torch.zeros(len(xn), dtype=torch.int64, device=dev)
     lo = torch.ones(len(xo), dtype=torch.int64, device=dev)
     w = torch.ones(batch, device=dev)
-    g = torch.Generator(device=dev).manual_seed(0)
+    gens = [torch.Generator(device=dev).manual_seed(m) for m in range(k)]
     n_batches = len(xn) // batch
+    if k == 1:
+        state = trainer.init_state(0, ds, 1)
+    else:
+        stack = trainer.init_states_stacked(list(range(k)), 1)
+        members = lambda t: t.expand(k, *t.shape)   # noqa: E731
 
     def step(i):
         sl = slice((i % n_batches) * batch, (i % n_batches + 1) * batch)
-        return trainer.train_step(state, ds, xn[sl], ln[sl], xo[sl], lo[sl], w, g)
+        if k == 1:
+            return trainer.train_step(state, ds, xn[sl], ln[sl], xo[sl], lo[sl], w, gens[0])
+        return V.stacked_step(trainer, ds, stack, members(xn[sl]), members(ln[sl]),
+                              members(xo[sl]), members(lo[sl]), members(w), gens, None,
+                              trainer._rt_stats(ds))
     return step
 
 
@@ -136,6 +149,8 @@ def main():
                         help="the training step's compute dtype (CLIP: bfloat16 by default)")
     parser.add_argument("--model", choices=("clip", "cnn32", "wrn"), default="clip",
                         help="the model whose training step is profiled")
+    parser.add_argument("--vmap", type=int, default=1, metavar="K",
+                        help="profile the step of K stacked members (the vmapped engine)")
     parser.add_argument("--trace", default="", help="write a chrome trace here")
     args = parser.parse_args()
 
@@ -154,13 +169,15 @@ def main():
     kw = {"attention_fn": attention.flash_attention} if args.route == "flash" else {}
     if args.model != "clip":
         what = f"training {args.model} {args.dtype or 'in its own dtype'}"
-        step, images = conv_step(cs, args.model, dtype)
+        step, images = conv_step(cs, args.model, dtype, args.vmap)
     elif args.serving:
         what = "serving fp32"
         step, images = serving_step(cs, kw)
     else:
         what = f"training {args.dtype or 'bfloat16'}"
-        step, images = training_step(cs, kw, dtype or torch.bfloat16)
+        step, images = training_step(cs, kw, dtype or torch.bfloat16, args.vmap)
+    if args.vmap > 1:
+        what += f", {args.vmap} members stacked"
     print(f"profile: model {args.model}, route {args.route}, {what}")
 
     for i in range(2):

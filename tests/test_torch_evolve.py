@@ -324,12 +324,38 @@ def test_evaluate_individual_pins_the_oe_pool(tmp_path, monkeypatch):
     assert pt.isdir(logger.dir) and pt.samefile(pt.dirname(trainer.logger.dir), logger.dir)
 
 
-def test_ev_vmap_is_not_ported(tmp_path):
+def test_ev_vmap_is_not_ported(tmp_path, monkeypatch):
+    """``--ev-vmap`` registers ``VmappedEvaluator.evaluate_population``: the
+    runner evaluates each generation through it (held against the
+    sequential runs in tests/test_torch_vmapped_evolve.py), never through
+    ``evaluate_individual``."""
+    from eoe_tpu_torch.evolve.vmapped import VmappedEvaluator
     from eoe_tpu_torch.main import evolve_oe_cifar
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        evolve_oe_cifar.main(["-e", "1", "-it", "1", "--oe-dataset", "cifar100",
-                              "--datapath", str(tmp_path), "--superdir", str(tmp_path),
-                              "--ev-vmap"], device="cpu")
+    monkeypatch.setenv("EOE_TPU_FAKE_DATA", "1")
+    calls = []
+    monkeypatch.setattr(VmappedEvaluator, "evaluate_population",
+                        lambda self, inds: calls.append(inds) or [0.5] * len(inds))
+    monkeypatch.setattr(port_main, "evaluate_individual", None)
+    history, _ = evolve_oe_cifar.main(
+        ["-e", "1", "-it", "1", "--oe-dataset", "cifar100", "--datapath", str(tmp_path),
+         "--superdir", str(tmp_path), "--ev-vmap", "--ev-generations", "2",
+         "--ev-generation-pool", "4", "--ev-mutation-pool", "8"], device="cpu")
+    assert len(calls) == 2 and len(calls[0]) == 4 and history["fit"][0] == [0.5] * 4
+
+
+def test_chunked_distances_keep_the_ga_decisions(tmp_path, monkeypatch):
+    """The mutation and mating distances in chunks smaller than the
+    mutation pool (12): equal distances, and three generations with the
+    JAX package's decisions."""
+    monkeypatch.setattr(P, "DIST_CHUNK", 5)
+    ids = list(range(N_POOL))
+    a = P._gather_f32(_oeds(B), [3, 17, 30], "cpu")
+    np.testing.assert_array_equal(P._candidate_dists(a, _oeds(B), ids, "cpu"),
+                                  P._sq_dists(a, P._gather_f32(_oeds(B), ids, "cpu")))
+    for oesize in (1, 3):
+        (jh, _), (ph, _) = (_run_ga(side, str(tmp_path / f"{side}{oesize}"), oesize)
+                            for side in ("jax", "port"))
+        assert ph["pop"] == jh["pop"] and ph["fit"] == jh["fit"]
 
 
 EV_ARGVS = [

@@ -102,12 +102,19 @@ def _base(tmp_path, extra=()):
             *extra]
 
 
-def test_one_card_flags_raise(tmp_path):
+def test_one_card_flags_raise(tmp_path, monkeypatch):
+    """``-d 2`` raises on one card; ``--vmap-seeds``, ``--no-vmap-seeds``
+    and the default reach ``Trainer.run`` as True, False and None."""
     from eoe_tpu_torch.main import train_cifar
+    from eoe_tpu_torch.training import Trainer
     with pytest.raises(NotImplementedError, match="DDP"):
         train_cifar.main(_base(tmp_path, ["-d", "2"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="--vmap-seeds"):
-        train_cifar.main(_base(tmp_path, ["--vmap-seeds"]), device="cpu")
+    seen = []
+    monkeypatch.setattr(Trainer, "run", lambda self, *a, vmap_seeds=None: seen.append(vmap_seeds))
+    monkeypatch.setenv("EOE_TPU_FAKE_DATA", "1")
+    for flag in (["--vmap-seeds"], ["--no-vmap-seeds"], []):
+        train_cifar.main(_base(tmp_path, flag), device="cpu")
+    assert seen == [True, False, None]
 
 
 def _runs(root, pattern="log_*"):
