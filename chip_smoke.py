@@ -89,7 +89,24 @@ layers of later slices, see their docstrings), then
      ``utils.profiling.step_timer`` and profiled (the card's busy time);
      each of (a)-(d) and (f) is a counted path;
  16. ga_distances: the GA's mutation and mating distances to 10,000 raw
-     256x256 candidates, chunked against unchunked: peak memory and values.
+     256x256 candidates, chunked against unchunked: peak memory and values;
+ 17. clip_rn50: CLIP RN50 at its published width from an OpenAI-style fp16
+     checkpoint made from seed 0, through ``train_clip_cifar``'s ``main``
+     (3 steps of 128 + 128 in bf16 on the synthetic class 0): 12 fused
+     forward launches (the prompt centre), none in the ResNet tower; the
+     snapshot served against the run's scores (1e-4), the fp32 centre
+     through the kernel against the plain attention (1e-4), an fp32
+     request of 256 images, the bf16 step's ms, img/s, busy share and
+     peak memory; whether the run wrote tensorboard events;
+ 18. import: reference-style CNN32, WideResNet+CBAM and bare
+     wide_resnet50_2 trunk snapshots at full width through
+     ``import_snapshot``, each evaluated on the card by a runner's
+     ``--load`` (``train_cifar``, ``train_imagenet``), its features equal
+     to the source model's (1e-4), its scores not constant, the parameters
+     equal to the sources; no kernel launches;
+ 19. pool: ``ops.pool.max_pool_3x3_s2_p1`` against ``F.max_pool2d`` on the
+     WRN stem's (256, 64, 112, 112) in fp32 and bf16, forward and gradient,
+     with both times.
 Each path's launch counts (every kernel's) are set to 0 just before it and
 read just after.
 
@@ -118,7 +135,7 @@ PATH_DTYPES = {"serving": "fp32", "training": "bf16", "training_fp32": "fp32",
                "cli_clip": "bf16", "cli_conv": "fp32", "folder_clip": "bf16",
                "folder_conv": "fp32", "evolve": "fp32", "custom": "fp32", "vm_conv": "fp32",
                "vm_wrn": "bf16", "vm_clip": "bf16", "vm_evolve": "fp32",
-               "vm_wrn_runners": "fp32"}
+               "vm_wrn_runners": "fp32", "clip_rn50": "bf16", "import": "fp32"}
 BATCH = 128
 SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
@@ -2647,6 +2664,479 @@ def phase_ga_distances(card: str):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- clip_rn50
+
+RN50_EPOCHS = 3            # one step of 128 + 128 each on the fake class 0 (the runner: 100)
+RN50_STEPS, RN50_PROFILED = 5, 3   # timed and profiled steps of the step measurement
+
+
+def phase_clip_rn50(card: str) -> dict:
+    """CLIP RN50 at its published width (embed 1024, stages (3, 4, 6, 3),
+    width 64, 224 px; text width 512, 12 layers, 8 heads) with random
+    weights from seed 0, written as an OpenAI-style fp16 checkpoint:
+    ``train_clip_cifar`` through its ``main`` in bf16 on the synthetic
+    CIFAR-10 class 0 (the runner takes the tower from the checkpoint's
+    shapes), counted: 12 fused forward launches for the prompt centre, none
+    in the ResNet tower. Its snapshot served through ``AnomalyScorer``
+    against its eval scores (1e-4); the fp32 centre through the kernel
+    against the plain attention (1e-4), 12 launches a centre; one fp32
+    request of 256 raw images; the bf16 step's ms, img/s, the card's busy
+    share and peak memory. Also reports whether the run wrote tensorboard
+    events or took the logger's fall-back."""
+    import tempfile
+    saved = {k: os.environ.get(k) for k in ("EOE_TPU_FAKE_DATA", "EOE_TPU_CLIP_CHECKPOINT")}
+    os.environ["EOE_TPU_FAKE_DATA"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            return _clip_rn50(card, tmp)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _rn50_step(card: str, ckpt: str):
+    """The RN50 ``ClipTrainer`` bf16 step on phase 5's raw 256x256 images,
+    128 + 128 a step: ``RN50_STEPS`` steps timed after two warm ones, then
+    ``RN50_PROFILED`` profiled; the peak memory of the steps."""
+    import tempfile
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.training import TRAINER
+    from eoe_tpu_torch.utils.profiling import device_seconds, profile, step_timer
+    trainer = TRAINER["clip"](None, None, None, dataset="cifar10", oe_dataset="cifar100",
+                              datapath="", logger=None, epochs=1, lr=1e-4, wdk=1e-3,
+                              milestones=[], batch_size=BATCH, checkpoint_path=ckpt,
+                              compute_dtype=torch.bfloat16)
+    ds, _ = _combined(np.random.default_rng(SEED), trainer.train_specs)
+    state = trainer.init_state(0, ds, 1)
+    center = trainer.prepare_metric("airplane", ds, state, 0)
+    xn = torch.from_numpy(ds.train_set.gather_all()).cuda()
+    xo = torch.from_numpy(ds.oe.train_set.gather_all()).cuda()
+    labels = (torch.zeros(BATCH, dtype=torch.int64, device="cuda"),
+              torch.ones(BATCH, dtype=torch.int64, device="cuda"))
+    w = torch.ones(BATCH, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n_batches = len(xn) // BATCH
+
+    def step(i):
+        sl = slice((i % n_batches) * BATCH, (i % n_batches + 1) * BATCH)
+        return trainer.train_step(state, ds, xn[sl], labels[0], xo[sl], labels[1], w, gen,
+                                  center)[0]
+
+    for i in range(2):
+        step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    with step_timer(times) as out:
+        losses = [step(i) for i in range(RN50_STEPS)]
+        out["sync"] = losses[-1]
+    peak = torch.cuda.max_memory_allocated() - base
+    with tempfile.TemporaryDirectory() as logdir, profile(logdir) as prof:
+        for i in range(RN50_PROFILED):
+            step(i)
+        torch.cuda.synchronize()
+    busy = device_seconds(prof) / RN50_PROFILED
+    ms = times[0] / RN50_STEPS * 1e3
+    check(np.isfinite(torch.stack(losses).float().cpu().numpy()).all(),
+          "clip_rn50 step: non-finite losses")
+    print(f"clip_rn50 step (bf16, {BATCH}+{BATCH} raw 256x256 images at 224 px, "
+          f"{RN50_STEPS} steps after 2 warm ones): {ms:.2f} ms a step = "
+          f"{2 * BATCH / ms * 1e3:.1f} img/s on the host clock; the card busy "
+          f"{busy * 1e3:.2f} ms a step in {RN50_PROFILED} profiled steps "
+          f"({100 * busy * 1e3 / ms:.1f}% of the timed step); peak memory of the steps "
+          f"{(peak + base) / 2 ** 30:.2f} GiB ({peak / 2 ** 30:.2f} GiB above the resident "
+          f"weights and data) [{card}]")
+    del trainer, state, xn, xo
+    torch.cuda.empty_cache()
+
+
+def _clip_rn50(card: str, tmp: str) -> dict:
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.datasets import load_dataset
+    from eoe_tpu_torch.inference import AnomalyScorer
+    from eoe_tpu_torch.main import train_clip_cifar
+    from eoe_tpu_torch.models.clip import CLIP, RN50, from_openai, to_openai
+    from eoe_tpu_torch.ops.attention import fused_qkv_attention_ref
+    from eoe_tpu_torch.training.clip import CIFAR10_LABELS, prompt_center
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "RN50.pt")
+    weights = CLIP(RN50, generator=torch.Generator().manual_seed(SEED)).state_dict()
+    torch.save(to_openai(weights, RN50), ckpt)
+    start = from_openai(torch.load(ckpt, weights_only=True))
+    del weights
+    print(f"clip_rn50: OpenAI-format fp16 RN50 checkpoint from seed {SEED}, "
+          f"{os.path.getsize(ckpt) / 2 ** 20:.1f} MiB, in {time.perf_counter() - t0:.1f} s")
+    os.environ["EOE_TPU_CLIP_CHECKPOINT"] = ckpt
+    normal = load_dataset("cifar10", os.path.join(tmp, "datasets"), [0], 0, [], [])
+    steps = RN50_EPOCHS * -(-len(normal.train_set) // BATCH)
+    n_test = len(normal.test_set)
+    text_layers = RN50.transformer_layers
+
+    # ---- the main path, counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    _, res = train_clip_cifar.main(["--epochs", str(RN50_EPOCHS), "--classes", "0", "-it", "1",
+                                    "--datapath", tmp])
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    # ---- end of the counted run
+    peak_main = torch.cuda.max_memory_allocated()
+    check_counts(counts, {"fwd": text_layers},
+                 f"clip_rn50 train_clip_cifar ({text_layers} prompt-centre launches; the "
+                 f"ResNet tower and its attention pool launch none)")
+    run = _run_dirs(tmp, f"log_*_clip_cifar10_one_vs_rest_E{RN50_EPOCHS}")[0]
+    results = _read_json(run, "results")
+    check(np.isfinite(results["eval_mean_auc"]), f"clip_rn50: results {results}")
+    setup = _read_json(run, "setup")
+    check(setup["compute_dtype"] == "bfloat16", f"clip_rn50: setup {setup}")
+    eval_scores = np.array([v for _, v in sorted(
+        (int(k), v) for k, v in _read_json(run, "eval_cls0_it0_anomaly_scores").items())])
+    snapshot = torch.load(os.path.join(run, "snapshots", "snapshot_cls0_it0.pt"),
+                          map_location="cpu", weights_only=True)
+    params = snapshot["params"]
+    moved = [k for k in params if k.endswith("running_mean")
+             and not torch.equal(params[k], start[k])]
+    check(len(moved) == sum(k.endswith("running_mean") for k in params),
+          f"clip_rn50: only {len(moved)} batch norms moved their averages")
+    check(all(torch.equal(params[k], start[k]) for k in params if k.startswith("transformer.")),
+          "clip_rn50: the text tower changed in training")
+    tb = os.path.isdir(os.path.join(run, "tb"))
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        importable = True
+    except Exception:
+        importable = False
+    check(tb == importable, f"clip_rn50: tb/ written {tb}, tensorboard importable {importable}")
+    print(f"tensorboard: {'tb/ events written' if tb else 'no tensorboard package: the '}"
+          f"{'' if tb else 'logger fell back to scalars.json alone'} in the clip_rn50 run")
+
+    # the snapshot served, in the run's dtype, against its eval scores
+    test_specs = [{"op": "clip_pil_preprocessing", "resolution": RN50.image_resolution},
+                  {"op": "clip_tensor_preprocessing"}]
+    model = CLIP(RN50, dtype=torch.bfloat16)
+    model.load_state_dict(params)
+    scorer = AnomalyScorer(snapshot, model, objective="clip", batch_size=BATCH,
+                           center=prompt_center(model, CIFAR10_LABELS[0], CIFAR10_LABELS),
+                           compute_dtype=torch.bfloat16, test_specs=test_specs)
+    served = scorer.score(normal.test_set.gather_all())
+    serve_err = float(np.abs(served - eval_scores).max())
+    check(eval_scores.shape == (n_test,) and serve_err <= 1e-4,
+          f"clip_rn50: AnomalyScorer differs from the run's scores by {serve_err}")
+    del model, scorer
+
+    # the fp32 centre: the kernel against its plain version, 12 launches a centre
+    m32 = CLIP(RN50)
+    m32.load_state_dict(params)
+    plain = CLIP(RN50, qkv_attention=fused_qkv_attention_ref)
+    plain.load_state_dict(params)
+    before = _counts()["fwd"]
+    center = prompt_center(m32, CIFAR10_LABELS[0], CIFAR10_LABELS)
+    per_centre = _counts()["fwd"] - before
+    check(per_centre == text_layers,
+          f"clip_rn50: {per_centre} fused forward launches for one centre, expected "
+          f"{text_layers}")
+    center_plain = prompt_center(plain, CIFAR10_LABELS[0], CIFAR10_LABELS)
+    check(_counts()["fwd"] - before == text_layers, "clip_rn50: the plain centre launched")
+    center_err = float((center - center_plain).abs().max())
+    check(center_err <= 1e-4, f"clip_rn50: the kernel's fp32 centre differs from the plain "
+          f"attention's by {center_err}")
+    del plain
+
+    # one fp32 request of 256 raw images
+    scorer = AnomalyScorer(snapshot, m32, objective="clip", batch_size=BATCH, center=center,
+                           test_specs=test_specs)
+    images = np.random.default_rng(SEED).integers(0, 256, (REQUESTS[0], 32, 32, 3),
+                                                  dtype=np.uint8)
+    scorer.score(images)
+    t0 = time.perf_counter()
+    scores = scorer.score(images)
+    t_req = time.perf_counter() - t0
+    check(scores.shape == (REQUESTS[0],) and np.isfinite(scores).all(),
+          "clip_rn50: bad fp32 request scores")
+    print(f"clip_rn50 train_clip_cifar (RN50 bf16, cifar10 class 0, tinyimages OE, synthetic "
+          f"data): {steps} steps in {seconds:.2f} s of main with the checkpoint load, img/s "
+          f"per epoch {_epoch_rates(run)}, peak memory {peak_main / 2 ** 30:.2f} GiB; synthetic "
+          f"AUROC {results['eval_mean_auc']:.4f}; {len(moved)} batch norms moved their "
+          f"averages, the text tower unchanged; snapshot served through AnomalyScorer, max "
+          f"score difference {serve_err:.3g} (tol 1e-4); fp32 centre, kernel vs plain "
+          f"attention {center_err:.3g} (tol 1e-4), {per_centre} launches; fp32 request of "
+          f"{REQUESTS[0]} images {t_req * 1e3:.1f} ms = {REQUESTS[0] / t_req:.1f} img/s; "
+          f"launches {counts} [{card}]")
+    del m32, scorer, snapshot, params, start
+    torch.cuda.empty_cache()
+    _rn50_step(card, ckpt)
+    return counts
+
+
+# ---------------------------------------------------------------- import
+
+_WRN_REFERENCE_NAMES = [(r"layer(\d)_block(\d)", r"layer\1.\2"), (r"down_conv", "downsample.0"),
+                        (r"down_bn", "downsample.1"),
+                        (r"channel_gate\.mlp_hidden", "ChannelGate.mlp.1"),
+                        (r"channel_gate\.mlp_out", "ChannelGate.mlp.3"),
+                        (r"spatial_gate\.spatial_conv", "SpatialGate.spatial.conv"),
+                        (r"spatial_gate\.spatial_bn", "SpatialGate.spatial.bn")]
+# name, runner, the model it builds, its image side, its epochs, the source's
+# weights scaled by 0.1 (the last layer carried, so that the features stay near
+# unit norm and HSC's scores 1 - exp(-|f|) do not saturate at 1)
+IMPORT_RUNS = (("cnn32", "train_cifar", "CNN32", 32, 1, r"^fc2\."),
+               ("wrn_cbam", "train_imagenet", "WideResNet", 224, 1, r"^fc\."),
+               ("wrn50_trunk", "train_imagenet", "WideResNet50Pretrained", 224, 0,
+                r"^layer4_\d+\.(bn3|down_bn)\.weight$"))
+
+
+def _reference_state(model, name_of, seed: int, side: int, shrink: str) -> tuple:
+    """(the port model's weights, the same under the reference's torch names
+    (``name_of``; None drops an entry) with torch's ``num_batches_tracked``
+    counters). The weights are the model's init from ``seed``, those matching
+    ``shrink`` scaled by 0.1; the batch-norm averages are the statistics of
+    16 seeded normal images of ``side`` x ``side`` (as a trained net's are
+    its data's: each batch norm's momentum set to 0 for one training-mode
+    forward)."""
+    import re
+    import torch
+    from eoe_tpu_torch.models.layers import BatchNorm
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model = model.cuda()
+    norms = [(m, m.momentum) for m in model.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if re.search(shrink, k):
+                p.mul_(0.1)
+        for m, _ in norms:
+            m.momentum = 0.0
+        x = torch.randn(16, side, side, 3, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(seed))
+        model.train()(x)
+    for m, momentum in norms:
+        m.momentum = momentum
+    source = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    ref = {}
+    for k, v in source.items():
+        k = name_of(k)
+        if k is None:
+            continue
+        ref[k] = v.clone()
+        if k.endswith(".running_mean"):
+            ref[k.replace("running_mean", "num_batches_tracked")] = torch.tensor(100)
+    return source, ref
+
+
+def _reference_payload(name: str, net: dict) -> dict:
+    """What the reference saves for ``name``: CNN32's and WideResNet+CBAM's
+    training snapshots (CNN32's fc1 on the NCHW flatten), the trunk as
+    torchvision's bare state dict with its 1000-way head (not carried)."""
+    import torch
+    if name == "cnn32":
+        w = net["fc1.weight"]
+        net["fc1.weight"] = w.reshape(w.shape[0], 4, 4, 128).permute(0, 3, 1, 2) \
+            .reshape(w.shape[0], -1).contiguous()
+        return {"net": net, "opt": None, "sched": None, "epoch": 1,
+                "ds_statistics": {"mean": torch.tensor([0.49, 0.48, 0.45]),
+                                  "std": torch.tensor([0.25, 0.24, 0.26])}}
+    if name == "wrn_cbam":
+        return {"net": net, "epoch": 1}
+    return {**net, "fc.weight": torch.zeros(1000, 2048), "fc.bias": torch.zeros(1000)}
+
+
+class _Built:
+    """``runner.build_model`` swapped for ``models.<cls>``, whose forward
+    records its evaluation-mode inputs and outputs into ``recorded``."""
+
+    def __init__(self, runner, cls: str, recorded=None):
+        self.runner, self.cls, self.recorded = runner, cls, recorded
+
+    def build(self, args):
+        from eoe_tpu_torch import models
+        model = getattr(models, self.cls)(clf=args.objective in ("bce", "focal"))
+        if self.recorded is not None:
+            model.register_forward_hook(lambda m, inp, out: None if m.training else
+                                        self.recorded.append((inp[0].detach(), out.detach())))
+        return model
+
+    def __enter__(self):
+        self.saved, self.runner.build_model = self.runner.build_model, self.build
+
+    def __exit__(self, *exc):
+        self.runner.build_model = self.saved
+
+
+def phase_import(card: str) -> dict:
+    """Reference-style torch snapshots at full width through
+    ``python -m eoe_tpu_torch.main.import_snapshot``'s ``main``: CNN32 (fc1
+    on the reference's c-major flatten), WideResNet+CBAM (2, 2, 2, 2) and a
+    bare ``wide_resnet50_2`` trunk at (3, 4, 6, 3) with torchvision's names
+    (``resnet50.trunk_keys`` inverted, so that no torchvision is needed).
+    Each replaces the snapshot of a run of its runner (``train_cifar``,
+    ``train_imagenet``; for the trunk, which no runner builds,
+    ``train_imagenet`` with its ``build_model`` swapped for
+    ``WideResNet50Pretrained`` and 0 epochs), and that runner's ``--load``
+    evaluates it on the card. The features that evaluation computed must
+    equal, within 1e-4 of their largest entry, those of the same model
+    built by ``load_state_dict`` from the source, on the same images; its
+    scores must equal the ones the run wrote and must not be constant; the
+    snapshot the run writes holds the imported parameters, equal to the
+    sources (the trunk's, beside a fresh head). Counted: no kernel of the
+    repository lies on this path."""
+    import glob
+    import importlib
+    import tempfile
+    import numpy as np
+    import torch
+    from eoe_tpu_torch import models
+    from eoe_tpu_torch.main import import_snapshot
+    from eoe_tpu_torch.models.resnet50 import trunk_keys
+    from eoe_tpu_torch.ops.losses import hsc_score
+
+    def wrn_name(k):
+        import re
+        for pattern, repl in _WRN_REFERENCE_NAMES:
+            k = re.sub(pattern, repl, k)
+        return k
+    torchvision_name = {port: tv for tv, port in trunk_keys((3, 4, 6, 3)).items()}.get
+    name_of = {"cnn32": lambda k: k, "wrn_cbam": wrn_name, "wrn50_trunk": torchvision_name}
+    runners = {name: importlib.import_module(f"eoe_tpu_torch.main.{runner}")
+               for name, runner, *_ in IMPORT_RUNS}
+    saved = os.environ.get("EOE_TPU_FAKE_DATA")
+    os.environ["EOE_TPU_FAKE_DATA"] = "1"
+    lines, sources, refs, runs, evaluated = [], {}, {}, {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            _folder_data(os.path.join(tmp, "datasets"))
+            for i, (name, _, cls, side, epochs, shrink) in enumerate(IMPORT_RUNS):
+                sources[name], net = _reference_state(
+                    getattr(models, cls)(), name_of[name], SEED + 1 + i, side, shrink)
+                refs[name] = _reference_payload(name, net)
+                # the run whose snapshot the import replaces
+                with _Built(runners[name], cls):
+                    runners[name].main(["-e", str(epochs), "--classes", "0", "-it", "1",
+                                        "--oe-size", "256", "--datapath", tmp,
+                                        "--superdir", name, "--no-vmap-seeds"])
+                (runs[name],) = glob.glob(os.path.join(tmp, "results", name, "log_*"))
+            # ---- the main path, counted
+            _zero_counts()
+            t0 = time.perf_counter()
+            for name, _, cls, *_ in IMPORT_RUNS:
+                src = os.path.join(tmp, f"{name}_reference.pt")
+                torch.save(refs[name], src)
+                t1 = time.perf_counter()
+                import_snapshot.main(
+                    [src, os.path.join(runs[name], "snapshots", "snapshot_cls0_it0.pt")])
+                lines.append(f"{name} {os.path.getsize(src) / 2 ** 20:.1f} MiB imported in "
+                             f"{time.perf_counter() - t1:.2f} s")
+                recorded = []
+                with _Built(runners[name], cls, recorded):
+                    _, res = runners[name].main(["--load", runs[name], "--datapath", tmp])
+                cont = runs[name] + "---CNTD"
+                written = _read_json(cont, "eval_cls0_it0_anomaly_scores")
+                evaluated[name] = (res["mean_auc"], torch.load(
+                    os.path.join(cont, "snapshots", "snapshot_cls0_it0.pt"),
+                    map_location="cpu", weights_only=True), recorded,
+                    np.asarray(list(written.values()), dtype=np.float64))
+            seconds = time.perf_counter() - t0
+            counts = _counts()
+            # ---- end of the counted run
+    finally:
+        if saved is None:
+            os.environ.pop("EOE_TPU_FAKE_DATA", None)
+        else:
+            os.environ["EOE_TPU_FAKE_DATA"] = saved
+    check_counts(counts, {}, "import (no kernel of the repository)")
+    for name, _, cls, *_ in IMPORT_RUNS:
+        auc, snap, recorded, written = evaluated[name]
+        source = sources[name]
+        params = snap["params"]
+        keys = [k for k in source if not (name == "wrn50_trunk" and k.startswith("fc."))]
+        check(all(torch.equal(params[k], source[k]) for k in keys),
+              f"import {name}: the evaluated parameters differ from the source's")
+        if name == "wrn50_trunk":
+            check(not torch.equal(params["fc.weight"], source["fc.weight"]),
+                  "import wrn50_trunk: the head is not fresh")
+            source = {**source, **{k: params[k] for k in params if k.startswith("fc.")}}
+        check(len(recorded) > 0, f"import {name}: the runner evaluated nothing")
+        model = getattr(models, cls)()
+        model.load_state_dict(source)
+        model = model.cuda().eval()
+        err, feats = 0.0, []
+        with torch.no_grad():
+            for x, y in recorded:
+                want = model(x).float()
+                err = max(err, float((y.float() - want).abs().max() / want.abs().max()))
+                feats.append((y.float(), want))
+        run_scores = hsc_score(torch.cat([y for y, _ in feats])).double().cpu().numpy()
+        ref_scores = hsc_score(torch.cat([w for _, w in feats])).double().cpu().numpy()
+        n = len(written)
+        score_err = float(np.abs(run_scores[:n] - ref_scores[:n]).max())
+        written_err = float(np.abs(run_scores[:n] - written).max())
+        check(err <= 1e-4, f"import {name}: the evaluated features differ from the source "
+                           f"model's by {err:.3g} of their largest entry (tol 1e-4)")
+        check(score_err <= 1e-4 and written_err <= 1e-4,
+              f"import {name}: scores differ from the source model's by {score_err:.3g} and "
+              f"from the written ones by {written_err:.3g} (tol 1e-4)")
+        check(np.ptp(written) > 0 and np.isfinite(auc),
+              f"import {name}: constant scores {written[:4]} (AUROC {auc})")
+        lines.append(f"{name} evaluated by --load on {n} images (synthetic AUROC {auc:.4f}, "
+                     f"scores {written.min():.4f}..{written.max():.4f}): features vs the "
+                     f"source model's {err:.3g} of max, scores {score_err:.3g} (tol 1e-4); "
+                     f"{len(keys)} tensors equal to the source's")
+        del model, recorded, feats
+        evaluated[name] = None
+    torch.cuda.empty_cache()
+    print(f"import: {'; '.join(lines)}; {seconds:.1f} s with the evaluations; launches "
+          f"{counts} [{card}]")
+    return counts
+
+
+# ---------------------------------------------------------------- pool
+
+POOL_SHAPE = (256, 64, 112, 112)      # the WRN stem's pool, NCHW
+
+
+def phase_pool(card: str):
+    """``ops.pool.max_pool_3x3_s2_p1`` (the JAX package's measured negative
+    result, wired into no model) against ``F.max_pool2d`` on the WRN stem's
+    shape, on ReLU-like inputs (ties at 0): forward equal, gradient equal
+    but for the order of the (up to four) windows' sums: 1e-6 of its
+    largest entry in fp32, one bf16 rounding (2^-8 relative) in bf16; the
+    device time of each, forward and backward."""
+    import torch
+    import torch.nn.functional as F
+    from eoe_tpu_torch.ops.pool import max_pool_3x3_s2_p1
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    lines = []
+    for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2.0 ** -8)):
+        x = torch.randn(POOL_SHAPE, generator=g, device="cuda").relu().to(dtype)
+        x = x.requires_grad_()
+        y_ref = F.max_pool2d(x, 3, 2, 1)
+        dy = torch.randn(y_ref.shape, generator=g, device="cuda").to(dtype)
+        (dx_ref,) = torch.autograd.grad(y_ref, x, dy)
+        y = max_pool_3x3_s2_p1(x)
+        (dx,) = torch.autograd.grad(y, x, dy)
+        check(torch.equal(y, y_ref), f"pool {dtype}: forward differs from F.max_pool2d")
+        err = float((dx.float() - dx_ref.float()).abs().max() / dx_ref.float().abs().max())
+        check(err <= tol, f"pool {dtype}: gradient differs from F.max_pool2d's by {err}")
+        ms = time_ms(lambda: torch.autograd.grad(max_pool_3x3_s2_p1(x), x, dy), iters=5)
+        ref_ms = time_ms(lambda: torch.autograd.grad(F.max_pool2d(x, 3, 2, 1), x, dy), iters=5)
+        with torch.no_grad():
+            fwd = time_ms(lambda: max_pool_3x3_s2_p1(x), iters=5)
+            ref_fwd = time_ms(lambda: F.max_pool2d(x, 3, 2, 1), iters=5)
+        lines.append(f"{str(dtype).replace('torch.', '')}: forward {fwd:.3f} ms vs "
+                     f"F.max_pool2d {ref_fwd:.3f}, forward + gradient {ms:.3f} ms vs {ref_ms:.3f}, "
+                     f"gradient err {err:.3g} of max (tol {tol:.3g})")
+        del x, y, y_ref, dy, dx, dx_ref
+        torch.cuda.empty_cache()
+    print(f"pool max_pool_3x3_s2_p1 on {POOL_SHAPE}: {'; '.join(lines)} [{card}]")
+
+
 def _read_json(logdir: str, name: str) -> dict:
     with open(os.path.join(logdir, f"{name}.json")) as f:
         return json.load(f)
@@ -2698,6 +3188,9 @@ def main():
     (paths["vm_conv"], paths["vm_wrn"], paths["vm_clip"], paths["vm_evolve"],
      paths["vm_wrn_runners"]) = timed("vmapped", phase_vmapped, card)
     timed("ga_distances", phase_ga_distances, card)
+    paths["clip_rn50"] = timed("clip_rn50", phase_clip_rn50, card)
+    paths["import"] = timed("import", phase_import, card)
+    timed("pool", phase_pool, card)
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}

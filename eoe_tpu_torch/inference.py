@@ -8,8 +8,10 @@
 ``snapshot`` is a port snapshot (the path of a ``torch.save`` of
 ``{"params": state_dict, "ds_statistics": ..., "setup": ...}``), such a dict
 in memory, or a bare ``state_dict``. The JAX package's flax msgpack
-snapshots carry across through ``models.clip.convert.from_flax`` (CLIP) and
-``models.convert.from_flax`` (the conv models, batch statistics included).
+snapshots carry across through ``models.clip.convert.from_flax`` (CLIP,
+a ResNet tower's batch statistics included) and ``models.convert.from_flax``
+(the conv models, batch statistics included); reference torch snapshots
+through ``models.torch_import``.
 The ``normalize`` placeholder takes the statistics stored in the snapshot.
 The model runs on ``device``, ``cuda`` unless the caller asks for another
 one.

@@ -3,16 +3,22 @@ and from an OpenAI CLIP checkpoint.
 
 ``from_flax`` takes the Flax ``params`` tree of ``eoe_tpu.models.clip.CLIP``
 as numpy arrays (as ``jax.device_get`` or ``flax.serialization
-.msgpack_restore`` give it) and returns the port's ``state_dict``;
-``to_flax_numpy`` goes the other way. The mapping:
+.msgpack_restore`` give it), and for the ResNet variants its
+``batch_stats``, and returns the port's ``state_dict``; ``to_flax_numpy``
+goes the other way for the params, ``to_flax_variables`` for both
+collections. The mapping:
 
   * ``Dense`` kernels ``(in, out)`` -> ``Linear.weight`` ``(out, in)``
     (``qkv`` columns stay ordered [q | k | v], heads contiguous in each),
-  * ``LayerNormF32``'s ``ln/scale``, ``ln/bias`` -> ``weight``, ``bias``,
+  * ``Conv`` kernels (HWIO) -> ``weight`` (OIHW), the ViT's
+    ``patch_embed/kernel`` aside, which keeps its HWIO shape,
+  * ``LayerNormF32``'s ``ln/scale``, ``ln/bias`` -> ``weight``, ``bias``;
+    a batch norm's ``scale`` -> ``weight``, its ``batch_stats`` ``mean`` /
+    ``var`` -> ``running_mean`` / ``running_var``,
   * ``blockN`` -> ``blocks.N``,
   * ``token_embedding/embedding`` -> ``token_embedding.weight``,
-  * everything else (the HWIO ``patch_embed/kernel``, embeddings,
-    projections, ``logit_scale``) maps as it is.
+  * everything else (embeddings, projections, ``logit_scale``) maps as it
+    is.
 
 ``load_checkpoint`` reads an OpenAI checkpoint file (a TorchScript archive
 or a plain state dict), ``config_from_state_dict`` derives its architecture
@@ -21,20 +27,25 @@ joint ``attn.in_proj_weight`` (3D, D), whose rows are [q | k | v] with the
 heads contiguous in each, is the port's ``attn.qkv.weight`` as it is;
 ``out_proj`` -> ``attn_out``, ``mlp.c_fc`` / ``mlp.c_proj`` -> ``mlp_up`` /
 ``mlp_down``, ``resblocks.N`` -> ``blocks.N``, ``conv1.weight`` (OIHW) ->
-``patch_embed.kernel`` (HWIO); fp16 becomes fp32. ``to_openai`` writes the
-port's weights in that format. Only the ViT variants convert: the
-ModifiedResNet image tower is not ported yet.
+``patch_embed.kernel`` (HWIO) for the ViT; for the ResNets
+``layerS.B`` -> ``layerS_B``, ``downsample.0`` / ``downsample.1`` ->
+``down_conv`` / ``down_bn``, the convolutions (OIHW), batch norms with
+their running averages and ``attnpool`` as they are, and torch's
+``num_batches_tracked`` counters dropped; fp16 becomes fp32.
+``to_openai`` writes the port's weights in that format.
 """
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from eoe_tpu_torch.models.clip.model import ClipConfig
+from eoe_tpu_torch.models.resnet50 import BN_KEYS, bottleneck_keys
 
-DENSE = ("qkv", "attn_out", "mlp_up", "mlp_down")
+_STATS = {"mean": "running_mean", "var": "running_var"}
+_STATS_BACK = {v: k for k, v in _STATS.items()}
 
 
 def _flatten(tree: Dict[str, Any], prefix=()):
@@ -45,55 +56,66 @@ def _flatten(tree: Dict[str, Any], prefix=()):
             yield prefix + (k,), v
 
 
-def _to_torch_key(path) -> str:
+def _to_torch(path, value: np.ndarray):
+    """A Flax params leaf -> (port key, value in the port's layout)."""
     path = list(path)
-    if path[-2:] == ["ln", "scale"]:
-        path[-2:] = ["weight"]
-    elif path[-2:] == ["ln", "bias"]:
-        path[-2:] = ["bias"]
-    elif len(path) >= 2 and path[-2] in DENSE and path[-1] == "kernel":
+    if path[-2:] in (["ln", "scale"], ["ln", "bias"]):
+        path[-2:] = ["weight" if path[-1] == "scale" else "bias"]
+    elif path == ["token_embedding", "embedding"] or path[-1] == "scale":
         path[-1] = "weight"
-    elif path == ["token_embedding", "embedding"]:
+    elif path[-1] == "kernel" and path[-2] != "patch_embed":
         path[-1] = "weight"
-    return ".".join(re.sub(r"^block(\d+)$", r"blocks.\1", p) for p in path)
+        value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+    return ".".join(re.sub(r"^block(\d+)$", r"blocks.\1", p) for p in path), value
 
 
-def _to_flax_path(key: str):
+def _to_flax(key: str, value: np.ndarray):
+    """A port state-dict entry -> (collection, Flax path, value)."""
     path = re.sub(r"\bblocks\.(\d+)\b", r"block\1", key).split(".")
+    if path[-1] in _STATS_BACK:
+        return "batch_stats", path[:-1] + [_STATS_BACK[path[-1]]], value
     if len(path) >= 2 and path[-2].startswith("ln_"):
         path[-1:] = ["ln", "scale" if path[-1] == "weight" else "bias"]
-    elif len(path) >= 2 and path[-2] in DENSE and path[-1] == "weight":
-        path[-1] = "kernel"
     elif path == ["token_embedding", "weight"]:
         path[-1] = "embedding"
-    return path
+    elif path[-1] == "weight" and value.ndim == 1:
+        path[-1] = "scale"
+    elif path[-1] == "weight":
+        path[-1] = "kernel"
+        value = value.transpose(2, 3, 1, 0) if value.ndim == 4 else value.T
+    return "params", path, value
 
 
-def from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax CLIP params (numpy leaves) -> the port's CLIP ``state_dict``."""
+def from_flax(params: Dict[str, Any],
+              batch_stats: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """Flax CLIP params (and batch statistics; numpy leaves) -> the port's
+    CLIP ``state_dict``."""
     sd = {}
     for path, value in _flatten(params):
-        value = np.asarray(value, dtype=np.float32)
-        if len(path) >= 2 and path[-2] in DENSE and path[-1] == "kernel":
-            value = value.T
-        sd[_to_torch_key(path)] = torch.from_numpy(np.array(value, order="C"))
+        key, value = _to_torch(path, np.asarray(value, dtype=np.float32))
+        sd[key] = torch.from_numpy(np.array(value, order="C"))
+    for path, value in _flatten(batch_stats or {}):
+        key = ".".join(path[:-1] + (_STATS[path[-1]],))
+        sd[key] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
     return sd
+
+
+def to_flax_variables(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's CLIP ``state_dict`` -> Flax ``{"params", "batch_stats"}``
+    trees of numpy arrays (``batch_stats`` only for a ResNet tower)."""
+    trees: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        collection, path, value = _to_flax(key, value.detach().cpu().float().numpy())
+        node = trees[collection]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.array(value, order="C")
+    return {k: v for k, v in trees.items() if v or k == "params"}
 
 
 def to_flax_numpy(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """The port's CLIP ``state_dict`` -> a Flax params tree of numpy arrays."""
-    tree: Dict[str, Any] = {}
-    for key, value in state_dict.items():
-        path = _to_flax_path(key)
-        value = value.detach().cpu().float().numpy()
-        if len(path) >= 2 and path[-2] in DENSE and path[-1] == "kernel":
-            value = value.T
-        value = np.array(value, order="C")
-        node = tree
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = value
-    return tree
+    return to_flax_variables(state_dict)["params"]
 
 
 OPENAI_META = ("input_resolution", "context_length", "vocab_size")
@@ -109,63 +131,96 @@ _PATCH = ("visual.conv1.weight", "visual.patch_embed.kernel")
 
 
 def config_from_state_dict(sd: Dict[str, Any]) -> ClipConfig:
-    """The architecture of an OpenAI CLIP state dict, from its shapes."""
-    if "visual.proj" not in sd:
-        raise NotImplementedError("ModifiedResNet is not ported yet")
-    patch = sd["visual.conv1.weight"].shape[-1]
-    grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+    """The architecture of an OpenAI CLIP state dict, from its shapes: a ViT
+    has ``visual.proj``; a ResNet's per-stage block counts, width and
+    resolution (32 x the attention pool's grid) come from its layers."""
+    if "visual.proj" in sd:
+        patch = sd["visual.conv1.weight"].shape[-1]
+        grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+        vision = dict(image_resolution=patch * grid,
+                      vision_layers=len([k for k in sd if k.startswith("visual.")
+                                         and k.endswith(".attn.in_proj_weight")]),
+                      vision_width=sd["visual.conv1.weight"].shape[0], vision_patch_size=patch)
+    else:
+        vision = dict(vision_layers=tuple(len({k.split(".")[2] for k in sd
+                                               if k.startswith(f"visual.layer{b}")})
+                                          for b in (1, 2, 3, 4)),
+                      vision_width=sd["visual.layer1.0.conv1.weight"].shape[0],
+                      vision_patch_size=None)
+        grid = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+        vision["image_resolution"] = 32 * grid
     width = sd["ln_final.weight"].shape[0]
     return ClipConfig(
         embed_dim=sd["text_projection"].shape[1],
-        image_resolution=patch * grid,
-        vision_layers=len([k for k in sd if k.startswith("visual.")
-                           and k.endswith(".attn.in_proj_weight")]),
-        vision_width=sd["visual.conv1.weight"].shape[0],
-        vision_patch_size=patch,
         context_length=sd["positional_embedding"].shape[0],
         vocab_size=sd["token_embedding.weight"].shape[0],
         transformer_width=width,
         transformer_heads=max(1, width // 64),
         transformer_layers=len({k.split(".")[2] for k in sd
-                                if k.startswith("transformer.resblocks")}))
+                                if k.startswith("transformer.resblocks")}),
+        **vision)
 
 
 def _openai_keys(cfg: ClipConfig) -> Dict[str, str]:
-    """OpenAI key -> port key, the patch embedding aside."""
-    keys = {k: k for k in ("visual.class_embedding", "visual.positional_embedding",
-                           "visual.proj", "token_embedding.weight", "positional_embedding",
+    """OpenAI key -> port key, the ViT's patch embedding aside."""
+    keys = {k: k for k in ("token_embedding.weight", "positional_embedding",
                            "text_projection", "logit_scale")}
-    for ln in ("visual.ln_pre", "visual.ln_post", "ln_final"):
-        keys.update({f"{ln}.weight": f"{ln}.weight", f"{ln}.bias": f"{ln}.bias"})
-    for tower, layers in (("visual.transformer", cfg.vision_layers),
-                          ("transformer", cfg.transformer_layers)):
+    keys.update({f"ln_final.{a}": f"ln_final.{a}" for a in ("weight", "bias")})
+    towers = [("transformer", "transformer", cfg.transformer_layers)]
+    if cfg.is_vit:
+        keys.update({k: k for k in ("visual.class_embedding", "visual.positional_embedding",
+                                    "visual.proj")})
+        for ln in ("visual.ln_pre", "visual.ln_post"):
+            keys.update({f"{ln}.weight": f"{ln}.weight", f"{ln}.bias": f"{ln}.bias"})
+        towers.append(("visual.transformer", "visual.transformer", cfg.vision_layers))
+    else:
+        for i in (1, 2, 3):
+            keys[f"visual.conv{i}.weight"] = f"visual.conv{i}.weight"
+            keys.update({f"visual.bn{i}.{a}": f"visual.bn{i}.{a}" for a in BN_KEYS})
+        keys.update(bottleneck_keys(cfg.vision_layers, "visual.", "visual."))
+        keys["visual.attnpool.positional_embedding"] = "visual.attnpool.positional_embedding"
+        for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            keys.update({f"visual.attnpool.{proj}.{a}": f"visual.attnpool.{proj}.{a}"
+                         for a in ("weight", "bias")})
+    for src, dst, layers in towers:
         for i in range(layers):
-            keys.update({f"{tower}.resblocks.{i}.{a}": f"{tower}.blocks.{i}.{b}"
+            keys.update({f"{src}.resblocks.{i}.{a}": f"{dst}.blocks.{i}.{b}"
                          for a, b in _BLOCK_KEYS})
     return keys
 
 
 def from_openai(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """An OpenAI CLIP state dict -> the port's CLIP ``state_dict`` (fp32)."""
-    sd = {k: v for k, v in sd.items() if k not in OPENAI_META}
-    keys = _openai_keys(config_from_state_dict(sd))
-    unknown = sorted(set(sd) - set(keys) - {_PATCH[0]})
+    sd = {k: v for k, v in sd.items()
+          if k not in OPENAI_META and not k.endswith(".num_batches_tracked")}
+    cfg = config_from_state_dict(sd)
+    keys = _openai_keys(cfg)
+    patch = {_PATCH[0]} if cfg.is_vit else set()
+    unknown = sorted(set(sd) - set(keys) - patch)
     if unknown:
         raise KeyError(f"unexpected keys in the CLIP state dict: {unknown[:5]}")
     out = {port: torch.as_tensor(sd[k]).detach().float().contiguous()
            for k, port in keys.items()}
-    out[_PATCH[1]] = torch.as_tensor(sd[_PATCH[0]]).detach().float().permute(
-        2, 3, 1, 0).contiguous()
+    if cfg.is_vit:
+        out[_PATCH[1]] = torch.as_tensor(sd[_PATCH[0]]).detach().float().permute(
+            2, 3, 1, 0).contiguous()
     return out
 
 
 def to_openai(state_dict: Dict[str, torch.Tensor], config: ClipConfig,
               dtype: torch.dtype = torch.float16) -> Dict[str, torch.Tensor]:
     """The port's CLIP ``state_dict`` -> an OpenAI-format state dict in
-    ``dtype``, as the published checkpoints store it."""
+    ``dtype``, as the published checkpoints store it (a ResNet's batch norms
+    with torch's ``num_batches_tracked`` counters, at 0)."""
     out = {k: state_dict[port].detach().to(dtype).contiguous()
            for k, port in _openai_keys(config).items()}
-    out[_PATCH[0]] = state_dict[_PATCH[1]].detach().permute(3, 2, 0, 1).to(dtype).contiguous()
+    if config.is_vit:
+        out[_PATCH[0]] = state_dict[_PATCH[1]].detach().permute(3, 2, 0, 1).to(
+            dtype).contiguous()
+    else:
+        for k in [k for k in out if k.endswith(".running_mean")]:
+            out[k.replace(".running_mean", ".num_batches_tracked")] = torch.zeros(
+                (), dtype=torch.long)
     return out
 
 

@@ -1,9 +1,12 @@
-"""CLIP (ViT variants) in PyTorch: the port of eoe_tpu/models/clip/model.py.
+"""CLIP (the ViT and ModifiedResNet variants) in PyTorch: the port of
+eoe_tpu/models/clip/model.py.
 
 Same architecture and numerics as the Flax model: QuickGELU MLPs, pre-LN
 residual blocks, LayerNorm computed in fp32, causal text encoder with EOT
 pooling by argmax over token ids, class-token pooling and projection for the
-ViT. Images are NHWC, as in the JAX package.
+ViT; for the ResNets a 3-conv stem, blur-pooled Bottlenecks and
+``AttentionPool2d``. Images are NHWC, as in the JAX package; the ResNet tower
+takes their channels-last NCHW view for its convolutions.
 
 Parameters stay fp32; ``dtype`` is the compute dtype. Every dense layer casts
 its input, weight and bias to ``dtype`` explicitly, as Flax ``nn.Dense(dtype=)``
@@ -17,7 +20,12 @@ signature, e.g. their plain versions ``fused_qkv_attention_ref``.
 and v into ``(n, heads, s, d)``, calls ``attention_fn(q, k, v, mask)`` (e.g.
 ``flash_attention``) and skips the fused route; the text tower passes its
 additive causal mask. A model takes one of the two hooks, not both.
-``ModifiedResNet`` is not ported yet.
+
+The ResNet tower's batch norm is ``models.layers.BatchNorm`` (Flax's:
+momentum 0.9, the biased batch variance into the averages), in train mode
+with the module (``model.train()``), as the JAX tower with ``train=True``
+and ``mutable=["batch_stats"]``. Its ``AttentionPool2d`` is plain attention
+(``default_attention``), as in JAX: no kernel of the repository.
 """
 
 import dataclasses
@@ -28,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from eoe_tpu_torch.models.layers import BatchNorm, Conv
 from eoe_tpu_torch.ops.attention import default_attention, fused_qkv_attention, fused_qkv_ok
 
 QkvAttention = Callable[[torch.Tensor, int, bool], torch.Tensor]
@@ -63,6 +72,8 @@ class ClipConfig:
 
 
 VIT_B32 = ClipConfig()
+RN50 = ClipConfig(embed_dim=1024, vision_layers=(3, 4, 6, 3), vision_width=64,
+                  vision_patch_size=None)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -205,6 +216,106 @@ class VisionTransformer(nn.Module):
         return x @ self.proj.to(x.dtype)
 
 
+def _bn(features: int) -> BatchNorm:
+    return BatchNorm(features, eps=1e-5, momentum=0.9)
+
+
+def _conv(cin: int, cout: int, k: int, dtype: torch.dtype, stride: int = 1) -> Conv:
+    return Conv(cin, cout, k, stride, padding=k // 2, bias=False, dtype=dtype)
+
+
+class Bottleneck(nn.Module):
+    """Blur-pooled bottleneck: a stride above 1 average-pools before the
+    expanding ``conv3``, and before ``down_conv`` on the identity."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int, dtype: torch.dtype):
+        super().__init__()
+        self.stride = stride
+        self.conv1, self.bn1 = _conv(inplanes, planes, 1, dtype), _bn(planes)
+        self.conv2, self.bn2 = _conv(planes, planes, 3, dtype), _bn(planes)
+        self.conv3, self.bn3 = _conv(planes, planes * 4, 1, dtype), _bn(planes * 4)
+        self.downsample = stride > 1 or inplanes != planes * 4
+        if self.downsample:
+            self.down_conv, self.down_bn = _conv(inplanes, planes * 4, 1, dtype), _bn(planes * 4)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        if self.stride > 1:
+            out = F.avg_pool2d(out, self.stride)
+        out = self.bn3(self.conv3(out))
+        identity = x
+        if self.downsample:
+            if self.stride > 1:
+                identity = F.avg_pool2d(identity, self.stride)
+            identity = self.down_bn(self.down_conv(identity))
+        return F.relu(out + identity)
+
+
+class AttentionPool2d(nn.Module):
+    """Attention of the mean token over the h-major flattened grid (with the
+    mean token prepended and the positional embedding added), with separate
+    q, k and v projections; the query is the mean token alone."""
+
+    def __init__(self, grid: int, embed_dim: int, heads: int, output_dim: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.heads, self.dtype = heads, dtype
+        self.positional_embedding = nn.Parameter(torch.empty(grid * grid + 1, embed_dim))
+        self.q_proj = nn.Linear(embed_dim, embed_dim)
+        self.k_proj = nn.Linear(embed_dim, embed_dim)
+        self.v_proj = nn.Linear(embed_dim, embed_dim)
+        self.c_proj = nn.Linear(embed_dim, output_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.flatten(2).transpose(1, 2)                        # (n, h*w, c), h-major
+        x = torch.cat([x.mean(dim=1, keepdim=True), x], dim=1)
+        x = x + self.positional_embedding.to(x.dtype)
+        n, s, c = x.shape
+        hd = c // self.heads
+        q = _dense(x[:, :1], self.q_proj, self.dtype).reshape(n, 1, self.heads, hd)
+        k = _dense(x, self.k_proj, self.dtype).reshape(n, s, self.heads, hd)
+        v = _dense(x, self.v_proj, self.dtype).reshape(n, s, self.heads, hd)
+        out = default_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), None)
+        return _dense(out.transpose(1, 2).reshape(n, c), self.c_proj, self.dtype)
+
+
+class ModifiedResNet(nn.Module):
+    """3-conv stem (the first with stride 2) and a 2x2 average pool, four
+    stages of ``Bottleneck`` (stride 2 at the first block of stages 2-4),
+    then ``AttentionPool2d``. NHWC input."""
+
+    def __init__(self, cfg: ClipConfig, dtype: torch.dtype):
+        super().__init__()
+        width = cfg.vision_width
+        self.conv1, self.bn1 = _conv(3, width // 2, 3, dtype, stride=2), _bn(width // 2)
+        self.conv2, self.bn2 = _conv(width // 2, width // 2, 3, dtype), _bn(width // 2)
+        self.conv3, self.bn3 = _conv(width // 2, width, 3, dtype), _bn(width)
+        self.block_names = []
+        inplanes = width
+        for stage, blocks in enumerate(cfg.vision_layers, start=1):
+            planes = width * 2 ** (stage - 1)
+            for b in range(blocks):
+                stride = 2 if stage > 1 and b == 0 else 1
+                name = f"layer{stage}_{b}"
+                setattr(self, name, Bottleneck(inplanes, planes, stride, dtype))
+                self.block_names.append(name)
+                inplanes = planes * Bottleneck.expansion
+        self.attnpool = AttentionPool2d(cfg.image_resolution // 32, width * 32, cfg.vision_heads,
+                                        cfg.embed_dim, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        for i in (1, 2, 3):
+            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+        x = F.avg_pool2d(x, 2)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return self.attnpool(x)
+
+
 class CLIP(nn.Module):
     """Full CLIP with ``encode_image`` / ``encode_text`` / ``contrastive``;
     ``forward(images)`` returns image features only, as the JAX model does.
@@ -218,12 +329,11 @@ class CLIP(nn.Module):
                  attention_fn: Optional[AttentionFn] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not config.is_vit:
-            raise NotImplementedError("the ModifiedResNet CLIP variants are not ported yet")
         cfg = config
         self.config = cfg
         self.dtype = dtype
-        self.visual = VisionTransformer(cfg, dtype, qkv_attention, attention_fn)
+        self.visual = VisionTransformer(cfg, dtype, qkv_attention, attention_fn) if cfg.is_vit \
+            else ModifiedResNet(cfg, dtype)
         self.transformer = TransformerStack(cfg.transformer_width, cfg.transformer_layers,
                                             cfg.transformer_heads, dtype, qkv_attention,
                                             attention_fn)
@@ -241,13 +351,18 @@ class CLIP(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, g: torch.Generator):
         """Random weights with the distributions of the Flax initialisers
-        (eoe_tpu/models/clip/model.py:195-349), drawn on the CPU from ``g``."""
+        (eoe_tpu/models/clip/model.py:195-349), drawn on the CPU from ``g``;
+        batch-norm averages at 0 and 1."""
         for name, p in self.named_parameters():
             cpu = torch.empty(p.shape)
             if name.endswith("patch_embed.kernel"):
                 _lecun_normal_(cpu, math.prod(p.shape[:3]), g)
+            elif name.endswith(".weight") and p.ndim == 4:   # nn.Conv kernels
+                _lecun_normal_(cpu, math.prod(p.shape[1:]), g)
             elif name.endswith(".weight") and p.ndim == 2 and "token_embedding" not in name:
                 _lecun_normal_(cpu, p.shape[1], g)          # nn.Dense kernels
+            elif name == "visual.attnpool.positional_embedding":
+                cpu.normal_(0.0, (self.config.vision_width * 32) ** -0.5, generator=g)
             elif name.startswith("visual.") and name.split(".")[1] in (
                     "class_embedding", "positional_embedding", "proj"):
                 cpu.normal_(0.0, self.config.vision_width ** -0.5, generator=g)
@@ -259,11 +374,15 @@ class CLIP(nn.Module):
                 cpu.normal_(0.0, self.config.transformer_width ** -0.5, generator=g)
             elif name == "logit_scale":
                 cpu.fill_(math.log(1 / 0.07))
-            elif name.endswith(".weight"):                   # LayerNorm scales
+            elif name.endswith(".weight"):                   # LayerNorm and BN scales
                 cpu.fill_(1.0)
             else:                                            # biases
                 cpu.zero_()
             p.copy_(cpu)
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
         return self.visual(images.to(self.dtype))

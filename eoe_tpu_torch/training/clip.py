@@ -12,11 +12,13 @@ leave-one-out every other class's ``"a photo of a {c}"`` then the anomaly
 prompt. Their text features, L2-normalised, are the "center" that
 ``clip_loss`` and ``clip_score`` take, anomaly prompt last.
 
-Weights: the OpenAI ViT checkpoint at ``checkpoint_path``, else at
+Weights: the OpenAI checkpoint at ``checkpoint_path``, else at
 ``$EOE_TPU_CLIP_CHECKPOINT``, else at ``~/.cache/clip/ViT-B-32.pt``, its
-architecture read from its shapes (``models.clip.convert``); nothing is
-downloaded. Tests pass a port ``state_dict`` instead (``clip_state_dict=``,
-with ``clip_config=``).
+architecture (a ViT, or a ModifiedResNet such as RN50) read from its shapes
+(``models.clip.convert``); nothing is downloaded. Tests pass a port
+``state_dict`` instead (``clip_state_dict=``, with ``clip_config=``). A
+ResNet tower's batch-norm averages come with the weights, are copied in
+anew for every class-seed, move in the train step and serve eval.
 """
 
 import os

@@ -6,6 +6,7 @@ A run directory ``log_{YYYYMMDDHHMMSS}_{comment}`` holds
   src.tar.gz                              -- the port's source, for provenance
   results.json, eval_cls{i}_it{j}_anomaly_scores.json -- metrics
   scalars.json                            -- scalars and histograms
+  tb/events.out.tfevents.*                -- the same as tensorboard events
   *.pdf                                   -- ROC/PRC curves with mean curves
   *.png                                   -- image grids (previews, OE samples)
   snapshots/snapshot_cls{i}_it{j}.pt      -- model + optimizer + epoch + stats
@@ -13,7 +14,11 @@ A run directory ``log_{YYYYMMDDHHMMSS}_{comment}`` holds
 Snapshots are ``torch.save`` files that ``torch.load(..., weights_only=True)``
 reads, as ``inference.AnomalyScorer`` does. PDFs are drawn only where
 matplotlib imports; the logger says so once in print.txt where it does not.
-There is no tensorboard writer: scalars go to scalars.json. Image grids are
+The tensorboard writer is on by default (``tensorboard=True``), as in the
+JAX package: ``torch.utils.tensorboard.SummaryWriter`` into ``tb/`` takes
+every scalar and histogram beside the JSON records; where it does not import
+(no tensorboard package) the logger falls back silently to scalars.json
+alone. ``flush_scalars`` flushes it, ``close`` closes it. Image grids are
 the JAX package's (``logimg``: 2-pixel gutters, ``nrow`` columns, row
 headers drawn with PIL); they are written only where PIL imports. Writes
 happen inline, so ``drain()`` has nothing to wait for; it is kept for the
@@ -80,12 +85,14 @@ class _MeanPRC(PRC):
 
 class Logger:
     def __init__(self, logdir: str, comment: str = "", noname: bool = False,
-                 active: bool = True, archive_source: bool = True):
+                 active: bool = True, tensorboard: bool = True, archive_source: bool = True):
         """
         @param logdir: parent directory of the run directories.
         @param comment: appended to the timestamped run directory name.
         @param noname: use ``logdir`` itself as the run directory.
         @param active: an inactive logger writes nothing.
+        @param tensorboard: write tensorboard events into ``tb/`` where
+            ``torch.utils.tensorboard`` imports.
         """
         self.active = active
         self.start = datetime.now()
@@ -99,6 +106,13 @@ class Logger:
         self.comment = comment
         self._scalars = {}
         self._no_plots_said = False
+        self.tb_writer = None
+        if tensorboard and self.active:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self.tb_writer = SummaryWriter(log_dir=pt.join(self.dir, "tb"))
+            except Exception:   # no tensorboard package: scalars.json alone
+                self.tb_writer = None
         if archive_source and self.active:
             self.log_source_archive()
 
@@ -155,25 +169,46 @@ class Logger:
     # ---------------------------------------------------------- scalars
 
     def add_scalar(self, name: str, value: float, step: int):
-        if self.active:
-            self._scalars.setdefault(name, []).append((int(step), float(value)))
+        if not self.active:
+            return
+        self._scalars.setdefault(name, []).append((int(step), float(value)))
+        if self.tb_writer is not None:
+            self.tb_writer.add_scalar(name, value, step)
+
+    def add_histogram(self, name: str, values, step: int):
+        if self.active and self.tb_writer is not None:
+            self.tb_writer.add_histogram(name, torch.as_tensor(np.asarray(values)), step)
 
     def hist(self, name: str, values, step: int = 0, bins: int = 30):
-        """A histogram as a JSON record in scalars.json."""
+        """A histogram: tensorboard's where the writer is on, and a JSON
+        record in scalars.json."""
         if not self.active:
             return
         vals = np.asarray(values, np.float64).reshape(-1)
         vals = vals[np.isfinite(vals)]
-        if vals.size == 0:
+        if vals.size == 0:   # tensorboard's histogram raises on empty input
             return
+        if self.tb_writer is not None:
+            self.add_histogram(name, vals, step)
         counts, edges = np.histogram(vals, bins=bins)
         self._scalars.setdefault(f"hist/{name}", []).append(
             (int(step), {"counts": counts.tolist(), "edges": edges.tolist()}))
 
     def flush_scalars(self):
-        if self.active and self._scalars:
+        if not self.active:
+            return
+        if self._scalars:
             with open(pt.join(self.dir, "scalars.json"), "w") as f:
                 json.dump(self._scalars, f, cls=JsonEncoder)
+        if self.tb_writer is not None:
+            self.tb_writer.flush()
+
+    def close(self):
+        """Write the JSON records and close the tensorboard writer."""
+        self.flush_scalars()
+        if self.tb_writer is not None:
+            self.tb_writer.close()
+            self.tb_writer = None
 
     # ---------------------------------------------------------- images
 

@@ -54,7 +54,11 @@ def test_port_imports_neither_jax_nor_eoe_tpu():
         "main.evolve_oe_cifar", "main.evolve_oe_imagenet", "main.evolve_oe_custom",
         "main.random_oe_cifar", "main.random_oe_imagenet", "main.train_only_custom",
         "main.inference_custom")}
-    assert len(names) >= 60 and conv_path | cli | folder | evolve_custom <= set(names)
+    imports_and_tools = {f"eoe_tpu_torch.{m}" for m in (
+        "models.resnet50", "models.torch_import", "main.import_snapshot", "main.prepare_data",
+        "ops.pool")}
+    assert len(names) >= 65 and conv_path | cli | folder | evolve_custom | imports_and_tools \
+        <= set(names)
     assert leaked == []
     assert not native_built   # the native decoder builds at first use, not at import
 
@@ -182,3 +186,22 @@ def test_evolve_and_custom_runners_default_to_cuda(tmp_path, monkeypatch):
         mutate_individual([0], oeds, 2, 1.0, 1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mate_individuals([0], [1], oeds, 2, 1.0, 1)
+
+
+def test_host_tools_touch_no_card(tmp_path, monkeypatch):
+    """``import_snapshot`` and ``prepare_data`` are host tools: they run
+    where there is no card and never ask for one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_card(*a, **k):
+        raise AssertionError("a host tool asked for the card")
+    monkeypatch.setattr(torch.cuda, "init", no_card)
+    monkeypatch.setattr(torch.cuda, "current_device", no_card)
+    from eoe_tpu_torch.main import import_snapshot, prepare_data
+    model = CNN32()
+    torch.save({"net": model.state_dict(), "epoch": 1}, tmp_path / "ref.pt")
+    out = import_snapshot.main([str(tmp_path / "ref.pt"), str(tmp_path / "out.pt")])
+    assert torch.load(out, weights_only=True)["epoch"] == 1
+    (tmp_path / "r" / "normal").mkdir(parents=True)
+    assert prepare_data.main(["custom", "--check-only", "--train-only", "--custom-root",
+                              str(tmp_path / "r"), "--datapath", str(tmp_path)])

@@ -118,8 +118,19 @@ def test_tokenizer_ids_match_jax():
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError):
-        CLIP(ClipConfig(vision_layers=(3, 4, 6, 3), vision_width=64, vision_patch_size=None))
+    """No CLIP variant raises any more: a ModifiedResNet configuration builds
+    its tower (3-conv stem, blur-pooled stages, attention pool; RN50's layout
+    at a narrow width) and runs, where it raised NotImplementedError."""
+    cfg = ClipConfig(embed_dim=32, image_resolution=64, vision_layers=(3, 4, 6, 3),
+                     vision_width=8, vision_patch_size=None, context_length=77,
+                     transformer_width=64, transformer_heads=1, transformer_layers=1)
+    model = CLIP(cfg).eval()
+    assert [n for n in model.visual.block_names if n.endswith("_0")] == [
+        "layer1_0", "layer2_0", "layer3_0", "layer4_0"]
+    assert model.visual.attnpool.positional_embedding.shape == (5, 256)
+    with torch.no_grad():
+        out = model(torch.zeros(2, 64, 64, 3))
+    assert out.shape == (2, 32) and torch.isfinite(out).all()
 
 
 # ---------------------------------------------------------------- OpenAI checkpoints
@@ -155,9 +166,12 @@ def test_openai_conversion_equals_jax():
         assert ours[k].dtype == torch.float32 and torch.equal(ours[k], theirs[k]), k
     with pytest.raises(KeyError, match="unexpected"):
         from_openai({**sd, "visual.extra": torch.zeros(1)})
-    resnet = {k: v for k, v in sd.items() if k != "visual.proj"}
-    with pytest.raises(NotImplementedError, match="ModifiedResNet is not ported yet"):
-        config_from_state_dict(resnet)
+    # without visual.proj a state dict reads as a ResNet's: one without the
+    # ResNet's layers raises KeyError in both packages
+    broken = {k: v for k, v in sd.items() if k != "visual.proj"}
+    for derive in (config_from_state_dict, jax_config):
+        with pytest.raises(KeyError, match="visual.layer1.0.conv1.weight"):
+            derive(broken)
 
 
 def test_openai_checkpoint_features_match_jax(tmp_path):

@@ -19,6 +19,7 @@ tests/test_torch_optim.py.
 
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -168,9 +169,12 @@ def test_eval_uses_running_averages_and_ae_inputs():
 
 
 def _files(root):
+    """The run directory's files; a tensorboard event file by its prefix
+    (its name carries the time, host and process)."""
     out = set()
     for d, _, names in os.walk(root):
-        out |= {os.path.relpath(os.path.join(d, n), root) for n in names}
+        out |= {re.sub(r"tfevents\..*", "tfevents", os.path.relpath(os.path.join(d, n), root))
+                for n in names}
     return out
 
 
@@ -210,8 +214,8 @@ def test_run_by_name_writes_the_jax_run_directory(tmp_path, monkeypatch):
     jt.run(run_classes=[2], run_seeds=1)
     _, res = port.run(run_classes=[2], run_seeds=1)
     assert np.isfinite(res["mean_auc"]) and np.isfinite(port.step_losses).all()
-    jax_files = {f.replace(".msgpack", ".pt") for f in _files(tmp_path / "jax")
-                 if not f.startswith("tb")}
+    jax_files = {f.replace(".msgpack", ".pt") for f in _files(tmp_path / "jax")}
+    assert "tb/events.out.tfevents" in jax_files
     assert _files(tmp_path / "port") == jax_files
     for name in (f for f in jax_files if f.endswith(".png")):   # previews: other draws
         with Image.open(tmp_path / "port" / name) as got, \

@@ -11,6 +11,7 @@ the same inputs.
 
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -222,9 +223,12 @@ def test_prompt_center_enters_clip_loss_with_autograd(weights):
 
 
 def _files(root):
+    """The run directory's files; a tensorboard event file by its prefix
+    (its name carries the time, host and process)."""
     out = set()
     for d, _, names in os.walk(root):
-        out |= {os.path.relpath(os.path.join(d, n), root) for n in names}
+        out |= {re.sub(r"tfevents\..*", "tfevents", os.path.relpath(os.path.join(d, n), root))
+                for n in names}
     return out
 
 
@@ -257,8 +261,8 @@ def test_run_writes_the_jax_run_directory(tmp_path):
     _, res = port.run(run_classes=[0], run_seeds=1)
     assert np.isfinite(res["mean_auc"]) and len(port.step_losses) == 2 * N_NORMAL // BATCH
 
-    jax_files = {f.replace(".msgpack", ".pt") for f in _files(tmp_path / "jax")
-                 if not f.startswith("tb")}
+    jax_files = {f.replace(".msgpack", ".pt") for f in _files(tmp_path / "jax")}
+    assert "tb/events.out.tfevents" in jax_files
     assert _files(tmp_path / "port") == jax_files
     for name in (f for f in jax_files if f.endswith(".png")):   # previews: other draws
         with Image.open(tmp_path / "port" / name) as got, \

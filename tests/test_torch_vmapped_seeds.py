@@ -14,6 +14,7 @@ plans, carried over.
 """
 
 import os
+import re
 import time
 
 import jax
@@ -381,9 +382,12 @@ def test_run_vmaps_where_jax_does(case, monkeypatch):
 
 
 def _files(root):
+    """The run directory's files; a tensorboard event file by its prefix
+    (its name carries the time, host and process)."""
     out = set()
     for d, _, names in os.walk(root):
-        out |= {os.path.relpath(os.path.join(d, n), root) for n in names}
+        out |= {re.sub(r"tfevents\..*", "tfevents", os.path.relpath(os.path.join(d, n), root))
+                for n in names}
     return out
 
 
