@@ -7,13 +7,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. card: the card's name and power limit, as nvidia-smi reports them;
   2. build: every kernel of the port, compiled from this checkout's sources,
      one nvcc per source, all started together: the fused-QKV attention
-     forward and backward on both grids (one source) and the flash attention
-     forward (another);
+     forward and backward on both grids (one source), the flash attention
+     forward (another) and the augmentation kernels (a third);
   3. kernels: each kernel against its plain PyTorch version on the card, in
      fp32 (TF32 off) and bf16, with its time beside the plain version's and
      one PyTorch library call's (a yardstick the port never calls): SDPA's
      forward, and SDPA's backward through a retained forward. The lane-group
-     kernels are also held against the monolithic ones;
+     kernels are also held against the monolithic ones; then augment: the
+     augmentation kernels (stats, apply) against their plain versions at
+     the crop steps of the acceptance, ImageNet-30 and CIFAR-10 stacks, one
+     half-batch of 128 raw images in uint8 and in fp32 (``phase_augment``);
   4. serving (the first slice): CLIP ViT-B/32 anomaly scoring at full width
      with random weights from seed 0: the CIFAR-10 one-vs-rest prompt
      centre, then three requests (256, 100 and 37 raw 32x32 uint8 images)
@@ -25,7 +28,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      seeded uint8 256x256 sets of 512 normal, 512 OE and 256 test images: two
      epochs of 4 steps of 128 + 128 images, ``eval_cls`` and a snapshot; the
      launch counts must be 12 forward and 12 backward per step plus 12
-     forward per eval batch. Then 3 fp32 steps (TF32 off, deterministic
+     forward per eval batch, and 2 stats + 2 apply augmentation launches per
+     step and 2 + 2 for the preview. Then 3 fp32 steps (TF32 off, deterministic
      pipeline; 36 forward and 36 backward launches, every backward in the
      resident design, a path of its own in the counts) twice, through the kernels and through their plain versions
      (``fused_qkv_attention_ref``), held against each other; one bf16 step
@@ -62,8 +66,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      against the plain stem under autograd to 1e-4; one fp32 step with the
      fused stem against one with ``EOE_TPU_FUSED_STEM=0`` at phase 5's
      limits.
-     No kernel of the repository lies on phases 8 and 9: their counts must
-     all be 0.
+     No attention kernel lies on phases 8 and 9; the augmentation kernels
+     launch once per train-pipeline call (apply; the stats where the guard
+     is on: WRN), 2 a step and 2 for the preview, and 0 on the fixed
+     pipelines of the by-name runs and the fp32 steps.
 Later phases: filters, cli, folder, evolve and custom (the runners and data
 layers of later slices, see their docstrings), then
  15. vmapped: the vmapped engines. (a) ``train_cifar`` by ``main`` with 4
@@ -108,7 +114,8 @@ layers of later slices, see their docstrings), then
      WRN stem's (256, 64, 112, 112) in fp32 and bf16, forward and gradient,
      with both times.
 Each path's launch counts (every kernel's) are set to 0 just before it and
-read just after.
+read just after. The augmentation counts are held on the training paths of
+phases 5-9 and reported on the others.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's bf16 row at
 the training shape, its fp32 row under ``"fp32"``, and the variant each path's
@@ -152,20 +159,25 @@ def check(cond: bool, msg: str):
 
 def _counts() -> dict:
     """Every kernel's launch count, the fp32 fused backward's by design (both
-    grids; bf16 takes the tensor cores) and the flash kernel's by variant
-    (tensor cores, fp32 register tiles; the rest took the CUDA cores)."""
+    grids; bf16 takes the tensor cores), the flash kernel's by variant
+    (tensor cores, fp32 register tiles; the rest took the CUDA cores) and the
+    augmentation kernels' (apply, stats)."""
+    from eoe_tpu_torch.ops import augment
     from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention as fl
     return {"fwd": fq.launches, "bwd": fq.bwd_launches, "group_fwd": fq.group_launches,
             "group_bwd": fq.group_bwd_launches, "bwd_resident": fq.resident_bwd_launches,
             "bwd_recompute": fq.recompute_bwd_launches, "flash": fl.launches,
-            "flash_tc": fl.tc_launches, "flash_tile": fl.tile_launches}
+            "flash_tc": fl.tc_launches, "flash_tile": fl.tile_launches,
+            "augment": augment.launches, "augment_stats": augment.stats_launches}
 
 
 def _zero_counts():
+    from eoe_tpu_torch.ops import augment
     from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention as fl
     fq.launches = fq.bwd_launches = fq.group_launches = fq.group_bwd_launches = 0
     fq.resident_bwd_launches = fq.recompute_bwd_launches = 0
     fl.launches = fl.tc_launches = fl.tile_launches = 0
+    augment.launches = augment.stats_launches = 0
 
 
 FLASH_VARIANTS = {"flash_tc": "tensor cores", "flash_tile": "fp32 register tiles"}
@@ -191,11 +203,26 @@ def bwd_design(before: dict, after: dict) -> str:
     return "tensor cores"
 
 
+AUGMENT_KEYS = ("augment", "augment_stats")
+
+
 def check_counts(counts: dict, expected: dict, what: str):
     """Each kernel named in ``expected`` launched that many times, every
-    other kernel not at all."""
-    want = {k: expected.get(k, 0) for k in counts}
-    check(counts == want, f"{what}: launches {counts}, expected {want}")
+    other kernel not at all. The augmentation kernels are held only where
+    ``expected`` names one of them (the paths whose pipeline calls are
+    counted here: the training phases, ``augment_counts``); elsewhere their
+    launches are reported."""
+    held = [k for k in counts if k not in AUGMENT_KEYS or any(a in expected for a in AUGMENT_KEYS)]
+    got = {k: counts[k] for k in held}
+    want = {k: expected.get(k, 0) for k in held}
+    check(got == want, f"{what}: launches {got}, expected {want}")
+
+
+def augment_counts(calls: int, stats: bool) -> dict:
+    """The augmentation launches of ``calls`` train-pipeline calls on a stack
+    with a random crop: one apply each, and one stats where the crop step
+    has a contrast factor or the guard."""
+    return {"augment": calls, "augment_stats": calls if stats else 0}
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -253,6 +280,8 @@ def ptxas_summary(log: str) -> list:
             mangled = entry.group(1)
             name = re.search(r"\d+([a-z][a-z_]*_kernel(?:_[a-z]+)?)I", mangled)
             args = ["bf16" if "bfloat16" in mangled else "fp32"] + re.findall(r"Li(\d+)E", mangled)
+            if re.search(r"_kernelIh", mangled):
+                args[0] = "u8"
             current, spills = f"{name.group(1) if name else mangled}<{', '.join(args)}>", ""
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
@@ -264,8 +293,8 @@ def ptxas_summary(log: str) -> list:
 
 
 def phase_build():
-    from eoe_tpu_torch.ops import _build, attention
-    sources = (attention.SOURCE, attention.FLASH_SOURCE)
+    from eoe_tpu_torch.ops import _build, attention, augment
+    sources = (attention.SOURCE, attention.FLASH_SOURCE, augment.SOURCE)
 
     def build(source):
         t0 = time.perf_counter()
@@ -277,6 +306,7 @@ def phase_build():
         seconds = list(pool.map(build, sources))
     attention._library()
     attention._flash_library()
+    augment._library()
     print(f"build: {', '.join(f'{src} in {t:.1f} s' for src, t in zip(sources, seconds))}; "
           f"{time.perf_counter() - t0:.1f} s in all")
     for source in sources:
@@ -515,6 +545,229 @@ def phase_kernels_flash(card: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------- augmentation
+
+# The crop steps of the three training stacks at their training shapes, one
+# half-batch of BATCH raw images: the acceptance stack's
+# color_jitter_crop_flip (256x256 -> 224, the guard, noise, CLIP's
+# normalisation), the ImageNet-30 stack's flip-first random_crop_hflip
+# (256x256 -> 224, the guard, normalize) and the CIFAR-10 stack's (32x32
+# padded by 4 -> 32, noise, normalize; its jitter runs unfused before it, on
+# the full image). ``normalize`` takes these statistics.
+AUG_STATS = ((0.4914, 0.4822, 0.4465), (0.2470, 0.2435, 0.2616))
+AUG_STACKS = {
+    "acceptance": dict(raw=256, size=224, padding=0, flip_first=False, guard=True, jitter=0.01,
+                       noise=0.001, norm="clip"),
+    "wrn": dict(raw=256, size=224, padding=0, flip_first=True, guard=True, jitter=None,
+                noise=None, norm=AUG_STATS),
+    "cifar": dict(raw=32, size=32, padding=4, flip_first=True, guard=False, jitter=None,
+                  noise=0.001, norm=AUG_STATS),
+}
+# fp32 operations per output pixel of the apply kernel's chain, counted from
+# its source: per channel the conversion (1), brightness (3), contrast (4),
+# saturation (4), noise (2) and normalisation (2); per pixel the saturation's
+# luma (5) and the hue's HSV round trip (~45)
+AUG_OPS = {"convert": 1, "brightness": 3, "contrast": 4, "saturation": 4, "noise": 2, "norm": 2}
+AUG_OPS_PIXEL = {"saturation": 5, "hue": 45}
+
+
+def _aug_images(g, st, dtype):
+    """BATCH raw images for a stack: random bytes, but image 0-3 near-white
+    (254/255 with a textured 64x64 middle, the white border the guard is for;
+    the jitter's brightness clip can make their crops constant), 4 and 5
+    constant (255, 0) and 6 zero in its drawn crop window (set by the
+    caller): the degenerate fallback's cases."""
+    import torch
+    raw = st["raw"]
+    x = torch.randint(0, 256, (BATCH, raw, raw, 3), generator=g, device="cuda",
+                      dtype=torch.uint8)
+    x[:4] = 254 + torch.randint(0, 2, (4, raw, raw, 3), generator=g, device="cuda",
+                                dtype=torch.uint8)
+    a, e = raw // 2 - raw // 8, raw // 2 + raw // 8
+    x[:4, a:e, a:e] = torch.randint(0, 256, (4, e - a, e - a, 3), generator=g, device="cuda",
+                                    dtype=torch.uint8)
+    x[4], x[5] = 255, 0
+    return x if dtype == "uint8" else x.float() / 255.0
+
+
+def _zero_window(x, tops, lefts, flip, flip_first, size, padding, b):
+    """Zero image ``b`` inside its crop's source window (raw coordinates;
+    flip -> crop takes a flipped image's crop from the mirrored window)."""
+    raw = x.shape[1]
+    left = int(lefts[b])
+    if flip_first and bool(flip[b]):
+        left = raw + 2 * padding - left - size
+    t, l = int(tops[b]) - padding, left - padding
+    x[b, max(t, 0):min(t + size, raw), max(l, 0):min(l + size, raw)] = 0
+
+
+def _window_bytes(tops, lefts, raw, size, padding, elem) -> int:
+    """Raw bytes inside the crop windows (the zero padding is not read)."""
+    r0, c0 = (tops - padding).clamp(min=0), (lefts - padding).clamp(min=0)
+    r1, c1 = (tops - padding + size).clamp(max=raw), (lefts - padding + size).clamp(max=raw)
+    return int(((r1 - r0).clamp(min=0) * (c1 - c0).clamp(min=0)).sum().item()) * 3 * elem
+
+
+def _bound(nbytes: int, ops: int) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["torch.float32"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _unfused_chain(st, x, tops, lefts, flip, jitter, noise, norm):
+    """What the parent's pipeline ran for the stack's crop step: the unfused
+    plain ops one after another (jitter on the full image, the flip of the
+    full image or of the crop, the crop, noise, normalisation)."""
+    from eoe_tpu_torch.ops import preprocess as P
+    size = (st["size"],) * 2
+    if jitter is not None:
+        x = P.color_jitter(P._to_float(x), **jitter)
+    if st["flip_first"]:
+        x = P.random_hflip(x, flip)
+    x = P.random_crop(x, tops, lefts, size, st["padding"], st["guard"])
+    if not st["flip_first"]:
+        x = P.random_hflip(x, flip)
+    x = P._to_float(x)
+    if noise is not None:
+        x = P.gaussian_noise(x, noise, st["noise"])
+    return P.normalize(x, *norm)
+
+
+def phase_augment(card: str) -> dict:
+    """Both augmentation kernels against their plain versions at the three
+    stacks' crop steps, on uint8 and on fp32 input: the stats kernel's
+    degenerate flags exactly and its contrast means to 1e-6; the apply
+    kernel (from the plain stats) and the pair (``crop_augment``) to 1e-5 in
+    [0, 1] units, 1e-5/std after the normalisation; on index-coded fp32
+    images (each value its pixel's own, without jitter, noise or
+    normalisation) the gathers exactly, the guard on. Times: each kernel,
+    its plain version, and the whole step as kernels, as their plain
+    version and as the parent's unfused plain ops."""
+    import torch
+    from eoe_tpu_torch.ops import augment as A
+    from eoe_tpu_torch.ops import preprocess as P
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows = {}
+    for name, st in AUG_STACKS.items():
+        size, pad = (st["size"],) * 2, st["padding"]
+        norm = (P.CLIP_MEAN, P.CLIP_STD) if st["norm"] == "clip" else st["norm"]
+        tol = 1e-5 / min(norm[1])
+        for dtype in ("uint8", "float32"):
+            x = _aug_images(g, st, dtype)
+            elem = x.element_size()
+            d = P.draw_random_crop(x, g, size=size, padding=pad)
+            tops, lefts = d["tops"], d["lefts"]
+            flip = P.draw_random_hflip(x, g)["flip"]
+            _zero_window(x, tops, lefts, flip, st["flip_first"], st["size"], pad, 6)
+            jitter = None
+            if st["jitter"]:
+                jitter = P.draw_color_jitter(P._to_float(x), g, **dict.fromkeys(A.JITTER,
+                                                                                st["jitter"]))
+            noise = (torch.randn(BATCH, *size, 3, generator=g, device="cuda")
+                     if st["noise"] else None)
+            contrast = jitter is not None
+            skw = dict(size=size, padding=pad, flip_first=st["flip_first"], contrast=contrast,
+                       guard=st["guard"], brightness=jitter["brightness"] if contrast else None)
+            akw = dict(size=size, padding=pad, flip_first=st["flip_first"], jitter=jitter,
+                       noise=noise, noise_std=st["noise"] or 0.0, norm=norm)
+            tag = f"{name} {dtype} ({BATCH}, {st['raw']}, {st['raw']}, 3) -> {size[0]}"
+
+            # the stats kernel
+            stats = contrast or st["guard"]
+            if stats:
+                mean_k, deg_k = A.crop_stats(x, tops, lefts, flip, **skw)
+                mean_r, deg_r = A.crop_stats_ref(x, tops, lefts, flip, **skw)
+                if st["guard"]:
+                    check(torch.equal(deg_k, deg_r), f"augment stats {tag}: degenerate flags "
+                          f"{deg_k.nonzero().flatten().tolist()} vs plain "
+                          f"{deg_r.nonzero().flatten().tolist()}")
+                    check(bool(deg_r[4:7].all()), f"augment stats {tag}: images 4-6 must be "
+                          "degenerate")
+                mean_err = (mean_k - mean_r).abs().max().item() if contrast else 0.0
+                check(mean_err <= 1e-6, f"augment stats {tag}: contrast means differ by "
+                      f"{mean_err}")
+            else:
+                mean_r = deg_r = None
+            # the apply kernel, from the plain stats
+            out_k = A.crop_apply(x, tops, lefts, flip, mean_r, deg_r, **akw)
+            out_r = A.crop_apply_ref(x, tops, lefts, flip, mean_r, deg_r, **akw)
+            apply_err = (out_k - out_r).abs().max().item()
+            check(apply_err <= tol, f"augment apply {tag}: max abs err {apply_err} > {tol}")
+            # the pair, against the JAX peephole's port
+            step_k = A.crop_augment(x, tops, lefts, flip, guard=st["guard"], **akw)
+            step_r = A.crop_augment_ref(x, tops, lefts, flip, guard=st["guard"], **akw)
+            step_err = (step_k - step_r).abs().max().item()
+            check(step_err <= tol and bool(torch.isfinite(step_k).all()),
+                  f"augment step {tag}: max abs err {step_err} > {tol}")
+            # the gathers: index-coded images, even images zero in their window
+            raw = st["raw"]
+            idx = torch.arange(raw * raw * 3, device="cuda", dtype=torch.float64)
+            idx = (idx[None] + 7919 * torch.arange(BATCH, device="cuda")[:, None]) % 2 ** 24 + 1
+            idx = idx.float().reshape(BATCH, raw, raw, 3)
+            for b in range(0, BATCH, 2):
+                _zero_window(idx, tops, lefts, flip, st["flip_first"], st["size"], pad, b)
+            gkw = dict(size=size, padding=pad, flip_first=st["flip_first"], guard=True)
+            gather_k = A.crop_augment(idx, tops, lefts, flip, **gkw)
+            gather_r = A.crop_augment_ref(idx, tops, lefts, flip, **gkw)
+            check(torch.equal(gather_k, gather_r), f"augment gathers {tag}: "
+                  f"{(gather_k != gather_r).sum().item()} values differ")
+            fell = A.crop_stats(idx, tops, lefts, flip, size=size, padding=pad,
+                                flip_first=st["flip_first"], guard=True)[1]
+            check(bool(fell[::2].all()) and not bool(fell[1::2].any()),
+                  f"augment gathers {tag}: the zeroed windows must fall back, no other")
+
+            # times (device, queued), bounds
+            t = {}
+            if stats:
+                t["stats"] = time_ms(lambda: A.crop_stats(x, tops, lefts, flip, **skw))
+                t["stats_plain"] = time_ms(lambda: A.crop_stats_ref(x, tops, lefts, flip,
+                                                                    **skw))
+            t["apply"] = time_ms(lambda: A.crop_apply(x, tops, lefts, flip, mean_r, deg_r, **akw))
+            t["apply_plain"] = time_ms(lambda: A.crop_apply_ref(x, tops, lefts, flip, mean_r,
+                                                                deg_r, **akw))
+            t["step"] = time_ms(lambda: A.crop_augment(x, tops, lefts, flip, guard=st["guard"],
+                                                       **akw))
+            t["step_plain"] = time_ms(lambda: A.crop_augment_ref(x, tops, lefts, flip,
+                                                                 guard=st["guard"], **akw))
+            t["step_unfused"] = time_ms(lambda: _unfused_chain(st, x, tops, lefts, flip, jitter,
+                                                               noise, norm))
+            window = _window_bytes(tops, lefts, raw, st["size"], pad, elem)
+            pixels = BATCH * size[0] * size[1]
+            out_bytes = pixels * 3 * 4 * (2 if noise is not None else 1)   # noise in, out
+            ops = pixels * (3 * (AUG_OPS["convert"] + AUG_OPS["norm"]
+                                 + (AUG_OPS["noise"] if noise is not None else 0)
+                                 + sum(AUG_OPS[k] for k in ("brightness", "contrast",
+                                                            "saturation") if jitter))
+                            + (sum(AUG_OPS_PIXEL.values()) if jitter else 0))
+            stats_in = x.numel() * elem if contrast else window
+            stats_bound = _bound(stats_in, 4 * x.numel() if contrast else x.numel())
+            apply_bound = _bound(window + out_bytes, ops)
+            step_bound = _bound(max(stats_in, window) + out_bytes, ops + 4 * x.numel())
+            n_deg = int(deg_r.sum()) if deg_r is not None else 0
+            rows[(name, dtype)] = {
+                "stats": dict(max_abs_err=mean_err, ms=t["stats"], plain_ms=t["stats_plain"],
+                              bound_ms=stats_bound[0], bound_by=stats_bound[1],
+                              library_ms=None) if stats else None,
+                "apply": dict(max_abs_err=apply_err, ms=t["apply"], plain_ms=t["apply_plain"],
+                              bound_ms=apply_bound[0], bound_by=apply_bound[1],
+                              library_ms=None),
+                "step": dict(max_abs_err=step_err, ms=t["step"], plain_ms=t["step_plain"],
+                             unfused_ms=t["step_unfused"], bound_ms=step_bound[0],
+                             bound_by=step_bound[1]),
+                "shape": tag, "degenerate": n_deg}
+            stats_txt = (f"stats {t['stats']:.4f} ms (plain {t['stats_plain']:.4f}, bound "
+                         f"{stats_bound[0]:.4f} {stats_bound[1]}, mean err {mean_err:.3g}); "
+                         if stats else "no stats kernel; ")
+            print(f"augment {tag}: {n_deg} degenerate; {stats_txt}apply {t['apply']:.4f} ms "
+                  f"(plain {t['apply_plain']:.4f}, bound {apply_bound[0]:.4f} {apply_bound[1]}, "
+                  f"err {apply_err:.3g}, tol {tol:.3g}); step {t['step']:.4f} ms (plain "
+                  f"{t['step_plain']:.4f}, unfused plain {t['step_unfused']:.4f}, bound "
+                  f"{step_bound[0]:.4f}, err {step_err:.3g}); gathers exact [{card}]")
+            del x, idx, out_k, out_r, step_k, step_r, gather_k, gather_r, noise
+            torch.cuda.empty_cache()
+    return rows
+
+
 def phase_slice(card: str) -> dict:
     import numpy as np
     import torch
@@ -627,6 +880,9 @@ ACCEPTANCE_SPECS = [
     {"op": "clip_tensor_preprocessing"}]
 CLIP_TEST_SPECS = [{"op": "clip_pil_preprocessing"}, {"op": "clip_tensor_preprocessing"}]
 TRAIN_N, TRAIN_OE, TRAIN_TEST, TRAIN_HW, TRAIN_EPOCHS = 512, 512, 256, 256, 2
+# train-pipeline calls besides the steps' two halves: the preview the first
+# seed of a class writes, one call per half
+PREVIEW_CALLS = 2
 
 
 def _combined(rng, train_specs):
@@ -659,8 +915,10 @@ def _trainer(model, train_specs, logger, dtype, epochs=TRAIN_EPOCHS):
 
 def _train_bf16(card, label, model, data, epochs, expected, serve_model=None) -> dict:
     """``train_cls`` of ``epochs`` epochs and ``eval_cls`` on the acceptance
-    set, counted: ``expected(steps, eval_batches)`` gives each kernel's
-    launches. With ``serve_model``, the snapshot is served back through
+    set, counted: ``expected(steps, eval_batches)`` gives each attention
+    kernel's launches; the augmentation kernels launch twice for each
+    train-pipeline call (the stats for the contrast mean and the guard).
+    With ``serve_model``, the snapshot is served back through
     ``AnomalyScorer`` and held against ``eval_cls``'s scores."""
     import tempfile
 
@@ -692,7 +950,8 @@ def _train_bf16(card, label, model, data, epochs, expected, serve_model=None) ->
         losses = trainer.step_losses
         check(len(losses) == steps and np.isfinite(losses).all(),
               f"{label}: expected {steps} finite losses, got {losses}")
-        check_counts(counts, expected(steps, eval_batches),
+        check_counts(counts, {**expected(steps, eval_batches),
+                              **augment_counts(2 * steps + PREVIEW_CALLS, stats=True)},
                      f"{label} ({steps} steps, {eval_batches} eval batches)")
         eval_scores = np.array([v for _, v in sorted(
             (int(k), v) for k, v in _read_json(logdir, "eval_cls0_it0_anomaly_scores").items())])
@@ -989,11 +1248,12 @@ def _conv_trainer(objective, model, train_specs, test_specs, logger, dtype, epoc
                               batch_size=BATCH, compute_dtype=dtype)
 
 
-def _train_pinned(card, label, trainer, data, n, n_test, serve) -> dict:
+def _train_pinned(card, label, trainer, data, n, n_test, serve, stats: bool) -> dict:
     """``train_cls``, ``eval_cls`` and a snapshot on a pinned set, counted;
     the snapshot served through ``AnomalyScorer`` by ``serve(path)`` and held
-    against ``eval_cls``'s scores. Returns the launch counts (no kernel of
-    the repository lies on the conv path: all must be 0)."""
+    against ``eval_cls``'s scores. Returns the launch counts: no attention
+    kernel; the augmentation kernels once per train-pipeline call (the
+    stacks' random crop), the stats kernel too where ``stats``."""
     import numpy as np
     ds, x_test = data
     trainer.ds = ds
@@ -1005,7 +1265,8 @@ def _train_pinned(card, label, trainer, data, n, n_test, serve) -> dict:
     eroc, _ = trainer.eval_cls(state, ds, 0, "airplane", 0)
     path = trainer.snapshot("snapshot_cls0_it0", state, trainer.epochs, ds.ds_statistics)
     counts = _counts()
-    check_counts(counts, {}, f"{label} (the conv path runs no kernel of the repository)")
+    check_counts(counts, augment_counts(2 * steps + PREVIEW_CALLS, stats),
+                 f"{label} (no attention kernel on the conv path)")
     losses = trainer.step_losses
     check(len(losses) == steps and np.isfinite(losses).all(),
           f"{label}: expected {steps} finite losses, got {losses}")
@@ -1043,7 +1304,7 @@ def _by_name(card, label, objective, model, specs, logdir) -> dict:
         counts = _counts()
     finally:
         os.environ.pop("EOE_TPU_FAKE_DATA", None)
-    check_counts(counts, {}, f"{label} {objective} by name")
+    check_counts(counts, augment_counts(0, False), f"{label} {objective} by name")
     losses = trainer.step_losses
     check(len(losses) > 0 and np.isfinite(losses).all(),
           f"{label} {objective} by name: losses {losses}")
@@ -1073,7 +1334,8 @@ def phase_conv_training(card: str) -> dict:
                                 Logger(logdir, noname=True), torch.float32, CONV_EPOCHS)
         counts = _train_pinned(card, "conv train hsc fp32 CNN32", trainer, data, CONV_N,
                                CONV_TEST, lambda path: AnomalyScorer(
-                                   path, CNN32(), test_specs=["normalize"], batch_size=BATCH))
+                                   path, CNN32(), test_specs=["normalize"], batch_size=BATCH),
+                               stats=False)
     for objective, model in (("hsc", CNN32()), ("bce", CNN32(clf=True)), ("dsvdd", CNN32()),
                              ("ae", AE32())):
         with tempfile.TemporaryDirectory() as logdir:
@@ -1184,7 +1446,7 @@ def phase_wrn_training(card: str) -> dict:
                                WRN_TEST, lambda path: AnomalyScorer(
                                    path, WideResNet(dtype=torch.bfloat16),
                                    test_specs=WRN_TEST_SPECS, batch_size=BATCH,
-                                   compute_dtype=torch.bfloat16))
+                                   compute_dtype=torch.bfloat16), stats=True)
         del trainer
     torch.cuda.empty_cache()
     for n in (8, 2 * BATCH):
@@ -1200,7 +1462,7 @@ def phase_wrn_training(card: str) -> dict:
         _zero_counts()
         run = _wrn_step(ds32, fused=True)
         control = _wrn_step(ds32, fused=False)
-        check_counts(_counts(), {}, "wrn fp32 steps")
+        check_counts(_counts(), augment_counts(0, False), "wrn fp32 steps")
     finally:
         torch.backends.cudnn.deterministic = False
     (lk, gk, pk), (lp, gp, pp) = run, control
@@ -1342,8 +1604,8 @@ def _cli_clip(card: str, tmp: str) -> dict:
 
 def _cli_conv(card: str, tmp: str) -> dict:
     """``train_cifar``, ``train_fmnist`` and two ``multiscale_cifar`` sweeps
-    through their ``main``, counted (no kernel of the repository lies on
-    them); the test-only sweep must evaluate its magnitude-0 snapshot at
+    through their ``main``, counted (no attention kernel lies on them); the
+    test-only sweep must evaluate its magnitude-0 snapshot at
     magnitude 8 without training."""
     import glob
 
@@ -1369,7 +1631,7 @@ def _cli_conv(card: str, tmp: str) -> dict:
         out.append((main(argv), time.perf_counter() - t0))
     counts = _counts()
     # ---- end of the counted run
-    check_counts(counts, {}, "cli conv runners (no kernel of the repository)")
+    check_counts(counts, {}, "cli conv runners (no attention kernel)")
     for (label, _, argv, pattern), (result, seconds) in zip(runs, out):
         run = _run_dirs(tmp, pattern)[0]
         if label.startswith("multiscale"):
@@ -1577,8 +1839,8 @@ def _folder_clip(card: str, tmp: str) -> dict:
 def _folder_conv(card: str, tmp: str) -> dict:
     """``train_imagenet`` (WideResNet+CBAM) and ``train_mvtec`` (gcn-normalize)
     on the blobs, and ``train_custom`` on the PNG tree with the folder cache
-    at 0, through their ``main``, counted (no kernel of the repository lies
-    on them). The custom run must stream its normal half step by step and
+    at 0, through their ``main``, counted (no attention kernel lies on
+    them). The custom run must stream its normal half step by step and
     its test split batch by batch (``Subset.gather``), never whole."""
     import numpy as np
     from eoe_tpu_torch.datasets import bases
@@ -1618,7 +1880,7 @@ def _folder_conv(card: str, tmp: str) -> dict:
                 setattr(bases.Subset, name, fn)
     counts = _counts()
     # ---- end of the counted run
-    check_counts(counts, {}, "folder conv runners (no kernel of the repository)")
+    check_counts(counts, {}, "folder conv runners (no attention kernel)")
     n_train_src = len(CUSTOM_CLASSES) * CUSTOM_TRAIN
     n_test_src = len(CUSTOM_CLASSES) * 2 * CUSTOM_TEST
     steps = -(-CUSTOM_TRAIN // CUSTOM_BATCH)
@@ -1771,7 +2033,7 @@ def phase_evolve(card: str) -> dict:
             t_imagenet = time.perf_counter() - t0
             counts = _counts()
             # ---- end of the counted run
-            check_counts(counts, {}, "evolve runners (no kernel of the repository)")
+            check_counts(counts, {}, "evolve runners (no attention kernel)")
             # the WideResNet individuals' two seeds one after the other, as
             # before the vmapped seeds
             with _SequentialSeeds():
@@ -1906,7 +2168,7 @@ def phase_custom(card: str) -> dict:
             counts = _counts()
             # ---- end of the counted run
             Trainer._init_or_load = init_or_load
-            check_counts(counts, {}, "custom runners (no kernel of the repository)")
+            check_counts(counts, {}, "custom runners (no attention kernel)")
             params2 = torch.load(snap2, map_location="cpu", weights_only=True)["params"]
             for label, start, params in (("fresh", loaded[0], params1),
                                          ("from features", loaded[1], params2)):
@@ -2084,7 +2346,7 @@ def _vm_train_cifar(card: str, tmp: str) -> tuple:
                 lambda tag: train_cifar.main(argv + flag + ["--superdir", f"{mode}_{tag}"]),
                 os.path.join(tmp, f"trace_{mode}"))
     counts = _counts()
-    check_counts(counts, {}, "vmapped train_cifar (no kernel of the repository)")
+    check_counts(counts, {}, "vmapped train_cifar (no attention kernel)")
     runs = {m: _run_dirs(tmp, f"{m}_*/log_*_hsc_cifar10_one_vs_rest") for m in out}
     check(all(len(r) == 2 for r in runs.values()), f"vmapped train_cifar: runs {runs}")
     printed = [_printed(r) for r in runs["vmapped"]]
@@ -2122,7 +2384,7 @@ def _vm_train_cifar(card: str, tmp: str) -> tuple:
     for mode in ("vmapped", "sequential"):
         pinned[mode] = _timed_and_profiled(lambda tag: run(mode, tag),
                                            os.path.join(tmp, f"trace_pinned_{mode}"))
-    check_counts(_counts(), {}, "vmapped CNN32 pinned (no kernel of the repository)")
+    check_counts(_counts(), {}, "vmapped CNN32 pinned (no attention kernel)")
     with _SgdTrainers():
         for mode in ("vmapped", "sequential"):
             run(mode, "sgd")
@@ -2204,7 +2466,7 @@ def _vm_wrn(card: str) -> dict:
             out["sync"] = loss
         losses.append(loss.float().cpu())
     counts = _counts()
-    check_counts(counts, {}, "vmapped WideResNet (no kernel of the repository)")
+    check_counts(counts, {}, "vmapped WideResNet (no attention kernel)")
     peak_vm = (torch.cuda.max_memory_allocated() - base) / VM_WRN_K
     del stack
     torch.cuda.empty_cache()
@@ -2423,7 +2685,7 @@ def _vm_evolve(card: str, tmp: str) -> dict:
         out[mode] = _timed_and_profiled(run, os.path.join(tmp, f"trace_ev_{mode}"))
         peaks[mode] = torch.cuda.max_memory_allocated() - base
     counts = _counts()
-    check_counts(counts, {}, "vmapped evolve (no kernel of the repository)")
+    check_counts(counts, {}, "vmapped evolve (no attention kernel)")
     (hv, _), (hs, _) = out["vmapped"][0], out["sequential"][0]
     check(hv["pop"] == hs["pop"], f"vmapped evolve: populations {hv['pop']} differ from the "
           f"sequential evaluator's {hs['pop']}")
@@ -2533,7 +2795,7 @@ def _vm_wrn_runners(card: str, tmp: str) -> dict:
     generation of 16 candidates (the default: 64) for 1 epoch. The members
     each program holds come from the measured peaks of one and of two
     (``vmapped_seeds.members_that_fit``, printed); each run's peak memory and
-    seconds. Counted: no kernel of the repository lies on this path."""
+    seconds. Counted: no attention kernel lies on this path."""
     import numpy as np
     import torch
     from eoe_tpu_torch.main import evolve_oe_imagenet, train_imagenet
@@ -2570,7 +2832,7 @@ def _vm_wrn_runners(card: str, tmp: str) -> dict:
         counts = _counts()
     finally:
         V.members_that_fit = fit
-    check_counts(counts, {}, "vmapped WideResNet runners (no kernel of the repository)")
+    check_counts(counts, {}, "vmapped WideResNet runners (no attention kernel)")
     grid = {m: _run_dirs(tmp, f"{m}/log_*") for m in ("grid", "grid_seq")}
     printed = _printed(grid["grid"][0])
     check(f"trained {VM_WRN_SEEDS} seeds of cls 0 vmapped" in printed,
@@ -3050,7 +3312,7 @@ def phase_import(card: str) -> dict:
             os.environ.pop("EOE_TPU_FAKE_DATA", None)
         else:
             os.environ["EOE_TPU_FAKE_DATA"] = saved
-    check_counts(counts, {}, "import (no kernel of the repository)")
+    check_counts(counts, {}, "import (no attention kernel)")
     for name, _, cls, *_ in IMPORT_RUNS:
         auc, snap, recorded, written = evaluated[name]
         source = sources[name]
@@ -3170,6 +3432,7 @@ def main():
     bwd_rows = timed("kernels_bwd", phase_kernels_bwd, card)
     group_rows, group_bwd_rows = timed("kernels_group", phase_kernels_group, card)
     flash_rows = timed("kernels_flash", phase_kernels_flash, card)
+    aug_rows = timed("augment", phase_augment, card)
     paths = {"serving": timed("serving", phase_slice, card)}
     import numpy as np
     data = _combined(np.random.default_rng(SEED), ACCEPTANCE_SPECS)
@@ -3251,6 +3514,18 @@ def main():
          "variants_by_path": variants_by_path("group_bwd"), **group_bwd_rows[main_shape],
          "fp32": fp32(group_bwd_rows[f32_shape])},
     ]
+    # the augmentation kernels: the acceptance stack's crop step on uint8 (the
+    # training path) in the row, every stack and input dtype under "stacks"
+    aug_source = "eoe_tpu_torch/csrc/augment.cu"
+    for kernel, key, replaces in (("augment_stats", "stats", "eoe_tpu/ops/preprocess.py:322"),
+                                  ("augment_apply", "apply", "eoe_tpu/ops/preprocess.py:281")):
+        count = "augment_stats" if key == "stats" else "augment"
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": aug_source, "replaces": replaces,
+            "launches": paths["training"][count], "launches_by_path": by_path(count),
+            **aug_rows[("acceptance", "uint8")][key],
+            "stacks": {f"{s} {d}": row[key] for (s, d), row in aug_rows.items() if row[key]},
+            "steps": {f"{s} {d}": row["step"] for (s, d), row in aug_rows.items()}})
     print(f"phases (s): {seconds}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -29,10 +29,17 @@ dtype only when given. ``--vmap K`` profiles the training step of K
 members stacked as the vmapped seed engine trains them
 (``training.vmapped_seeds``: one step updates every member, each on the
 same batch with its own augmentation draws), K x (128 + 128) images a
-step. Needs one card; imports nothing of JAX or eoe_tpu.
+step. The traced steps run with the modules labelled (``record_function``
+ranges): the pipeline calls (``Trainer._preprocess``), the per-step weight
+casts (CLIP's ``_dense``, the conv layers' ``_cast``), the norms
+(``LayerNormF32``, ``BatchNorm``); with the optimizer's own range and the
+autograd engine's, each kernel's device time is split by the module that
+launched it, then by class. Needs one card; imports nothing of JAX or
+eoe_tpu.
 """
 
 import argparse
+import functools
 import os
 import sys
 import time
@@ -40,6 +47,8 @@ import time
 
 def kernel_class(name: str) -> str:
     low = name.lower()
+    if "augment_" in low:
+        return "augmentation (port kernel)"
     if any(k in low for k in ("flash_tc", "flash_tile", "flash_fwd_kernel")):
         return "flash attention forward (port kernel)"
     if "fused_qkv_bwd" in low:
@@ -59,6 +68,80 @@ def kernel_class(name: str) -> str:
                               "gather", "scatter", "copy", "cat", "fill")):
         return "elementwise, reductions, copies"
     return "other"
+
+
+LABEL = "module: "
+
+
+def label_modules():
+    """Wrap the modules the split reports in ``record_function`` ranges of
+    their names."""
+    import torch
+    from eoe_tpu_torch.models import layers
+    from eoe_tpu_torch.models.clip import model as clip_model
+    from eoe_tpu_torch.training.trainer import Trainer
+
+    def ranged(label, fn):
+        @functools.wraps(fn)
+        def inner(*args, **kw):
+            with torch.profiler.record_function(LABEL + label):
+                return fn(*args, **kw)
+        return inner
+
+    Trainer._preprocess = ranged("augmentation", Trainer._preprocess)
+    clip_model._dense = ranged("weight casts", clip_model._dense)
+    layers._Weighted._cast = ranged("weight casts", layers._Weighted._cast)
+    clip_model.LayerNormF32.forward = ranged("norms", clip_model.LayerNormF32.forward)
+    layers.BatchNorm.forward = ranged("norms", layers.BatchNorm.forward)
+
+
+def module_of(event) -> str:
+    """The labelled module around a CPU event, the optimizer, the backward
+    pass, or the rest of the forward."""
+    while event is not None:
+        name = event.name
+        if name.startswith(LABEL):
+            return name[len(LABEL):]
+        if name.startswith("Optimizer.step"):
+            return "optimizer"
+        if name.startswith("autograd::engine::evaluate_function"):
+            return "backward"
+        event = event.cpu_parent
+    return "rest of the forward"
+
+
+def is_annotation(event) -> bool:
+    """A ``record_function`` range's span on the device timeline, not a
+    kernel."""
+    return bool(getattr(event, "is_user_annotation", False)) or event.name.startswith(
+        (LABEL, "Optimizer."))
+
+
+def by_module(prof, steps: int, device_ms: dict) -> dict:
+    """{module: {kernel class: device ms per step}} over the kernels the
+    profiler linked to a CPU event. A kernel launched through ctypes has no
+    op to link to: the port's augmentation kernels' unlinked time goes to
+    the augmentation module (nothing else launches them), the rest of each
+    class's unlinked time to "not linked"."""
+    import torch
+    out, linked = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for k in e.kernels:
+            if is_annotation(k):
+                continue
+            name, ms = kernel_class(k.name), k.duration / 1e3 / steps
+            cls = out.setdefault(module_of(e), {})
+            cls[name] = cls.get(name, 0.0) + ms
+            linked[name] = linked.get(name, 0.0) + ms
+    for name, ms in device_ms.items():
+        rest = ms - linked.get(name, 0.0)
+        if rest > 1e-6:
+            module = "augmentation" if name == "augmentation (port kernel)" else "not linked"
+            cls = out.setdefault(module, {})
+            cls[name] = cls.get(name, 0.0) + rest
+    return out
 
 
 def training_step(cs, kw, dtype, k):
@@ -190,6 +273,7 @@ def main():
     plain = (time.perf_counter() - t0) / args.steps
     print(f"profile: {plain * 1e3:.2f} ms per step untraced, host clock = "
           f"{images / plain:.1f} img/s [{card}]")
+    label_modules()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -203,7 +287,8 @@ def main():
           f"{step_ms:.2f} ms per step on the host clock (tracing included) = "
           f"{imgs:.1f} img/s [{card}]")
 
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not is_annotation(e)]
     device_us = {}
     for e in kernels:
         cls = kernel_class(e.name)
@@ -216,6 +301,13 @@ def main():
     for cls, us in sorted(device_us.items(), key=lambda kv: -kv[1]):
         print(f"profile:   {cls}: {us / 1e3 / args.steps:.3f} ms per step "
               f"({100 * us / total:.1f}% of device time)")
+    modules = by_module(prof, args.steps,
+                        {cls: us / 1e3 / args.steps for cls, us in device_us.items()})
+    print("profile: by module (the op that launched each kernel), device ms per step:")
+    for module, classes in sorted(modules.items(), key=lambda kv: -sum(kv[1].values())):
+        parts = ", ".join(f"{cls} {ms:.3f}" for cls, ms in
+                          sorted(classes.items(), key=lambda kv: -kv[1]))
+        print(f"profile:   {module}: {sum(classes.values()):.3f} ({parts})")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25,
                                     max_name_column_width=70))
     if args.trace:

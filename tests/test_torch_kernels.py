@@ -458,3 +458,103 @@ def test_flash_head_split_views_take_the_fast_variant(cuda, dtype, atol):
     slow, variant = _flash_counted(*views(off[1:]), mask)
     assert variant == "core"
     assert (fast.float() - slow.float()).abs().max().item() <= atol
+
+
+# ---------------------------------------------------------------- augmentation
+
+# (n, raw h, raw w, channels, crop, padding, flip first, jitter, expand one
+# channel to three): the acceptance, ImageNet-30 and CIFAR-10 crop steps at
+# small sizes, a one-channel stack, rows whose 16-byte vectors cross a row
+# (8 x 8 x 3), and images too ragged for vectors (7 x 5 x 3)
+AUG_CASES = [(6, 40, 40, 3, 32, 0, False, True, False), (6, 40, 40, 3, 32, 0, True, False, False),
+             (6, 32, 32, 3, 32, 4, True, False, False), (5, 20, 20, 1, 16, 0, False, True, True),
+             (4, 8, 8, 3, 5, 2, False, False, False), (4, 7, 5, 3, 4, 0, False, True, False)]
+
+
+def _aug_inputs(case, dtype, device, seed=0):
+    from eoe_tpu_torch.ops import preprocess as P
+    n, h, w, c, size, pad, flip_first, jitter, repeat = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(0, 256, (n, h, w, c), generator=g, device=device, dtype=torch.uint8)
+    x[0] = 254 + (torch.arange(w, device=device)[None, :, None] % 2).to(torch.uint8)
+    x[1] = 200                     # constant: degenerate where the crop misses the padding
+    x = x if dtype == torch.uint8 else x.float() / 255.0
+    d = P.draw_random_crop(x, g, size=(size, size), padding=pad)
+    flip = P.draw_random_hflip(x, g)["flip"]
+    jit = (P.draw_color_jitter(x.float(), g, brightness=0.4, contrast=0.4, saturation=0.4,
+                               hue=0.2) if jitter else None)
+    cout = 3 if repeat else c
+    kw = dict(size=(size, size), padding=pad, flip_first=flip_first, jitter=jit, repeat=repeat,
+              noise=torch.randn(n, size, size, cout, generator=g, device=device),
+              noise_std=0.05, norm=((0.5, 0.4, 0.3)[:cout], (0.2, 0.3, 0.25)[:cout]))
+    return x, d["tops"], d["lefts"], flip, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", AUG_CASES)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_augment_kernels_match_ref(cuda, case, dtype):
+    """The stats kernel's flags exactly and its means to 1e-6; the apply
+    kernel and the pair to 1e-5 of [0, 1], 1e-5/0.2 after the
+    normalisation; each wrapper counts its launch."""
+    from eoe_tpu_torch.ops import augment as Aug
+    x, tops, lefts, flip, kw = _aug_inputs(case, dtype, cuda)
+    jit = kw["jitter"]
+    skw = dict(size=kw["size"], padding=kw["padding"], flip_first=kw["flip_first"], guard=True,
+               contrast=jit is not None, brightness=jit["brightness"] if jit else None)
+    before = (Aug.launches, Aug.stats_launches)
+    mean, deg = Aug.crop_stats(x, tops, lefts, flip, **skw)
+    mean_r, deg_r = Aug.crop_stats_ref(x, tops, lefts, flip, **skw)
+    assert torch.equal(deg, deg_r) and (bool(deg[1]) or kw["padding"] > 0)
+    if jit is not None:
+        assert (mean - mean_r).abs().max().item() <= 1e-6
+    out = Aug.crop_apply(x, tops, lefts, flip, mean_r, deg_r, **kw)
+    ref = Aug.crop_apply_ref(x, tops, lefts, flip, mean_r, deg_r, **kw)
+    assert out.dtype == torch.float32 and (out - ref).abs().max().item() <= 1e-5 / 0.2
+    step = Aug.crop_augment(x, tops, lefts, flip, guard=True, **kw)
+    step_ref = Aug.crop_augment_ref(x, tops, lefts, flip, guard=True, **kw)
+    assert (step - step_ref).abs().max().item() <= 1e-5 / 0.2
+    torch.cuda.synchronize()
+    assert (Aug.launches, Aug.stats_launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_augment_kernels_reject(cuda):
+    """What the kernels do not take raises; nothing falls back."""
+    from eoe_tpu_torch.ops import augment as Aug
+    x, tops, lefts, flip, kw = _aug_inputs(AUG_CASES[0], torch.uint8, cuda)
+    with pytest.raises(ValueError, match="uint8 or float32"):
+        Aug.crop_augment(x.half(), tops, lefts, flip, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        Aug.crop_augment(x.transpose(1, 2), tops, lefts, flip, **kw)
+    with pytest.raises(ValueError, match="padding-0 crop -> flip"):
+        Aug.crop_augment(x, tops, lefts, flip, **{**kw, "padding": 2})
+    with pytest.raises(ValueError, match="noise must be"):
+        Aug.crop_augment(x, tops, lefts, flip, **{**kw, "noise": kw["noise"][:, :4]})
+    with pytest.raises(ValueError, match="tops must hold"):
+        Aug.crop_augment(x, tops[:2], lefts, flip, **kw)
+    with pytest.raises(ValueError, match="normalisation"):
+        Aug.crop_augment(x, tops, lefts, flip, **{**kw, "norm": ((0.5,), (0.2,))})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_pipeline_on_the_card_is_the_cpus(cuda, dtype):
+    """The acceptance stack compiled once, run on the card (the kernels) and
+    on the CPU (the plain versions) with the card's draws."""
+    from eoe_tpu_torch.ops import augment as Aug
+    from eoe_tpu_torch.ops import preprocess as P
+    specs = [{"op": "resize", "size": 40},
+             {"op": "color_jitter", "brightness": 0.01, "contrast": 0.01, "saturation": 0.01,
+              "hue": 0.01},
+             {"op": "random_crop", "size": 32, "resample_degenerate": True},
+             {"op": "random_hflip", "p": 0.5}, {"op": "clip_pil_preprocessing", "resolution": 32},
+             {"op": "gaussian_noise", "std": 0.001}, {"op": "clip_tensor_preprocessing"}]
+    x = _aug_inputs(AUG_CASES[0], dtype, cuda)[0]
+    f = P.compile_pipeline(specs)
+    draws = f.draw(x, generator=torch.Generator(device=cuda).manual_seed(1))
+    before = Aug.launches
+    card = f(x, draws=draws)
+    assert Aug.launches == before + 1
+    cpu = f(x.cpu(), draws=[{k: v.cpu() for k, v in d.items()} for d in draws])
+    assert (card.cpu() - cpu).abs().max().item() <= 1e-5 / min(P.CLIP_STD)
