@@ -16,7 +16,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kernels are also held against the monolithic ones; then augment: the
      augmentation kernels (stats, apply) against their plain versions at
      the crop steps of the acceptance, ImageNet-30 and CIFAR-10 stacks, one
-     half-batch of 128 raw images in uint8 and in fp32 (``phase_augment``);
+     half-batch of 128 raw images in uint8 and in fp32, each kernel's
+     registers and spills first (``phase_augment``);
   4. serving (the first slice): CLIP ViT-B/32 anomaly scoring at full width
      with random weights from seed 0: the CIFAR-10 one-vs-rest prompt
      centre, then three requests (256, 100 and 37 raw 32x32 uint8 images)
@@ -641,11 +642,15 @@ def phase_augment(card: str) -> dict:
     images (each value its pixel's own, without jitter, noise or
     normalisation) the gathers exactly, the guard on. Times: each kernel,
     its plain version, and the whole step as kernels, as their plain
-    version and as the parent's unfused plain ops."""
+    version and as the parent's unfused plain ops. First each kernel's
+    registers and spills, from the build's ptxas report."""
     import torch
+    from eoe_tpu_torch.ops import _build
     from eoe_tpu_torch.ops import augment as A
     from eoe_tpu_torch.ops import preprocess as P
 
+    for line in ptxas_summary(_build.build_log(A.SOURCE)):
+        print(f"augment ptxas: {line}")
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     rows = {}
     for name, st in AUG_STACKS.items():

@@ -15,12 +15,14 @@ see ``_build``) or raises:
 - ``crop_stats``: one pass over each raw image for the contrast mean (the
   luma of the full image after the brightness clip) and the crop's min and
   max, whose spread gives the degenerate verdict of ``_is_degenerate`` on
-  the RAW crop. It launches only where the step has a contrast factor or
-  the guard is on.
-- ``crop_apply``: one thread per output pixel: the raw pixel at the crop's
-  (flipped) position, zero padding and the degenerate fallback's centre
-  window included, converted to fp32, jittered in the JAX package's order,
-  then the epilogue; written in fp32.
+  the RAW crop; the guard alone reads only the crop windows. A cluster of
+  ``stats_geometry`` blocks shares each image. It launches only where the
+  step has a contrast factor or the guard is on.
+- ``crop_apply``: one block per (image, band of output rows), the bands
+  from ``apply_geometry``; each thread takes 4 consecutive output pixels of
+  a row: the raw pixels at the crop's (flipped) position, zero padding and
+  the degenerate fallback's centre window included, converted to fp32,
+  jittered in the JAX package's order, then the epilogue; written in fp32.
 
 The two have plain versions of their own (``crop_stats_ref``,
 ``crop_apply_ref``); ``crop_apply_ref(crop_stats_ref(...))`` is
@@ -30,7 +32,7 @@ of the apply and stats kernels.
 
 import ctypes
 import functools
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -117,17 +119,67 @@ def crop_augment_ref(images: torch.Tensor, tops: torch.Tensor, lefts: torch.Tens
     return _epilogue(out, repeat, noise, noise_std, norm)
 
 
+# ---------------------------------------------------------------- launch geometry
+
+APPLY_THREADS = 256      # csrc/augment.cu kApplyThreads
+MAX_CLUSTER = 8          # the portable cluster size
+MAX_SMEM = 232448        # 227 KB, a block's most on sm_90
+FILL_BLOCKS = 1024       # about eight blocks on each of the H100's 132 SMs
+MIN_BLOCKS = 256         # apply: about two blocks on each SM before rows are halved
+STATS_ROWS = 32          # rows a stats block takes before the cluster grows
+
+
+class ApplyGeometry(NamedTuple):
+    rows: int      # output rows a stage holds (a thread a quad of pixels of one)
+    steps: int     # stages a band runs, double-buffered
+    bands: int     # blocks per image (gridDim.y)
+    pitch: int     # shared memory bytes of one staged source row
+    smem: int      # dynamic shared memory of a block
+
+
+def apply_geometry(n: int, th: int, tw: int, c: int, elem: int) -> ApplyGeometry:
+    """The apply kernel's launch for n crops of th x tw from c-channel images
+    of ``elem``-byte elements: as many rows a stage as a block has threads for
+    their quads (4 pixels each; a ragged ``tw % 4`` tail goes scalar), halved
+    while the grid would hold fewer than MIN_BLOCKS blocks (CIFAR-10's 128
+    crops of 32 rows: two stages of 16); bands enough to put FILL_BLOCKS
+    blocks on the card, at most 65,535 (gridDim.y). A staged row is the
+    window's tw * c elements and the 16-byte hull around them; uint8 adds a
+    256-entry table."""
+    quads = -(-tw // 4)
+    rows = max(1, min(th, APPLY_THREADS // quads))
+    while rows > 1 and n * -(-th // rows) < MIN_BLOCKS:
+        rows //= 2
+    steps = -(-th // rows)                               # stages per image
+    per_band = max(1, steps // max(1, -(-FILL_BLOCKS // n)), -(-steps // 65535))
+    bands = -(-steps // per_band)
+    pitch = (-(-(tw * c * elem) // 16) + 1) * 16
+    smem = (256 * 4 if elem == 1 else 0) + 2 * rows * pitch
+    return ApplyGeometry(rows, per_band, bands, pitch, smem)
+
+
+def stats_geometry(h: int, th: int, contrast: bool) -> int:
+    """The stats kernel's cluster size: blocks per image, each a band of at
+    least STATS_ROWS of the rows it reads (all h for the contrast mean, the
+    window's th for the guard alone), at most MAX_CLUSTER."""
+    return max(1, min(MAX_CLUSTER, -(-(h if contrast else th) // STATS_ROWS)))
+
+
 # ---------------------------------------------------------------- the kernels
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+    return bind(_build.load(SOURCE))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C launchers' arguments on a loaded build of SOURCE."""
     V, I = ctypes.c_void_p, ctypes.c_int
-    lib.eoe_augment_stats.argtypes = [V, I, I, I, I, I, I, I, I, I, V, V, V, V, V, V, V]
+    lib.eoe_augment_stats.argtypes = [V, I, I, I, I, I, I, I, I, I, V, V, V, V, V, V, I, V]
     lib.eoe_augment_stats.restype = I
-    lib.eoe_augment_apply.argtypes = ([V, I, I, I, I, I, I, I, I, I, V, V, V, V]
-                                      + [V] * 5 + [V, ctypes.c_float, V, V, I, V, V])
+    lib.eoe_augment_apply.argtypes = ([V, I, I, I, I, I, I, I, I, I, V, V, V, V] + [V] * 5
+                                      + [V, ctypes.c_float, V, V] + [I] * 5 + [V, V])
     lib.eoe_augment_apply.restype = I
     lib.eoe_cuda_error_string.argtypes = [I]
     lib.eoe_cuda_error_string.restype = ctypes.c_char_p
@@ -200,7 +252,7 @@ def crop_stats(images: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
             images.data_ptr(), _DTYPE_CODES[images.dtype], n, h, w, c, size[0], size[1],
             padding, int(flip_first), tops.data_ptr(), lefts.data_ptr(), _ptr(flip),
             _ptr(brightness), _ptr(mean), _ptr(degenerate),
-            torch.cuda.current_stream().cuda_stream)
+            stats_geometry(h, size[0], contrast), torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "crop_stats")
     stats_launches += 1
     return mean, degenerate
@@ -267,6 +319,10 @@ def crop_apply(images: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
     if norm is not None:
         norm_mean = _channel_values(norm[0], cout, dev, "mean")
         norm_std = _channel_values(norm[1], cout, dev, "std")
+    geo = apply_geometry(n, th, tw, c, images.element_size())
+    if geo.smem > MAX_SMEM:
+        raise ValueError(f"crop_augment: a {tw}-pixel crop row of {c} channels needs "
+                         f"{geo.smem} bytes of shared memory, more than a block has")
     out = torch.empty((n, th, tw, cout), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
@@ -274,7 +330,8 @@ def crop_apply(images: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
             images.data_ptr(), _DTYPE_CODES[images.dtype], n, h, w, c, th, tw, padding,
             int(flip_first), tops.data_ptr(), lefts.data_ptr(), _ptr(flip), _ptr(degenerate),
             *map(_ptr, factors), _ptr(mean), _ptr(noise), float(noise_std), _ptr(norm_mean),
-            _ptr(norm_std), cout, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            _ptr(norm_std), cout, geo.rows, geo.steps, geo.bands, geo.pitch, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "crop_apply")
     launches += 1
     return out

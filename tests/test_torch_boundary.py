@@ -63,7 +63,8 @@ def test_port_imports_neither_jax_nor_eoe_tpu():
     assert not native_built   # the native decoder builds at first use, not at import
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_train.py", "attention_variants.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_train.py", "attention_variants.py",
+                                    "augment_variants.py"])
 def test_root_scripts_import_neither_jax_nor_eoe_tpu(script):
     """The scripts that drive the port on the card import only the port:
     every import statement, at any depth, is read from the source."""

@@ -465,10 +465,18 @@ def test_flash_head_split_views_take_the_fast_variant(cuda, dtype, atol):
 # (n, raw h, raw w, channels, crop, padding, flip first, jitter, expand one
 # channel to three): the acceptance, ImageNet-30 and CIFAR-10 crop steps at
 # small sizes, a one-channel stack, rows whose 16-byte vectors cross a row
-# (8 x 8 x 3), and images too ragged for vectors (7 x 5 x 3)
+# (8 x 8 x 3), and images too ragged for vectors (7 x 5 x 3); then whole
+# 16-byte rows (144 B in uint8) with windows starting off a 16-byte boundary
+# and a width of 37 (a ragged quad); a mirrored window reaching both paddings
+# on every side; crop -> flip with padding at a width of 21; a band of rows
+# per cluster block (130 rows for the contrast mean, 90 window rows for the
+# guard alone); and 65,537 tiny images, more than gridDim.y could hold
 AUG_CASES = [(6, 40, 40, 3, 32, 0, False, True, False), (6, 40, 40, 3, 32, 0, True, False, False),
              (6, 32, 32, 3, 32, 4, True, False, False), (5, 20, 20, 1, 16, 0, False, True, True),
-             (4, 8, 8, 3, 5, 2, False, False, False), (4, 7, 5, 3, 4, 0, False, True, False)]
+             (4, 8, 8, 3, 5, 2, False, False, False), (4, 7, 5, 3, 4, 0, False, True, False),
+             (4, 48, 48, 3, 37, 0, False, True, False), (4, 16, 16, 3, 22, 4, True, False, False),
+             (3, 24, 30, 3, 21, 2, False, False, False), (2, 130, 96, 3, 64, 0, False, True, False),
+             (3, 100, 100, 3, 90, 0, True, False, False), (65537, 4, 4, 3, 3, 1, True, False, False)]
 
 
 def _aug_inputs(case, dtype, device, seed=0):
@@ -516,6 +524,26 @@ def test_augment_kernels_match_ref(cuda, case, dtype):
     assert (step - step_ref).abs().max().item() <= 1e-5 / 0.2
     torch.cuda.synchronize()
     assert (Aug.launches, Aug.stats_launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_augment_stats_is_deterministic(cuda, dtype):
+    """The cluster's blocks combine in rank order, without atomics: two calls
+    at the acceptance stack's shape give the same mean bits and flags."""
+    from eoe_tpu_torch.ops import augment as Aug
+    x, tops, lefts, flip, kw = _aug_inputs((8, 256, 256, 3, 224, 0, False, True, False),
+                                           dtype, cuda)
+    skw = dict(size=kw["size"], padding=0, flip_first=False, guard=True, contrast=True,
+               brightness=kw["jitter"]["brightness"])
+    assert Aug.stats_geometry(256, 224, True) == Aug.MAX_CLUSTER
+    first = Aug.crop_stats(x, tops, lefts, flip, **skw)
+    second = Aug.crop_stats(x, tops, lefts, flip, **skw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0].view(torch.int32), second[0].view(torch.int32))
+    assert torch.equal(first[1], second[1])
+    mean_r = Aug.crop_stats_ref(x, tops, lefts, flip, **skw)[0]
+    assert (first[0] - mean_r).abs().max().item() <= 1e-6
 
 
 @pytest.mark.cuda
