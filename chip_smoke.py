@@ -113,7 +113,19 @@ layers of later slices, see their docstrings), then
      equal to the sources; no kernel launches;
  19. pool: ``ops.pool.max_pool_3x3_s2_p1`` against ``F.max_pool2d`` on the
      WRN stem's (256, 64, 112, 112) in fp32 and bf16, forward and gradient,
-     with both times.
+     with both times;
+ 20. dp: the data axis (``parallel.mesh``), one process and then two ranks
+     sharing the card (EOE_TPU_DISTRIBUTED=1, gloo: NCCL refuses two ranks
+     on a device), each process running (a)-(d) of ``dp_child``: (a)
+     ``train_clip_cifar`` ViT-B/32 bf16 HSC, 4 steps of 128 + 128 (64 + 64
+     a rank): each rank's losses within 2^-8 of the process's, scores and
+     AUROC 1e-4 or a tie, 12 + 12 fused launches a step as one process on
+     the rank's 128 images (64 an eval batch), the step's ms a rank beside
+     the process's and a gloo all-reduce of the trained gradients' bytes;
+     (b) ``train_cifar`` CNN32 fp32: losses and parameters 1e-5; (c) 4
+     seeds ``--vmap-seeds``, 2 a rank: AUROCs 1e-4 or a tie; (d)
+     ``evolve_oe_cifar --ev-vmap``, generation 0's two candidates one a
+     rank: fitnesses 1e-4, populations equal. (b)-(d) update with SGD.
 Each path's launch counts (every kernel's) are set to 0 just before it and
 read just after. The augmentation counts are held on the training paths of
 phases 5-9 and reported on the others.
@@ -143,7 +155,9 @@ PATH_DTYPES = {"serving": "fp32", "training": "bf16", "training_fp32": "fp32",
                "cli_clip": "bf16", "cli_conv": "fp32", "folder_clip": "bf16",
                "folder_conv": "fp32", "evolve": "fp32", "custom": "fp32", "vm_conv": "fp32",
                "vm_wrn": "bf16", "vm_clip": "bf16", "vm_evolve": "fp32",
-               "vm_wrn_runners": "fp32", "clip_rn50": "bf16", "import": "fp32"}
+               "vm_wrn_runners": "fp32", "clip_rn50": "bf16", "import": "fp32",
+               "dp_clip_rank0": "bf16", "dp_clip_rank1": "bf16", "dp_conv": "fp32",
+               "dp_vmap": "fp32", "dp_evolve": "fp32"}
 BATCH = 128
 SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
@@ -3404,6 +3418,299 @@ def phase_pool(card: str):
     print(f"pool max_pool_3x3_s2_p1 on {POOL_SHAPE}: {'; '.join(lines)} [{card}]")
 
 
+# ---------------------------------------------------------------- phase dp
+
+DP_RANKS = 2
+DP_CLIP_EPOCHS = 4        # one step an epoch: 20 synthetic class-0 images in a half of 128
+DP_TIMEOUT = 600          # seconds for each group of processes
+DP_SCORE_TOL = 1e-4       # scores and AUROCs (PERF.md section 2), or a tie
+DP_CONV_TOL = 1e-5        # CNN32 fp32: losses and parameters
+DP_ARGV = {
+    "a": ["-e", str(DP_CLIP_EPOCHS), "--classes", "0", "-it", "1"],
+    "b": ["-e", "2", "--classes", "0", "-it", "1"],
+    "c": ["-e", "2", "--classes", "0", "-it", "4", "--vmap-seeds"],
+    "d": ["--ev-generation-pool", "2", "--ev-generations", "2", "--epochs", "1",
+          "--classes", "0", "-it", "1", "--ev-mutation-pool", "10", "--ev-select-toursize", "2",
+          "--ev-vmap"],
+}
+
+
+def _scalar_losses(run: str) -> list:
+    return [v for _, v in _read_json(run, "scalars")["training_cls0_seed0_loss"]]
+
+
+def _scores(run: str, it: int = 0) -> list:
+    return [v for _, v in sorted((int(k), v) for k, v in
+                                 _read_json(run, f"eval_cls0_it{it}_anomaly_scores").items())]
+
+
+def dp_child(tmp: str, tag: str):
+    """One process of phase dp: (a)-(d) through the runners' ``main`` on the
+    card, each printed as a "DP {json}" line. A rank of the group when
+    EOE_TPU_DISTRIBUTED=1 names it, one process otherwise. Its data and runs
+    lie under ``<tmp>/<tag>``; (b)-(d) update with SGD (``_SgdTrainers``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from eoe_tpu_torch.evolve.vmapped import VmappedEvaluator
+    from eoe_tpu_torch.main import evolve_oe_cifar, train_cifar, train_clip_cifar
+    from eoe_tpu_torch.ops import attention as A
+    from eoe_tpu_torch.parallel import mesh as meshlib
+    from eoe_tpu_torch.training import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = os.path.join(tmp, tag)
+    trainers, step_ms, rows, chunks = [], [], Counter(), []
+    launch, train_step, run = A._fwd_kernel, Trainer.train_step, Trainer.run
+    evaluate = VmappedEvaluator.evaluate_population
+
+    def recorded(qkv, heads, causal):   # image-tower launches by image count
+        rows["text" if causal else str(qkv.shape[0])] += 1
+        return launch(qkv, heads, causal)
+
+    def timed_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def kept_run(self, *args, **kwargs):
+        trainers.append(self)
+        return run(self, *args, **kwargs)
+
+    def sharded_population(self, individuals):   # whether the last chunk was split
+        out = evaluate(self, individuals)
+        chunks.append(self.trainer._last_vmap_sharded)
+        return out
+
+    def emit(case, **kw):
+        print("DP " + json.dumps({"case": case, **kw}), flush=True)
+
+    A._fwd_kernel, Trainer.train_step, Trainer.run = recorded, timed_step, kept_run
+    VmappedEvaluator.evaluate_population = sharded_population
+    try:
+        # (a) CLIP ViT-B/32 bf16 HSC, counted
+        _zero_counts()
+        train_clip_cifar.main(DP_ARGV["a"] + ["--datapath", root])
+        counts = _counts()
+        clip_run = _run_dirs(root, "log_*_clip_cifar10_one_vs_rest_E4")[0]
+        ms_a, rows_a = list(step_ms), dict(rows)
+        allreduce_ms, grad_bytes = None, 0
+        if dist.is_initialized():   # a gloo all-reduce of the trained gradients' bytes
+            tr = trainers[-1]
+            grads = [p for p in tr.model.parameters() if p.requires_grad]
+            grad_bytes = sum(p.numel() * p.element_size() for p in grads)
+            buf = torch.zeros(sum(p.numel() for p in grads), dtype=grads[0].dtype,
+                              device=tr.device)
+            times = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dist.all_reduce(buf, group=tr.mesh.group)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            allreduce_ms = float(np.median(times[1:]))
+        emit("a", counts=counts, rows=rows_a, losses=list(trainers[-1].step_losses),
+             scores=_scores(clip_run), auroc=_read_json(clip_run, "results")["eval_mean_auc"],
+             step_ms=ms_a, allreduce_ms=allreduce_ms, grad_bytes=grad_bytes,
+             mesh=trainers[-1].mesh.note if trainers[-1].mesh is not None else None)
+        # (b)-(d) CNN32 fp32 with SGD
+        with _SgdTrainers():
+            _zero_counts()
+            train_cifar.main(DP_ARGV["b"] + ["--datapath", root, "--superdir", "b"])
+            conv_run = _run_dirs(root, "b/log_*")[0]
+            emit("b", counts=_counts(), losses=list(trainers[-1].step_losses), run=conv_run,
+                 scores=_scores(conv_run))
+            _zero_counts()
+            _, res = train_cifar.main(DP_ARGV["c"] + ["--datapath", root, "--superdir", "c"])
+            grid_run = _run_dirs(root, "c/log_*")[0]
+            emit("c", counts=_counts(), aucs=res["cls_aucs"][0],
+                 sharded=trainers[-1]._last_vmap_sharded,
+                 vmapped="vmapped" in _printed(grid_run),
+                 scores=[_scores(grid_run, it) for it in range(4)])
+            _zero_counts()
+            history, _ = evolve_oe_cifar.main(DP_ARGV["d"] + ["--datapath", root,
+                                                              "--superdir", root])
+            emit("d", counts=_counts(), fits=history["fit"], pop=history["pop"],
+                 sharded=chunks)
+    finally:
+        A._fwd_kernel, Trainer.train_step, Trainer.run = launch, train_step, run
+        VmappedEvaluator.evaluate_population = evaluate
+        meshlib.leave()
+
+
+def _dp_group(tmp: str, tags: list, envs: list) -> list:
+    """Run ``dp_child`` in one process per tag, together; their "DP" records
+    by case. A process that fails fails the phase, its last lines printed."""
+    script = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, script, "--dp-child", tmp, tag], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for tag, env in zip(tags, envs)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        outs = [""] * len(procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    records = []
+    for tag, p, out in zip(tags, procs, outs):
+        if p.returncode != 0:
+            print("\n".join(out.splitlines()[-40:]), file=sys.stderr)
+            fail(f"dp: process {tag} exited with {p.returncode}")
+        records.append({r["case"]: r for r in (json.loads(ln[3:]) for ln in out.splitlines()
+                                                if ln.startswith("DP "))})
+        check(sorted(records[-1]) == sorted(DP_ARGV), f"dp: {tag} reported {sorted(records[-1])}")
+    return records
+
+
+def _tie_or_close(a: float, b: float, scores_a, scores_b) -> tuple:
+    """(AUROC difference, score difference, held): within DP_SCORE_TOL, or
+    AUROCs apart only through scores that are (a tie moved by float noise)."""
+    import numpy as np
+    d_auc = abs(a - b)
+    d_score = float(np.abs(np.asarray(scores_a) - np.asarray(scores_b)).max())
+    return d_auc, d_score, d_auc <= DP_SCORE_TOL or d_score <= DP_SCORE_TOL
+
+
+def phase_dp(card: str) -> dict:
+    """The data axis: one process, then two ranks on the one card
+    (EOE_TPU_DISTRIBUTED=1, gloo), each through (a)-(d) of ``dp_child``. Each
+    rank against the process: (a) ``train_clip_cifar`` ViT-B/32 bf16 HSC at
+    128 + 128 (64 + 64 a rank), every step's loss within 2^-8, scores and
+    AUROC 1e-4 or a tie, the fused kernels' launch counts equal, the image
+    tower's launches on 128 and 64 rows instead of 256 and 128; (b)
+    ``train_cifar`` CNN32 fp32: losses and parameters 1e-5; (c) 4 seeds
+    ``--vmap-seeds``, 2 a rank: each seed's AUROC 1e-4 or a tie; (d)
+    ``evolve_oe_cifar --ev-vmap``, one chunk of two candidates over the
+    ranks: fitnesses 1e-4 or a tie, populations equal. The step ms per rank
+    and a gloo all-reduce of the trained gradients' bytes are host clocks
+    of processes that share the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.models import CNN32
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32, to_openai
+    from eoe_tpu_torch.parallel.mesh import free_port
+
+    tmp = tempfile.mkdtemp(prefix="eoe_dp_")
+    try:
+        ckpt = os.path.join(tmp, "ViT-B-32.pt")
+        weights = CLIP(VIT_B32, generator=torch.Generator().manual_seed(SEED)).state_dict()
+        torch.save(to_openai(weights, VIT_B32), ckpt)
+        del weights
+        base = {k: v for k, v in os.environ.items() if not k.startswith("EOE_TPU_")}
+        base.update(EOE_TPU_FAKE_DATA="1", EOE_TPU_CLIP_CHECKPOINT=ckpt,
+                    PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        one = _dp_group(tmp, ["one"], [base])[0]
+        t_one = time.perf_counter() - t0
+        addr = f"localhost:{free_port()}"
+        envs = [dict(base, EOE_TPU_DISTRIBUTED="1", EOE_TPU_COORD_ADDR=addr,
+                     EOE_TPU_NUM_PROCESSES=str(DP_RANKS), EOE_TPU_PROCESS_ID=str(i))
+                for i in range(DP_RANKS)]
+        t0 = time.perf_counter()
+        ranks = _dp_group(tmp, [f"rank{i}" for i in range(DP_RANKS)], envs)
+        t_ranks = time.perf_counter() - t0
+
+        # (a)
+        a1, layers = one["a"], VIT_B32.vision_layers
+        check(a1["rows"] == {"text": VIT_B32.transformer_layers, str(2 * BATCH):
+                             layers * DP_CLIP_EPOCHS, str(BATCH): layers},
+              f"dp (a) one process: image-tower launches by rows {a1['rows']}")
+        for i, r in enumerate(ranks):
+            a = r["a"]
+            check(a["counts"]["fwd"] == a1["counts"]["fwd"] and
+                  a["counts"]["bwd"] == a1["counts"]["bwd"],
+                  f"dp (a) rank {i}: launches {a['counts']} against one process's {a1['counts']}")
+            check(a["rows"] == {"text": VIT_B32.transformer_layers, str(BATCH):
+                                layers * DP_CLIP_EPOCHS, str(BATCH // DP_RANKS): layers},
+                  f"dp (a) rank {i}: the kernels saw rows {a['rows']}, not the local batch")
+            l_err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], a1["losses"]))
+            check(len(a["losses"]) == DP_CLIP_EPOCHS and l_err <= 2 ** -8,
+                  f"dp (a) rank {i}: losses {a['losses']} against {a1['losses']} (tol 2^-8)")
+            d_auc, d_score, held = _tie_or_close(a["auroc"], a1["auroc"], a["scores"],
+                                                 a1["scores"])
+            check(held, f"dp (a) rank {i}: AUROC {a['auroc']} against {a1['auroc']}, scores "
+                        f"{d_score} apart (tol {DP_SCORE_TOL})")
+        a0 = ranks[0]["a"]
+        step_one = float(np.median(a1["step_ms"][1:]))
+        step_ranks = [float(np.median(r["a"]["step_ms"][1:])) for r in ranks]
+        share = a0["allreduce_ms"] / step_ranks[0]
+        print(f"dp (a) train_clip_cifar ViT-B/32 bf16 HSC, {DP_CLIP_EPOCHS} steps of "
+              f"{BATCH}+{BATCH}: {a0['mesh']}; step {step_one:.1f} ms in one process, "
+              f"{[round(s, 1) for s in step_ranks]} ms per rank ({DP_RANKS} ranks on one "
+              f"card, gloo through the host; medians of steps 2-{DP_CLIP_EPOCHS}); a gloo "
+              f"all-reduce of the {a0['grad_bytes'] / 2 ** 20:.1f} MiB of trained gradients "
+              f"{a0['allreduce_ms']:.1f} ms, {share:.1%} of rank 0's step; losses "
+              f"{a0['losses']} vs {a1['losses']}; AUROC {a0['auroc']:.6f} vs "
+              f"{a1['auroc']:.6f}, scores {d_score:.3g} apart; launches per rank "
+              f"{a0['counts']}, image rows {a0['rows']} [{card}]")
+
+        # (b)
+        b1 = one["b"]
+        p1 = torch.load(os.path.join(b1["run"], "snapshots", "snapshot_cls0_it0.pt"),
+                        map_location="cpu", weights_only=True)["params"]
+        for i, r in enumerate(ranks):
+            b = r["b"]
+            l_err = max(abs(x - y) / abs(y) for x, y in zip(b["losses"], b1["losses"]))
+            check(l_err <= DP_CONV_TOL, f"dp (b) rank {i}: losses {b['losses']} against "
+                                        f"{b1['losses']} (tol {DP_CONV_TOL})")
+        p0 = torch.load(os.path.join(ranks[0]["b"]["run"], "snapshots", "snapshot_cls0_it0.pt"),
+                        map_location="cpu", weights_only=True)["params"]
+        p_err = max(float((p0[k].float() - v.float()).abs().max()) for k, v in p1.items())
+        check(p0.keys() == CNN32().state_dict().keys() and p_err <= DP_CONV_TOL,
+              f"dp (b): parameters {p_err} from one process's (tol {DP_CONV_TOL})")
+        print(f"dp (b) train_cifar CNN32 fp32: {len(b1['losses'])} steps, losses "
+              f"{ranks[0]['b']['losses']} vs {b1['losses']}; parameters {p_err:.3g} apart "
+              f"[{card}]")
+
+        # (c)
+        c1 = one["c"]
+        check(c1["vmapped"] and not c1["sharded"], f"dp (c) one process: {c1}")
+        for i, r in enumerate(ranks):
+            c = r["c"]
+            check(c["vmapped"] and c["sharded"], f"dp (c) rank {i}: the seeds did not shard")
+            for k in range(4):
+                d_auc, d_score, held = _tie_or_close(c["aucs"][k], c1["aucs"][k],
+                                                     c["scores"][k], c1["scores"][k])
+                check(held, f"dp (c) rank {i} seed {k}: AUROC {c['aucs'][k]} against "
+                            f"{c1['aucs'][k]}, scores {d_score} apart")
+        print(f"dp (c) train_cifar -it 4 --vmap-seeds, 2 seeds a rank: AUROCs "
+              f"{ranks[0]['c']['aucs']} vs {c1['aucs']} [{card}]")
+
+        # (d)
+        d1 = one["d"]
+        check(d1["sharded"] and not any(d1["sharded"]), f"dp (d) one process: {d1['sharded']}")
+        for i, r in enumerate(ranks):
+            d = r["d"]
+            check(d["sharded"][:1] == [True], f"dp (d) rank {i}: generation 0's chunk of two "
+                                              f"did not split over the ranks: {d['sharded']}")
+            check(d["pop"] == d1["pop"], f"dp (d) rank {i}: populations {d['pop']} against "
+                                         f"{d1['pop']}")
+            f_err = float(np.abs(np.asarray(d["fits"]) - np.asarray(d1["fits"])).max())
+            check(f_err <= DP_SCORE_TOL, f"dp (d) rank {i}: fitnesses {d['fits']} against "
+                                         f"{d1['fits']}")
+        print(f"dp (d) evolve_oe_cifar --ev-vmap, pool 2 over {DP_RANKS} ranks, 2 "
+              f"generations: fitnesses {ranks[0]['d']['fits']} vs {d1['fits']}, populations "
+              f"equal [{card}]")
+        print(f"dp: one process {t_one:.1f} s, {DP_RANKS} ranks {t_ranks:.1f} s [{card}]")
+        return {**{f"dp_clip_rank{i}": r["a"]["counts"] for i, r in enumerate(ranks)},
+                "dp_conv": ranks[0]["b"]["counts"], "dp_vmap": ranks[0]["c"]["counts"],
+                "dp_evolve": ranks[0]["d"]["counts"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _read_json(logdir: str, name: str) -> dict:
     with open(os.path.join(logdir, f"{name}.json")) as f:
         return json.load(f)
@@ -3459,6 +3766,7 @@ def main():
     paths["clip_rn50"] = timed("clip_rn50", phase_clip_rn50, card)
     paths["import"] = timed("import", phase_import, card)
     timed("pool", phase_pool, card)
+    paths.update(timed("dp", phase_dp, card))
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}
@@ -3540,4 +3848,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-child"]:   # one process of phase dp
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        dp_child(*sys.argv[2:4])
+    else:
+        main()

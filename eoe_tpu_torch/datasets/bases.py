@@ -245,8 +245,10 @@ class ADDataset:
         cache.setdefault(type(self).__name__, {}).setdefault(str(mode), {})[
             json.dumps(list(self.normal_classes))] = (list(stats.mean), list(stats.std))
         os.makedirs(pt.dirname(file), exist_ok=True)
-        with open(file, "w") as w:
+        part = f"{file}.{os.getpid()}"   # whole or not at all: ranks share the file
+        with open(part, "w") as w:
             json.dump(cache, w)
+        os.replace(part, file)
 
     @property
     def train_set(self) -> Subset:

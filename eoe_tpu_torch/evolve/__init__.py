@@ -318,7 +318,8 @@ def evaluate(offspring, pop, gen: int, toolbox, history: dict, tree: Tree, oeds,
     logger.print(f"  Std {std * 100:06.3f}")
     logger.add_scalar("avg_fit", mean * 100, gen)
     logger.add_scalar("max_fit", maxf * 100, gen)
-    tree.save(pt.join(logger.dir, "evolution"))
+    if logger.active:
+        tree.save(pt.join(logger.dir, "evolution"))
 
 
 def evolve(pop, gen: int, toolbox, mate_chance: float, mutation_chance: float,

@@ -18,8 +18,14 @@ The fitness is the mean AUROC over ``args.iterations`` seeds of
 ``args.classes[0]``, which is what the sequential ``trainer.run`` of each
 candidate gives. Candidates train ``chunk`` at a time, or as many as the
 card holds where that is fewer (``training.vmapped_seeds.members_per_program``,
-from one step of one and of two candidates). Needs the pinned, resident
-dataset that ``evolve_trainer`` builds.
+from one step of one and of two candidates; under a data mesh the least
+over the ranks). Under a data mesh of several ranks a chunk whose size the
+data size divides is split over the ranks, each training its
+``local_rows`` of the candidates with no collective, and the fitnesses are
+gathered (``trainer._last_vmap_sharded``); any other chunk runs whole on
+every rank. Every rank then holds every fitness and makes the same GA
+decisions. Needs the pinned, resident dataset that ``evolve_trainer``
+builds.
 """
 
 from typing import Dict, List, Sequence
@@ -30,6 +36,7 @@ import torch
 from eoe_tpu_torch.datasets import str_labels
 from eoe_tpu_torch.datasets.bases import BalancedEpochSampler, CombinedDataset
 from eoe_tpu_torch.ops.metrics import auroc_torch
+from eoe_tpu_torch.parallel import mesh as meshlib
 from eoe_tpu_torch.training.trainer import TrainState, _seed
 from eoe_tpu_torch.training.vmapped_seeds import members_per_program, preprocess_members
 
@@ -94,9 +101,16 @@ class VmappedEvaluator:
                            None if center is None else center.expand(k, *center.shape),
                            rt_stats)
 
-            per = members_per_program(trainer, ("candidates", oesize), self.chunk, probe)
+            mesh = trainer._dp_mesh()
+            per = meshlib.all_reduce_min(
+                mesh, members_per_program(trainer, ("candidates", oesize), self.chunk, probe))
             for start in range(0, len(individuals), per):
                 chunk = individuals[start:start + per]
+                n_chunk = len(chunk)
+                shard = trainer._last_vmap_sharded = \
+                    mesh is not None and n_chunk % mesh.data == 0
+                lo, hi = meshlib.local_rows(mesh if shard else None, n_chunk)
+                chunk = chunk[lo:hi]
                 k = len(chunk)
                 stack = trainer.init_states_stacked([seed] * k, sampler.steps)
                 center = self._center(it, stack, clsstr)
@@ -112,7 +126,9 @@ class VmappedEvaluator:
                 scores = torch.cat([stack.scores(x, center) for x in test_x], 1)
                 aucs = torch.func.vmap(auroc_torch, in_dims=(None, 0))(
                     kept_labels, scores[:, keep])
-                fitness[start:start + k, it] = aucs.cpu().numpy()
+                if shard:
+                    aucs = meshlib.gather_rows(mesh, aucs, n_chunk)
+                fitness[start:start + n_chunk, it] = aucs.cpu().numpy()
         return fitness.mean(axis=1).tolist()
 
     def _step(self, stack, plan, Xn, Ln, Xo, generator, center, rt_stats):

@@ -7,9 +7,15 @@ The flags, their defaults and the on-disk layout are the JAX package's: data
 under ``<datapath>/datasets``, runs under ``<datapath>/results/<superdir>``,
 a resumed run (``--load``) continued in ``<old run>---CNTD``, an evolution
 run in ``<superdir>/log_<time>_evolve_<comment>`` (``--ev-continue-run``:
-``<old run>---CNTD``). On one card two flags differ:
-  * ``-d/--devices`` counts GPUs. None and 1 run on the one card; more raise
-    (data parallelism is not ported yet);
+``<old run>---CNTD``). Two flags differ:
+  * ``-d/--devices`` counts GPUs, one process each: ``data_parallel`` (every
+    runner's ``main``) starts ranks 1..N-1 of ``-d N`` (default: every card;
+    on the CPU, ``-d`` alone) running the same ``main(argv)``, and
+    ``create_trainer`` gives the trainer the data mesh (``parallel.mesh``).
+    Under ``EOE_TPU_DISTRIBUTED=1`` the processes are started by the user,
+    one per GPU, and ``-d`` counts from the group's size. Only the process
+    the user started writes a run directory; under ``EOE_TPU_DISTRIBUTED=1``
+    each process writes its own, as the JAX package's do;
   * ``--compute-dtype`` maps ``float32`` / ``bfloat16`` to the torch dtypes
     and is written under the same names, so ``load_setup`` reads either
     package's setup.json.
@@ -24,9 +30,11 @@ one); it is not a flag. The evolutionary search keeps the JAX package's
 (``--ev-continue-run``, ``load_evolve``).
 """
 
+import functools
 import json
 import os
 import os.path as pt
+import sys
 import time
 from argparse import ArgumentParser, BooleanOptionalAction, Namespace
 from copy import deepcopy
@@ -34,6 +42,7 @@ from itertools import product
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from eoe_tpu_torch.datasets import (DS_CHOICES, DS_PARTS, MSM, MSM_TRANSFORMS,
                                     TRAIN_NOMINAL_ID, TRAIN_OE_ID, no_classes)
@@ -44,6 +53,7 @@ from eoe_tpu_torch.evolve import (Individual, Toolbox, evaluate, evaluate_indivi
                                   select_individual)
 from eoe_tpu_torch.evolve.tree import EvolNode, Individual as TreeIndividual, Tree
 from eoe_tpu_torch.ops.preprocess import specs_repr
+from eoe_tpu_torch.parallel import mesh as meshlib
 from eoe_tpu_torch.training import TRAINER, Trainer
 from eoe_tpu_torch.utils.logger import Logger
 
@@ -90,8 +100,10 @@ def default_argsparse(modify_descr: Callable[[str], str],
     parser.add_argument("--classes", type=int, nargs="+", default=None,
                         help="Class ids to iterate over; defaults to all.")
     parser.add_argument("-d", "--devices", type=int, metavar="N-GPUS", default=None,
-                        help="Number of GPUs. The port runs on one card; more are not "
-                             "ported yet.")
+                        help="Number of GPUs to train data-parallel on, one process each. "
+                             "Defaults to every GPU (under EOE_TPU_DISTRIBUTED=1, every "
+                             "process of the group); at most as many as there are; 1 "
+                             "trains on one.")
     parser.add_argument("-it", "--iterations", type=int, default=2,
                         help="Random seeds per class.")
     parser.add_argument("--load", type=str, metavar="FILE-PATH", default=None,
@@ -190,6 +202,67 @@ def evolve_argsparse(modify_descr, modify_parser=None, modify_args=None, argv=No
     return ms_argsparse(evolve_descr, evolve_parser, evolve_args, argv)
 
 
+def _spawn_count(argv: List[str], device) -> int:
+    """How many ranks ``-d`` in ``argv`` asks this command to start: none
+    under EOE_TPU_DISTRIBUTED=1, inside a group or for ``--help``."""
+    if os.environ.get("EOE_TPU_DISTRIBUTED", "0") == "1" or dist.is_initialized() \
+            or "-h" in argv or "--help" in argv:
+        return 1
+    pre = ArgumentParser(add_help=False)
+    pre.add_argument("-d", "--devices", type=int, default=None)
+    pre.add_argument("-ds")   # so that "-ds x" is not read as "-d s"
+    devices = pre.parse_known_args(argv)[0].devices
+    on_card = torch.device("cuda" if device is None else device).type == "cuda"
+    return meshlib.data_size(devices, torch.cuda.device_count() if on_card else devices or 1)
+
+
+def data_parallel(main: Callable) -> Callable:
+    """A runner's ``main(argv=None, device=None)`` on the ranks of ``-d N``:
+    for N above 1 it spawns ranks 1..N-1 (``parallel.mesh.spawn_ranks``)
+    that run the same ``main(argv)`` and do not write, runs rank 0 itself,
+    leaves the group when the ranks do and joins them; a rank that fails
+    fails the command and stops the others."""
+    @functools.wraps(main)
+    def run(argv: Optional[List[str]] = None, device=None):
+        argv = list(sys.argv[1:] if argv is None else argv)
+        n = _spawn_count(argv, device)
+        if n <= 1:
+            return main(argv, device=device)
+        ranks = meshlib.spawn_ranks(run, (argv, device), n)
+        try:
+            out = main(argv, device=device)
+        except BaseException:
+            for p in ranks.processes:
+                if p.is_alive():
+                    p.terminate()
+            meshlib.leave()
+            raise
+        meshlib.leave()   # with the ranks, which leave as they finish: NCCL's is collective
+        while not ranks.join():
+            pass
+        return out
+    return run
+
+
+def _make_mesh(devices: Optional[int], device=None) -> Optional[meshlib.DataMesh]:
+    """The data mesh of ``-d devices``, as the JAX package's ``_make_mesh``:
+    its devices are the ranks of the process group (``EOE_TPU_DISTRIBUTED=1``
+    or ``data_parallel``'s), every one by default; 1 or less, and one
+    process, mean no mesh. A ``-d`` below the group's size raises: every
+    rank trains."""
+    meshlib.init_distributed()   # a no-op unless EOE_TPU_DISTRIBUTED=1
+    if not dist.is_initialized():
+        return None
+    world = dist.get_world_size()
+    n = meshlib.data_size(devices, world)
+    if n <= 1:
+        return None
+    if n != world:
+        raise ValueError(f"--devices {devices}: the process group has {world} ranks, and "
+                         f"every rank trains")
+    return meshlib.make_mesh(meshlib.MeshConfig(data=n, model=1), device)
+
+
 def create_trainer(trainer: str, comment: str, dataset: str, oe_dataset: Optional[str],
                    epochs: int, lr: float, wdk: float, milestones: List[int],
                    batch_size: int, ad_mode: str, devices: Optional[int], model,
@@ -203,11 +276,9 @@ def create_trainer(trainer: str, comment: str, dataset: str, oe_dataset: Optiona
     ``continue_run`` the directory ``<continue_run>---CNTD``. The data lie
     under ``<dataset_path>/datasets``; for the custom dataset its classes are
     read from its train folders into ``DS_CHOICES["custom"]`` (its split-less
-    layouts lie directly under ``<dataset_path>``)."""
-    if devices is not None and devices > 1:
-        raise NotImplementedError(
-            f"--devices {devices}: data parallelism over several GPUs is not ported yet "
-            "(DDP; ROADMAP.md Queue 1 item 8)")
+    layouts lie directly under ``<dataset_path>``). ``devices`` gives the
+    trainer its data mesh (``_make_mesh``)."""
+    mesh = _make_mesh(devices, device)
     dtype_name = kwargs.pop("compute_dtype", None) or (
         "bfloat16" if trainer == "clip" else "float32")
     datapath = kwargs.pop("dataset_path", None) or default_datapath()
@@ -215,9 +286,9 @@ def create_trainer(trainer: str, comment: str, dataset: str, oe_dataset: Optiona
     continue_run = kwargs.pop("continue_run", None)
     if continue_run is None:
         logger = Logger(pt.join(datapath, "results", superdir) if logpath is None
-                        else logpath, comment)
+                        else logpath, comment, active=meshlib.writes())
     else:
-        logger = Logger(continue_run + "---CNTD", noname=True)
+        logger = Logger(continue_run + "---CNTD", noname=True, active=meshlib.writes())
     if dataset == "custom" or oe_dataset == "custom":
         from eoe_tpu_torch.datasets.custom import ADCustomDS
         if not (ADCustomDS.train_only or ADCustomDS.eval_only):
@@ -233,7 +304,7 @@ def create_trainer(trainer: str, comment: str, dataset: str, oe_dataset: Optiona
         epochs=epochs, lr=lr, wdk=wdk, milestones=milestones, batch_size=batch_size,
         ad_mode=ad_mode, oe_limit_samples=oe_limit_samples,
         oe_limit_classes=oe_limit_classes, msms=msm,
-        compute_dtype=COMPUTE_DTYPES[dtype_name], device=device, **kwargs)
+        compute_dtype=COMPUTE_DTYPES[dtype_name], device=device, mesh=mesh, **kwargs)
 
 
 def evolve_trainer(trainer: str, comment: str, dataset: str, oe_dataset: Optional[str],
@@ -271,7 +342,8 @@ def evolve_trainer(trainer: str, comment: str, dataset: str, oe_dataset: Optiona
         trainer_obj.oe_dsstr, trainer_obj.oe_limit_samples, trainer_obj.oe_limit_classes,
         trainer_obj.msms)
     oeds = trainer_obj.ds.oe.train_set
-    outer_logger = Logger(pt.join(trainer_obj.logger.dir, ".."), noname=True)
+    outer_logger = Logger(pt.join(trainer_obj.logger.dir, ".."), noname=True,
+                          active=meshlib.writes())
     return trainer_obj, oeds, outer_logger
 
 
@@ -432,6 +504,8 @@ def random_oe_experiment(descr: str, defaults: dict, train_specs, test_specs, bu
 
 
 def _save_evolution(logger: Logger, history: dict, tree: Tree, oeds, args: Namespace):
+    if not logger.active:
+        return
     logger.logjson("results", history)
     tree.save(pt.join(logger.dir, "evolution"))
     tree.render(pt.join(logger.dir, "genealogy.png"), oeds=oeds)
@@ -454,10 +528,11 @@ def multiscale_experiment(args: Namespace, model, train_specs, test_specs,
     datapath = kwargs.pop("dataset_path", None) or default_datapath()
 
     if len(continue_run) == 0:
-        logger = Logger(pt.join(datapath, "results", superdir), args.comment)
+        logger = Logger(pt.join(datapath, "results", superdir), args.comment,
+                        active=meshlib.writes())
     else:
         logger = Logger(args.continue_run if plot_elsewhere is None else plot_elsewhere,
-                        noname=True)
+                        noname=True, active=meshlib.writes())
     magn0_snapshots = None
     test_only_msms = all(m.ds_part not in (TRAIN_NOMINAL_ID, TRAIN_OE_ID)
                          for m in args.ms_mode)

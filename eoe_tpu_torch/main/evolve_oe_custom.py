@@ -7,7 +7,7 @@ run from its last finished generation.
 Run: python -m eoe_tpu_torch.main.evolve_oe_custom [flags]
 """
 
-from eoe_tpu_torch.main import evolve_experiment
+from eoe_tpu_torch.main import data_parallel, evolve_experiment
 
 DEFAULTS = dict(
     comment='{obj}_custom_cl{classes}',
@@ -41,6 +41,7 @@ def build_model(args):
     return WideResNet(clf=args.objective in ("bce", "focal"))
 
 
+@data_parallel
 def main(argv=None, device=None):
     """``device``: ``cuda`` unless the caller asks for another one."""
     return evolve_experiment(

@@ -14,11 +14,12 @@ import sys
 
 from eoe_tpu_torch.datasets import DS_CHOICES
 from eoe_tpu_torch.datasets.custom import ADCustomDS
-from eoe_tpu_torch.main import create_trainer, default_argsparse
+from eoe_tpu_torch.main import create_trainer, data_parallel, default_argsparse
 from eoe_tpu_torch.main.train_only_custom import (add_custom_model_args, build_specs,
                                                   discover_custom_models)
 
 
+@data_parallel
 def main(argv=None, device=None):
     """``device``: ``cuda`` unless the caller asks for another one."""
     custom_models = discover_custom_models()

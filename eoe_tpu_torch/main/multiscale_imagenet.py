@@ -8,7 +8,7 @@ import json
 import os
 import os.path as pt
 
-from eoe_tpu_torch.main import load_setup, ms_argsparse, multiscale_experiment
+from eoe_tpu_torch.main import data_parallel, load_setup, ms_argsparse, multiscale_experiment
 
 DEFAULTS = dict(
     comment='MULTISCALE_{obj}_{msm}_OE{oesamples}',
@@ -34,6 +34,7 @@ def build_model(args):
     return WideResNet(clf=args.objective in ("bce", "focal"))
 
 
+@data_parallel
 def main(argv=None, device=None):
     """``device``: ``cuda`` unless the caller asks for another one."""
     def modify_parser(parser):

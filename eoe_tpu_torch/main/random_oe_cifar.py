@@ -5,7 +5,7 @@ Trains ``--ev-samples`` random subsets of ``--ev-oesize`` OE images once each.
 Run: python -m eoe_tpu_torch.main.random_oe_cifar [flags]
 """
 
-from eoe_tpu_torch.main import random_oe_experiment
+from eoe_tpu_torch.main import data_parallel, random_oe_experiment
 
 DEFAULTS = dict(
     comment='RANDPICK_{obj}_cifar10_cl{classes}_its{its}',
@@ -30,6 +30,7 @@ def build_model(args):
     return CNN32(bias=True, clf=args.objective in ("bce", "focal"))
 
 
+@data_parallel
 def main(argv=None, device=None):
     """``device``: ``cuda`` unless the caller asks for another one."""
     return random_oe_experiment(

@@ -10,7 +10,7 @@ Run: python -m eoe_tpu_torch.main.train_custom [flags]
 
 from eoe_tpu_torch.datasets import DS_CHOICES
 from eoe_tpu_torch.datasets.custom import ADCustomDS
-from eoe_tpu_torch.main import default_argsparse, run_default_training
+from eoe_tpu_torch.main import data_parallel, default_argsparse, run_default_training
 
 DEFAULTS = dict(
     comment="{obj}_custom{admode}_{oelimit}",
@@ -40,6 +40,7 @@ def build_model(args):
     return WideResNet(clf=args.objective in ("bce", "focal"))
 
 
+@data_parallel
 def main(argv=None, device=None):
     """``device``: ``cuda`` unless the caller asks for another one."""
     def modify_parser(parser):

@@ -4,7 +4,7 @@ The port of eoe_tpu/main/train_dtd.py: its defaults and pipelines.
 Run: python -m eoe_tpu_torch.main.train_dtd [flags]
 """
 
-from eoe_tpu_torch.main import default_argsparse, run_default_training
+from eoe_tpu_torch.main import data_parallel, default_argsparse, run_default_training
 
 DEFAULTS = dict(
     comment='{obj}_dtd_{admode}_{oelimit}',
@@ -29,6 +29,7 @@ def build_model(args):
     return WideResNet(clf=args.objective in ("bce", "focal"))
 
 
+@data_parallel
 def main(argv=None, device=None):
     """``device``: ``cuda`` unless the caller asks for another one."""
     def modify_parser(parser):

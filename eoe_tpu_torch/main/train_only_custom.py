@@ -16,7 +16,7 @@ import sys
 import eoe_tpu_torch.models.custom as custom_models_pck
 from eoe_tpu_torch.datasets import DS_CHOICES
 from eoe_tpu_torch.datasets.custom import ADCustomDS
-from eoe_tpu_torch.main import create_trainer, default_argsparse
+from eoe_tpu_torch.main import create_trainer, data_parallel, default_argsparse
 from eoe_tpu_torch.models.custom_base import CustomNet
 
 
@@ -64,6 +64,7 @@ def build_specs(args, train: bool):
     return specs
 
 
+@data_parallel
 def main(argv=None, device=None):
     """``device``: ``cuda`` unless the caller asks for another one."""
     custom_models = discover_custom_models()

@@ -22,6 +22,9 @@ functionally, as the steps over stacked members (``torch.func``) need: in
 train mode it writes nothing, the new averages go to the collector, keyed by
 layer, and the step returns them as outputs; in eval mode it normalises with
 plain ops (vmap does not batch cuDNN's batch norm on a channels-last view).
+In train mode under a data mesh of several ranks (``parallel.mesh.active``,
+which the trainer's step opens) it takes the statistics of the global batch,
+as XLA's reduction over a sharded batch does.
 """
 
 import contextlib
@@ -31,6 +34,8 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from eoe_tpu_torch.parallel.mesh import active_mesh, all_reduce_sum
 
 # (tensor on the CPU, fan_in, fan_out, generator) -> None, filling the tensor
 Init = Callable[[torch.Tensor, int, int, torch.Generator], None]
@@ -188,11 +193,33 @@ class BatchNorm(nn.Module):
             y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
         return y
 
+    def _global(self, x, mesh):
+        """Train mode under a data mesh of several ranks: the statistics of
+        the global batch, as Flax's ``use_fast_variance`` takes them (var =
+        E[x^2] - E[x]^2 in fp32), from the ranks' per-channel sums, sums of
+        squares and counts (``all_reduce_sum``, whose backward sums the
+        ranks' gradients)."""
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        c = xf.shape[1]
+        count = xf.new_full((1,), xf.numel() // max(c, 1))
+        tot = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]), mesh)
+        mu = tot[:c] / tot[-1]
+        var = (tot[c:2 * c] / tot[-1] - mu * mu).clamp_min(0.0)
+        y = (xf - mu.reshape(shape)) * torch.rsqrt(var + self.eps).reshape(shape)
+        if self.weight is not None:
+            y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
+        self.update_averages(mu.detach(), var.detach())
+        return y
+
     def forward(self, x):
         # Flax's output dtype; normalising in the wider of it and the input's
         out = self.dtype or (torch.promote_types(x.dtype, torch.float32)
                              if self.weight is not None else x.dtype)
         x = x.to(torch.promote_types(x.dtype, out))
+        if self.training and _COLLECTED is None and active_mesh() is not None:
+            return self._global(x, active_mesh()).to(out)
         if self.training:
             if _COLLECTED is not None:
                 # the functional step: under vmap, the batched backward of a

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from eoe_tpu_torch.models.cbam import CBAM
 from eoe_tpu_torch.models.layers import BatchNorm, Conv, ConvModel, Dense, kaiming_normal_fan_out
 from eoe_tpu_torch.ops.stem import fused_stem_train, plain_stem
+from eoe_tpu_torch.parallel.mesh import active_mesh
 
 
 def _conv(cin, cout, k, stride, padding, dtype) -> Conv:
@@ -85,7 +86,10 @@ class WideResNet(ConvModel):
         self.reset_parameters(torch.Generator().manual_seed(0))
 
     def uses_fused_stem(self) -> bool:
-        return self.training and os.environ.get("EOE_TPU_FUSED_STEM", "1") != "0"
+        """Train mode, unless ``EOE_TPU_FUSED_STEM=0`` or a data mesh of
+        several ranks is active (its global statistics take the plain stem)."""
+        return self.training and os.environ.get("EOE_TPU_FUSED_STEM", "1") != "0" \
+            and active_mesh() is None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)

@@ -22,12 +22,18 @@ BN's dx with those two sums, then into dW of the conv
 autograd asks for it (``ctx.needs_input_grad``): a training step's images
 are leaves, and XLA drops that conv as dead code there.
 
+Under a data mesh of several ranks (``parallel.mesh.active``) the
+statistics are the global batch's and the stem runs as ``plain_stem``: the
+fused backward's grid sums are one rank's.
+
 Convolutions and pooling run on cuDNN and torch's own kernels, as the JAX
 package leaves them to XLA: no kernel of this repository lies on this path.
 """
 
 import torch
 import torch.nn.functional as F
+
+from eoe_tpu_torch.parallel.mesh import active_mesh, all_reduce_sum
 
 EPS = 1e-5
 _conv_backward = torch.ops.aten.convolution_backward
@@ -40,8 +46,17 @@ def _conv7s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def stats_bn_relu(xc: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor):
     """Train-mode BN (Flax's) and ReLU over an NCHW tensor: (y, mu, var)."""
     xf = xc.float()
-    mu = xf.mean(dim=(0, 2, 3))
-    var = (xf * xf).mean(dim=(0, 2, 3)) - mu * mu
+    mesh = active_mesh()
+    if mesh is None:
+        mu = xf.mean(dim=(0, 2, 3))
+        var = (xf * xf).mean(dim=(0, 2, 3)) - mu * mu
+    else:   # the global batch's statistics over a data mesh of several ranks
+        c = xf.shape[1]
+        count = xf.new_full((1,), xf.numel() // c)
+        tot = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                        count]), mesh)
+        mu = tot[:c] / tot[-1]
+        var = tot[c:2 * c] / tot[-1] - mu * mu
     inv = torch.rsqrt(var + EPS)
     y = (xf - mu[:, None, None]) * (gamma * inv)[:, None, None] + beta[:, None, None]
     return torch.relu(y).to(xc.dtype), mu, var

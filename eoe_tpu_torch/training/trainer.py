@@ -42,7 +42,21 @@ decay, while its batch statistics still update. ``load`` takes a full
 snapshot, a feature-model-only state dict of a ``CustomNet``, or a
 trunk-only snapshot (a strict subset of the model's top-level modules; the
 rest keeps its fresh init). Not ported, being JAX dispatch machinery or
-later work: ``lax.scan`` epochs, the jit cache, meshes and the HLO dump.
+later work: ``lax.scan`` epochs, the jit cache, the model axis of a mesh and
+the HLO dump.
+
+``mesh`` (a ``parallel.mesh.DataMesh`` of several ranks, one process each)
+trains data-parallel with the numbers of one process on the global batch:
+every rank runs the same sampler plan and uploads only its ``local_rows`` of
+each half-batch; the augmentations draw for the global half-batch from the
+shared generator and apply the rank's rows of the draws; batch norm takes
+the global batch's statistics; each rank's loss is scaled so that DDP's mean
+of the ranks' gradients is the gradient of the global masked mean. The
+per-step losses, scores, labels and weights and the test scores are gathered
+in global order, so every rank logs, retries and decides alike. The DSVDD
+centre and the preview are computed whole on every rank. The seed grid
+shards its seeds over the ranks where their count divides the data size
+(``_last_vmap_sharded``), and runs whole on every rank otherwise.
 
 Deviation: the sampler's seed comes from a numpy ``SeedSequence`` of
 (seed, class, seed index) instead of a JAX key, and augmentations draw from
@@ -51,6 +65,7 @@ not reproduced.
 """
 
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
@@ -65,6 +80,7 @@ from eoe_tpu_torch.models.custom_base import CustomNet, frozen_param_labels
 from eoe_tpu_torch.models.layers import with_compute_dtype
 from eoe_tpu_torch.ops import metrics as M
 from eoe_tpu_torch.ops.losses import OBJECTIVES, Objective, dsvdd_center
+from eoe_tpu_torch.parallel import mesh as meshlib
 from eoe_tpu_torch.training.optim import ScheduledOptimizer, make_optimizer
 from eoe_tpu_torch.utils.logger import Logger
 
@@ -103,9 +119,11 @@ class Result:
 @dataclass
 class TrainState:
     """The model (holding the parameters, on the device) and its optimizer,
-    which counts the updates."""
+    which counts the updates; under a data mesh ``ddp``, the model's
+    ``DistributedDataParallel`` wrapper that the train step runs."""
     model: torch.nn.Module
     optimizer: ScheduledOptimizer
+    ddp: Optional[torch.nn.Module] = None
 
 
 def _seed(*parts: int) -> int:
@@ -116,6 +134,16 @@ def _seed(*parts: int) -> int:
 def _is_resident(subset) -> bool:
     """Whether a split moves to the device whole, or streams from the host."""
     return subset.source.resident or subset.source.fits_resident(len(subset))
+
+
+def _local_draws(fn, x: torch.Tensor, rows: Tuple[int, int, int], rt_stats,
+                 generator: torch.Generator) -> list:
+    """Rows [lo, hi) of pipeline ``fn``'s draws for an ``n``-row batch of
+    ``x``'s image shape, ``rows`` = (lo, hi, n)."""
+    lo, hi, n = rows
+    full = torch.zeros((), dtype=x.dtype, device=x.device).expand(n, *x.shape[1:])
+    return [{k: v[lo:hi] for k, v in d.items()}
+            for d in fn.draw(full, rt_stats, generator=generator)]
 
 
 def _to_cpu(obj):
@@ -132,7 +160,7 @@ class Trainer:
     """The experiment-grid trainer. ``model`` is a port module (CLIP, or a
     conv model of ``models``); its weights are drawn anew for every
     class-seed with ``reset_parameters``. ``device`` is ``cuda`` unless the
-    caller asks for another one."""
+    caller asks for another one; with a ``mesh`` it is the mesh's device."""
 
     def __init__(self, model: torch.nn.Module, train_specs: Sequence, test_specs: Sequence,
                  dataset: str, oe_dataset: Optional[str], datapath: str, logger: Optional[Logger],
@@ -141,9 +169,13 @@ class Trainer:
                  oe_limit_samples: Union[int, float, Sequence[int]] = INF,
                  oe_limit_classes: Union[int, float] = INF, msms: Sequence = (),
                  workers: int = 0, seed: int = 0, nominal_label: int = 0,
-                 compute_dtype: torch.dtype = torch.float32, device=None):
+                 compute_dtype: torch.dtype = torch.float32, device=None,
+                 mesh: Optional[meshlib.DataMesh] = None):
         assert ad_mode in AD_MODES, f"AD mode {ad_mode} unknown. Known modes are {AD_MODES}."
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
+        self._ddp = None   # (trainable parameters' ids, DDP wrapper), built once
+        self._last_vmap_sharded = False   # the last vmapped program's seeds were split
         self.model = model if model is None else with_compute_dtype(model, compute_dtype)
         self.objective: Objective = OBJECTIVES[objective] if isinstance(objective, str) \
             else objective
@@ -172,6 +204,8 @@ class Trainer:
         self.step_losses: List[float] = []  # every step's loss, in order
         self.member_peaks: dict = {}  # vmapped_seeds.members_per_program's, by shapes
         self.logger.logsetup(self.setup_dict(), step=0)
+        if mesh is not None:
+            self.logger.print(mesh.note)
 
     # ------------------------------------------------------------- config
 
@@ -239,7 +273,32 @@ class Trainer:
         self.init_weights(seed)
         model = self.model.to(self.device)
         params = self._mark_trainable(model)
-        return TrainState(model, self.make_optimizer(params, steps_per_epoch))
+        return TrainState(model, self.make_optimizer(params, steps_per_epoch),
+                          self._data_parallel(model, params))
+
+    def _dp_mesh(self) -> Optional[meshlib.DataMesh]:
+        """The mesh when it has several ranks, else None."""
+        return self.mesh if self.mesh is not None and self.mesh.data > 1 else None
+
+    def _data_parallel(self, model: torch.nn.Module, params: list):
+        """The model's DDP wrapper over the mesh's group, built once for a
+        set of trainable parameters (their values are drawn alike on every
+        rank, so DDP broadcasts nothing; the batch-norm averages move alike,
+        so it syncs no buffer). None without a mesh of several ranks, and
+        where nothing trains (DDP refuses that)."""
+        mesh = self._dp_mesh()
+        if mesh is None or not params:
+            return None
+        key = tuple(map(id, params))
+        if self._ddp is None or self._ddp[0] != key:
+            from torch.nn.parallel import DistributedDataParallel
+            with warnings.catch_warnings():   # newer torch names broadcast_buffers anew
+                warnings.simplefilter("ignore", FutureWarning)
+                self._ddp = (key, DistributedDataParallel(
+                    model, device_ids=[mesh.device.index] if mesh.device.type == "cuda"
+                    else None, process_group=mesh.group, broadcast_buffers=False,
+                    init_sync=False))
+        return self._ddp[1]
 
     def init_states_stacked(self, seeds: Sequence[int], steps_per_epoch: int):
         """The members of ``seeds`` as one ``StackedState``: each drawn on the
@@ -266,17 +325,24 @@ class Trainer:
 
     # ------------------------------------------------------------- steps
 
-    def _preprocess(self, ds, x, labels, generator, train: bool, part: str, rt_stats=None):
+    def _preprocess(self, ds, x, labels, generator, train: bool, part: str, rt_stats=None,
+                    rows: Optional[Tuple[int, int, int]] = None):
         """One half-batch through (conditional ->) pipeline; ``part`` picks the
-        normal or the OE dataset of a CombinedDataset (train only)."""
+        normal or the OE dataset of a CombinedDataset (train only). ``rows``
+        (lo, hi, n): ``x`` is rows [lo, hi) of an ``n``-row half-batch, and
+        each pipeline draws for all ``n`` rows and applies rows [lo, hi) of
+        its draws, which one process's pipeline over the ``n`` rows draws."""
         if isinstance(ds, CombinedDataset):
             sub = ds.oe if part == "oe" else ds.normal
         else:
             sub = ds
         pipe = sub.train_pipeline if train else sub.test_pipeline
         cond = sub.train_conditional_pipeline if train else sub.test_conditional_pipeline
-        x = cond(x, labels, rt_stats, generator=generator)
-        return pipe(x, rt_stats, generator=generator)
+        if rows is None or generator is None:
+            x = cond(x, labels, rt_stats, generator=generator)
+            return pipe(x, rt_stats, generator=generator)
+        x = cond(x, labels, rt_stats, draws=_local_draws(cond, x, rows, rt_stats, generator))
+        return pipe(x, rt_stats, draws=_local_draws(pipe, x, rows, rt_stats, generator))
 
     def _rt_stats(self, ds) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         stats = (ds.normal if isinstance(ds, CombinedDataset) else ds).stats
@@ -331,24 +397,42 @@ class Trainer:
     def train_step(self, state: TrainState, ds, xn, ln, xo, lo, w,
                    generator: Optional[torch.Generator], center=None, rt_stats=None):
         """One update on the normal half (+ the OE half). Returns the device
-        tensors (loss, scores, labels, weights) without synchronising."""
-        xn = self._preprocess(ds, xn, ln, generator, True, "normal", rt_stats)
+        tensors (loss, scores, labels, weights) without synchronising. Under
+        a data mesh of several ranks the halves are this rank's
+        ``local_rows`` of half-batches of ``batch_size`` rows, and the loss
+        returned is this rank's share of the global masked mean (the ranks'
+        shares sum to it)."""
         if xo is not None:
-            xo = self._preprocess(ds, xo, lo, generator, True, "oe", rt_stats)
-            x = torch.cat([xn, xo])
-            labels = torch.cat([ln, lo])
-            weights = torch.cat([w, w])
+            labels, weights = torch.cat([ln, lo]), torch.cat([w, w])
         else:
-            x, labels, weights = xn, ln, w
+            labels, weights = ln, w
         weights = weights * (labels >= 0)
+        mesh, rows = self._dp_mesh(), None
+        if mesh is not None:
+            rows = (*meshlib.local_rows(mesh, self.batch_size), self.batch_size)
+            assert len(xn) == rows[1] - rows[0], (len(xn), rows)
+            total = meshlib.all_reduce_sum(weights.sum().float().reshape(1), mesh)
+        xn = self._preprocess(ds, xn, ln, generator, True, "normal", rt_stats, rows)
+        if xo is not None:
+            xo = self._preprocess(ds, xo, lo, generator, True, "oe", rt_stats, rows)
+            x = torch.cat([xn, xo])
+        else:
+            x = xn
         x = x.to(self.compute_dtype)
         model = state.model.train()
-        feats = model(x).float()
-        loss = self.objective.loss(feats, labels, center, weights=weights,
-                                   **self._loss_kwargs(x))
-        state.optimizer.zero_grad()
-        if loss.requires_grad:   # False where every parameter is frozen
-            loss.backward()
+        with meshlib.active(mesh):
+            feats = (model if state.ddp is None else state.ddp)(x).float()
+            loss = self.objective.loss(feats, labels, center, weights=weights,
+                                       **self._loss_kwargs(x))
+            scaled = loss
+            if mesh is not None:
+                # this rank's sum(w * l) over the global weight sum; DDP takes
+                # the mean of the ranks' gradients, hence the factor data
+                loss = loss * (weights.sum().clamp(min=1.0) / total[0].clamp(min=1.0))
+                scaled = loss * mesh.data
+            state.optimizer.zero_grad()
+            if loss.requires_grad:   # False where every parameter is frozen
+                scaled.backward()
         state.optimizer.step()
         with torch.no_grad():
             scores = self.objective.score(feats, center, **self._loss_kwargs(x)).reshape(-1)
@@ -529,39 +613,63 @@ class Trainer:
         when its train splits are resident. Returns (train ROCs, test scores
         (run_seeds, n_test) or None without ``test``, each seed's host state
         for its snapshot or None with the logger off), or None: the caller
-        then trains the seeds sequentially."""
+        then trains the seeds sequentially. Under a data mesh of several
+        ranks whose size divides ``run_seeds``, each rank trains its
+        ``local_rows`` of the seeds, with no collective in a step, and the
+        results are gathered (``_last_vmap_sharded``); otherwise every rank
+        runs every seed. The ranks take the least of their program sizes,
+        and a card running out of memory raises there."""
         from eoe_tpu_torch.training import vmapped_seeds as V
 
         oe_set = ds.oe.train_set if isinstance(ds, CombinedDataset) else None
         if not (_is_resident(ds.train_set) and (oe_set is None or _is_resident(oe_set))):
             return None
-        seeds = [_seed(self.seed, c, it, 0) for it in range(run_seeds)]
-        per = V.seeds_per_program(self, ds, cstr, seeds)
-        if per < 2:
+        mesh = self._dp_mesh()
+        self._last_vmap_sharded = shard = mesh is not None and run_seeds % mesh.data == 0
+        lo, hi = meshlib.local_rows(mesh if shard else None, run_seeds)
+        seeds = [_seed(self.seed, c, it, 0) for it in range(lo, hi)]
+        per = meshlib.all_reduce_min(mesh, V.seeds_per_program(self, ds, cstr, seeds))
+        if per < min(2, len(seeds)):
             self.logger.print(f"two seeds of cls {c} do not fit on the card as one program; "
                               f"training them sequentially")
             return None
-        rocs, scores, members = [], [], []
+        rocs, scores, members = {}, {}, {}   # by seed index
+        caught = (NanGradientsError,) if mesh is not None else \
+            (NanGradientsError, torch.cuda.OutOfMemoryError)
         try:
-            for first in range(0, run_seeds, per):
+            for first in range(0, len(seeds), per):
                 chunk = seeds[first:first + per]
-                stack, chunk_rocs = V.train_cls_vmapped_seeds(self, ds, c, cstr, len(chunk),
-                                                              chunk, first=first)
-                rocs += chunk_rocs
+                stack, chunk_rocs = V.train_cls_vmapped_seeds(
+                    self, ds, c, cstr, len(chunk), chunk, first=lo + first,
+                    mesh=mesh if shard else None)
+                # the chunk's seed indices on every rank, in rank order
+                its = [r * (hi - lo) + first + k for r in range(mesh.data if shard else 1)
+                       for k in range(len(chunk))]
+                rocs.update(zip(its, chunk_rocs))
                 if test:
-                    scores.append(V.eval_scores_vmapped(self, ds, stack, len(chunk)))
-                if self.logger.active:   # the snapshots' state, one download
-                    members += stack.host_members()
+                    sc = V.eval_scores_vmapped(self, ds, stack, len(chunk))
+                    if shard:
+                        sc = meshlib.gather_rows(mesh, torch.from_numpy(sc).to(self.device),
+                                                 len(its)).cpu().numpy()
+                    scores.update(zip(its, sc))
+                if shard:   # the snapshots' state of every rank's seeds
+                    got = meshlib.gather_objects(mesh, stack.host_members())
+                    members.update(zip(its, [m for part in got for m in part]))
+                elif self.logger.active:   # the snapshots' state, one download
+                    members.update(zip(its, stack.host_members()))
                 del stack
-        except (NanGradientsError, torch.cuda.OutOfMemoryError) as e:
+        except caught as e:
             what = "Gradients got NaN" if isinstance(e, NanGradientsError) else \
                 "The card ran out of memory"
             self.logger.warning(f'{what} in the vmapped-seed run for class {c} "{cstr}"; '
                                 f"falling back to sequential training.")
             return None
-        self.logger.print(f"trained {run_seeds} seeds of cls {c} vmapped"
-                          + (f", {per} per program" if per < run_seeds else ""))
-        return rocs, np.concatenate(scores) if test else None, members or None
+        sharded = " (seed axis sharded over the data mesh)" if shard else ""
+        self.logger.print(f"trained {run_seeds} seeds of cls {c} vmapped{sharded}"
+                          + (f", {per} per program" if per < hi - lo else ""))
+        return ([rocs[i] for i in range(run_seeds)],
+                np.stack([scores[i] for i in range(run_seeds)]) if test else None,
+                [members[i] for i in range(run_seeds)] if members else None)
 
     def _build_dataset(self, c: int, rng: np.random.Generator, cur_load: Optional[str]):
         """The pinned dataset, or the normal (+ OE) dataset of class ``c`` by
@@ -618,6 +726,9 @@ class Trainer:
         if has_oe and _is_resident(oe_set):
             Xo, Lo = self._to_device(oe_set.gather_all()), self._to_device(Lo)
         generator = torch.Generator(device=self.device).manual_seed(_seed(seed, 2))
+        # this rank's rows of every half-batch (all of them in one process)
+        mesh = self._dp_mesh()
+        r0, r1 = meshlib.local_rows(mesh, self.batch_size)
 
         cls_roc = None
         for ep in range(start_epoch, self.epochs):
@@ -628,25 +739,34 @@ class Trainer:
             ).to(self.device)  # one upload per epoch
             outs = []
             for s in range(sampler.steps):
-                i_n, i_o, w_s = plan[0, s], plan[1, s], plan[2, s].float()
+                i_n, i_o, w_s = plan[0, s, r0:r1], plan[1, s, r0:r1], plan[2, s, r0:r1].float()
                 if Xn is not None:
                     xn, ln = Xn[i_n], Ln[i_n]
                 else:
-                    xn = self._to_device(train_set.gather(idx_n[s]))
-                    ln = self._to_device(Ln[idx_n[s]])
+                    xn = self._to_device(train_set.gather(idx_n[s, r0:r1]))
+                    ln = self._to_device(Ln[idx_n[s, r0:r1]])
                 xo = lo = None
                 if Xo is not None:
                     xo, lo = Xo[i_o], Lo[i_o]
                 elif has_oe:
-                    xo = self._to_device(oe_set.gather(idx_o[s]))
-                    lo = self._to_device(Lo[idx_o[s]])
+                    xo = self._to_device(oe_set.gather(idx_o[s, r0:r1]))
+                    lo = self._to_device(Lo[idx_o[s, r0:r1]])
                 outs.append(self.train_step(state, ds, xn, ln, xo, lo, w_s,
                                             generator, center, rt_stats))
-            # one download per epoch: a per-step sync would stall the card
-            ep_losses = torch.stack([o[0] for o in outs]).cpu().numpy()
+            # one download per epoch: a per-step sync would stall the card.
+            # Each step's (scores, labels, weights) as (half, row); a mesh sums
+            # the ranks' loss shares and gathers the rows in global order
+            ep_losses = torch.stack([o[0] for o in outs])
+            halves = 2 if has_oe else 1
+            rest = torch.stack([torch.stack([o[i].float().reshape(halves, -1) for o in outs])
+                                for i in (1, 2, 3)])
+            if mesh is not None:
+                ep_losses = meshlib.all_reduce_sum(ep_losses, mesh)
+                rest = meshlib.gather_rows(mesh, rest, self.batch_size, dim=3)
+            ep_losses = ep_losses.cpu().numpy()
             self.step_losses.extend(map(float, ep_losses))
-            ep_scores, ep_labels, ep_weights = (
-                torch.cat([o[i] for o in outs]).cpu().numpy() for i in (1, 2, 3))
+            ep_scores, ep_labels, ep_weights = rest.reshape(3, -1).cpu().numpy()
+            ep_labels = ep_labels.astype(np.int64)
             dt = time.time() - t0
             n_imgs = int(ep_weights.sum())
             self.epoch_rates.append(n_imgs / max(dt, 1e-9))
@@ -681,30 +801,35 @@ class Trainer:
 
     # ------------------------------------------------------------- eval
 
-    def test_batches(self, ds):
+    def test_batches(self, ds, rows: Optional[Tuple[int, int]] = None):
         """The test split's raw images and labels on the device, in batches of
-        the batch size (the last one padded by repeating its last image). A
-        resident split moves to the device once; a streaming one batch by
-        batch."""
+        the batch size (the last one padded by repeating its last image), or
+        rows [lo, hi) of each batch. A resident split moves to the device
+        once; a streaming one batch by batch."""
         test_set = ds.test_set
         normal_ds = ds.normal if isinstance(ds, CombinedDataset) else ds
         labels = normal_ds.binary_targets(test_set)
         n, B = len(test_set), self.batch_size
+        lo, hi = rows or (0, B)
         total = -(-n // B) * B
         pad = np.concatenate([np.arange(n), np.full(total - n, n - 1)])
         if _is_resident(test_set):
             X = self._to_device(test_set.gather_all())[self._to_device(pad)]
             L = self._to_device(labels[pad])
-            return ((X[i:i + B], L[i:i + B]) for i in range(0, total, B))
-        return ((self._to_device(test_set.gather(pad[i:i + B])),
-                 self._to_device(labels[pad[i:i + B]])) for i in range(0, total, B))
+            return ((X[i + lo:i + hi], L[i + lo:i + hi]) for i in range(0, total, B))
+        return ((self._to_device(test_set.gather(pad[i + lo:i + hi])),
+                 self._to_device(labels[pad[i + lo:i + hi]])) for i in range(0, total, B))
 
     def eval_scores(self, state: TrainState, ds) -> np.ndarray:
-        """Anomaly scores of the whole test split (``test_batches``)."""
+        """Anomaly scores of the whole test split (``test_batches``); under a
+        data mesh each rank scores its rows of every batch, gathered in
+        order."""
         rt_stats = self._rt_stats(ds)
+        mesh = self._dp_mesh()
         outs = [self.eval_step(state, ds, x, lb, self.center, rt_stats)
-                for x, lb in self.test_batches(ds)]
-        return torch.cat(outs).cpu().numpy()[:len(ds.test_set)]
+                for x, lb in self.test_batches(ds, meshlib.local_rows(mesh, self.batch_size))]
+        scores = meshlib.gather_rows(mesh, torch.stack(outs), self.batch_size, dim=1)
+        return scores.reshape(-1).cpu().numpy()[:len(ds.test_set)]
 
     def eval_cls(self, state: TrainState, ds, cls: int, clsstr: str, it: int,
                  scores: Optional[np.ndarray] = None

@@ -21,9 +21,13 @@ epoch's scores, labels and weights, with every step's losses, come back once
 at the end.
 
 ``EOE_TPU_TIMING=1`` prints the host-side phases of a vmapped class (init,
-upload, steps, download), as in the JAX package. One card only: the JAX
-package's mesh and multi-process branches are not ported (the runners
-refuse ``-d`` above 1).
+upload, steps, download), as in the JAX package. Under a data mesh the
+trainer gives each rank its share of the seeds (``Trainer._try_vmap_seeds``);
+a program runs on one rank with no collective, and its per-member results
+are gathered over the ranks before they are logged. Where the seeds do not
+divide over the ranks, every rank runs every seed: the JAX package then
+shards each member's batch over the devices, which a collective inside
+``torch.func.vmap`` cannot do.
 """
 
 import os
@@ -37,6 +41,7 @@ from torch.func import functional_call, grad, vmap
 from eoe_tpu_torch.datasets.bases import BalancedEpochSampler, CombinedDataset
 from eoe_tpu_torch.models.layers import collect_averages
 from eoe_tpu_torch.ops import metrics as M
+from eoe_tpu_torch.parallel import mesh as meshlib
 from eoe_tpu_torch.training.optim import ScheduledOptimizer
 
 
@@ -204,7 +209,8 @@ def stacked_step(trainer, ds, stack: StackedState, xn, ln, xo, lo, w, generators
 
 
 def train_cls_vmapped_seeds(trainer, ds, cls: int, clsstr: str, n_seeds: int,
-                            seeds: Sequence[int], first: int = 0
+                            seeds: Sequence[int], first: int = 0,
+                            mesh: Optional[meshlib.DataMesh] = None
                             ) -> Tuple[StackedState, List[Optional[M.ROC]]]:
     """Train ``n_seeds`` members of class ``cls`` at once, member k from seed
     ``seeds[k]`` as ``Trainer.train_cls`` trains that seed: its init, its
@@ -213,7 +219,10 @@ def train_cls_vmapped_seeds(trainer, ds, cls: int, clsstr: str, n_seeds: int,
     the first program writes the class's preview. Returns the stacked state
     and each member's train ROC of the last epoch (None without anomalous
     samples). Raises ``NanGradientsError`` when a member's scores turned
-    NaN."""
+    NaN. With ``mesh`` every rank trains ``n_seeds`` members of its own
+    (``first`` its own); their losses, scores and ROCs are gathered in rank
+    order, logged and returned on every rank, and the NaN verdict is
+    theirs together."""
     from eoe_tpu_torch.training.trainer import NanGradientsError, TrainState, _seed
 
     assert len(seeds) == n_seeds
@@ -276,26 +285,34 @@ def train_cls_vmapped_seeds(trainer, ds, cls: int, clsstr: str, n_seeds: int,
         losses.extend(o[0] for o in outs)
         last = outs
 
-    rocs: List[Optional[M.ROC]] = [None] * n_seeds
     if last is None:
-        return stack, rocs
+        return stack, [None] * (n_seeds * (mesh.data if mesh is not None else 1))
     # one download: every step's losses and the last epoch's outputs
     t = phase(f"steps x{trainer.epochs * steps}", t)
     packed = torch.cat([torch.stack(losses, 1)] + [torch.cat([o[i] for o in last], 1).float()
-                                                   for i in (1, 2, 3)], 1).cpu().numpy()
+                                                   for i in (1, 2, 3)], 1)
+    its = list(range(first, first + n_seeds))
+    if mesh is not None:   # every rank's members, each row with its seed index
+        ids = torch.arange(first, first + n_seeds, device=packed.device).to(packed.dtype)
+        packed = meshlib.gather_rows(mesh, torch.cat([packed, ids[:, None]], 1),
+                                     n_seeds * mesh.data)
+        its = [int(i) for i in packed[:, -1].round().tolist()]
+        packed = packed[:, :-1]
+    packed = packed.cpu().numpy()
     t = phase("results download", t)
     dt = time.time() - t0
     n_loss, n_last = len(losses), last[0][1].shape[1] * steps
     ep_losses = packed[:, :n_loss]
     scores, labels, weights = (packed[:, n_loss + i * n_last:n_loss + (i + 1) * n_last]
                                for i in range(3))
-    for k in range(n_seeds):
+    for k in range(len(its)):
         trainer.step_losses.extend(map(float, ep_losses[k]))
     n_imgs = int(weights.sum()) * trainer.epochs
     trainer.epoch_rates.append(n_imgs / max(dt, 1e-9))
     ep = trainer.epochs - 1
-    for k in range(n_seeds):
-        keep, it = weights[k] > 0, first + k
+    rocs = [None] * len(its)
+    for k, it in enumerate(its):
+        keep = weights[k] > 0
         sc, lb = scores[k][keep], labels[k][keep]
         if np.isnan(sc).any():
             raise NanGradientsError()
@@ -312,7 +329,7 @@ def train_cls_vmapped_seeds(trainer, ds, cls: int, clsstr: str, n_seeds: int,
                 f"cls {cls} seed {it} epoch {e + 1}/{trainer.epochs}: loss {loss:.5f}"
                 + (f", train AUC {rocs[k].auc * 100:.2f}%"
                    if rocs[k] is not None and e == ep else ""))
-    trainer.logger.print(f"cls {cls}: {n_seeds} seeds x {trainer.epochs} epochs in {dt:.2f} s, "
+    trainer.logger.print(f"cls {cls}: {len(its)} seeds x {trainer.epochs} epochs in {dt:.2f} s, "
                          f"{n_imgs / max(dt, 1e-9):.0f} img/s")
     return stack, rocs
 

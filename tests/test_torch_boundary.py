@@ -57,14 +57,15 @@ def test_port_imports_neither_jax_nor_eoe_tpu():
     imports_and_tools = {f"eoe_tpu_torch.{m}" for m in (
         "models.resnet50", "models.torch_import", "main.import_snapshot", "main.prepare_data",
         "ops.pool")}
-    assert len(names) >= 65 and conv_path | cli | folder | evolve_custom | imports_and_tools \
-        <= set(names)
+    parallel = {"eoe_tpu_torch.parallel", "eoe_tpu_torch.parallel.mesh"}
+    assert len(names) >= 67 and conv_path | cli | folder | evolve_custom | imports_and_tools \
+        | parallel <= set(names)
     assert leaked == []
     assert not native_built   # the native decoder builds at first use, not at import
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "profile_train.py", "attention_variants.py",
-                                    "augment_variants.py"])
+                                    "augment_variants.py", "dp_scaling.py"])
 def test_root_scripts_import_neither_jax_nor_eoe_tpu(script):
     """The scripts that drive the port on the card import only the port:
     every import statement, at any depth, is read from the source."""

@@ -586,3 +586,44 @@ def test_pipeline_on_the_card_is_the_cpus(cuda, dtype):
     assert Aug.launches == before + 1
     cpu = f(x.cpu(), draws=[{k: v.cpu() for k, v in d.items()} for d in draws])
     assert (card.cpu() - cpu).abs().max().item() <= 1e-5 / min(P.CLIP_STD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 32), (16, 8, 6, 6)])
+def test_all_reduce_batchnorm_matches_native(cuda, shape):
+    """The data mesh's batch norm (``BatchNorm._global``: per-channel sums,
+    sums of squares and counts through ``all_reduce_sum``) on a group of one
+    rank on the card, against the one-process ``native_batch_norm`` path:
+    output, running averages and gradients within 1e-5."""
+    import torch.distributed as dist
+    from eoe_tpu_torch.models.layers import BatchNorm
+    from eoe_tpu_torch.parallel import mesh as meshlib
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(*shape, generator=g, device=cuda) * 3 + 1
+    dy = torch.randn(*shape, generator=g, device=cuda)
+    gamma = torch.rand(shape[1], generator=g, device=cuda) + 0.5
+    beta = torch.rand(shape[1], generator=g, device=cuda) - 0.5
+    outs = []
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{meshlib.free_port()}",
+                                world_size=1, rank=0)
+    try:
+        mesh = meshlib.DataMesh(dist.group.WORLD, "gloo", 0, 1, cuda)
+        for on_mesh in (False, True):
+            bn = BatchNorm(shape[1], eps=1e-5).to(cuda).train()
+            with torch.no_grad():
+                bn.weight.copy_(gamma)
+                bn.bias.copy_(beta)
+            xi = x.clone().requires_grad_()
+            y = bn._global(xi, mesh) if on_mesh else bn(xi)
+            (y * dy).sum().backward()
+            outs.append([y.detach(), bn.running_mean, bn.running_var, xi.grad, bn.weight.grad,
+                         bn.bias.grad])
+    finally:
+        if started:
+            dist.destroy_process_group()
+    for name, a, b in zip(("y", "mean", "var", "dx", "dgamma", "dbeta"), *outs):
+        torch.testing.assert_close(b, a, atol=1e-5 * max(a.abs().max().item(), 1), rtol=0,
+                                   msg=name)

@@ -103,12 +103,25 @@ def _base(tmp_path, extra=()):
 
 
 def test_one_card_flags_raise(tmp_path, monkeypatch):
-    """``-d 2`` raises on one card; ``--vmap-seeds``, ``--no-vmap-seeds``
-    and the default reach ``Trainer.run`` as True, False and None."""
+    """``-d 2`` starts a second rank running the same ``main(argv)`` (the
+    ranks themselves: tests/test_torch_parallel.py); ``--vmap-seeds``,
+    ``--no-vmap-seeds`` and the default reach ``Trainer.run`` as True, False
+    and None."""
     from eoe_tpu_torch.main import train_cifar
+    from eoe_tpu_torch.parallel import mesh as meshlib
     from eoe_tpu_torch.training import Trainer
-    with pytest.raises(NotImplementedError, match="DDP"):
-        train_cifar.main(_base(tmp_path, ["-d", "2"]), device="cpu")
+
+    class Spawned(Exception):
+        pass
+
+    def spawn(fn, args, n):
+        raise Spawned(fn, args, n)
+
+    monkeypatch.setattr(meshlib, "spawn_ranks", spawn)
+    argv = _base(tmp_path, ["-d", "2"])
+    with pytest.raises(Spawned) as got:
+        train_cifar.main(argv, device="cpu")
+    assert got.value.args == (train_cifar.main, (argv, "cpu"), 2)
     seen = []
     monkeypatch.setattr(Trainer, "run", lambda self, *a, vmap_seeds=None: seen.append(vmap_seeds))
     monkeypatch.setenv("EOE_TPU_FAKE_DATA", "1")
