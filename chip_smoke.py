@@ -71,6 +71,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      launch once per train-pipeline call (apply; the stats where the guard
      is on: WRN), 2 a step and 2 for the preview, and 0 on the fixed
      pipelines of the by-name runs and the fp32 steps.
+     Every resident, one-process training run of these and the later
+     phases goes through the resident epoch (``training.graphs``: the step
+     captured as a CUDA graph and replayed) and keeps its holds and counts;
+  resident: the resident epoch against the eager loop (``_Eager``), cuDNN
+     deterministic: (a) CNN32 fp32 on phase 8's pinned stack, 2 epochs,
+     with SGD in turns (eager, one-step graphs, whole-epoch graphs): losses,
+     parameters and AUROC 1e-5; then with Adam, held by drift
+     (``ADAM_DRIFT_TOL``); (b) ViT-B/32 bf16 on phase 5's data, 4 steps:
+     losses 2^-8, 12 + 12 fused launches a step both ways; (c) 4 vmapped
+     CNN32 seeds (SGD): every member's losses, AUROC and parameters 1e-5;
+     (d) one generation of ``evolve_oe_cifar --ev-vmap`` (SGD): the same
+     population, fitnesses 1e-4; each with its seconds, img/s, ms a step
+     and the card's busy share both ways; (e) ``train_cifar`` with the
+     logger's background writer and with ``EOE_TPU_SYNC_IO=1``: the same
+     files and snapshot tensors, the seconds of each.
 Later phases: filters, cli, folder, evolve and custom (the runners and data
 layers of later slices, see their docstrings), then
  15. vmapped: the vmapped engines. (a) ``train_cifar`` by ``main`` with 4
@@ -116,7 +131,8 @@ layers of later slices, see their docstrings), then
      with both times;
  20. dp: the data axis (``parallel.mesh``), one process and then two ranks
      sharing the card (EOE_TPU_DISTRIBUTED=1, gloo: NCCL refuses two ranks
-     on a device), each process running (a)-(d) of ``dp_child``: (a)
+     on a device), all on the per-step loop (a data mesh takes no graph),
+     each process running (a)-(d) of ``dp_child``: (a)
      ``train_clip_cifar`` ViT-B/32 bf16 HSC, 4 steps of 128 + 128 (64 + 64
      a rank): each rank's losses within 2^-8 of the process's, scores and
      AUROC 1e-4 or a tie, 12 + 12 fused launches a step as one process on
@@ -157,7 +173,9 @@ PATH_DTYPES = {"serving": "fp32", "training": "bf16", "training_fp32": "fp32",
                "vm_wrn": "bf16", "vm_clip": "bf16", "vm_evolve": "fp32",
                "vm_wrn_runners": "fp32", "clip_rn50": "bf16", "import": "fp32",
                "dp_clip_rank0": "bf16", "dp_clip_rank1": "bf16", "dp_conv": "fp32",
-               "dp_vmap": "fp32", "dp_evolve": "fp32"}
+               "dp_vmap": "fp32", "dp_evolve": "fp32", "resident_cnn32": "fp32",
+               "resident_clip": "bf16", "resident_vmapped": "fp32", "resident_evolve": "fp32",
+               "resident_io": "fp32"}
 BATCH = 128
 SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
@@ -963,6 +981,7 @@ def _train_bf16(card, label, model, data, epochs, expected, serve_model=None) ->
         eroc, _ = trainer.eval_cls(state, ds, 0, "airplane", 0)
         t_eval = time.perf_counter() - t0
         path = trainer.snapshot("snapshot_cls0_it0", state, epochs, ds.ds_statistics)
+        trainer.logger.drain()   # the snapshot is written in the background
         counts = _counts()
         # ---- end of the counted run
 
@@ -1283,6 +1302,7 @@ def _train_pinned(card, label, trainer, data, n, n_test, serve, stats: bool) -> 
     t_train = time.perf_counter() - t0
     eroc, _ = trainer.eval_cls(state, ds, 0, "airplane", 0)
     path = trainer.snapshot("snapshot_cls0_it0", state, trainer.epochs, ds.ds_statistics)
+    trainer.logger.drain()   # the snapshot is written in the background
     counts = _counts()
     check_counts(counts, augment_counts(2 * steps + PREVIEW_CALLS, stats),
                  f"{label} (no attention kernel on the conv path)")
@@ -1499,6 +1519,392 @@ def phase_wrn_training(card: str) -> dict:
           f"{errs['bn1.weight']:.3g} / {errs['bn1.bias']:.3g}; tol 1e-4), parameter err "
           f"{p_err:.3g} (tol 1e-5) [{card}]")
     return counts
+
+
+class _Eager:
+    """Within: every trainer takes the per-step loop of eager steps (the
+    control of phase resident; ``Trainer.resident_epoch`` says no)."""
+
+    def __enter__(self):
+        from eoe_tpu_torch.training import Trainer
+        self.saved = Trainer.resident_epoch
+        Trainer.resident_epoch = lambda tr, ds: False
+
+    def __exit__(self, *exc):
+        from eoe_tpu_torch.training import Trainer
+        Trainer.resident_epoch = self.saved
+
+
+class _Env:
+    """Within: the environment variables of ``values`` set (None: unset)."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# phase resident's ways: (label, the context that selects it). "graph" is the
+# default chunk (graphs.chunk_steps: one step a graph), "graph_epoch" the
+# whole epoch a graph (the JAX package's default)
+def _resident_ways(steps: int) -> dict:
+    from contextlib import nullcontext
+    return {"eager": _Eager, "graph": nullcontext,
+            "graph_epoch": lambda: _Env(EOE_TPU_CHUNK=steps)}
+
+
+def _resident_timed(label: str, ways: dict, order: list, run, logdir: str,
+                    profiled: bool = True) -> dict:
+    """Each way of ``order`` (ways in turns) through ``run(way, tag)``:
+    {way: [(result, host seconds, busy seconds or None), ...]}; the first
+    run of a way is run again under ``torch.profiler`` where ``profiled``
+    (the card's activity alone, no trace written: the busy seconds)."""
+    import torch
+    from eoe_tpu_torch.utils.profiling import device_seconds
+    out = {}
+    for way in order:
+        with ways[way]():
+            t0 = time.perf_counter()
+            result = run(way, "timed")
+            torch.cuda.synchronize()
+            seconds, busy = time.perf_counter() - t0, None
+            if profiled and way not in out:
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    run(way, "profiled")
+                    torch.cuda.synchronize()
+                busy = device_seconds(prof)
+            out.setdefault(way, []).append((result, seconds, busy))
+    return out
+
+
+def _resident_report(card: str, label: str, out: dict, images: int, steps: int,
+                     rates=None):
+    """Per way and run: seconds of the run (set-up included), img/s and ms a
+    step over them, the card's busy share of the profiled run; ``rates``:
+    {way: img/s of each epoch of a run}, the steady state."""
+    for way, runs in out.items():
+        parts = []
+        for _, seconds, busy in runs:
+            parts.append(f"{seconds:.3f} s, {images / seconds:.1f} img/s, "
+                         f"{1000 * seconds / steps:.2f} ms a step"
+                         + ("" if busy is None else
+                            f", busy {busy:.3f} s ({100 * busy / seconds:.1f}%)"))
+        epochs = f"; img/s per epoch {rates[way]}" if rates and way in rates else ""
+        print(f"resident {label} {way}: " + " | ".join(parts) + epochs + f" [{card}]")
+
+
+def _state_err(a: dict, b: dict) -> float:
+    """The largest difference of two state dicts, each tensor's over
+    max(1, its largest magnitude in ``b``)."""
+    return max(((a[k].float() - v.float()).abs().max() / v.float().abs().max().clamp(min=1))
+               .item() for k, v in b.items())
+
+
+def _res_cnn32(card: str, tmp: str) -> dict:
+    """(a) CNN32 fp32 HSC on phase 8's pinned CIFAR-10 stack, 2 epochs:
+    captured graphs (the default chunk of one step, and the whole epoch a
+    graph) against the eager loop, in turns, with SGD (``_SgdTrainers``):
+    losses, parameters and batch-norm averages 1e-5 (of max(1, |max|)), the
+    train AUROC 1e-5, 1 crop launch a pipeline call each way; then Adam (the
+    runner makes it capturable) both ways, held by drift: float noise on a
+    near-zero gradient turns into a +-lr update (``ADAM_DRIFT_TOL``)."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.models import CNN32
+
+    ds, _ = _pinned(np.random.default_rng(SEED), 32, CONV_N, CONV_TEST, CIFAR_SPECS,
+                    ["normalize"])
+    steps = CONV_EPOCHS * (CONV_N // BATCH)
+    trainer = _conv_trainer("hsc", CNN32(), CIFAR_SPECS, ["normalize"], None, torch.float32,
+                            CONV_EPOCHS)
+    trainer.ds = ds
+    counts = {}
+
+    def run(way, tag):
+        trainer.step_losses, trainer.epoch_rates = [], []
+        _zero_counts()
+        state, roc = trainer.train_cls(ds, 0, "airplane", 0, seed=SEED)
+        torch.cuda.synchronize()
+        counts[way] = _counts()
+        params = {k: v.detach().float().cpu().clone() for k, v in state.model.state_dict().items()}
+        return np.array(trainer.step_losses), params, roc.auc, list(trainer.epoch_rates)
+
+    ways = _resident_ways(CONV_N // BATCH)
+    with _SgdTrainers():
+        out = _resident_timed("cnn32", ways, ["eager", "graph", "graph_epoch", "graph",
+                                              "eager"], run, tmp)
+    (losses, params, auc, _), _, _ = out["eager"][0]
+    for way, runs in out.items():
+        check_counts(counts[way], augment_counts(2 * steps, False), f"resident cnn32 {way}")
+        for (g_losses, g_params, g_auc, rates), _, _ in runs:
+            l_err = float(np.abs(g_losses - losses).max() / np.abs(losses).max())
+            p_err = _state_err(g_params, params)
+            check(l_err <= 1e-5 and p_err <= 1e-5 and abs(g_auc - auc) <= 1e-5,
+                  f"resident cnn32 {way}: losses {l_err:.3g} rel, parameters {p_err:.3g}, "
+                  f"AUROC {g_auc} vs {auc} from the eager run (tol 1e-5)")
+        print(f"resident cnn32 SGD {way}: losses {l_err:.3g} rel, parameters {p_err:.3g} from "
+              f"the eager run (tol 1e-5); img/s per epoch {[round(r, 1) for r in rates]}")
+    _resident_report(card, f"cnn32 fp32 SGD {CONV_N}+{CONV_N} x {CONV_EPOCHS} epochs", out,
+                     steps * 2 * BATCH, steps)
+    trainer.init_weights(SEED)
+    init = {k: v.detach().float().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    adam = _resident_timed("cnn32_adam", ways, ["eager", "graph"], run, tmp, profiled=False)
+    (a_losses, a_params, _, _), _, _ = adam["eager"][0]
+    (g_losses, g_params, _, _), _, _ = adam["graph"][0]
+    names = [k for k, _ in trainer.model.named_parameters()]   # as _member_drift
+    drift = float(sum(((g_params[k] - a_params[k]).double() ** 2).sum() for k in names)
+                  / sum(((a_params[k] - init[k]).double() ** 2).sum() for k in names)) ** 0.5
+    l_err = float(np.abs(g_losses - a_losses).max() / np.abs(a_losses).max())
+    check(drift <= ADAM_DRIFT_TOL, f"resident cnn32 Adam: graph parameters drift {drift:.3g} "
+          f"of their change from the eager run's (tol {ADAM_DRIFT_TOL:.3g})")
+    print(f"resident cnn32 Adam: parameters {_state_err(g_params, a_params):.3g} apart, drift "
+          f"{drift:.3g} of their change (tol {ADAM_DRIFT_TOL:.3g}), losses {l_err:.3g} rel "
+          f"from the eager run")
+    _resident_report(card, f"cnn32 fp32 Adam {CONV_N}+{CONV_N} x {CONV_EPOCHS} epochs", adam,
+                     steps * 2 * BATCH, steps)
+    return counts["graph"]
+
+
+def _res_clip(card: str, tmp: str) -> dict:
+    """(b) ViT-B/32 bf16 HSC on phase 5's data and stack, one epoch of 4
+    steps of 128 + 128: graphs against the eager loop, each loss within
+    2^-8, 12 forward + 12 backward fused launches and 2 + 2 augmentation
+    launches a step both ways."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32
+
+    ds, _ = _combined(np.random.default_rng(SEED), ACCEPTANCE_SPECS)
+    epochs = 1
+    steps = epochs * (TRAIN_N // BATCH)
+    trainer = _trainer(CLIP(VIT_B32, dtype=torch.bfloat16), ACCEPTANCE_SPECS, None,
+                       torch.bfloat16, epochs)
+    trainer.ds = ds
+    counts = {}
+
+    rates = {}
+
+    def run(way, tag):
+        trainer.step_losses, trainer.epoch_rates = [], []
+        _zero_counts()
+        trainer.train_cls(ds, 0, "airplane", 0, seed=SEED)
+        torch.cuda.synchronize()
+        counts[way] = _counts()   # the last run's: the pipelines' first-call probes left out
+        if tag == "timed":   # the profiled run's rates carry the profiler's cost
+            rates[way] = [round(r, 1) for r in trainer.epoch_rates]
+        return np.array(trainer.step_losses)
+
+    from eoe_tpu_torch.training import graphs
+    layers, made, real = VIT_B32.vision_layers, [], graphs.ResidentSteps
+
+    class Recorded(real):   # the graph's runners, for their capture seconds
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    graphs.ResidentSteps = Recorded
+    try:
+        out = _resident_timed("clip", _resident_ways(TRAIN_N // BATCH), ["eager", "graph"],
+                              run, tmp)
+    finally:
+        graphs.ResidentSteps = real
+    losses = out["eager"][0][0]
+    for way in out:
+        check_counts(counts[way], {"fwd": layers * steps, "bwd": layers * steps,
+                                   **augment_counts(2 * steps, True)}, f"resident clip {way}")
+    l_err = float(np.abs(out["graph"][0][0] - losses).max())
+    check(np.isfinite(losses).all() and l_err <= 2 ** -8,
+          f"resident clip: graph losses {l_err:.3g} from the eager run's (tol 2^-8)")
+    print(f"resident clip bf16 ViT-B/32: losses {l_err:.3g} from the eager run (tol 2^-8); "
+          f"{layers} + {layers} fused launches a step both ways; a capture's host seconds "
+          f"(making room, recording, instantiating) "
+          f"{[[round(x, 3) for x in r.capture_seconds] for r in made]}")
+    _resident_report(card, f"clip bf16 ViT-B/32 128+128 x {steps} steps", out,
+                     steps * 2 * BATCH, steps, rates)
+    del trainer
+    torch.cuda.empty_cache()
+    return counts["graph"]
+
+
+def _res_vmapped(card: str, tmp: str) -> dict:
+    """(c) 4 vmapped CNN32 seeds on phase 8's pinned stack with SGD
+    (``_SgdTrainers``), 2 epochs: each member's every loss, train AUROC and
+    parameters from the graphs within 1e-5 of the eager program's."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.models import CNN32
+    from eoe_tpu_torch.training import trainer as T
+    from eoe_tpu_torch.training import vmapped_seeds as V
+
+    ds, _ = _pinned(np.random.default_rng(SEED), 32, VM_PINNED_N, CONV_TEST, CIFAR_SPECS,
+                    ["normalize"])
+    trainer = _conv_trainer("hsc", CNN32(), CIFAR_SPECS, ["normalize"], None, torch.float32,
+                            CONV_EPOCHS)
+    trainer.ds = ds
+    seeds = [T._seed(SEED, 0, it, 0) for it in range(4)]
+    steps = CONV_EPOCHS * (VM_PINNED_N // BATCH)
+    counts = {}
+
+    rates = {}
+
+    def run(way, tag):
+        trainer.step_losses, trainer.epoch_rates = [], []
+        _zero_counts()
+        stack, rocs = V.train_cls_vmapped_seeds(trainer, ds, 0, "airplane", 4, seeds)
+        torch.cuda.synchronize()
+        counts[way] = _counts()   # the last run's: the pipelines' first-call probes left out
+        if tag == "timed":   # the profiled run's rates carry the profiler's cost
+            rates[way] = [round(r, 1) for r in trainer.epoch_rates]
+        return (np.array(trainer.step_losses), [r.auc for r in rocs],
+                [m[0] for m in stack.host_members()])
+
+    with _SgdTrainers():
+        out = _resident_timed("vmapped", _resident_ways(VM_PINNED_N // BATCH),
+                              ["eager", "graph"], run, tmp)
+    (losses, aucs, members), _, _ = out["eager"][0]
+    (g_losses, g_aucs, g_members), _, _ = out["graph"][0]
+    for way in out:
+        check_counts(counts[way], augment_counts(2 * steps, False), f"resident vmapped {way}")
+    l_err = float(np.abs(g_losses - losses).max() / np.abs(losses).max())
+    p_err = max(_state_err(g, m) for m, g in zip(members, g_members))
+    a_err = float(np.abs(np.subtract(g_aucs, aucs)).max())
+    check(l_err <= 1e-5 and p_err <= 1e-5 and a_err <= 1e-5,
+          f"resident vmapped: members' losses {l_err:.3g} rel, parameters {p_err:.3g}, "
+          f"AUROCs {a_err:.3g} from the eager program (tol 1e-5)")
+    print(f"resident vmapped 4 CNN32 seeds: losses {l_err:.3g} rel, parameters {p_err:.3g}, "
+          f"AUROCs {a_err:.3g} from the eager program (tol 1e-5)")
+    _resident_report(card, f"vmapped 4 CNN32 seeds SGD {VM_PINNED_N}+{VM_PINNED_N} x 2 epochs",
+                     out, 4 * steps * 2 * BATCH, steps, rates)
+    return counts["graph"]
+
+
+def _res_evolve(card: str, tmp: str) -> dict:
+    """(d) one generation of ``evolve_oe_cifar --ev-vmap`` at phase evolve's
+    settings with SGD (``_SgdTrainers``): graphs against the eager loop,
+    the same population and each fitness within 1e-4."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.main import evolve_oe_cifar
+
+    argv = EV_CIFAR[:2] + ["--ev-generations", "1"] + EV_CIFAR[4:] + [
+        "--classes", "0", "--datapath", tmp, "--ev-vmap"]
+    counts = {}
+
+    def run(way, tag):
+        _zero_counts()
+        with _SgdTrainers():
+            history, _ = evolve_oe_cifar.main(argv + ["--superdir", f"{tmp}/ev_{way}_{tag}"])
+        torch.cuda.synchronize()
+        counts[way] = _counts()
+        return history
+
+    out = _resident_timed("evolve", {"eager": _Eager, "graph": _resident_ways(1)["graph"]},
+                          ["eager", "graph"], run, tmp)
+    he, hg = out["eager"][0][0], out["graph"][0][0]
+    for way in out:
+        check_counts(counts[way], {}, f"resident evolve {way} (no attention kernel)")
+    check(he["pop"] == hg["pop"], f"resident evolve: populations {hg['pop']} vs {he['pop']}")
+    f_err = float(np.abs(np.asarray(hg["fit"], float) - np.asarray(he["fit"], float)).max())
+    check(f_err <= 1e-4, f"resident evolve: fitnesses {f_err:.3g} apart (tol 1e-4)")
+    n = int(EV_CIFAR[1])
+    print(f"resident evolve_oe_cifar --ev-vmap, one generation of {n}: populations equal, "
+          f"fitness max difference {f_err:.3g} (tol 1e-4)")
+    for way, runs in out.items():
+        _, seconds, busy = runs[0]
+        print(f"resident evolve --ev-vmap one generation {way}: {seconds:.3f} s, "
+              f"{seconds / n:.4f} s an individual, busy {busy:.3f} s "
+              f"({100 * busy / seconds:.1f}%) [{card}]")
+    return counts["graph"]
+
+
+def _res_io(card: str, tmp: str) -> dict:
+    """(e) ``train_cifar`` (2 seeds vmapped, 2 epochs) with the background
+    writer and with ``EOE_TPU_SYNC_IO=1``: the same files and the same
+    snapshot tensors (within 1e-6), and the seconds of each."""
+    import glob
+
+    import torch
+    from eoe_tpu_torch.main import train_cifar
+
+    one = ["-e", "2", "-it", "2", "--classes", "0", "--datapath", tmp]
+    train_cifar.main(["-e", "1", "-it", "1", "--classes", "0", "--datapath", tmp,
+                      "--superdir", "warm"])   # the synthetic data, written once
+    runs, seconds, counts = {}, {}, None
+    for mode, sync in (("background", None), ("inline", 1), ("inline", 1),
+                       ("background", None)):
+        with _Env(EOE_TPU_SYNC_IO=sync):
+            _zero_counts()
+            t0 = time.perf_counter()
+            train_cifar.main(one + ["--superdir", f"io_{mode}_{len(seconds.get(mode, []))}"])
+            seconds.setdefault(mode, []).append(time.perf_counter() - t0)
+            counts = _counts()
+        runs.setdefault(mode, []).append(glob.glob(os.path.join(
+            tmp, "results", f"io_{mode}_{len(seconds[mode]) - 1}",
+            "log_*_hsc_cifar10_one_vs_rest"))[0])
+    check_counts(counts, {}, "resident io (no attention kernel)")
+
+    def listing(run):
+        return sorted(os.path.relpath(f, run) if "/tb/" not in f else "tb/*"
+                      for f in glob.glob(os.path.join(run, "**", "*"), recursive=True))
+
+    files = {m: listing(r[0]) for m, r in runs.items()}
+    check(files["background"] == files["inline"], f"resident io: the background writer's files "
+          f"{sorted(set(files['background']) ^ set(files['inline']))} differ")
+    err = 0.0
+    for snap in glob.glob(os.path.join(runs["inline"][0], "snapshots", "*.pt")):
+        a = torch.load(snap, weights_only=True)["params"]
+        b = torch.load(os.path.join(runs["background"][0], "snapshots",
+                                    os.path.basename(snap)), weights_only=True)["params"]
+        err = max([err] + [(a[k].float() - b[k].float()).abs().max().item() for k in a])
+    check(err <= 1e-6, f"resident io: snapshot tensors {err:.3g} apart (tol 1e-6)")
+    print(f"resident io train_cifar ({' '.join(one[:4])}): {len(files['inline'])} files alike, "
+          f"snapshot tensors {err:.3g} apart (tol 1e-6); seconds background "
+          f"{[round(x, 3) for x in seconds['background']]}, EOE_TPU_SYNC_IO=1 "
+          f"{[round(x, 3) for x in seconds['inline']]} [{card}]")
+    return counts
+
+
+def phase_resident(card: str) -> dict:
+    """The resident epoch as captured CUDA graphs against the eager loop
+    (see the module docstring); cuDNN deterministic, so that both ways sum
+    alike."""
+    import tempfile
+
+    import torch
+    saved = os.environ.get("EOE_TPU_FAKE_DATA")
+    os.environ["EOE_TPU_FAKE_DATA"] = "1"
+    torch.backends.cudnn.deterministic = True
+    paths = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, fn in (("cnn32", _res_cnn32), ("clip", _res_clip),
+                             ("vmapped", _res_vmapped), ("evolve", _res_evolve),
+                             ("io", _res_io)):
+                t0 = time.perf_counter()
+                paths[f"resident_{name}"] = fn(card, tmp)
+                print(f"resident {name}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if saved is None:
+            os.environ.pop("EOE_TPU_FAKE_DATA", None)
+        else:
+            os.environ["EOE_TPU_FAKE_DATA"] = saved
+    torch.cuda.empty_cache()
+    return paths
 
 
 # (filter, argument) pairs held on the card against the CPU: every MSM
@@ -2539,8 +2945,9 @@ def _vm_clip(card: str, tmp: str) -> dict:
     width in bf16, counted: the fused forward and backward launch once per
     layer and step on the K*256 folded images (12 + 12 per step, not twice
     that), once per layer and eval batch on K*128, and once per text layer
-    for each member's prompt centre; the memory probe adds a step of one
-    member (on 256) and one of two (on 512) and one prompt centre. Each
+    for each member's prompt centre; the memory probe adds two steps of one
+    member (on 256) and two of two (on 512; an eager step and a replay of
+    its captured graph) and one prompt centre. Each
     member's loss of each epoch within 2^-8 of ``--no-vmap-seeds``'s seed
     (a program of both: the run logs no "per program")."""
     import numpy as np
@@ -2575,18 +2982,23 @@ def _vm_clip(card: str, tmp: str) -> dict:
         # ---- end of the counted run
     finally:
         A._fwd_kernel = launch
-    # the memory probe (vmapped_seeds.seeds_per_program): one step of one
-    # member and one of two, and the prompt centre once
-    probe = {"fwd": text_layers + 2 * layers, "bwd": 2 * layers}
-    check_counts(counts, {"fwd": (K + 1) * text_layers + layers * (steps + eval_batches + 2),
-                          "bwd": layers * (steps + 2)},
+    # the memory probe (vmapped_seeds.seeds_per_program): two steps of one
+    # member and two of two (an eager step and a replay of its captured
+    # graph, as the program runs them), and the prompt centre once
+    probe = {"fwd": text_layers + 4 * layers, "bwd": 4 * layers}
+    check_counts(counts, {"fwd": (K + 1) * text_layers + layers * (steps + eval_batches + 4),
+                          "bwd": layers * (steps + 4)},
                  f"vmapped train_clip_cifar ({K} members: {K * text_layers} prompt launches, "
                  f"{steps} folded steps, {eval_batches} folded eval batch; the probe {probe})")
+    # the wrapper sees each call from Python: an eager step's and a
+    # capture's, not a replay's (one-step graphs: the first step eager, the
+    # second captured); the probe calls twice for each of its stacks
+    calls = min(steps, 2)
     image = Counter(n for n, s in shapes if s != 77)
-    check(image == {K * 2 * BATCH: layers * (steps + 1), K * BATCH: layers * (eval_batches + 1)},
-          f"vmapped train_clip_cifar: image-tower launches by n {dict(image)}, expected "
-          f"{layers * (steps + 1)} on {K * 2 * BATCH} (the steps and the probe's two members) "
-          f"and {layers * (eval_batches + 1)} on {K * BATCH} (eval and the probe's one)")
+    check(image == {K * 2 * BATCH: layers * (calls + 2), K * BATCH: layers * (eval_batches + 2)},
+          f"vmapped train_clip_cifar: image-tower calls by n {dict(image)}, expected "
+          f"{layers * (calls + 2)} on {K * 2 * BATCH} (the steps' and the probe's two members') "
+          f"and {layers * (eval_batches + 2)} on {K * BATCH} (eval and the probe's one)")
     _zero_counts()
     t0 = time.perf_counter()
     train_clip_cifar.main(argv + ["--no-vmap-seeds", "--superdir", "clip_seq"])
@@ -3491,6 +3903,10 @@ def dp_child(tmp: str, tag: str):
 
     A._fwd_kernel, Trainer.train_step, Trainer.run = recorded, timed_step, kept_run
     VmappedEvaluator.evaluate_population = sharded_population
+    # one process takes the per-step loop too, as the ranks do: step_ms
+    # times each step and recorded counts each launch
+    eager = _Eager()
+    eager.__enter__()
     try:
         # (a) CLIP ViT-B/32 bf16 HSC, counted
         _zero_counts()
@@ -3539,6 +3955,7 @@ def dp_child(tmp: str, tag: str):
     finally:
         A._fwd_kernel, Trainer.train_step, Trainer.run = launch, train_step, run
         VmappedEvaluator.evaluate_population = evaluate
+        eager.__exit__()
         meshlib.leave()
 
 
@@ -3755,6 +4172,7 @@ def main():
     del data
     paths["conv_training"] = timed("conv_training", phase_conv_training, card)
     paths["wrn_training"] = timed("wrn_training", phase_wrn_training, card)
+    paths.update(timed("resident", phase_resident, card))
     timed("filters", phase_filters, card)
     paths["cli_clip"], paths["cli_conv"] = timed("cli", phase_cli, card)
     paths["folder_clip"], paths["folder_conv"] = timed("folder", phase_folder, card)

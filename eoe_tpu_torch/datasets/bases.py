@@ -23,7 +23,7 @@ classes in ``<root>/stats_cache.json``, the JAX package's file.
 import json
 import os
 import os.path as pt
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -93,6 +93,29 @@ class ArraySource(DataSource):
     @property
     def resident(self):
         return True
+
+
+class LazySource(DataSource):
+    """A source backed by a loader: ``gather_fn(indices)`` returns the uint8
+    images (a decoder of files, a memory map too large for the host), called
+    at every gather. Never resident: its splits stream."""
+
+    def __init__(self, n: int, raw_shape: Tuple[int, int, int], targets: np.ndarray,
+                 gather_fn: Callable[[np.ndarray], np.ndarray]):
+        self._n = n
+        self._raw_shape = tuple(raw_shape)
+        self.targets = np.asarray(targets, dtype=np.int64)
+        self._gather = gather_fn
+
+    def __len__(self):
+        return self._n
+
+    def gather(self, indices):
+        return self._gather(np.asarray(indices))
+
+    @property
+    def raw_shape(self):
+        return self._raw_shape
 
 
 class Subset:
@@ -292,6 +315,17 @@ class ADDataset:
         subset = self._train_set if train else self._test_set
         keys, counts = np.unique(self.binary_targets(subset), return_counts=True)
         return {int(k): int(v) for k, v in zip(keys, counts)}
+
+    def preview(self, percls: int = 20, train: bool = True) -> np.ndarray:
+        """Raw uint8 images of the train (or test) split, up to ``percls`` of
+        each binary class in class order, every class cut to the smallest
+        one's count: (n, h, w, c). The pipelines are not applied."""
+        subset = self._train_set if train else self._test_set
+        binary = self.binary_targets(subset)
+        out = [subset.gather(np.argwhere(binary == c).flatten()[:percls])
+               for c in sorted(set(binary.tolist()))]
+        n = min(len(o) for o in out)
+        return np.concatenate([o[:n] for o in out])
 
     def __repr__(self):
         return type(self).__name__

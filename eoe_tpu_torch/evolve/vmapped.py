@@ -25,7 +25,10 @@ data size divides is split over the ranks, each training its
 gathered (``trainer._last_vmap_sharded``); any other chunk runs whole on
 every rank. Every rank then holds every fitness and makes the same GA
 decisions. Needs the pinned, resident dataset that ``evolve_trainer``
-builds.
+builds. Where ``trainer.resident_epoch`` holds (the card, or
+``EOE_TPU_CPU_SCAN=1``; one process), a chunk trains every (epoch, step)
+pair through ``training.graphs.ResidentSteps`` over the plans of every
+epoch packed on the device, as the JAX package's ``train_full`` scans them.
 """
 
 from typing import Dict, List, Sequence
@@ -37,8 +40,10 @@ from eoe_tpu_torch.datasets import str_labels
 from eoe_tpu_torch.datasets.bases import BalancedEpochSampler, CombinedDataset
 from eoe_tpu_torch.ops.metrics import auroc_torch
 from eoe_tpu_torch.parallel import mesh as meshlib
+from eoe_tpu_torch.training import graphs
 from eoe_tpu_torch.training.trainer import TrainState, _seed
-from eoe_tpu_torch.training.vmapped_seeds import members_per_program, preprocess_members
+from eoe_tpu_torch.training.vmapped_seeds import (members_per_program, preprocess_members,
+                                                  probe_steps)
 
 
 class VmappedEvaluator:
@@ -87,8 +92,10 @@ class VmappedEvaluator:
         for it in range(self.args.iterations):
             seed = _seed(trainer.seed, cls, it, 0)
             sampler = BalancedEpochSampler(len(train_set), oesize, B, _seed(seed, 1))
+            epoch_plans = [sampler.epoch() for _ in range(trainer.epochs)]
             plans = [torch.from_numpy(np.stack([a, b, c.astype(np.int64)])).to(device)
-                     for a, b, c in (sampler.epoch() for _ in range(trainer.epochs))]
+                     for a, b, c in epoch_plans]
+
             def pool(chunk):   # the candidates' OE images, (k, oesize, h, w, c)
                 return trainer._to_device(np.stack([oeds.source.gather(
                     valid[np.asarray(list(ind), np.int64) % len(valid)]) for ind in chunk]))
@@ -96,10 +103,10 @@ class VmappedEvaluator:
             def probe(k):
                 stack = trainer.init_states_stacked([seed] * k, sampler.steps)
                 center = self._center(it, stack, clsstr)
-                self._step(stack, plans[0][:, 0], Xn, Ln, pool(individuals[:1] * k),
-                           torch.Generator(device=device).manual_seed(0),
-                           None if center is None else center.expand(k, *center.shape),
-                           rt_stats)
+                xo, gen = pool(individuals[:1] * k), torch.Generator(device=device).manual_seed(0)
+                c = None if center is None else center.expand(k, *center.shape)
+                return probe_steps(trainer, ds, lambda: self._step(
+                    stack, plans[0][:, 0], Xn, Ln, xo, gen, c, rt_stats), [gen], stack.optimizer)
 
             mesh = trainer._dp_mesh()
             per = meshlib.all_reduce_min(
@@ -120,9 +127,14 @@ class VmappedEvaluator:
                 # one generator for every candidate: the draws of each
                 # candidate's sequential run are the same
                 generator = torch.Generator(device=device).manual_seed(_seed(seed, 2))
-                for plan in plans:
-                    for s in range(sampler.steps):
-                        self._step(stack, plan[:, s], Xn, Ln, Xo, generator, center, rt_stats)
+                if trainer.resident_epoch(ds) and trainer.epochs > 0:
+                    self._train_resident(stack, epoch_plans, sampler.steps, Xn, Ln, Xo,
+                                         generator, center, rt_stats)
+                else:
+                    for plan in plans:
+                        for s in range(sampler.steps):
+                            self._step(stack, plan[:, s], Xn, Ln, Xo, generator, center,
+                                       rt_stats)
                 scores = torch.cat([stack.scores(x, center) for x in test_x], 1)
                 aucs = torch.func.vmap(auroc_torch, in_dims=(None, 0))(
                     kept_labels, scores[:, keep])
@@ -131,6 +143,28 @@ class VmappedEvaluator:
                 fitness[start:start + n_chunk, it] = aucs.cpu().numpy()
         return fitness.mean(axis=1).tolist()
 
+    def _train_resident(self, stack, epoch_plans, steps: int, Xn, Ln, Xo, generator, center,
+                        rt_stats):
+        """Every (epoch, step) pair of a chunk through
+        ``graphs.ResidentSteps``: the plans of every epoch packed on the
+        device, each step's row read at a device counter."""
+        device = self.trainer.device
+        plans = graphs.DevicePlans([graphs.pack_plan(*p) for p in epoch_plans], 1, device)
+        cursor = torch.zeros(1, dtype=torch.int64, device=device)
+
+        def step():
+            self._step(stack, plans.row(cursor), Xn, Ln, Xo, generator, center, rt_stats)
+            cursor.add_(1)
+
+        runner = graphs.ResidentSteps(step, device, graphs.chunk_steps(steps), [generator],
+                                      [stack.optimizer])
+        try:
+            for ep in range(len(epoch_plans)):
+                plans.load(ep)
+                runner.run(steps)
+        finally:
+            runner.close()
+
     def _step(self, stack, plan, Xn, Ln, Xo, generator, center, rt_stats):
         """One update of every candidate: the shared normal half of ``plan``
         ((3, B): normal and OE positions, weights) and each candidate's OE
@@ -138,10 +172,12 @@ class VmappedEvaluator:
         trainer, ds = self.trainer, self.trainer.ds
         k, B = Xo.shape[0], plan.shape[1]
         i_n, i_o, w = plan[0], plan[1], plan[2].float()
-        ln = Ln[i_n][None]
+        ln = Ln.index_select(0, i_n)[None]
         lo = torch.full((k, B), ds.anomalous_label, dtype=Ln.dtype, device=Ln.device)
-        xn = preprocess_members(trainer, ds, Xn[i_n][None], ln, [generator], "normal", rt_stats)
-        xo = preprocess_members(trainer, ds, Xo[:, i_o], lo, [generator] * k, "oe", rt_stats)
+        xn = preprocess_members(trainer, ds, Xn.index_select(0, i_n)[None], ln, [generator],
+                                "normal", rt_stats)
+        xo = preprocess_members(trainer, ds, Xo.index_select(1, i_o), lo, [generator] * k, "oe",
+                                rt_stats)
         x = torch.cat([xn.expand(k, *xn.shape[1:]), xo], 1)
         labels = torch.cat([ln.expand(k, B), lo], 1)
         weights = torch.cat([w, w]).expand(k, 2 * B) * (labels >= 0)

@@ -511,6 +511,7 @@ def _save_evolution(logger: Logger, history: dict, tree: Tree, oeds, args: Names
     tree.render(pt.join(logger.dir, "genealogy.png"), oeds=oeds)
     tree.imsave_collection_best(logger, args.ms_mode, oeds=oeds)
     logger.flush_scalars()
+    logger.drain()   # the background writes are on disk before the runner returns
 
 
 def multiscale_experiment(args: Namespace, model, train_specs, test_specs,

@@ -50,7 +50,7 @@ pipelines, the multi-scale modes' (MSM) filters on one dataset part.
 import dataclasses
 import json
 import os
-from functools import partial
+from functools import lru_cache, partial
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -370,10 +370,21 @@ def gaussian_noise(images: torch.Tensor, noise: torch.Tensor, std: float) -> tor
     return images + std * noise
 
 
+@lru_cache(maxsize=64)
+def _constant(values: Tuple[float, ...], dtype: torch.dtype, device: str) -> torch.Tensor:
+    """Per-channel constants on ``device``, copied there once: a training
+    step captured as a CUDA graph may not copy from the host."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _channels(v, like: torch.Tensor) -> torch.Tensor:
+    if torch.is_tensor(v):
+        return v.to(dtype=like.dtype, device=like.device)
+    return _constant(tuple(float(x) for x in v), like.dtype, str(like.device))
+
+
 def normalize(images: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
-    mean = torch.as_tensor(mean, dtype=images.dtype, device=images.device)
-    std = torch.as_tensor(std, dtype=images.dtype, device=images.device)
-    return (images - mean) / std
+    return (images - _channels(mean, images)) / _channels(std, images)
 
 
 def _normalize_rt(images: torch.Tensor, rt_stats, mean, std) -> torch.Tensor:

@@ -7,6 +7,15 @@ to the gradient before the moment updates, which is what ``torch.optim``'s
 ``weight_decay`` does and what the JAX package rebuilt with optax.
 ``torch.optim.SGD(momentum=0.9, nesterov=True)`` keeps no dampening and
 applies the learning rate after the momentum, as optax's ``trace`` chain does.
+
+A captured CUDA graph of the step (``training.graphs``) replays what the
+host computed when it was captured. The rate is a Python float set before
+every update, so a graph holds the rates of its capture: the MultiStep
+boundaries are whole epochs, so a graph of steps within one epoch holds one
+rate, and ``graphs.ResidentSteps`` captures anew where the schedule moves.
+Adam counts its updates on the device once ``make_capturable`` has run
+(``capturable=True``; SGD keeps no count). Snapshots store the state as an
+optimizer that is not capturable, so that any device loads them.
 """
 
 from typing import Callable, Iterable, Sequence
@@ -49,8 +58,28 @@ class ScheduledOptimizer:
         self.optimizer.step()
         self.count += 1
 
+    def rates(self, n: int) -> tuple:
+        """The rates of the next ``n`` updates."""
+        return tuple(self.schedule(self.count + i) for i in range(n))
+
+    def make_capturable(self):
+        """Let a CUDA graph capture the update: Adam's step counts move to
+        the parameters' device as fp32 (``torch.optim``'s capturable
+        layout), so the bias correction is computed there."""
+        for group in self.optimizer.param_groups:
+            if "capturable" not in group:   # SGD keeps no count
+                continue
+            group["capturable"] = True
+            for p in group["params"]:
+                st = self.optimizer.state.get(p, {})
+                if torch.is_tensor(st.get("step")):
+                    st["step"] = st["step"].to(device=p.device, dtype=torch.float32)
+
     def state_dict(self) -> dict:
-        return {"optimizer": self.optimizer.state_dict(), "count": self.count}
+        sd = self.optimizer.state_dict()
+        sd["param_groups"] = [{**g, "capturable": False} if "capturable" in g else g
+                              for g in sd["param_groups"]]
+        return {"optimizer": sd, "count": self.count}
 
     def load_state_dict(self, state: dict):
         self.optimizer.load_state_dict(state["optimizer"])

@@ -42,8 +42,19 @@ decay, while its batch statistics still update. ``load`` takes a full
 snapshot, a feature-model-only state dict of a ``CustomNet``, or a
 trunk-only snapshot (a strict subset of the model's top-level modules; the
 rest keeps its fresh init). Not ported, being JAX dispatch machinery or
-later work: ``lax.scan`` epochs, the jit cache, the model axis of a mesh and
-the HLO dump.
+later work: the jit cache, the model axis of a mesh and the HLO dump.
+
+The resident epoch (``training.graphs``), the counterpart of the JAX
+package's ``lax.scan`` epochs: where both train halves are resident and
+``graphs.scan_ok`` holds (the card, or ``EOE_TPU_CPU_SCAN=1``), in one
+process, every remaining epoch's plan moves to the device packed as int32
+once (one epoch at a time above 64 MiB) and each step reads its row at a
+device counter, gathers its halves there, runs ``train_step`` unchanged and
+writes (loss, scores, labels, weights) into a per-epoch buffer: on the card
+captured as CUDA graphs of ``EOE_TPU_CHUNK`` steps (``graphs.chunk_steps``)
+and replayed, uncaptured on the CPU. One download per epoch either way.
+``images_seen``, ``train_seconds`` and ``images_per_second`` count the
+epochs of ``train_cls``, as in the JAX package.
 
 ``mesh`` (a ``parallel.mesh.DataMesh`` of several ranks, one process each)
 trains data-parallel with the numbers of one process on the global batch:
@@ -81,6 +92,7 @@ from eoe_tpu_torch.models.layers import with_compute_dtype
 from eoe_tpu_torch.ops import metrics as M
 from eoe_tpu_torch.ops.losses import OBJECTIVES, Objective, dsvdd_center
 from eoe_tpu_torch.parallel import mesh as meshlib
+from eoe_tpu_torch.training import graphs
 from eoe_tpu_torch.training.optim import ScheduledOptimizer, make_optimizer
 from eoe_tpu_torch.utils.logger import Logger
 
@@ -147,8 +159,11 @@ def _local_draws(fn, x: torch.Tensor, rows: Tuple[int, int, int], rt_stats,
 
 
 def _to_cpu(obj):
+    """CPU copies of the tensors in ``obj``, a CPU tensor copied too: a
+    snapshot is written in the background while the step goes on updating
+    its tensors in place."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu()
+        return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
         return {k: _to_cpu(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -202,6 +217,9 @@ class Trainer:
         self.ds = None  # a pinned, pre-built dataset
         self.epoch_rates: List[float] = []  # img/s per epoch
         self.step_losses: List[float] = []  # every step's loss, in order
+        self.images_seen = 0                # images trained on by train_cls
+        self.train_seconds = 0.0            # and its epochs' seconds
+        self._per_step = False   # the per-step loop even where the resident epoch applies
         self.member_peaks: dict = {}  # vmapped_seeds.members_per_program's, by shapes
         self.logger.logsetup(self.setup_dict(), step=0)
         if mesh is not None:
@@ -686,8 +704,16 @@ class Trainer:
         """The dataset statistics stored in a snapshot, if any."""
         if path is None:
             return None
+        self.logger.drain()   # the snapshot may still be on the background writer's queue
         payload = torch.load(path, map_location="cpu", weights_only=True)
         return payload.get("ds_statistics") or None
+
+    def load_epochs_only(self, path: Optional[str]) -> int:
+        """The epoch stored in a snapshot; 0 without one."""
+        if path is None:
+            return 0
+        self.logger.drain()
+        return int(torch.load(path, map_location="cpu", weights_only=True).get("epoch", 0))
 
     def _init_or_load(self, ds, seed: int, cur_load: Optional[str],
                       steps_per_epoch: int, optimizer: bool = True) -> Tuple[TrainState, int]:
@@ -701,6 +727,16 @@ class Trainer:
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def resident_epoch(self, ds) -> bool:
+        """Whether ``train_cls`` trains ``ds`` through the resident epoch:
+        both train halves resident and ``graphs.scan_ok``, as in the JAX
+        package, and one process (the stacked engines ask the same)."""
+        if self._per_step or self._dp_mesh() is not None or not graphs.scan_ok(self.device):
+            return False
+        oe_set = ds.oe.train_set if isinstance(ds, CombinedDataset) else None
+        return _is_resident(ds.train_set) and (
+            oe_set is None or len(oe_set) == 0 or _is_resident(oe_set))
 
     def train_cls(self, ds, cls: int, clsstr: str, it: int, seed: int,
                   cur_load: Optional[str] = None) -> Tuple[TrainState, Optional[M.ROC]]:
@@ -726,69 +762,139 @@ class Trainer:
         if has_oe and _is_resident(oe_set):
             Xo, Lo = self._to_device(oe_set.gather_all()), self._to_device(Lo)
         generator = torch.Generator(device=self.device).manual_seed(_seed(seed, 2))
+        runner = plans = None
+        if self.resident_epoch(ds) and self.epochs > start_epoch:
+            # every remaining epoch's plan, drawn up front as the per-step
+            # loop draws them epoch by epoch
+            plans = graphs.DevicePlans([graphs.pack_plan(*sampler.epoch()) for _ in range(
+                start_epoch, self.epochs)], 1, self.device)
+            runner, ep_out = self.make_train_epoch_resident(
+                state, ds, (Xn, Ln, Xo, Lo), plans, sampler.steps, generator, center, rt_stats)
+
+        cls_roc = None
+        try:
+            for ep in range(start_epoch, self.epochs):
+                t0 = time.time()
+                if runner is not None:
+                    plans.load(ep - start_epoch)
+                    runner.run(sampler.steps)
+                    arr = ep_out.cpu().numpy()   # one download per epoch
+                    L = (arr.shape[1] - 1) // 3
+                    ep_losses, ep_scores = arr[:, 0], arr[:, 1:1 + L].reshape(-1)
+                    ep_labels = arr[:, 1 + L:1 + 2 * L].reshape(-1).astype(np.int64)
+                    ep_weights = arr[:, 1 + 2 * L:].reshape(-1)
+                else:
+                    ep_losses, ep_scores, ep_labels, ep_weights = self._train_epoch_steps(
+                        state, ds, sampler, (Xn, Ln, Xo, Lo), generator, center, rt_stats)
+                cls_roc = self._log_epoch(cls, it, ep, t0, ep_losses, ep_scores, ep_labels,
+                                          ep_weights, cls_roc)
+        finally:
+            if runner is not None:
+                runner.close()
+        return state, cls_roc
+
+    def _train_epoch_steps(self, state: TrainState, ds, sampler, halves, generator, center,
+                           rt_stats):
+        """One epoch as a loop of eager steps: the plan moves to the device
+        once, a streamed half is gathered on the host step by step. Returns
+        the epoch's (losses, scores, labels, weights) in numpy."""
+        Xn, Ln, Xo, Lo = halves
+        train_set = ds.train_set
+        has_oe = isinstance(ds, CombinedDataset) and len(ds.oe.train_set) > 0
+        oe_set = ds.oe.train_set if has_oe else None
         # this rank's rows of every half-batch (all of them in one process)
         mesh = self._dp_mesh()
         r0, r1 = meshlib.local_rows(mesh, self.batch_size)
+        idx_n, idx_o, w = sampler.epoch()
+        plan = torch.from_numpy(np.stack([
+            idx_n, idx_o if has_oe else np.zeros_like(idx_n), w.astype(np.int64)])
+        ).to(self.device)  # one upload per epoch
+        outs = []
+        for s in range(sampler.steps):
+            i_n, i_o, w_s = plan[0, s, r0:r1], plan[1, s, r0:r1], plan[2, s, r0:r1].float()
+            if Xn is not None:
+                xn, ln = Xn[i_n], Ln[i_n]
+            else:
+                xn = self._to_device(train_set.gather(idx_n[s, r0:r1]))
+                ln = self._to_device(Ln[idx_n[s, r0:r1]])
+            xo = lo = None
+            if Xo is not None:
+                xo, lo = Xo[i_o], Lo[i_o]
+            elif has_oe:
+                xo = self._to_device(oe_set.gather(idx_o[s, r0:r1]))
+                lo = self._to_device(Lo[idx_o[s, r0:r1]])
+            outs.append(self.train_step(state, ds, xn, ln, xo, lo, w_s,
+                                        generator, center, rt_stats))
+        # one download per epoch: a per-step sync would stall the card.
+        # Each step's (scores, labels, weights) as (half, row); a mesh sums
+        # the ranks' loss shares and gathers the rows in global order
+        ep_losses = torch.stack([o[0] for o in outs])
+        n_halves = 2 if has_oe else 1
+        rest = torch.stack([torch.stack([o[i].float().reshape(n_halves, -1) for o in outs])
+                            for i in (1, 2, 3)])
+        if mesh is not None:
+            ep_losses = meshlib.all_reduce_sum(ep_losses, mesh)
+            rest = meshlib.gather_rows(mesh, rest, self.batch_size, dim=3)
+        ep_scores, ep_labels, ep_weights = rest.reshape(3, -1).cpu().numpy()
+        return ep_losses.cpu().numpy(), ep_scores, ep_labels.astype(np.int64), ep_weights
 
-        cls_roc = None
-        for ep in range(start_epoch, self.epochs):
-            t0 = time.time()
-            idx_n, idx_o, w = sampler.epoch()
-            plan = torch.from_numpy(np.stack([
-                idx_n, idx_o if has_oe else np.zeros_like(idx_n), w.astype(np.int64)])
-            ).to(self.device)  # one upload per epoch
-            outs = []
-            for s in range(sampler.steps):
-                i_n, i_o, w_s = plan[0, s, r0:r1], plan[1, s, r0:r1], plan[2, s, r0:r1].float()
-                if Xn is not None:
-                    xn, ln = Xn[i_n], Ln[i_n]
-                else:
-                    xn = self._to_device(train_set.gather(idx_n[s, r0:r1]))
-                    ln = self._to_device(Ln[idx_n[s, r0:r1]])
-                xo = lo = None
-                if Xo is not None:
-                    xo, lo = Xo[i_o], Lo[i_o]
-                elif has_oe:
-                    xo = self._to_device(oe_set.gather(idx_o[s, r0:r1]))
-                    lo = self._to_device(Lo[idx_o[s, r0:r1]])
-                outs.append(self.train_step(state, ds, xn, ln, xo, lo, w_s,
-                                            generator, center, rt_stats))
-            # one download per epoch: a per-step sync would stall the card.
-            # Each step's (scores, labels, weights) as (half, row); a mesh sums
-            # the ranks' loss shares and gathers the rows in global order
-            ep_losses = torch.stack([o[0] for o in outs])
-            halves = 2 if has_oe else 1
-            rest = torch.stack([torch.stack([o[i].float().reshape(halves, -1) for o in outs])
-                                for i in (1, 2, 3)])
-            if mesh is not None:
-                ep_losses = meshlib.all_reduce_sum(ep_losses, mesh)
-                rest = meshlib.gather_rows(mesh, rest, self.batch_size, dim=3)
-            ep_losses = ep_losses.cpu().numpy()
-            self.step_losses.extend(map(float, ep_losses))
-            ep_scores, ep_labels, ep_weights = rest.reshape(3, -1).cpu().numpy()
-            ep_labels = ep_labels.astype(np.int64)
-            dt = time.time() - t0
-            n_imgs = int(ep_weights.sum())
-            self.epoch_rates.append(n_imgs / max(dt, 1e-9))
+    def make_train_epoch_resident(self, state: TrainState, ds, halves, plans, steps: int,
+                                  generator: torch.Generator, center, rt_stats):
+        """The resident epoch's runner (``graphs.ResidentSteps``) and its
+        per-epoch output buffer (steps, 1 + 3L): each step reads its plan
+        row of ``plans`` (``graphs.DevicePlans``) at a device counter,
+        gathers its halves from the resident ``halves`` (Xn, Ln, Xo, Lo),
+        runs ``train_step`` and writes [loss, scores, labels, weights] into
+        row ``counter % steps``."""
+        Xn, Ln, Xo, Lo = halves
+        L = (2 if Xo is not None else 1) * self.batch_size
+        out = torch.zeros(steps, 1 + 3 * L, device=self.device)
+        cursor = torch.zeros(1, dtype=torch.int64, device=self.device)
 
-            keep = ep_weights > 0
-            ep_scores, ep_labels = ep_scores[keep], ep_labels[keep]
-            if np.isnan(ep_scores).sum() > 0:
-                raise NanGradientsError()
-            self.logger.hist(f"Training: CLS{cls} SEED{it} anomaly_scores normal",
-                             ep_scores[ep_labels == 0], ep)
-            if (ep_labels == 1).sum() > 0:
-                self.logger.hist(f"Training: CLS{cls} SEED{it} anomaly_scores anomalous",
-                                 ep_scores[ep_labels == 1], ep)
-                cls_roc = M.roc_curve(ep_labels, ep_scores)
-                self.logger.add_scalar(f"Training: CLS{cls} SEED{it} AUC", cls_roc.auc * 100, ep)
-            self.logger.add_scalar(f"training_cls{cls}_seed{it}_loss",
-                                   float(ep_losses.mean()), ep)
-            self.logger.print(
-                f"cls {cls} seed {it} epoch {ep + 1}/{self.epochs}: loss {ep_losses.mean():.5f}"
-                + (f", train AUC {cls_roc.auc * 100:.2f}%" if cls_roc is not None else "")
-                + f", {n_imgs / max(dt, 1e-9):.0f} img/s")
-        return state, cls_roc
+        def step():
+            i_n, i_o, w = plans.row(cursor)
+            xn, ln = Xn.index_select(0, i_n), Ln.index_select(0, i_n)
+            xo = lo = None
+            if Xo is not None:
+                xo, lo = Xo.index_select(0, i_o), Lo.index_select(0, i_o)
+            loss, scores, labels, weights = self.train_step(
+                state, ds, xn, ln, xo, lo, w.float(), generator, center, rt_stats)
+            row = torch.cat([loss.float().reshape(1), scores.float().reshape(-1),
+                             labels.float().reshape(-1), weights.float().reshape(-1)])
+            out.index_copy_(0, cursor % steps, row[None])
+            cursor.add_(1)
+
+        return graphs.ResidentSteps(step, self.device, graphs.chunk_steps(steps), [generator],
+                                    [state.optimizer]), out
+
+    def _log_epoch(self, cls: int, it: int, ep: int, t0: float, ep_losses, ep_scores,
+                   ep_labels, ep_weights, cls_roc):
+        """The epoch's accounting and logs after its download; raises
+        ``NanGradientsError`` on NaN scores. Returns the class ROC so far."""
+        self.step_losses.extend(map(float, ep_losses))
+        dt = time.time() - t0
+        n_imgs = int(ep_weights.sum())
+        self.images_seen += n_imgs
+        self.train_seconds += dt
+        self.epoch_rates.append(n_imgs / max(dt, 1e-9))
+        keep = ep_weights > 0
+        ep_scores, ep_labels = ep_scores[keep], ep_labels[keep]
+        if np.isnan(ep_scores).sum() > 0:
+            raise NanGradientsError()
+        self.logger.hist(f"Training: CLS{cls} SEED{it} anomaly_scores normal",
+                         ep_scores[ep_labels == 0], ep)
+        if (ep_labels == 1).sum() > 0:
+            self.logger.hist(f"Training: CLS{cls} SEED{it} anomaly_scores anomalous",
+                             ep_scores[ep_labels == 1], ep)
+            cls_roc = M.roc_curve(ep_labels, ep_scores)
+            self.logger.add_scalar(f"Training: CLS{cls} SEED{it} AUC", cls_roc.auc * 100, ep)
+        self.logger.add_scalar(f"training_cls{cls}_seed{it}_loss",
+                               float(ep_losses.mean()), ep)
+        self.logger.print(
+            f"cls {cls} seed {it} epoch {ep + 1}/{self.epochs}: loss {ep_losses.mean():.5f}"
+            + (f", train AUC {cls_roc.auc * 100:.2f}%" if cls_roc is not None else "")
+            + f", {n_imgs / max(dt, 1e-9):.0f} img/s")
+        return cls_roc
 
     def write_train_preview(self, ds, cls: int, clsstr: str):
         """``training_cls{cls}-{clsstr}_preview.png``, which the first seed of
@@ -903,6 +1009,7 @@ class Trainer:
         An evaluation-only run (``optimizer=False``) leaves the optimizer
         state alone: the snapshot may come from a run that trained other
         parameters (a frozen feature model)."""
+        self.logger.drain()
         payload = torch.load(path, map_location="cpu", weights_only=True)
         model = state.model
         if "params" not in payload:
@@ -935,3 +1042,10 @@ class Trainer:
         epoch = int(payload.get("epoch", 0))
         self.logger.print(f"Loaded snapshot at epoch {epoch}")
         return state, epoch
+
+    # ------------------------------------------------------------- throughput
+
+    @property
+    def images_per_second(self) -> float:
+        """Images trained on over the seconds of ``train_cls``'s epochs."""
+        return self.images_seen / self.train_seconds if self.train_seconds > 0 else 0.0

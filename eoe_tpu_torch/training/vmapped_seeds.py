@@ -20,6 +20,14 @@ index plans of every member move to the device once per epoch, and the last
 epoch's scores, labels and weights, with every step's losses, come back once
 at the end.
 
+Where ``trainer.resident_epoch`` holds (the card, or ``EOE_TPU_CPU_SCAN=1``;
+one process), the epochs take the resident path of ``training.graphs``, as
+the JAX package scans them: every epoch's plans of every member move to the
+device packed as int32 once, and each step reads its row at a device
+counter, writes the members' losses and the epoch's outputs into static
+buffers, and is replayed from captured CUDA graphs with every member's
+generator registered.
+
 ``EOE_TPU_TIMING=1`` prints the host-side phases of a vmapped class (init,
 upload, steps, download), as in the JAX package. Under a data mesh the
 trainer gives each rank its share of the seeds (``Trainer._try_vmap_seeds``);
@@ -42,6 +50,7 @@ from eoe_tpu_torch.datasets.bases import BalancedEpochSampler, CombinedDataset
 from eoe_tpu_torch.models.layers import collect_averages
 from eoe_tpu_torch.ops import metrics as M
 from eoe_tpu_torch.parallel import mesh as meshlib
+from eoe_tpu_torch.training import graphs
 from eoe_tpu_torch.training.optim import ScheduledOptimizer
 
 
@@ -269,28 +278,14 @@ def train_cls_vmapped_seeds(trainer, ds, cls: int, clsstr: str, n_seeds: int,
     generators = [torch.Generator(device=device).manual_seed(_seed(s, 2)) for s in seeds]
     t = phase("data upload", t)
 
-    t0, losses, last = time.time(), [], None
-    for ep in range(trainer.epochs):
-        plans = [s.epoch() for s in samplers]
-        plan = torch.from_numpy(np.stack([
-            np.stack([p[0] for p in plans]),
-            np.stack([p[1] if has_oe else np.zeros_like(p[0]) for p in plans]),
-            np.stack([p[2] for p in plans]).astype(np.int64)])).to(device)  # one upload
-        outs = []
-        for s in range(steps):
-            i_n, i_o, w = plan[0, :, s], plan[1, :, s], plan[2, :, s].float()
-            xo, lo = (Xo[i_o], Lo[i_o]) if has_oe else (None, None)
-            outs.append(stacked_step(trainer, ds, stack, Xn[i_n], Ln[i_n], xo, lo, w,
-                                     generators, center, rt_stats))
-        losses.extend(o[0] for o in outs)
-        last = outs
-
-    if last is None:
+    t0 = time.time()
+    if trainer.epochs == 0:
         return stack, [None] * (n_seeds * (mesh.data if mesh is not None else 1))
-    # one download: every step's losses and the last epoch's outputs
+    halves = (Xn, Ln, Xo, Lo)
+    run = _epochs_resident if trainer.resident_epoch(ds) else _epochs_per_step
+    # (K, every step's loss + the last epoch's scores, labels and weights)
+    packed = run(trainer, ds, stack, samplers, halves, generators, center, rt_stats)
     t = phase(f"steps x{trainer.epochs * steps}", t)
-    packed = torch.cat([torch.stack(losses, 1)] + [torch.cat([o[i] for o in last], 1).float()
-                                                   for i in (1, 2, 3)], 1)
     its = list(range(first, first + n_seeds))
     if mesh is not None:   # every rank's members, each row with its seed index
         ids = torch.arange(first, first + n_seeds, device=packed.device).to(packed.dtype)
@@ -301,7 +296,8 @@ def train_cls_vmapped_seeds(trainer, ds, cls: int, clsstr: str, n_seeds: int,
     packed = packed.cpu().numpy()
     t = phase("results download", t)
     dt = time.time() - t0
-    n_loss, n_last = len(losses), last[0][1].shape[1] * steps
+    n_loss = trainer.epochs * steps
+    n_last = (packed.shape[1] - n_loss) // 3
     ep_losses = packed[:, :n_loss]
     scores, labels, weights = (packed[:, n_loss + i * n_last:n_loss + (i + 1) * n_last]
                                for i in range(3))
@@ -334,6 +330,79 @@ def train_cls_vmapped_seeds(trainer, ds, cls: int, clsstr: str, n_seeds: int,
     return stack, rocs
 
 
+def _epochs_per_step(trainer, ds, stack: StackedState, samplers, halves, generators, center,
+                     rt_stats) -> torch.Tensor:
+    """Every epoch as a loop of eager stacked steps, each epoch's plans
+    moved to the device in one upload. Returns the device tensor (K, every
+    step's loss, then the last epoch's scores, labels and weights)."""
+    Xn, Ln, Xo, Lo = halves
+    losses, last = [], None
+    for ep in range(trainer.epochs):
+        plans = [s.epoch() for s in samplers]
+        plan = torch.from_numpy(np.stack([
+            np.stack([p[0] for p in plans]),
+            np.stack([p[1] if Xo is not None else np.zeros_like(p[0]) for p in plans]),
+            np.stack([p[2] for p in plans]).astype(np.int64)])).to(trainer.device)
+        outs = []
+        for s in range(samplers[0].steps):
+            i_n, i_o, w = plan[0, :, s], plan[1, :, s], plan[2, :, s].float()
+            xo, lo = (Xo[i_o], Lo[i_o]) if Xo is not None else (None, None)
+            outs.append(stacked_step(trainer, ds, stack, Xn[i_n], Ln[i_n], xo, lo, w,
+                                     generators, center, rt_stats))
+        losses.extend(o[0] for o in outs)
+        last = outs
+    return torch.cat([torch.stack(losses, 1)] + [torch.cat([o[i] for o in last], 1).float()
+                                                 for i in (1, 2, 3)], 1)
+
+
+def _epochs_resident(trainer, ds, stack: StackedState, samplers, halves, generators, center,
+                     rt_stats) -> torch.Tensor:
+    """Every epoch through ``graphs.ResidentSteps``: the members' plans of
+    every epoch packed on the device ((3, K, steps, B) an epoch), a step
+    counter there, the losses of every step and the outputs of the epoch's
+    steps written into static buffers. Returns what ``_epochs_per_step``
+    returns."""
+    Xn, Ln, Xo, Lo = halves
+    K, B, device, steps = stack.n, trainer.batch_size, trainer.device, samplers[0].steps
+    E = trainer.epochs
+    plans = []
+    for _ in range(E):
+        ps = [s.epoch() for s in samplers]
+        plans.append(graphs.pack_plan(np.stack([p[0] for p in ps]), np.stack(
+            [p[1] for p in ps]) if Xo is not None else None, np.stack([p[2] for p in ps])))
+    plans = graphs.DevicePlans(plans, 2, device)
+    L = (2 if Xo is not None else 1) * B
+    losses = torch.zeros(E * steps, K, device=device)
+    last = torch.zeros(steps, 3, K, L, device=device)
+    cursor = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def gather(X, Lb, idx):
+        flat = idx.reshape(-1)
+        return (X.index_select(0, flat).reshape(K, B, *X.shape[1:]),
+                Lb.index_select(0, flat).reshape(K, B))
+
+    def step():
+        i_n, i_o, w = plans.row(cursor)
+        xn, ln = gather(Xn, Ln, i_n)
+        xo, lo = gather(Xo, Lo, i_o) if Xo is not None else (None, None)
+        loss, scores, labels, weights = stacked_step(trainer, ds, stack, xn, ln, xo, lo,
+                                                     w.float(), generators, center, rt_stats)
+        losses.index_copy_(0, cursor, loss.float()[None])
+        last.index_copy_(0, cursor % steps, torch.stack(
+            [scores.float(), labels.float(), weights.float()])[None])
+        cursor.add_(1)
+
+    runner = graphs.ResidentSteps(step, device, graphs.chunk_steps(steps), generators,
+                                  [stack.optimizer])
+    try:
+        for ep in range(E):
+            plans.load(ep)
+            runner.run(steps)
+    finally:
+        runner.close()
+    return torch.cat([losses.t()] + list(last.permute(1, 2, 0, 3).reshape(3, K, -1)), 1)
+
+
 def eval_scores_vmapped(trainer, ds, states: StackedState, n_seeds: int) -> np.ndarray:
     """Every member's anomaly scores of the test split, (n_seeds, n_test):
     shared batches as ``Trainer.eval_scores`` builds them, each through the
@@ -361,13 +430,19 @@ def members_that_fit(peaks: Tuple[int, int], free: int, wanted: int) -> int:
     return max(1, min(wanted, int((0.9 * free - fixed) // per_member)))
 
 
-def members_per_program(trainer, key, wanted: int, probe: Callable[[int], None]) -> int:
+def members_per_program(trainer, key, wanted: int, probe: Callable[[int], object]) -> int:
     """``members_that_fit`` on the trainer's card. ``probe(k)`` runs one step
-    of a fresh stack of k members at the run's shapes; its peaks above what
-    was allocated before it (``torch.cuda.max_memory_allocated``, whose
-    statistic this resets) are measured once per ``key`` and kept in
-    ``trainer.member_peaks``, the free memory is read at every call. When
-    the step of two members runs out of memory, 1. Off the card, ``wanted``."""
+    of a fresh stack of k members at the run's shapes, as the program runs
+    it: on the resident path a step, its capture and a replay
+    (``probe_steps``), returning the runner, whose graph still holds its
+    private memory pool. Its peaks above what was allocated before it
+    (``torch.cuda.max_memory_allocated``, whose statistic this resets), or
+    the memory that a live graph keeps reserved with the stack (after
+    ``empty_cache``) where that is more, are measured once per ``key`` and
+    kept in ``trainer.member_peaks``; the free memory is read at every
+    call. When the step of two members runs out of memory, 1 (an
+    out-of-memory error in a capture ends the capture first). Off the card,
+    ``wanted``."""
     device = trainer.device
     if device.type != "cuda" or wanted < 2:
         return wanted
@@ -375,20 +450,44 @@ def members_per_program(trainer, key, wanted: int, probe: Callable[[int], None])
         peaks = []
         for k in (1, 2):
             torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
             base = torch.cuda.memory_allocated(device)
+            base_reserved = torch.cuda.memory_reserved(device)
             torch.cuda.reset_peak_memory_stats(device)
             try:
-                probe(k)
+                runner = probe(k)
             except torch.cuda.OutOfMemoryError:
                 peaks = [0, 1 << 62]   # no second member fits
                 break
             torch.cuda.synchronize(device)
-            peaks.append(torch.cuda.max_memory_allocated(device) - base)
+            peak = torch.cuda.max_memory_allocated(device) - base
+            if runner is not None:   # the graph's pool is reserved, not allocated
+                torch.cuda.empty_cache()
+                peak = max(peak, torch.cuda.memory_reserved(device) - base_reserved)
+                runner.close()
+                del runner
+            peaks.append(peak)
         torch.cuda.empty_cache()
         trainer.member_peaks[key] = tuple(peaks)
     free = (torch.cuda.mem_get_info(device)[0] + torch.cuda.memory_reserved(device)
             - torch.cuda.memory_allocated(device))
     return members_that_fit(trainer.member_peaks[key], free, wanted)
+
+
+def probe_steps(trainer, ds, step: Callable[[], object], generators, optimizer):
+    """A memory probe's step as its program runs it: on the resident path
+    an eager step, a captured one-step graph and its replay (the runner is
+    returned, its graph alive); else one eager step (None)."""
+    if not trainer.resident_epoch(ds):
+        step()
+        return None
+    runner = graphs.ResidentSteps(step, trainer.device, 1, generators, [optimizer])
+    try:
+        runner.run(2)
+    except BaseException:
+        runner.close()
+        raise
+    return runner
 
 
 def seeds_per_program(trainer, ds, clsstr: str, seeds: Sequence[int]) -> int:
@@ -420,8 +519,9 @@ def seeds_per_program(trainer, ds, clsstr: str, seeds: Sequence[int]) -> int:
         xn, ln = half(train_set, normal_ds.binary_targets(train_set), k)
         xo, lo = half(oe_set, ds.oe.binary_targets(oe_set), k) if has_oe else (None, None)
         gen = torch.Generator(device=device).manual_seed(0)
-        stacked_step(trainer, ds, stack, xn, ln, xo, lo, torch.ones(k, B, device=device),
-                     [gen] * k, c, trainer._rt_stats(ds))
+        w, rt = torch.ones(k, B, device=device), trainer._rt_stats(ds)
+        return probe_steps(trainer, ds, lambda: stacked_step(
+            trainer, ds, stack, xn, ln, xo, lo, w, [gen] * k, c, rt), [gen], stack.optimizer)
 
     key = ("seeds", tuple(train_set.gather(np.arange(1)).shape[1:]), has_oe and
            tuple(oe_set.gather(np.arange(1)).shape[1:]))

@@ -20,22 +20,45 @@ every scalar and histogram beside the JSON records; where it does not import
 (no tensorboard package) the logger falls back silently to scalars.json
 alone. ``flush_scalars`` flushes it, ``close`` closes it. Image grids are
 the JAX package's (``logimg``: 2-pixel gutters, ``nrow`` columns, row
-headers drawn with PIL); they are written only where PIL imports. Writes
-happen inline, so ``drain()`` has nothing to wait for; it is kept for the
-JAX package's API.
+headers drawn with PIL); they are written only where PIL imports.
+
+Image grids, ``plot_many``'s PDFs and snapshots are rendered and written on
+one background thread that every logger shares (``_io_pool``), as in the
+JAX package, so that the card trains the next seed while the host writes;
+text, JSON and scalars are written inline. ``drain()`` blocks until every
+write queued so far is on disk (``Trainer.run`` and its loads call it), and
+writes may be queued again after it. ``EOE_TPU_SYNC_IO=1`` (read when a
+logger is built) writes inline. A write that fails becomes a line of
+warnings.txt, never an exception. ``timeit`` times a block into print.txt,
+``track`` renders nested-loop progress with smoothed metrics (``Timer``,
+``Tracker``).
 """
 
 import json
 import os
 import os.path as pt
 import tarfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from eoe_tpu_torch.ops.metrics import PRC, ROC
+
+# one background writer shared by every Logger: a single thread keeps writes
+# of one name in order and bounds the threads of many-run processes (the GA,
+# the tests); concurrent.futures joins its queue at interpreter exit
+_IO_POOL: Optional[ThreadPoolExecutor] = None
+
+
+def _io_pool() -> ThreadPoolExecutor:
+    global _IO_POOL
+    if _IO_POOL is None:
+        _IO_POOL = ThreadPoolExecutor(max_workers=1, thread_name_prefix="eoe-logger-io")
+    return _IO_POOL
 
 
 class JsonEncoder(json.JSONEncoder):
@@ -83,6 +106,77 @@ class _MeanPRC(PRC):
         self.std = std
 
 
+class Timer:
+    """``with logger.timeit(name):`` prints "{name} took {s:.3f}s"."""
+
+    def __init__(self, logger, name):
+        self.logger, self.name = logger, name
+
+    def __enter__(self):
+        self.t0 = time.time()
+        return self
+
+    def __exit__(self, *a):
+        self.logger.print(f"{self.name} took {time.time() - self.t0:.3f}s")
+
+
+class Tracker:
+    """Nested-loop progress with smoothed live metrics: ``update`` takes one
+    increment per level (an outer tick resets the inner counts) and renders
+    "desc i/n j/m | k=v ..." at most every ``print_every`` seconds; each
+    metric is a callable whose finite numbers are smoothed exponentially."""
+
+    def __init__(self, logger, totals: Sequence[int], metrics: Optional[dict] = None,
+                 desc: str = "", smooth: float = 0.9, print_every: float = 0.5):
+        self.logger = logger
+        self.totals = list(totals)
+        self.counts = [0] * len(totals)
+        self.metrics = metrics or {}
+        self.desc = desc
+        self.smooth = smooth
+        self._smoothed = {}
+        self._last_print = 0.0
+        self.print_every = print_every
+        self.n = 0   # inner updates in all
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self._render(force=True)
+
+    def update(self, increments: Sequence[int]):
+        for i, inc in enumerate(increments):
+            self.counts[i] += inc
+            if inc and i < len(self.counts) - 1:
+                for j in range(i + 1, len(self.counts)):
+                    self.counts[j] = 0
+        self.n += increments[-1] if increments else 0
+        for k, fn in self.metrics.items():
+            try:
+                v = fn()
+            except Exception:   # a metric that cannot be read yet is left out
+                v = None
+            if isinstance(v, (int, float)) and np.isfinite(v):
+                prev = self._smoothed.get(k)
+                self._smoothed[k] = v if prev is None else \
+                    self.smooth * prev + (1 - self.smooth) * v
+            elif v is not None:
+                self._smoothed[k] = v
+        self._render()
+
+    def _render(self, force: bool = False):
+        now = time.time()
+        if not force and now - self._last_print < self.print_every:
+            return
+        self._last_print = now
+        pos = " ".join(f"{c}/{t}" for c, t in zip(self.counts, self.totals))
+        mets = " | ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                          for k, v in self._smoothed.items() if v is not None)
+        print(f"\r{self.desc} {pos} {('| ' + mets) if mets else ''}",
+              end="" if not force else "\n", flush=True)
+
+
 class Logger:
     def __init__(self, logdir: str, comment: str = "", noname: bool = False,
                  active: bool = True, tensorboard: bool = True, archive_source: bool = True):
@@ -113,11 +207,33 @@ class Logger:
                 self.tb_writer = SummaryWriter(log_dir=pt.join(self.dir, "tb"))
             except Exception:   # no tensorboard package: scalars.json alone
                 self.tb_writer = None
+        self._io_pending: list = []
+        self._io_sync = os.environ.get("EOE_TPU_SYNC_IO", "") == "1"
         if archive_source and self.active:
             self.log_source_archive()
 
+    # ---------------------------------------------------------- background writes
+
+    def _io_submit(self, fn: Callable[[], None], what: str):
+        """Run ``fn`` on the background writer (inline under
+        ``EOE_TPU_SYNC_IO=1``); its exception becomes a warnings.txt line."""
+        def guarded():
+            try:
+                fn()
+            except Exception as e:
+                self.warning(f"{what} failed: {e}", print_msg=False)
+        if self._io_sync:
+            guarded()
+            return
+        self._io_pending.append(_io_pool().submit(guarded))
+        if len(self._io_pending) > 64:   # keep the list of futures bounded
+            self._io_pending = [f for f in self._io_pending if not f.done()]
+
     def drain(self):
-        """Writes are synchronous: nothing is pending when this returns."""
+        """Block until every write queued so far is on disk."""
+        pending, self._io_pending = self._io_pending, []
+        for f in pending:
+            f.result()
 
     # ---------------------------------------------------------- text
 
@@ -140,6 +256,13 @@ class Logger:
         if print_msg:
             print(f"WARNING: {msg}")
         self._append("warnings.txt", str(msg))
+
+    def timeit(self, name: str = "") -> Timer:
+        return Timer(self, name)
+
+    def track(self, totals: Sequence[int], metrics: Optional[dict] = None,
+              desc: str = "") -> Tracker:
+        return Tracker(self, totals, metrics, desc)
 
     # ---------------------------------------------------------- json / setup
 
@@ -215,7 +338,8 @@ class Logger:
     def logimg(self, name: str, images, nrow: int = 8, rowheaders: Optional[List[str]] = None):
         """Save an image grid as ``{name}.png`` with optional per-row header
         captions. ``images`` is (n, h, w, c), uint8 or float in [0, 1] (a
-        numpy array or a tensor on any device)."""
+        numpy array or a tensor on any device). The images are copied to
+        uint8 here and the grid is drawn and written in the background."""
         if not self.active:
             return
         try:
@@ -225,9 +349,11 @@ class Logger:
         if isinstance(images, torch.Tensor):
             images = images.detach().cpu().numpy()
         imgs = np.asarray(images)
-        if imgs.dtype != np.uint8:
-            imgs = (np.clip(imgs, 0, 1) * 255).astype(np.uint8)
-        self._render_img(name, imgs, nrow, rowheaders)
+        imgs = imgs.copy() if imgs.dtype == np.uint8 else \
+            (np.clip(imgs, 0, 1) * 255).astype(np.uint8)
+        rowheaders = list(rowheaders) if rowheaders else rowheaders
+        self._io_submit(lambda: self._render_img(name, imgs, nrow, rowheaders),
+                        f"logimg({name})")
 
     def _render_img(self, name: str, imgs: np.ndarray, nrow: int,
                     rowheaders: Optional[List[str]]):
@@ -255,8 +381,8 @@ class Logger:
     def plot_many(self, curves: Sequence, labels: Optional[Sequence[str]] = None,
                   name: str = "roc", step: int = 0):
         """Plot ROC/PRC curves and their mean into ``{name}.pdf`` where
-        matplotlib is installed; returns the mean curve with the seed-wise
-        std attached."""
+        matplotlib is installed (drawn in the background); returns the mean
+        curve with the seed-wise std attached."""
         curves = list(curves or [])
         kept = [c for c in curves if c is not None]
         if not kept:
@@ -274,13 +400,19 @@ class Logger:
 
     def _plot(self, curves, kept, labels, name, is_roc, mean):
         try:
-            from matplotlib.figure import Figure
+            import matplotlib  # noqa: F401
         except ImportError:
             if not self._no_plots_said:
                 self.print("matplotlib is not installed: ROC/PRC PDFs are not drawn")
                 self._no_plots_said = True
             return
         labels = list(labels) if labels is not None else None
+        self._io_submit(lambda: self._render_plot(curves, kept, labels, name, is_roc, mean),
+                        f"plot_many({name})")
+
+    def _render_plot(self, curves, kept, labels, name, is_roc, mean):
+        # object-oriented matplotlib, no pyplot: safe off the main thread
+        from matplotlib.figure import Figure
         fig = Figure(figsize=(5, 5))
         ax = fig.subplots()
         for i, cur in enumerate(curves):
@@ -308,9 +440,16 @@ class Logger:
 
     def snapshot(self, name: str, payload: dict) -> str:
         """``torch.save`` {'params', 'opt_state', 'epoch', 'ds_statistics',
-        'setup'}; tensors should be on the CPU."""
+        'setup'} in the background. Its tensors must be CPU copies that
+        nothing writes to afterwards; the path is complete once ``drain()``
+        has returned."""
         if not self.active:
             return ""
         path = self.snapshot_path(name)
-        torch.save(payload, path)
+
+        def write():
+            os.makedirs(pt.dirname(path), exist_ok=True)
+            torch.save(payload, path)
+
+        self._io_submit(write, f"snapshot({name})")
         return path

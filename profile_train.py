@@ -4,7 +4,7 @@ on one NVIDIA GPU.
 
     python3 profile_train.py [--steps 3] [--route fused|group|flash] [--serving]
                              [--dtype bfloat16|float32] [--model clip|cnn32|wrn]
-                             [--vmap K] [--trace train_trace.json]
+                             [--vmap K] [--ways eager,graph] [--trace train_trace.json]
 
 Builds chip_smoke.py's training configuration (full-width ViT-B/32 in bf16,
 HSC, the acceptance augmentation stack, 128 normal + 128 OE images per
@@ -29,12 +29,17 @@ dtype only when given. ``--vmap K`` profiles the training step of K
 members stacked as the vmapped seed engine trains them
 (``training.vmapped_seeds``: one step updates every member, each on the
 same batch with its own augmentation draws), K x (128 + 128) images a
-step. The traced steps run with the modules labelled (``record_function``
+step. The steps run with the modules labelled (``record_function``
 ranges): the pipeline calls (``Trainer._preprocess``), the per-step weight
 casts (CLIP's ``_dense``, the conv layers' ``_cast``), the norms
 (``LayerNormF32``, ``BatchNorm``); with the optimizer's own range and the
 autograd engine's, each kernel's device time is split by the module that
-launched it, then by class. Needs one card; imports nothing of JAX or
+launched it, then by class. ``--ways`` profiles the training step in each
+way it names, one after another in one process: ``eager`` (the per-step
+loop's step), ``graph`` (the resident epoch's step, ``training.graphs``:
+its plan row read at a device counter and replayed from a captured
+one-step CUDA graph; one member only). A graph's kernels link to the
+replay, not to a module. Needs one card; imports nothing of JAX or
 eoe_tpu.
 """
 
@@ -144,17 +149,17 @@ def by_module(prof, steps: int, device_ms: dict) -> dict:
     return out
 
 
-def training_step(cs, kw, dtype, k):
+def training_step(cs, kw, dtype, k, graph=False):
     """chip_smoke.py's HSC training step on the acceptance stack, in
     ``dtype`` (bf16 as trained there by default)."""
     import numpy as np
     from eoe_tpu_torch.models.clip import CLIP, VIT_B32
     ds, _ = cs._combined(np.random.default_rng(cs.SEED), cs.ACCEPTANCE_SPECS)
     trainer = cs._trainer(CLIP(VIT_B32, dtype=dtype, **kw), cs.ACCEPTANCE_SPECS, None, dtype)
-    return _steps(trainer, ds, cs.BATCH, k), 2 * cs.BATCH * k
+    return _steps(trainer, ds, cs.BATCH, k, graph), 2 * cs.BATCH * k
 
 
-def conv_step(cs, model_name, dtype, k):
+def conv_step(cs, model_name, dtype, k, graph=False):
     """chip_smoke.py's conv_training (CNN32) or wrn_training (WideResNet)
     step, in ``dtype`` if given, else the path's own (fp32, bf16)."""
     import numpy as np
@@ -169,13 +174,18 @@ def conv_step(cs, model_name, dtype, k):
         dtype = dtype or torch.bfloat16
     ds, _ = cs._pinned(np.random.default_rng(cs.SEED), hw, n, 8, specs, test_specs)
     trainer = cs._conv_trainer("hsc", model, specs, test_specs, None, dtype, 1)
-    return _steps(trainer, ds, cs.BATCH, k), 2 * cs.BATCH * k
+    return _steps(trainer, ds, cs.BATCH, k, graph), 2 * cs.BATCH * k
 
 
-def _steps(trainer, ds, batch, k):
+def _steps(trainer, ds, batch, k, graph=False):
     """A step function over the pinned set's batches, in turn: one member
-    from seed 0 (``k`` = 1), or ``k`` stacked members from seeds 0..k-1."""
+    from seed 0 (``k`` = 1), or ``k`` stacked members from seeds 0..k-1.
+    With ``graph``, one member's step as the resident epoch runs it: the
+    batches' positions as the plan, a one-step graph captured at the second
+    call and replayed from then on."""
+    import numpy as np
     import torch
+    from eoe_tpu_torch.training import graphs
     from eoe_tpu_torch.training import vmapped_seeds as V
     dev = trainer.device
     xn = torch.from_numpy(ds.train_set.gather_all()).to(dev)
@@ -185,6 +195,19 @@ def _steps(trainer, ds, batch, k):
     w = torch.ones(batch, device=dev)
     gens = [torch.Generator(device=dev).manual_seed(m) for m in range(k)]
     n_batches = len(xn) // batch
+    if graph:
+        if k != 1:
+            sys.exit("profile_train.py: --ways graph profiles one member (--vmap 1)")
+        state = trainer.init_state(0, ds, 1)
+        idx = np.arange(n_batches * batch).reshape(n_batches, batch)
+        plans = graphs.DevicePlans([graphs.pack_plan(idx, idx, np.ones_like(idx))], 1, dev)
+        os.environ["EOE_TPU_CHUNK"] = "1"
+        try:
+            runner, _ = trainer.make_train_epoch_resident(state, ds, (xn, ln, xo, lo), plans,
+                                                          n_batches, gens[0], None, None)
+        finally:
+            os.environ.pop("EOE_TPU_CHUNK")
+        return lambda i: runner.run(1)
     if k == 1:
         state = trainer.init_state(0, ds, 1)
     else:
@@ -234,8 +257,14 @@ def main():
                         help="the model whose training step is profiled")
     parser.add_argument("--vmap", type=int, default=1, metavar="K",
                         help="profile the step of K stacked members (the vmapped engine)")
+    parser.add_argument("--ways", default="eager",
+                        help="comma-separated: eager (the per-step loop's step) and/or graph "
+                             "(the resident step replayed from a captured CUDA graph)")
     parser.add_argument("--trace", default="", help="write a chrome trace here")
     args = parser.parse_args()
+    ways = args.ways.split(",")
+    if set(ways) - {"eager", "graph"} or (args.serving and "graph" in ways):
+        parser.error("--ways takes eager and graph, and graph only for a training step")
 
     import torch
     if not torch.cuda.is_available():
@@ -250,19 +279,31 @@ def main():
     dtype = getattr(torch, args.dtype) if args.dtype else None
     attention.GROUP_GRID = args.route == "group"
     kw = {"attention_fn": attention.flash_attention} if args.route == "flash" else {}
-    if args.model != "clip":
-        what = f"training {args.model} {args.dtype or 'in its own dtype'}"
-        step, images = conv_step(cs, args.model, dtype, args.vmap)
-    elif args.serving:
-        what = "serving fp32"
-        step, images = serving_step(cs, kw)
-    else:
-        what = f"training {args.dtype or 'bfloat16'}"
-        step, images = training_step(cs, kw, dtype or torch.bfloat16, args.vmap)
-    if args.vmap > 1:
-        what += f", {args.vmap} members stacked"
-    print(f"profile: model {args.model}, route {args.route}, {what}")
+    label_modules()   # before any capture: a graph holds the ranges it captured
+    for way in ways:
+        graph = way == "graph"
+        if args.model != "clip":
+            what = f"training {args.model} {args.dtype or 'in its own dtype'}"
+            step, images = conv_step(cs, args.model, dtype, args.vmap, graph)
+        elif args.serving:
+            what = "serving fp32"
+            step, images = serving_step(cs, kw)
+        else:
+            what = f"training {args.dtype or 'bfloat16'}"
+            step, images = training_step(cs, kw, dtype or torch.bfloat16, args.vmap, graph)
+        if args.vmap > 1:
+            what += f", {args.vmap} members stacked"
+        print(f"profile: model {args.model}, route {args.route}, {what}, {way}")
+        profile_step(args, way, step, images, card)
+        del step
+        torch.cuda.empty_cache()
 
+
+def profile_step(args, way, step, images, card):
+    """Warm-up, the untraced host clock, then ``args.steps`` traced steps:
+    the device time by class and by module, and the top kernels."""
+    import torch
+    tag = f"profile[{way}]"
     for i in range(2):
         step(i)
     torch.cuda.synchronize()
@@ -271,9 +312,8 @@ def main():
         step(i)
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) / args.steps
-    print(f"profile: {plain * 1e3:.2f} ms per step untraced, host clock = "
+    print(f"{tag}: {plain * 1e3:.2f} ms per step untraced, host clock = "
           f"{images / plain:.1f} img/s [{card}]")
-    label_modules()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -283,7 +323,7 @@ def main():
         wall = time.perf_counter() - t0
     step_ms = wall / args.steps * 1e3
     imgs = images / (wall / args.steps)
-    print(f"profile: {args.steps} traced steps of {images} images, "
+    print(f"{tag}: {args.steps} traced steps of {images} images, "
           f"{step_ms:.2f} ms per step on the host clock (tracing included) = "
           f"{imgs:.1f} img/s [{card}]")
 
@@ -295,25 +335,28 @@ def main():
         device_us[cls] = device_us.get(cls, 0.0) + e.device_time_total
     total = sum(device_us.values())
     if total <= 0:
-        sys.exit("profile_train.py: the profiler recorded no device time")
-    print(f"profile: device busy {total / 1e3 / args.steps:.2f} ms per step, "
-          f"{100 * total / 1e3 / (wall * 1e3):.1f}% of the traced window")
+        sys.exit(f"profile_train.py: the profiler recorded no device time ({way})")
+    print(f"{tag}: device busy {total / 1e3 / args.steps:.2f} ms per step, "
+          f"{100 * total / 1e3 / (wall * 1e3):.1f}% of the traced window; "
+          f"{100 * total / 1e3 / (plain * 1e3 * args.steps):.1f}% of the untraced clock")
     for cls, us in sorted(device_us.items(), key=lambda kv: -kv[1]):
-        print(f"profile:   {cls}: {us / 1e3 / args.steps:.3f} ms per step "
+        print(f"{tag}:   {cls}: {us / 1e3 / args.steps:.3f} ms per step "
               f"({100 * us / total:.1f}% of device time)")
     modules = by_module(prof, args.steps,
                         {cls: us / 1e3 / args.steps for cls, us in device_us.items()})
-    print("profile: by module (the op that launched each kernel), device ms per step:")
+    print(f"{tag}: by module (the op that launched each kernel), device ms per step:")
     for module, classes in sorted(modules.items(), key=lambda kv: -sum(kv[1].values())):
         parts = ", ".join(f"{cls} {ms:.3f}" for cls, ms in
                           sorted(classes.items(), key=lambda kv: -kv[1]))
-        print(f"profile:   {module}: {sum(classes.values()):.3f} ({parts})")
+        print(f"{tag}:   {module}: {sum(classes.values()):.3f} ({parts})")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25,
                                     max_name_column_width=70))
     if args.trace:
-        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-        prof.export_chrome_trace(args.trace)
-        print(f"profile: chrome trace written to {args.trace}")
+        trace = args.trace if len(args.ways.split(",")) == 1 else \
+            args.trace.replace(".json", f"_{way}.json")
+        os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
+        prof.export_chrome_trace(trace)
+        print(f"{tag}: chrome trace written to {trace}")
 
 
 if __name__ == "__main__":

@@ -197,6 +197,7 @@ def test_tree_render_and_overviews(tmp_path):
     logger = Logger(str(tmp_path), noname=True, archive_source=False)
     assert tree.render(str(tmp_path / "genealogy.png"), oeds=_oeds(B)) is not None
     tree.imsave_collection_best(logger, (), oeds=_oeds(B), k=2)
+    logger.drain()
     for name in ("genealogy", "overview_best", "overview_worst"):
         assert pt.getsize(tmp_path / f"{name}.png") > 0
 
@@ -443,6 +444,7 @@ def test_logimg_matches_jax(tmp_path):
         pl.logimg(pt.join("sub", name), torch.from_numpy(np.asarray(imgs)) if name == "grey"
                   else imgs, nrow=nrow, rowheaders=headers)
     jl.drain()
+    pl.drain()
     for name in cases:
         want = _png(tmp_path / "jax" / "sub" / f"{name}.png")
         got = _png(tmp_path / "port" / "sub" / f"{name}.png")

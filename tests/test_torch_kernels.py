@@ -627,3 +627,303 @@ def test_all_reduce_batchnorm_matches_native(cuda, shape):
     for name, a, b in zip(("y", "mean", "var", "dx", "dgamma", "dbeta"), *outs):
         torch.testing.assert_close(b, a, atol=1e-5 * max(a.abs().max().item(), 1), rtol=0,
                                    msg=name)
+
+
+# ---------------------------------------------------------------- the resident epoch
+
+CIFAR_STACK = [{"op": "color_jitter", "brightness": 0.01, "contrast": 0.01,
+                "saturation": 0.01, "hue": 0.01},
+               {"op": "random_hflip", "p": 0.5},
+               {"op": "random_crop", "size": 32, "padding": 4},
+               {"op": "gaussian_noise", "std": 0.001}, "normalize"]
+RESIDENT_STATS = {"mean": [0.45, 0.5, 0.55], "std": [0.25, 0.3, 0.2], "mode": 0}
+
+
+def _resident_ds(specs, n=64, n_test=16, side=32, seed=0):
+    import numpy as np
+    from eoe_tpu_torch.datasets import bases as B
+    rng = np.random.default_rng(seed)
+    x, xo, xt = (rng.integers(0, 256, (k, side, side, 3), dtype=np.uint8)
+                 for k in (n, n, n_test))
+    kw = dict(root="", train_specs=specs, test_specs=["normalize"], n_classes=2,
+              raw_shape=(side, side, 3), ds_statistics=RESIDENT_STATS)
+    normal = B.GenericADDataset(B.ArraySource(x, np.zeros(n)),
+                                B.ArraySource(xt, np.arange(n_test) % 2),
+                                normal_classes=(0,), nominal_label=0, **kw)
+    oe = B.GenericADDataset(B.ArraySource(xo, np.ones(n)), None, normal_classes=(1,),
+                            nominal_label=1, **kw)
+    return B.CombinedDataset(normal, oe)
+
+
+def _resident_trainer(model, specs, per_step, epochs=2, batch=16, dtype=torch.float32,
+                      milestones=(1,)):
+    from eoe_tpu_torch.training import TRAINER
+    tr = TRAINER["hsc"](model=model, train_specs=specs, test_specs=["normalize"],
+                        dataset="cifar10", oe_dataset="cifar100", datapath="", logger=None,
+                        epochs=epochs, lr=1e-3, wdk=1e-3, milestones=list(milestones),
+                        batch_size=batch, compute_dtype=dtype)
+    tr._per_step = per_step
+    tr.ds = _resident_ds(specs)
+    return tr
+
+
+def _counts():
+    from eoe_tpu_torch.training import graphs
+    return graphs.read_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_graph_epoch_equals_eager_cnn32_fp32(cuda, optimizer):
+    """CNN32 fp32 (TF32 off) on the CIFAR-10 stack, 2 epochs of 4 steps with a
+    milestone between them: the captured epochs against the eager loop,
+    every step's loss and the parameters within 1e-5 (of max(1, |max|)), the
+    train AUROC too; the crop kernel counts one launch a pipeline call both
+    ways (replays add their capture's launches); the first chunk ran
+    eagerly, a graph was captured for each learning rate (the milestone
+    moves it) and replayed for the rest. cuDNN deterministic, so that both
+    runs sum alike. With Adam the eager control is capturable too: the
+    runner makes the graph's so, and its bias correction is then computed
+    on the card in fp32 (a float's difference on a near-zero gradient
+    becomes a +-lr update)."""
+    import numpy as np
+    from eoe_tpu_torch.models import CNN32
+    from eoe_tpu_torch.training import graphs
+    from eoe_tpu_torch.training.optim import make_optimizer
+    made = []
+    real = graphs.ResidentSteps
+
+    class Recorded(real):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    def optimizer_of(tr):
+        def build(params, steps):
+            opt = make_optimizer(optimizer, params, tr.lr, tr.wdk, tr.milestones, steps)
+            if optimizer == "adam":
+                opt.make_capturable()
+            return opt
+        return build
+
+    graphs.ResidentSteps = Recorded
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for per_step in (True, False):
+            tr = _resident_trainer(CNN32(), CIFAR_STACK, per_step)
+            tr.make_optimizer = optimizer_of(tr)
+            assert tr.resident_epoch(tr.ds) is not per_step
+            before = _counts()
+            state, roc = tr.train_cls(tr.ds, 0, "airplane", 0, seed=5)
+            torch.cuda.synchronize()
+            launched = [b - a for a, b in zip(before, _counts())]
+            out[per_step] = (np.array(tr.step_losses), {k: v.float().cpu() for k, v in
+                                                       state.model.state_dict().items()},
+                             roc.auc, launched)
+    finally:
+        graphs.ResidentSteps = real
+        torch.backends.cudnn.deterministic = deterministic
+    (losses, params, auc, launched), (g_losses, g_params, g_auc, g_launched) = \
+        out[True], out[False]
+    assert len(losses) == 8
+    np.testing.assert_allclose(g_losses, losses, rtol=1e-5, atol=1e-6)
+    for k, v in params.items():
+        err = ((g_params[k] - v).abs().max() / v.abs().max().clamp(min=1)).item()
+        assert err <= 1e-5, (k, err)
+    assert abs(g_auc - auc) <= 1e-5
+    assert g_launched == launched and sum(launched) == 2 * 8   # the crop, both halves
+    runner, = made
+    c = runner.chunk
+    assert runner.captures == (1 if c == 4 else 2) and runner.replays == (8 - c) // c
+
+
+@pytest.mark.cuda
+def test_graph_draws_are_the_eager_draws(cuda):
+    """A registered generator draws in a replay what the eager steps would:
+    step 2's noise differs from step 1's and equals the eager step 2's, and
+    the generator's offset moves as the eager steps move it."""
+    from eoe_tpu_torch.training import graphs
+    g_eager = torch.Generator(device=cuda).manual_seed(7)
+    eager = [torch.randn(5, generator=g_eager, device=cuda) for _ in range(3)]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    out = torch.zeros(3, 5, device=cuda)
+    cursor = torch.zeros(1, dtype=torch.int64, device=cuda)
+
+    def step():
+        out.index_copy_(0, cursor, torch.randn(1, 5, generator=g, device=cuda))
+        cursor.add_(1)
+
+    runner = graphs.ResidentSteps(step, cuda, 1, [g])
+    runner.run(3)   # one eager step, a capture, two replays
+    torch.cuda.synchronize()
+    assert runner.captures == 1 and runner.replays == 2
+    assert not torch.equal(out[1], out[0]) and not torch.equal(out[2], out[1])
+    for k in range(3):
+        assert torch.equal(out[k], eager[k]), k
+    assert torch.equal(torch.randn(5, generator=g, device=cuda),
+                       torch.randn(5, generator=g_eager, device=cuda))
+    runner.close()
+
+
+@pytest.mark.cuda
+def test_graph_counters_add_captured_launches_per_replay(cuda):
+    """The kernels' counters count at capture and not at replay: the helper
+    takes the capture's increments back and adds them at each replay, so a
+    runner of 1 eager + 4 replayed steps of 2 fused launches each counts 10."""
+    from eoe_tpu_torch.training import graphs
+    qkv = torch.randn(2, 50, 3 * 2 * 64, device=cuda)
+
+    def step():
+        A.fused_qkv_attention(qkv, 2, False)
+        A.fused_qkv_attention(qkv, 2, False)
+
+    before = A.fused_qkv_attention.launches
+    runner = graphs.ResidentSteps(step, cuda, 1)
+    runner.run(5)
+    torch.cuda.synchronize()
+    assert A.fused_qkv_attention.launches - before == 10
+    assert runner.replays == 4
+    runner.close()
+
+
+@pytest.mark.cuda
+def test_graph_tiny_clip_bf16(cuda, monkeypatch):
+    """A tiny CLIP image tower in bf16 through the fused kernels: 3 steps of
+    the resident runner (one eager, a capture, two replays) against 3 eager
+    steps from the same weights: each loss within 2^-8, the last step's
+    gradients within 2^-4 of their max, and one forward and one backward
+    launch a layer and step both ways."""
+    import numpy as np
+    from eoe_tpu_torch.models.clip import CLIP, ClipConfig
+    from eoe_tpu_torch.training import graphs
+    cfg = ClipConfig(embed_dim=64, image_resolution=32, vision_layers=2, vision_width=128,
+                     vision_patch_size=8, context_length=77, vocab_size=49408,
+                     transformer_width=128, transformer_heads=2, transformer_layers=2,
+                     vision_heads_override=2)
+    specs = [{"op": "random_hflip"}, {"op": "gaussian_noise", "std": 0.05}, "normalize"]
+    res = {}
+    for captured in (False, True):
+        tr = _resident_trainer(CLIP(cfg, generator=torch.Generator().manual_seed(0)), specs,
+                               per_step=not captured, epochs=1, dtype=torch.bfloat16,
+                               milestones=())
+        ds = tr.ds
+        state = tr.init_state(1, ds, 3)
+        steps = 3
+        sampler_plans = [graphs.pack_plan(np.arange(16) + 16 * s % 48,
+                                          np.arange(16) + 16 * s % 48,
+                                          np.ones(16)) for s in range(steps)]
+        Xn = tr._to_device(ds.train_set.gather_all())
+        Ln = torch.zeros(len(Xn), dtype=torch.int64, device=cuda)
+        Xo = tr._to_device(ds.oe.train_set.gather_all())
+        Lo = torch.ones(len(Xo), dtype=torch.int64, device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        before = (A.fused_qkv_attention.launches, A.fused_qkv_attention.bwd_launches)
+        if captured:
+            plans = graphs.DevicePlans([p[:, None] for p in sampler_plans], 1, cuda)
+            monkeypatch.setenv("EOE_TPU_CHUNK", "1")
+            runner, out = tr.make_train_epoch_resident(state, ds, (Xn, Ln, Xo, Lo), plans,
+                                                       steps, gen, None, tr._rt_stats(ds))
+            assert runner.chunk == 1
+            runner.run(steps)
+            torch.cuda.synchronize()
+            losses = out[:, 0].cpu().numpy()
+        else:
+            losses = []
+            for p in sampler_plans:
+                p = torch.from_numpy(p.astype(np.int64)).to(cuda)
+                losses.append(tr.train_step(state, ds, Xn[p[0]], Ln[p[0]], Xo[p[1]], Lo[p[1]],
+                                            p[2].float(), gen, None, tr._rt_stats(ds))[0].item())
+        grads = {n: p.grad.float().clone() for n, p in state.model.named_parameters()
+                 if p.grad is not None}
+        launched = (A.fused_qkv_attention.launches - before[0],
+                    A.fused_qkv_attention.bwd_launches - before[1])
+        res[captured] = (np.asarray(losses), grads, launched)
+        if captured:
+            runner.close()
+    (losses, grads, launched), (g_losses, g_grads, g_launched) = res[False], res[True]
+    np.testing.assert_allclose(g_losses, losses, atol=2 ** -8, rtol=0)
+    assert grads.keys() == g_grads.keys() and grads
+    for n, v in grads.items():
+        assert (g_grads[n] - v).abs().max().item() <= 2 ** -4 * max(v.abs().max().item(), 1e-12)
+    assert g_launched == launched == (3 * 2, 3 * 2)
+
+
+@pytest.mark.cuda
+def test_graph_frozen_model_updates_only_batch_statistics(cuda):
+    """Nothing trainable (``loss.requires_grad`` False, an empty optimizer):
+    the graph moves the batch-norm averages as the eager steps do and
+    leaves every parameter as it was."""
+    import numpy as np
+    from eoe_tpu_torch.models import CNN32
+    out = {}
+    for per_step in (True, False):
+        tr = _resident_trainer(CNN32(), ["normalize"], per_step)
+        tr.trainable_param_keys = lambda: frozenset()
+        tr.init_weights(5)
+        init = {k: v.clone() for k, v in tr.model.named_parameters()}
+        state, _ = tr.train_cls(tr.ds, 0, "airplane", 0, seed=5)
+        out[per_step] = ({k: v.float().cpu() for k, v in state.model.state_dict().items()},
+                         np.array(tr.step_losses))
+        for k, v in state.model.named_parameters():
+            assert torch.equal(v.cpu(), init[k].cpu()), k
+    (eager, e_losses), (graph, g_losses) = out[True], out[False]
+    np.testing.assert_allclose(g_losses, e_losses, rtol=1e-5)
+    for k, v in eager.items():
+        torch.testing.assert_close(graph[k], v, rtol=1e-5, atol=1e-6, msg=k)
+
+
+@pytest.mark.cuda
+def test_graph_memory_is_freed_after_train_cls(cuda):
+    """After ``train_cls`` returns, its graph and the graph's private pool
+    are gone: from one class-seed to the next, the memory allocated is back
+    at its level before the run, within one step's outputs and the trained
+    state that the run returns (Adam's moments and step counts); no
+    gradient is left."""
+    from eoe_tpu_torch.models import CNN32
+    tr = _resident_trainer(CNN32(), CIFAR_STACK, False)
+    state, _ = tr.train_cls(tr.ds, 0, "airplane", 0, seed=5)   # first calls' caches
+    del state
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state, _ = tr.train_cls(tr.ds, 0, "airplane", 1, seed=6)
+    torch.cuda.synchronize()
+    moments = sum(t.numel() * t.element_size() for st in state.optimizer.optimizer.state.values()
+                  for t in st.values() if torch.is_tensor(t))
+    step_outputs = 16 * 1024 * 4   # a step's loss, scores, labels and weights, generously
+    assert torch.cuda.memory_allocated() - base <= moments + step_outputs
+    assert all(p.grad is None for p in state.model.parameters())
+
+
+@pytest.mark.cuda
+def test_out_of_memory_in_a_capture_ends_it(cuda):
+    """An out-of-memory error raised inside a capture reaches the caller as
+    one, after the capture was ended: the card then captures and replays a
+    new graph, and the memory is back at its level before."""
+    from eoe_tpu_torch.training import graphs
+    x = torch.ones(1024, device=cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+
+    def step():
+        if torch.cuda.is_current_stream_capturing():
+            torch.empty(1 << 46, dtype=torch.uint8, device=cuda)
+        x.mul_(2)
+
+    runner = graphs.ResidentSteps(step, cuda, 1)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        runner.run(2)
+    runner.close()
+    assert not torch.cuda.is_current_stream_capturing()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+
+    def ok():
+        x.mul_(2)
+
+    fine = graphs.ResidentSteps(ok, cuda, 1)
+    fine.run(3)
+    torch.cuda.synchronize()
+    assert fine.replays == 2 and x[0].item() == 2 ** 4
+    fine.close()
