@@ -144,7 +144,15 @@ layers of later slices, see their docstrings), then
      rank: fitnesses 1e-4, populations equal. (b)-(d) update with SGD.
 Each path's launch counts (every kernel's) are set to 0 just before it and
 read just after. The augmentation counts are held on the training paths of
-phases 5-9 and reported on the others.
+phases 5-9 and reported on the others. The counters count where a wrapper
+launches, and a captured graph's replays launch from no wrapper, so one
+counted run of every single-process path (of vmapped (f), its stacked
+``train_imagenet``) runs under ``torch.profiler`` (the card's activity):
+the launches of the port's kernels that its trace shows, by their
+symbols, must equal the counters' over that run (``hold_traced``); the
+kernels line gives both under ``traced_by_path``. Those runs' times
+carry the profiler's cost; dp's ranks (the per-step loop, child processes)
+are not traced.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's bf16 row at
 the training shape, its fp32 row under ``"fp32"``, and the variant each path's
@@ -153,6 +161,7 @@ nothing of JAX or eoe_tpu."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -194,23 +203,137 @@ def _counts() -> dict:
     """Every kernel's launch count, the fp32 fused backward's by design (both
     grids; bf16 takes the tensor cores), the flash kernel's by variant
     (tensor cores, fp32 register tiles; the rest took the CUDA cores) and the
-    augmentation kernels' (apply, stats)."""
+    augmentation kernels' (apply, stats). Ends a trace that ``_zero_counts``
+    started and holds it against these counts."""
     from eoe_tpu_torch.ops import augment
     from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention as fl
-    return {"fwd": fq.launches, "bwd": fq.bwd_launches, "group_fwd": fq.group_launches,
-            "group_bwd": fq.group_bwd_launches, "bwd_resident": fq.resident_bwd_launches,
-            "bwd_recompute": fq.recompute_bwd_launches, "flash": fl.launches,
-            "flash_tc": fl.tc_launches, "flash_tile": fl.tile_launches,
-            "augment": augment.launches, "augment_stats": augment.stats_launches}
+    counts = {"fwd": fq.launches, "bwd": fq.bwd_launches, "group_fwd": fq.group_launches,
+              "group_bwd": fq.group_bwd_launches, "bwd_resident": fq.resident_bwd_launches,
+              "bwd_recompute": fq.recompute_bwd_launches, "flash": fl.launches,
+              "flash_tc": fl.tc_launches, "flash_tile": fl.tile_launches,
+              "augment": augment.launches, "augment_stats": augment.stats_launches}
+    if _TRACE:
+        prof, path = _TRACE.pop("prof"), _TRACE.pop("path")
+        _trace_stop(prof)
+        hold_traced(prof, counts, f"{path} (traced counted run)", path)
+    return counts
 
 
-def _zero_counts():
+def _zero_counts(trace: str = None):
+    """Set every launch count to 0. With ``trace`` (a counted path's name),
+    the run from here to the next ``_counts()`` also runs under
+    ``torch.profiler`` (the card's activity, no trace written; its times
+    carry the profiler's cost), and that ``_counts()`` holds the launches
+    the trace shows against the counters (``hold_traced``)."""
     from eoe_tpu_torch.ops import augment
     from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention as fl
     fq.launches = fq.bwd_launches = fq.group_launches = fq.group_bwd_launches = 0
     fq.resident_bwd_launches = fq.recompute_bwd_launches = 0
     fl.launches = fl.tc_launches = fl.tile_launches = 0
     augment.launches = augment.stats_launches = 0
+    if trace is not None:
+        check(not _TRACE, f"{trace}: the trace of {_TRACE.get('path')} was not ended")
+        _TRACE.update(path=trace, prof=_trace_start())
+
+
+def _trace_start():
+    import torch
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    return prof
+
+
+def _trace_stop(prof):
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    prof.stop()
+    TRACE_SECONDS.append(time.perf_counter() - t0)
+
+
+class _Traced:
+    """Within: a part of a counted run of path ``path`` runs under
+    ``torch.profiler`` as ``_zero_counts(path)`` runs a whole one, its
+    trace held against the counters' increments over the part."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __enter__(self):
+        self.before, self.prof = _counts(), _trace_start()
+
+    def __exit__(self, exc_type, *exc):
+        _trace_stop(self.prof)
+        if exc_type is None:
+            after = _counts()
+            hold_traced(self.prof, {k: after[k] - self.before[k] for k in after},
+                        f"{self.path} (traced part of a counted run)", self.path)
+
+
+_TRACE = {}    # the running trace of a counted run: {"path": ..., "prof": ...}
+# the traced launches of each traced run, by path: {path: {family: {"traced":
+# n, "counted": m}}}, summed over the path's traced runs
+TRACED = {}
+TRACE_SECONDS = []   # host seconds of ending each trace and of reading it
+# the port's kernels by the symbol a trace shows for each (the demangled
+# name's identifier, in its source's anonymous namespace), in families by
+# the counters that count their launches. One wrapper call launches one
+# kernel. The fused kernels' grids share symbols (at d=128 a lane group is
+# one head and takes the monolithic kernel), so a family sums both grids.
+TRACED_FAMILIES = {
+    "fused_qkv_fwd": (("fused_qkv_fwd_kernel", "fused_qkv_fwd_kernel_tc"), ("fwd", "group_fwd")),
+    "fused_qkv_bwd": (("fused_qkv_bwd_kernel", "fused_qkv_bwd_kernel_tc",
+                       "fused_qkv_bwd_group_kernel_tc"), ("bwd", "group_bwd")),
+    "flash": (("flash_fwd_kernel", "flash_tc_kernel", "flash_tc_stream_kernel",
+               "flash_tile_kernel", "flash_tile_stream_kernel"), ("flash",)),
+    "augment_apply": (("augment_apply_kernel",), ("augment",)),
+    "augment_stats": (("augment_stats_kernel",), ("augment_stats",)),
+}
+# a kernel's identifier in a demangled device-event name: the first name
+# followed by its template arguments or parameters that is unqualified or in
+# an anonymous namespace (``void (anonymous namespace)::fused_qkv_fwd_kernel_tc
+# <64, 1, 8>(...)``; a library's ``pytorch_flash::flash_fwd_kernel`` is none)
+_SYMBOL = re.compile(r"(?:^|[\s*&])(?:\(anonymous namespace\)::)?([A-Za-z_]\w*)(?=[<(]|$)")
+
+
+def kernel_symbol(name: str):
+    m = _SYMBOL.search(name)
+    return m.group(1) if m else None
+
+
+def device_event_names(prof) -> list:
+    """The demangled names of a finished profile's device events, read from
+    the profiler's raw results: building its event list (``prof.events()``)
+    takes most of a long trace's host time."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    return [torch._C._demangle(e.name()) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
+def hold_traced(prof, counts: dict, what: str, path: str = None) -> dict:
+    """The launches of each family of ``TRACED_FAMILIES`` among a finished
+    profile's device events, held equal to the counters' ``counts`` over the
+    same run; added to ``TRACED[path]`` with ``path``."""
+    t0 = time.perf_counter()
+    names = device_event_names(prof)
+    seen = Counter(kernel_symbol(n) for n in names)
+    TRACE_SECONDS.append(time.perf_counter() - t0)
+    out = {fam: {"traced": sum(seen[s] for s in symbols),
+                 "counted": sum(counts[k] for k in keys)}
+           for fam, (symbols, keys) in TRACED_FAMILIES.items()}
+    ours = {n[:120] for n in names if any(t in n for t in ("fused_qkv", "flash_", "augment_"))}
+    check(all(v["traced"] == v["counted"] for v in out.values()),
+          f"{what}: the trace's launches differ from the counters': {out}; device names "
+          f"seen {sorted(ours)[:12]}")
+    if path is not None:
+        into = TRACED.setdefault(path, {fam: {"traced": 0, "counted": 0}
+                                        for fam in TRACED_FAMILIES})
+        for fam, v in out.items():
+            for k in v:
+                into[fam][k] += v[k]
+    return out
 
 
 FLASH_VARIANTS = {"flash_tc": "tensor cores", "flash_tile": "fp32 register tiles"}
@@ -833,7 +956,7 @@ def phase_slice(card: str) -> dict:
     torch.cuda.synchronize()
 
     # ---- the main path, counted
-    _zero_counts()
+    _zero_counts("serving")
     center = prompt_center(model, CIFAR10_LABELS[0], CIFAR10_LABELS)
     prompt_launches = fused_qkv_attention.launches
     scorer = AnomalyScorer(snapshot, model, objective="clip", batch_size=BATCH, center=center)
@@ -950,13 +1073,14 @@ def _trainer(model, train_specs, logger, dtype, epochs=TRAIN_EPOCHS):
                           batch_size=BATCH, compute_dtype=dtype)
 
 
-def _train_bf16(card, label, model, data, epochs, expected, serve_model=None) -> dict:
+def _train_bf16(card, label, trace, model, data, epochs, expected, serve_model=None) -> dict:
     """``train_cls`` of ``epochs`` epochs and ``eval_cls`` on the acceptance
     set, counted: ``expected(steps, eval_batches)`` gives each attention
     kernel's launches; the augmentation kernels launch twice for each
     train-pipeline call (the stats for the contrast mean and the guard).
     With ``serve_model``, the snapshot is served back through
-    ``AnomalyScorer`` and held against ``eval_cls``'s scores."""
+    ``AnomalyScorer`` and held against ``eval_cls``'s scores. ``trace``: the
+    counted path's name (traced)."""
     import tempfile
 
     import numpy as np
@@ -973,7 +1097,7 @@ def _train_bf16(card, label, model, data, epochs, expected, serve_model=None) ->
         trainer.ds = ds
 
         # ---- the main path, counted: train_cls, eval_cls, snapshot
-        _zero_counts()
+        _zero_counts(trace)
         t0 = time.perf_counter()
         state, roc = trainer.train_cls(ds, 0, "airplane", 0, seed=SEED)
         t_train = time.perf_counter() - t0
@@ -1019,10 +1143,11 @@ def _train_bf16(card, label, model, data, epochs, expected, serve_model=None) ->
     return counts
 
 
-def _train_steps(model, ds32, dtype=None, steps=3) -> tuple:
+def _train_steps(model, ds32, dtype=None, steps=3, path=None) -> tuple:
     """``steps`` HSC steps (deterministic pipeline) from seed 0 in ``dtype``
-    (fp32 by default), counted: losses, the first step's visual gradients,
-    the visual parameters after, and every kernel's launches."""
+    (fp32 by default), counted (traced as ``path`` where given): losses, the
+    first step's visual gradients, the visual parameters after, and every
+    kernel's launches."""
     import torch
     tr = _trainer(model, CLIP_TEST_SPECS, None, dtype or torch.float32)
     st = tr.init_state(SEED, ds32, 1)
@@ -1033,7 +1158,7 @@ def _train_steps(model, ds32, dtype=None, steps=3) -> tuple:
     lo = torch.ones(TRAIN_OE, dtype=torch.int64, device=dev)
     w = torch.ones(BATCH, device=dev)
     visual = [p for p in st.model.visual.parameters()]
-    _zero_counts()
+    _zero_counts(path)
     losses, grads = [], None
     for i in range(steps):
         sl = slice(i * BATCH, (i + 1) * BATCH)
@@ -1076,7 +1201,7 @@ def phase_train(card: str, data) -> tuple:
     from eoe_tpu_torch.ops.attention import fused_qkv_attention_ref
 
     layers = VIT_B32.vision_layers
-    counts = _train_bf16(card, "train", CLIP(VIT_B32, dtype=torch.bfloat16), data,
+    counts = _train_bf16(card, "train", "training", CLIP(VIT_B32, dtype=torch.bfloat16), data,
                          TRAIN_EPOCHS,
                          lambda steps, evals: {"fwd": layers * (steps + evals),
                                                "bwd": layers * steps},
@@ -1084,7 +1209,7 @@ def phase_train(card: str, data) -> tuple:
 
     # fp32, deterministic pipeline: the kernels against their plain versions
     ds32 = _fp32_data()
-    run = _train_steps(CLIP(VIT_B32), ds32)
+    run = _train_steps(CLIP(VIT_B32), ds32, path="training_fp32")
     check_counts(run[3], {"fwd": 3 * layers, "bwd": 3 * layers, "bwd_resident": 3 * layers},
                  "fp32 kernel run")
     fp32_counts = run[3]
@@ -1152,7 +1277,7 @@ def phase_flash(card: str, data) -> tuple:
     torch.cuda.synchronize()
 
     # ---- the flash serving path, counted
-    _zero_counts()
+    _zero_counts("flash_serving")
     center = prompt_center(model, CIFAR10_LABELS[0], CIFAR10_LABELS)
     prompt_launches = flash_attention.launches
     scorer = AnomalyScorer(snapshot, model, objective="clip", batch_size=BATCH, center=center)
@@ -1191,7 +1316,7 @@ def phase_flash(card: str, data) -> tuple:
     torch.cuda.empty_cache()
 
     # bf16: every launch on the tensor cores
-    training = _train_bf16(card, "flash train",
+    training = _train_bf16(card, "flash train", "flash_training",
                            CLIP(VIT_B32, dtype=torch.bfloat16, attention_fn=flash_attention),
                            data, 1, lambda steps, evals: {"flash": layers * (steps + evals),
                                                           "flash_tc": layers * (steps + evals)})
@@ -1216,14 +1341,15 @@ def phase_group(card: str, data) -> tuple:
     saved = attention.GROUP_GRID
     try:
         attention.GROUP_GRID = True
-        training = _train_bf16(card, "group train", CLIP(VIT_B32, dtype=torch.bfloat16), data, 1,
+        training = _train_bf16(card, "group train", "group_training",
+                               CLIP(VIT_B32, dtype=torch.bfloat16), data, 1,
                                lambda steps, evals: {"group_fwd": layers * (steps + evals),
                                                      "group_bwd": layers * steps},
                                serve_model=CLIP(VIT_B32, dtype=torch.bfloat16))
         check_counts(training.pop("served"), {"group_fwd": layers * -(-TRAIN_TEST // BATCH)},
                      "group serving")
         ds32 = _fp32_data()
-        run = _train_steps(CLIP(VIT_B32), ds32)
+        run = _train_steps(CLIP(VIT_B32), ds32, path="group_training_fp32")
         check_counts(run[3], {"group_fwd": 3 * layers, "group_bwd": 3 * layers,
                               "bwd_resident": 3 * layers}, "group fp32 kernel run")
         fp32_counts = run[3]
@@ -1286,8 +1412,9 @@ def _conv_trainer(objective, model, train_specs, test_specs, logger, dtype, epoc
                               batch_size=BATCH, compute_dtype=dtype)
 
 
-def _train_pinned(card, label, trainer, data, n, n_test, serve, stats: bool) -> dict:
-    """``train_cls``, ``eval_cls`` and a snapshot on a pinned set, counted;
+def _train_pinned(card, label, trace, trainer, data, n, n_test, serve, stats: bool) -> dict:
+    """``train_cls``, ``eval_cls`` and a snapshot on a pinned set, counted
+    and traced as path ``trace``;
     the snapshot served through ``AnomalyScorer`` by ``serve(path)`` and held
     against ``eval_cls``'s scores. Returns the launch counts: no attention
     kernel; the augmentation kernels once per train-pipeline call (the
@@ -1296,7 +1423,7 @@ def _train_pinned(card, label, trainer, data, n, n_test, serve, stats: bool) -> 
     ds, x_test = data
     trainer.ds = ds
     steps = trainer.epochs * (n // BATCH)
-    _zero_counts()
+    _zero_counts(trace)
     t0 = time.perf_counter()
     state, roc = trainer.train_cls(ds, 0, "airplane", 0, seed=SEED)
     t_train = time.perf_counter() - t0
@@ -1371,8 +1498,8 @@ def phase_conv_training(card: str) -> dict:
     with tempfile.TemporaryDirectory() as logdir:
         trainer = _conv_trainer("hsc", CNN32(), CIFAR_SPECS, ["normalize"],
                                 Logger(logdir, noname=True), torch.float32, CONV_EPOCHS)
-        counts = _train_pinned(card, "conv train hsc fp32 CNN32", trainer, data, CONV_N,
-                               CONV_TEST, lambda path: AnomalyScorer(
+        counts = _train_pinned(card, "conv train hsc fp32 CNN32", "conv_training", trainer,
+                               data, CONV_N, CONV_TEST, lambda path: AnomalyScorer(
                                    path, CNN32(), test_specs=["normalize"], batch_size=BATCH),
                                stats=False)
     for objective, model in (("hsc", CNN32()), ("bce", CNN32(clf=True)), ("dsvdd", CNN32()),
@@ -1481,8 +1608,8 @@ def phase_wrn_training(card: str) -> dict:
     with tempfile.TemporaryDirectory() as logdir:
         trainer = _conv_trainer("hsc", WideResNet(), WRN_SPECS, WRN_TEST_SPECS,
                                 Logger(logdir, noname=True), torch.bfloat16, WRN_EPOCHS)
-        counts = _train_pinned(card, "wrn train hsc bf16 WideResNet+CBAM", trainer, data, WRN_N,
-                               WRN_TEST, lambda path: AnomalyScorer(
+        counts = _train_pinned(card, "wrn train hsc bf16 WideResNet+CBAM", "wrn_training",
+                               trainer, data, WRN_N, WRN_TEST, lambda path: AnomalyScorer(
                                    path, WideResNet(dtype=torch.bfloat16),
                                    test_specs=WRN_TEST_SPECS, batch_size=BATCH,
                                    compute_dtype=torch.bfloat16), stats=True)
@@ -1523,16 +1650,15 @@ def phase_wrn_training(card: str) -> dict:
 
 class _Eager:
     """Within: every trainer takes the per-step loop of eager steps (the
-    control of phase resident; ``Trainer.resident_epoch`` says no)."""
+    control of phase resident; ``Trainer._per_step``)."""
 
     def __enter__(self):
         from eoe_tpu_torch.training import Trainer
-        self.saved = Trainer.resident_epoch
-        Trainer.resident_epoch = lambda tr, ds: False
+        Trainer._per_step = True
 
     def __exit__(self, *exc):
         from eoe_tpu_torch.training import Trainer
-        Trainer.resident_epoch = self.saved
+        Trainer._per_step = False
 
 
 class _Env:
@@ -1568,10 +1694,13 @@ def _resident_ways(steps: int) -> dict:
 
 def _resident_timed(label: str, ways: dict, order: list, run, logdir: str,
                     profiled: bool = True) -> dict:
-    """Each way of ``order`` (ways in turns) through ``run(way, tag)``:
+    """Each way of ``order`` (ways in turns) through ``run(way, tag)``, which
+    sets the launch counts to 0 before it and leaves its own:
     {way: [(result, host seconds, busy seconds or None), ...]}; the first
     run of a way is run again under ``torch.profiler`` where ``profiled``
-    (the card's activity alone, no trace written: the busy seconds)."""
+    (the card's activity alone, no trace written: the busy seconds), and
+    the launches its trace shows held against its counts; the graph way's
+    are path ``resident_<label>``'s traced launches."""
     import torch
     from eoe_tpu_torch.utils.profiling import device_seconds
     out = {}
@@ -1587,6 +1716,8 @@ def _resident_timed(label: str, ways: dict, order: list, run, logdir: str,
                     run(way, "profiled")
                     torch.cuda.synchronize()
                 busy = device_seconds(prof)
+                hold_traced(prof, _counts(), f"resident {label} {way} (profiled run)",
+                            f"resident_{label}" if way == "graph" else None)
             out.setdefault(way, []).append((result, seconds, busy))
     return out
 
@@ -1594,15 +1725,18 @@ def _resident_timed(label: str, ways: dict, order: list, run, logdir: str,
 def _resident_report(card: str, label: str, out: dict, images: int, steps: int,
                      rates=None):
     """Per way and run: seconds of the run (set-up included), img/s and ms a
-    step over them, the card's busy share of the profiled run; ``rates``:
-    {way: img/s of each epoch of a run}, the steady state."""
+    step over them, the card's busy seconds in the way's profiled run and
+    their ratio to the first run's seconds (two runs: the profiled one
+    carries the profiler's cost); ``rates``: {way: img/s of each epoch of a
+    run}, the steady state."""
     for way, runs in out.items():
         parts = []
         for _, seconds, busy in runs:
             parts.append(f"{seconds:.3f} s, {images / seconds:.1f} img/s, "
                          f"{1000 * seconds / steps:.2f} ms a step"
                          + ("" if busy is None else
-                            f", busy {busy:.3f} s ({100 * busy / seconds:.1f}%)"))
+                            f", busy {busy:.3f} s in a profiled run ({100 * busy / seconds:.1f}% "
+                            f"of this run's seconds)"))
         epochs = f"; img/s per epoch {rates[way]}" if rates and way in rates else ""
         print(f"resident {label} {way}: " + " | ".join(parts) + epochs + f" [{card}]")
 
@@ -1826,8 +1960,8 @@ def _res_evolve(card: str, tmp: str) -> dict:
     for way, runs in out.items():
         _, seconds, busy = runs[0]
         print(f"resident evolve --ev-vmap one generation {way}: {seconds:.3f} s, "
-              f"{seconds / n:.4f} s an individual, busy {busy:.3f} s "
-              f"({100 * busy / seconds:.1f}%) [{card}]")
+              f"{seconds / n:.4f} s an individual, busy {busy:.3f} s in a profiled run "
+              f"({100 * busy / seconds:.1f}% of this run's seconds) [{card}]")
     return counts["graph"]
 
 
@@ -1841,8 +1975,10 @@ def _res_io(card: str, tmp: str) -> dict:
     from eoe_tpu_torch.main import train_cifar
 
     one = ["-e", "2", "-it", "2", "--classes", "0", "--datapath", tmp]
+    _zero_counts("resident_io")   # the traced run: the synthetic data, written once
     train_cifar.main(["-e", "1", "-it", "1", "--classes", "0", "--datapath", tmp,
-                      "--superdir", "warm"])   # the synthetic data, written once
+                      "--superdir", "warm"])
+    _counts()
     runs, seconds, counts = {}, {}, None
     for mode, sync in (("background", None), ("inline", 1), ("inline", 1),
                        ("background", None)):
@@ -1983,7 +2119,7 @@ def _cli_clip(card: str, tmp: str) -> dict:
     layers, text_layers = VIT_B32.vision_layers, VIT_B32.transformer_layers
 
     # ---- the main path, counted
-    _zero_counts()
+    _zero_counts("cli_clip")
     t0 = time.perf_counter()
     _, res = train_clip_cifar.main(["--epochs", str(epochs), "--classes", "0", "-it", "1",
                                     "--datapath", tmp])
@@ -2049,7 +2185,7 @@ def _cli_conv(card: str, tmp: str) -> dict:
              ["--ms-mode", "hpf+test_anomalous", "--magnitudes", "0", "8", "-e", "1", "-it", "1"]
              + one, "log_*_MULTISCALE_hsc_hpf+test_anomalous_OEinf")]
     # ---- the main path, counted
-    _zero_counts()
+    _zero_counts("cli_conv")
     out = []
     for label, main, argv, _ in runs:
         t0 = time.perf_counter()
@@ -2215,7 +2351,7 @@ def _folder_clip(card: str, tmp: str) -> dict:
     expected = {"fwd": text_layers + layers * (steps + eval_batches), "bwd": layers * steps}
 
     # ---- the main path, counted
-    _zero_counts()
+    _zero_counts("folder_clip")
     t0 = time.perf_counter()
     _, res = train_clip_imagenet.main(["--epochs", str(epochs), "--classes", "0", "-it", "1",
                                        "--datapath", tmp])
@@ -2289,7 +2425,7 @@ def _folder_conv(card: str, tmp: str) -> dict:
 
     cache = FolderSource.DEFAULT_CACHE_BYTES
     # ---- the main path, counted
-    _zero_counts()
+    _zero_counts("folder_conv")
     out = []
     for label, main, argv, _ in runs:
         t0 = time.perf_counter()
@@ -2432,7 +2568,7 @@ def phase_evolve(card: str) -> dict:
             _folder_data(os.path.join(tmp, "datasets"))
             one = ["--classes", "0", "--datapath", tmp]
             # ---- the main path, counted
-            _zero_counts()
+            _zero_counts("evolve")
             t0 = time.perf_counter()
             h1, _ = evolve_oe_cifar.main(EV_CIFAR + one + ["--superdir", f"{tmp}/ev"])
             t_cifar = time.perf_counter() - t0
@@ -2569,7 +2705,7 @@ def phase_custom(card: str) -> dict:
             train = common + ["-e", "2", "-it", "1", "--custom-model-freeze"]
             Trainer._init_or_load = recorded
             # ---- the main path, counted
-            _zero_counts()
+            _zero_counts("custom")
             seconds = {}
             t0 = time.perf_counter()
             train_only_custom.main(train + ["--log-path", f"{tmp}/frozen"])
@@ -2731,19 +2867,24 @@ def _member_drift(dirs: dict, seeds: list) -> list:
     return out
 
 
-def _timed_and_profiled(fn, logdir: str) -> tuple:
+def _timed_and_profiled(fn, logdir: str, path: str) -> tuple:
     """``fn("timed")`` timed with ``step_timer`` (the card synchronised), then
     ``fn("profiled")`` under ``profile``: (the first result, its seconds,
-    seconds the card was busy in the profiled run)."""
+    seconds the card was busy in the profiled run). The launches the trace
+    shows are held against the counters' increments over the profiled run
+    and added to path ``path``'s traced launches."""
     import torch
     from eoe_tpu_torch.utils.profiling import device_seconds, profile, step_timer
     times = []
     with step_timer(times) as out:
         result = fn("timed")
         out["sync"] = torch.zeros(1, device="cuda")
+    before = _counts()
     with profile(logdir) as prof:
         fn("profiled")
         torch.cuda.synchronize()
+    after = _counts()
+    hold_traced(prof, {k: after[k] - before[k] for k in after}, f"{path} (profiled run)", path)
     return result, times[0], device_seconds(prof)
 
 
@@ -2769,7 +2910,7 @@ def _vm_train_cifar(card: str, tmp: str) -> tuple:
         with _SgdTrainers():
             out[mode] = _timed_and_profiled(
                 lambda tag: train_cifar.main(argv + flag + ["--superdir", f"{mode}_{tag}"]),
-                os.path.join(tmp, f"trace_{mode}"))
+                os.path.join(tmp, f"trace_{mode}"), "vm_conv")
     counts = _counts()
     check_counts(counts, {}, "vmapped train_cifar (no attention kernel)")
     runs = {m: _run_dirs(tmp, f"{m}_*/log_*_hsc_cifar10_one_vs_rest") for m in out}
@@ -2808,7 +2949,7 @@ def _vm_train_cifar(card: str, tmp: str) -> tuple:
     _zero_counts()
     for mode in ("vmapped", "sequential"):
         pinned[mode] = _timed_and_profiled(lambda tag: run(mode, tag),
-                                           os.path.join(tmp, f"trace_pinned_{mode}"))
+                                           os.path.join(tmp, f"trace_pinned_{mode}"), "vm_conv")
     check_counts(_counts(), {}, "vmapped CNN32 pinned (no attention kernel)")
     with _SgdTrainers():
         for mode in ("vmapped", "sequential"):
@@ -2873,7 +3014,7 @@ def _vm_wrn(card: str) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
+    _zero_counts("vm_wrn")
     stack = tr.init_states_stacked(seeds, VM_WRN_STEPS)
     gens = [torch.Generator(device=dev).manual_seed(_seed(s, 2)) for s in seeds]
     losses, times, grads = [], [], None
@@ -2974,7 +3115,7 @@ def _vm_clip(card: str, tmp: str) -> dict:
     A._fwd_kernel = recorded
     try:
         # ---- the main path, counted
-        _zero_counts()
+        _zero_counts("vm_clip")
         t0 = time.perf_counter()
         train_clip_cifar.main(argv + ["--vmap-seeds", "--superdir", "clip_vm"])
         t_vm = time.perf_counter() - t0
@@ -3113,7 +3254,8 @@ def _vm_evolve(card: str, tmp: str) -> dict:
             finally:
                 if tag == "timed":
                     restore()
-        out[mode] = _timed_and_profiled(run, os.path.join(tmp, f"trace_ev_{mode}"))
+        out[mode] = _timed_and_profiled(run, os.path.join(tmp, f"trace_ev_{mode}"),
+                                        "vm_evolve")
         peaks[mode] = torch.cuda.max_memory_allocated() - base
     counts = _counts()
     check_counts(counts, {}, "vmapped evolve (no attention kernel)")
@@ -3225,8 +3367,12 @@ def _vm_wrn_runners(card: str, tmp: str) -> dict:
     ``--no-vmap-seeds``; then ``evolve_oe_imagenet --ev-vmap`` with one
     generation of 16 candidates (the default: 64) for 1 epoch. The members
     each program holds come from the measured peaks of one and of two
-    (``vmapped_seeds.members_that_fit``, printed); each run's peak memory and
-    seconds. Counted: no attention kernel lies on this path."""
+    (``vmapped_seeds.members_that_fit``, printed); each run's peak memory
+    (allocated, and reserved: a capture's pool beside segments the eager
+    steps keep) and seconds. Counted: no attention kernel lies on this path; the stacked
+    ``train_imagenet`` traced."""
+    from contextlib import nullcontext
+
     import numpy as np
     import torch
     from eoe_tpu_torch.main import evolve_oe_imagenet, train_imagenet
@@ -3257,9 +3403,13 @@ def _vm_wrn_runners(card: str, tmp: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
             n = len(fits)
             t0 = time.perf_counter()
-            res = fn(argv + ["--classes", "0", "--datapath", tmp, "--superdir", sub])
+            # the traced part: the stacked seed grid (a trace of all three
+            # took a minute of host time to read)
+            with _Traced("vm_wrn_runners") if sub == "grid" else nullcontext():
+                res = fn(argv + ["--classes", "0", "--datapath", tmp, "--superdir", sub])
             seconds = time.perf_counter() - t0
-            out[label] = (res, seconds, torch.cuda.max_memory_allocated() - base, fits[n:])
+            out[label] = (res, seconds, torch.cuda.max_memory_allocated() - base, fits[n:],
+                          torch.cuda.max_memory_reserved())
         counts = _counts()
     finally:
         V.members_that_fit = fit
@@ -3275,13 +3425,15 @@ def _vm_wrn_runners(card: str, tmp: str) -> dict:
     fitness = np.asarray(out["evolve_oe_imagenet --ev-vmap"][0][0]["fit"], dtype=np.float64)
     check(fitness.shape == (1, VM_WRN_POOL) and np.isfinite(fitness).all(),
           f"evolve_oe_imagenet --ev-vmap: fitness {fitness}")
-    for label, (_, seconds, peak, measured) in out.items():
+    total = torch.cuda.get_device_properties(0).total_memory
+    for label, (_, seconds, peak, measured, reserved) in out.items():
         probe = "; ".join(
             f"{wanted} wanted, {n} per program (one member {p[0] / 2 ** 30:.2f} GiB, two "
             f"{p[1] / 2 ** 30:.2f} GiB, {(p[1] - p[0]) / 2 ** 30:.2f} GiB a member; "
             f"{free / 2 ** 30:.2f} GiB free)" for p, free, wanted, n in measured[:1])
         print(f"vmapped (f) {label} (WideResNet+CBAM fp32, {BATCH}+{BATCH} at 224 px): "
-              f"{seconds:.2f} s of main; peak memory {peak / 2 ** 30:.2f} GiB; "
+              f"{seconds:.2f} s of main; peak memory {peak / 2 ** 30:.2f} GiB, reserved "
+              f"{reserved / 2 ** 30:.2f} of the card's {total / 2 ** 30:.2f} GiB; "
               f"{probe or 'no program sized'} [{card}]")
     print(f"vmapped (f) train_imagenet: {printed.count('seeds of cls 0 vmapped')} vmapped "
           f"class, log '{[ln for ln in printed.splitlines() if 'seeds of cls 0' in ln][0]}'; "
@@ -3475,7 +3627,7 @@ def _clip_rn50(card: str, tmp: str) -> dict:
     # ---- the main path, counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
+    _zero_counts("clip_rn50")
     t0 = time.perf_counter()
     _, res = train_clip_cifar.main(["--epochs", str(RN50_EPOCHS), "--classes", "0", "-it", "1",
                                     "--datapath", tmp])
@@ -3716,7 +3868,7 @@ def phase_import(card: str) -> dict:
                                         "--superdir", name, "--no-vmap-seeds"])
                 (runs[name],) = glob.glob(os.path.join(tmp, "results", name, "log_*"))
             # ---- the main path, counted
-            _zero_counts()
+            _zero_counts("import")
             t0 = time.perf_counter()
             for name, _, cls, *_ in IMPORT_RUNS:
                 src = os.path.join(tmp, f"{name}_reference.pt")
@@ -4189,6 +4341,13 @@ def main():
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}
 
+    def traced_by_path(family):
+        """The family's launches in the traces of each path's traced runs,
+        beside the counters' over the same runs (paths where either is not
+        0); the fused kernels' families sum both grids."""
+        return {path: fams[family] for path, fams in TRACED.items()
+                if fams[family]["traced"] or fams[family]["counted"]}
+
     def variants_by_path(kernel):
         """The variant each path's launches took: the fused forwards' by the
         path's dtype (bf16 on the tensor cores, fp32 on register tiles), the
@@ -4221,28 +4380,33 @@ def main():
         {"name": "fused_qkv_attention", "route": "cuda", "source": source,
          "replaces": "eoe_tpu/ops/attention.py:216", "launches": paths["training"]["fwd"],
          "launches_by_path": by_path("fwd"), "variants_by_path": variants_by_path("fwd"),
+         "traced_by_path": traced_by_path("fused_qkv_fwd"),
          **rows[main_shape], "fp32": fp32(rows[f32_shape])},
         {"name": "fused_qkv_attention_bwd", "route": "cuda", "source": source,
          "replaces": "eoe_tpu/ops/attention.py:294", "launches": paths["training"]["bwd"],
          "launches_by_path": by_path("bwd"), "variants_by_path": variants_by_path("bwd"),
+         "traced_by_path": traced_by_path("fused_qkv_bwd"),
          **bwd_rows[main_shape], "fp32": fp32(bwd_rows[f32_shape])},
         {"name": "flash_attention", "route": "cuda",
          "source": "eoe_tpu_torch/csrc/flash_attention.cu",
          "replaces": "eoe_tpu/ops/attention.py:41",
          "launches": paths["flash_training"]["flash"], "launches_by_path": by_path("flash"),
-         "variants_by_path": variants_by_path("flash"), **flash_rows[flash_shape],
+         "variants_by_path": variants_by_path("flash"),
+         "traced_by_path": traced_by_path("flash"), **flash_rows[flash_shape],
          "fp32": fp32(flash_rows[f32_flash])},
         {"name": "fused_qkv_attention_group", "route": "cuda", "source": source,
          "replaces": "eoe_tpu/ops/attention.py:330",
          "launches": paths["group_training"]["group_fwd"],
          "launches_by_path": by_path("group_fwd"),
-         "variants_by_path": variants_by_path("group_fwd"), **group_rows[main_shape],
+         "variants_by_path": variants_by_path("group_fwd"),
+         "traced_by_path": traced_by_path("fused_qkv_fwd"), **group_rows[main_shape],
          "fp32": fp32(group_rows[f32_shape])},
         {"name": "fused_qkv_attention_group_bwd", "route": "cuda", "source": source,
          "replaces": "eoe_tpu/ops/attention.py:343",
          "launches": paths["group_training"]["group_bwd"],
          "launches_by_path": by_path("group_bwd"),
-         "variants_by_path": variants_by_path("group_bwd"), **group_bwd_rows[main_shape],
+         "variants_by_path": variants_by_path("group_bwd"),
+         "traced_by_path": traced_by_path("fused_qkv_bwd"), **group_bwd_rows[main_shape],
          "fp32": fp32(group_bwd_rows[f32_shape])},
     ]
     # the augmentation kernels: the acceptance stack's crop step on uint8 (the
@@ -4254,9 +4418,16 @@ def main():
         kernels.append({
             "name": kernel, "route": "cuda", "source": aug_source, "replaces": replaces,
             "launches": paths["training"][count], "launches_by_path": by_path(count),
+            "traced_by_path": traced_by_path(kernel),
             **aug_rows[("acceptance", "uint8")][key],
             "stacks": {f"{s} {d}": row[key] for (s, d), row in aug_rows.items() if row[key]},
             "steps": {f"{s} {d}": row["step"] for (s, d), row in aug_rows.items()}})
+    missing = sorted(p for p in paths if not p.startswith("dp_") and p not in TRACED)
+    check(not missing, f"counted paths without a traced run: {missing}")
+    print(f"traced counted runs (the port's kernels in the trace = the counters): "
+          f"{sorted(TRACED)}; per-rank dp paths untraced (per-step loop, child processes); "
+          f"ending and reading the traces took {sum(TRACE_SECONDS):.1f} s of host time, the "
+          f"longest {max(TRACE_SECONDS):.1f} s")
     print(f"phases (s): {seconds}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

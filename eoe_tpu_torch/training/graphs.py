@@ -13,11 +13,13 @@ parameters and the optimizer state; it writes its outputs into a
 preallocated buffer and adds one to the counter. ``ResidentSteps`` runs
 such a step:
 
-* the first ``chunk`` steps of a class-seed (or of a stacked program) run
-  eagerly on a side stream, as real steps of the plan: they create the
-  optimizer state and do what a first call does (kernel builds, constant
-  caches, shared-memory limits, cuBLAS and cuDNN workspaces and
-  algorithms) outside the capture;
+* the optimizer state is made before the first step
+  (``ScheduledOptimizer.make_capturable``), so that it does not keep
+  segments of the step's freed activations reserved outside the capture's
+  pool; the first ``chunk`` steps of a class-seed (or of a stacked
+  program) run eagerly on a side stream, as real steps of the plan: they
+  do what a first call does (kernel builds, constant caches, shared-memory
+  limits, cuBLAS and cuDNN workspaces and algorithms) outside the capture;
 * then ``chunk`` steps are captured into one ``torch.cuda.CUDAGraph``, which
   each further group of ``chunk`` steps replays; ``chunk_steps`` takes
   ``EOE_TPU_CHUNK`` where it divides the epoch, else the epoch, and one

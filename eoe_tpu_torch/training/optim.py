@@ -14,8 +14,9 @@ every update, so a graph holds the rates of its capture: the MultiStep
 boundaries are whole epochs, so a graph of steps within one epoch holds one
 rate, and ``graphs.ResidentSteps`` captures anew where the schedule moves.
 Adam counts its updates on the device once ``make_capturable`` has run
-(``capturable=True``; SGD keeps no count). Snapshots store the state as an
-optimizer that is not capturable, so that any device loads them.
+(``capturable=True``; SGD keeps no count), which also makes the state the
+first update would make. Snapshots store the state as an optimizer that is
+not capturable, so that any device loads them.
 """
 
 from typing import Callable, Iterable, Sequence
@@ -65,15 +66,36 @@ class ScheduledOptimizer:
     def make_capturable(self):
         """Let a CUDA graph capture the update: Adam's step counts move to
         the parameters' device as fp32 (``torch.optim``'s capturable
-        layout), so the bias correction is computed there."""
+        layout), so the bias correction is computed there; and the state
+        that the first update would make (SGD's momentum; Adam's count and
+        moments) is made now, as zeros in fresh memory. Made by the first
+        update, it would take blocks that the step's activations had just
+        freed and keep their segments reserved, where the capture, which
+        allocates from its own pool, cannot use them: a program sized for
+        one step's activations then needs more than the card has. The first
+        update gives the same numbers either way (SGD: 0 * momentum +
+        gradient for a cloned gradient)."""
+        fresh = True
         for group in self.optimizer.param_groups:
-            if "capturable" not in group:   # SGD keeps no count
-                continue
-            group["capturable"] = True
+            adam = "capturable" in group   # SGD keeps no count
+            if adam:
+                group["capturable"] = True
             for p in group["params"]:
-                st = self.optimizer.state.get(p, {})
+                st = self.optimizer.state[p]
                 if torch.is_tensor(st.get("step")):
                     st["step"] = st["step"].to(device=p.device, dtype=torch.float32)
+                if st or not (adam or group["momentum"]):
+                    continue
+                if fresh and p.is_cuda:   # free the cached blocks the state could take
+                    torch.cuda.synchronize(p.device)
+                    torch.cuda.empty_cache()
+                fresh = False
+                if adam:
+                    st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                else:
+                    st["momentum_buffer"] = torch.zeros_like(p)
 
     def state_dict(self) -> dict:
         sd = self.optimizer.state_dict()

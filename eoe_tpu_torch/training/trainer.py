@@ -177,6 +177,11 @@ class Trainer:
     class-seed with ``reset_parameters``. ``device`` is ``cuda`` unless the
     caller asks for another one; with a ``mesh`` it is the mesh's device."""
 
+    # the per-step loop even where the resident epoch applies: the eager
+    # control of the tests and chip_smoke.py (on the class: every trainer;
+    # on an instance: that one)
+    _per_step = False
+
     def __init__(self, model: torch.nn.Module, train_specs: Sequence, test_specs: Sequence,
                  dataset: str, oe_dataset: Optional[str], datapath: str, logger: Optional[Logger],
                  epochs: int, lr: float, wdk: float, milestones: Sequence[int], batch_size: int,
@@ -219,7 +224,6 @@ class Trainer:
         self.step_losses: List[float] = []  # every step's loss, in order
         self.images_seen = 0                # images trained on by train_cls
         self.train_seconds = 0.0            # and its epochs' seconds
-        self._per_step = False   # the per-step loop even where the resident epoch applies
         self.member_peaks: dict = {}  # vmapped_seeds.members_per_program's, by shapes
         self.logger.logsetup(self.setup_dict(), step=0)
         if mesh is not None:

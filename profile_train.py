@@ -4,7 +4,7 @@ on one NVIDIA GPU.
 
     python3 profile_train.py [--steps 3] [--route fused|group|flash] [--serving]
                              [--dtype bfloat16|float32] [--model clip|cnn32|wrn]
-                             [--vmap K] [--ways eager,graph] [--trace train_trace.json]
+                             [--vmap K] [--ways graph,eager] [--trace train_trace.json]
 
 Builds chip_smoke.py's training configuration (full-width ViT-B/32 in bf16,
 HSC, the acceptance augmentation stack, 128 normal + 128 OE images per
@@ -12,8 +12,8 @@ step, random weights from seed 0), takes two warm-up steps, then traces
 ``--steps`` steps with ``torch.profiler`` (CPU and CUDA activities). Prints
 the step time on the host clock (untraced, then traced), the device time by
 kernel class (the attention kernels, matrix products, everything else) and
-the device's busy share of the traced window, then the 25 kernels with the
-most device time. ``--route`` picks the attention: the fused-QKV kernels on
+the device's busy share of the traced window (one run: its device time over
+its own host clock), then the 25 kernels with the most device time. ``--route`` picks the attention: the fused-QKV kernels on
 their monolithic grid (the default), on the lane-group grid
 (``GROUP_GRID``), or ``CLIP(attention_fn=flash_attention)``. ``--dtype
 float32`` trains the same step in fp32 (TF32 off, as the parity runs of
@@ -35,11 +35,13 @@ casts (CLIP's ``_dense``, the conv layers' ``_cast``), the norms
 (``LayerNormF32``, ``BatchNorm``); with the optimizer's own range and the
 autograd engine's, each kernel's device time is split by the module that
 launched it, then by class. ``--ways`` profiles the training step in each
-way it names, one after another in one process: ``eager`` (the per-step
-loop's step), ``graph`` (the resident epoch's step, ``training.graphs``:
-its plan row read at a device counter and replayed from a captured
-one-step CUDA graph; one member only). A graph's kernels link to the
-replay, not to a module. Needs one card; imports nothing of JAX or
+way it names, one after another in one process: ``graph`` (the default for
+a training step, the step the trainers take on the card: the resident
+epoch's, ``training.graphs``: its plan row read at a device counter and
+replayed from a captured one-step CUDA graph; one member only), ``eager``
+(the per-step loop's step; the only way of ``--serving``). A graph's
+kernels link to the replay, not to a module, so its split by module is
+empty. Needs one card; imports nothing of JAX or
 eoe_tpu.
 """
 
@@ -257,11 +259,13 @@ def main():
                         help="the model whose training step is profiled")
     parser.add_argument("--vmap", type=int, default=1, metavar="K",
                         help="profile the step of K stacked members (the vmapped engine)")
-    parser.add_argument("--ways", default="eager",
-                        help="comma-separated: eager (the per-step loop's step) and/or graph "
-                             "(the resident step replayed from a captured CUDA graph)")
+    parser.add_argument("--ways", default=None,
+                        help="comma-separated: graph (the resident step replayed from a "
+                             "captured CUDA graph; the default for a training step) and/or "
+                             "eager (the per-step loop's step; the default with --serving)")
     parser.add_argument("--trace", default="", help="write a chrome trace here")
     args = parser.parse_args()
+    args.ways = args.ways or ("eager" if args.serving else "graph")
     ways = args.ways.split(",")
     if set(ways) - {"eager", "graph"} or (args.serving and "graph" in ways):
         parser.error("--ways takes eager and graph, and graph only for a training step")
@@ -337,8 +341,9 @@ def profile_step(args, way, step, images, card):
     if total <= 0:
         sys.exit(f"profile_train.py: the profiler recorded no device time ({way})")
     print(f"{tag}: device busy {total / 1e3 / args.steps:.2f} ms per step, "
-          f"{100 * total / 1e3 / (wall * 1e3):.1f}% of the traced window; "
-          f"{100 * total / 1e3 / (plain * 1e3 * args.steps):.1f}% of the untraced clock")
+          f"{100 * total / 1e3 / (wall * 1e3):.1f}% of the traced window (the busy share); "
+          f"over the untraced steps' clock, a ratio of two runs: "
+          f"{100 * total / 1e3 / (plain * 1e3 * args.steps):.1f}%")
     for cls, us in sorted(device_us.items(), key=lambda kv: -kv[1]):
         print(f"{tag}:   {cls}: {us / 1e3 / args.steps:.3f} ms per step "
               f"({100 * us / total:.1f}% of device time)")

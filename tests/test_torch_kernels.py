@@ -771,7 +771,8 @@ def test_graph_draws_are_the_eager_draws(cuda):
 def test_graph_counters_add_captured_launches_per_replay(cuda):
     """The kernels' counters count at capture and not at replay: the helper
     takes the capture's increments back and adds them at each replay, so a
-    runner of 1 eager + 4 replayed steps of 2 fused launches each counts 10."""
+    runner of 1 eager + 4 replayed steps of 2 fused launches each counts 10,
+    as many as the card's trace of the run shows."""
     from eoe_tpu_torch.training import graphs
     qkv = torch.randn(2, 50, 3 * 2 * 64, device=cuda)
 
@@ -781,10 +782,14 @@ def test_graph_counters_add_captured_launches_per_replay(cuda):
 
     before = A.fused_qkv_attention.launches
     runner = graphs.ResidentSteps(step, cuda, 1)
-    runner.run(5)
-    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        runner.run(5)
+        torch.cuda.synchronize()
     assert A.fused_qkv_attention.launches - before == 10
     assert runner.replays == 4
+    traced = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and "fused_qkv_fwd_kernel" in e.name]
+    assert len(traced) == 10, traced
     runner.close()
 
 

@@ -299,3 +299,36 @@ def test_images_per_second_and_epochs_only(tmp_path, monkeypatch):
     path = tr.snapshot("snapshot_cls0_it0", state, 7, tr.ds.ds_statistics)
     assert tr.load_epochs_only(path) == 7
     assert tr.load_epochs_only(None) == 0
+
+
+def test_make_capturable_makes_the_first_updates_state():
+    """``make_capturable`` makes the state that the first update would make,
+    before any update (so that it is not carved from the first step's freed
+    activations on the card): SGD's momentum and Adam's count and moments as
+    zeros. Two SGD updates from it equal two from a plain optimizer, zero and
+    negative-zero gradients included."""
+    torch.manual_seed(0)
+    w0 = torch.randn(4, 3)
+    grads = [torch.randn(4, 3), torch.randn(4, 3)]
+    grads[0][0, 0], grads[0][1, 1] = 0.0, -0.0
+    out = []
+    for capturable in (False, True):
+        w = torch.nn.Parameter(w0.clone())
+        opt = make_optimizer("sgd", [w], 0.1, 5e-4, [1], 2)
+        if capturable:
+            opt.make_capturable()
+            assert torch.equal(opt.optimizer.state[w]["momentum_buffer"], torch.zeros(4, 3))
+        for g in grads:
+            w.grad = g.clone()
+            opt.step()
+        out.append((w.detach().clone(), opt.optimizer.state[w]["momentum_buffer"].clone()))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+
+    w = torch.nn.Parameter(w0.clone())
+    adam = make_optimizer("adam", [w], 0.1, 0.0, [1], 2)
+    adam.make_capturable()
+    st = adam.optimizer.state[w]
+    assert adam.optimizer.param_groups[0]["capturable"]
+    assert st["step"].dtype == torch.float32 and st["step"].item() == 0
+    assert torch.equal(st["exp_avg"], torch.zeros(4, 3))
+    assert torch.equal(st["exp_avg_sq"], torch.zeros(4, 3))
