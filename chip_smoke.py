@@ -141,7 +141,18 @@ layers of later slices, see their docstrings), then
      (b) ``train_cifar`` CNN32 fp32: losses and parameters 1e-5; (c) 4
      seeds ``--vmap-seeds``, 2 a rank: AUROCs 1e-4 or a tie; (d)
      ``evolve_oe_cifar --ev-vmap``, generation 0's two candidates one a
-     rank: fitnesses 1e-4, populations equal. (b)-(d) update with SGD.
+     rank: fitnesses 1e-4, populations equal. (b)-(d) update with SGD;
+ 21. tp: the model axis (``parallel.mesh``'s Megatron split), one process
+     and then two ranks sharing the card as a 1 x 2 mesh (gloo), each
+     through ``tp_child``: ``ClipTrainer.run`` of ViT-B/32 bf16 from seed
+     0's weights, 3 steps of 128 + 128 on the acceptance stack and one eval
+     batch of 128, on the per-step loop. Each rank runs the fused pair on
+     its 6 image heads and the text tower's 4 causal heads (12 + 36 + 12
+     forward and 36 backward launches, one process's, traced as paths
+     ``tp_rank0`` and ``tp_rank1``); losses within 2^-8 of the process's,
+     the gathered snapshot's change of each trained tensor within 2^-4 of
+     its max, scores and AUROC 1e-4 or a tie; step ms per rank. On two or
+     more cards the ranks run again over NCCL, a card each.
 Each path's launch counts (every kernel's) are set to 0 just before it and
 read just after. The augmentation counts are held on the training paths of
 phases 5-9 and reported on the others. The counters count where a wrapper
@@ -152,10 +163,11 @@ the launches of the port's kernels that its trace shows, by their
 symbols, must equal the counters' over that run (``hold_traced``); the
 kernels line gives both under ``traced_by_path``. Those runs' times
 carry the profiler's cost; dp's ranks (the per-step loop, child processes)
-are not traced.
+are not traced; tp's ranks trace themselves and report their traces.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's bf16 row at
-the training shape, its fp32 row under ``"fp32"``, and the variant each path's
+the training shape, its fp32 row under ``"fp32"``, the fused pair's rows at
+a tp rank's heads under ``"rank_heads"``, and the variant each path's
 launches took); the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or eoe_tpu."""
 
@@ -184,7 +196,8 @@ PATH_DTYPES = {"serving": "fp32", "training": "bf16", "training_fp32": "fp32",
                "dp_clip_rank0": "bf16", "dp_clip_rank1": "bf16", "dp_conv": "fp32",
                "dp_vmap": "fp32", "dp_evolve": "fp32", "resident_cnn32": "fp32",
                "resident_clip": "bf16", "resident_vmapped": "fp32", "resident_evolve": "fp32",
-               "resident_io": "fp32"}
+               "resident_io": "fp32", "tp_one": "bf16", "tp_rank0": "bf16", "tp_rank1": "bf16",
+               "tp_one_fp32": "fp32", "tp_rank0_fp32": "fp32", "tp_rank1_fp32": "fp32"}
 BATCH = 128
 SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
@@ -478,6 +491,10 @@ def phase_build():
 SHAPES = [(256, 50, 12, 64, False), (64, 77, 8, 64, True),
           (3, 21, 4, 64, True), (2, 10, 2, 128, True), (2, 128, 2, 128, False),
           (4, 64, 12, 64, False), (2, 120, 4, 64, True)]
+# a rank's heads under phase tp's model axis of two: the image tower's 6,
+# the text tower's 4 (causal)
+RANK_SHAPES = [(256, 50, 6, 64, False), (64, 77, 4, 64, True)]
+SHAPES += RANK_SHAPES
 
 
 def phase_kernels(card: str) -> dict:
@@ -4111,11 +4128,13 @@ def dp_child(tmp: str, tag: str):
         meshlib.leave()
 
 
-def _dp_group(tmp: str, tags: list, envs: list) -> list:
-    """Run ``dp_child`` in one process per tag, together; their "DP" records
-    by case. A process that fails fails the phase, its last lines printed."""
-    script = os.path.abspath(__file__)
-    procs = [subprocess.Popen([sys.executable, script, "--dp-child", tmp, tag], env=env,
+def _children(phase: str, tmp: str, tags: list, envs: list) -> list:
+    """Run this script's ``--<phase>-child`` in one process per tag,
+    together; each one's records, the JSON of its lines that begin with
+    the phase's name in capitals. A process that fails fails the phase, its
+    last lines printed."""
+    script, marker = os.path.abspath(__file__), phase.upper() + " "
+    procs = [subprocess.Popen([sys.executable, script, f"--{phase}-child", tmp, tag], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for tag, env in zip(tags, envs)]
     outs = []
@@ -4133,10 +4152,17 @@ def _dp_group(tmp: str, tags: list, envs: list) -> list:
     for tag, p, out in zip(tags, procs, outs):
         if p.returncode != 0:
             print("\n".join(out.splitlines()[-40:]), file=sys.stderr)
-            fail(f"dp: process {tag} exited with {p.returncode}")
-        records.append({r["case"]: r for r in (json.loads(ln[3:]) for ln in out.splitlines()
-                                                if ln.startswith("DP "))})
-        check(sorted(records[-1]) == sorted(DP_ARGV), f"dp: {tag} reported {sorted(records[-1])}")
+            fail(f"{phase}: process {tag} exited with {p.returncode}")
+        records.append([json.loads(ln[len(marker):]) for ln in out.splitlines()
+                        if ln.startswith(marker)])
+    return records
+
+
+def _dp_group(tmp: str, tags: list, envs: list) -> list:
+    """``dp_child`` in one process per tag, together; their records by case."""
+    records = [{r["case"]: r for r in got} for got in _children("dp", tmp, tags, envs)]
+    for tag, got in zip(tags, records):
+        check(sorted(got) == sorted(DP_ARGV), f"dp: {tag} reported {sorted(got)}")
     return records
 
 
@@ -4280,6 +4306,293 @@ def phase_dp(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase tp
+
+TP_RANKS = 2
+TP_N, TP_TEST = 3 * BATCH, BATCH   # 3 steps of 128 + 128, one eval batch
+TP_DTYPES = ("fp32", "bf16")
+TP_FP32_TOL = 1e-5        # fp32: losses (relative) and parameters
+TP_LOSS_TOL = 2 ** -8     # bf16 losses (BF16_LOSS_TOL)
+# bf16: the split sums in another order than one process's, and bf16 turns
+# an order flip into a rounding flip that grows through the layers and the
+# steps. So the ranks' trained parameters and scores are held by their
+# distance from one process's fp32 run: at most twice one process's bf16
+# distance from it (two realisations of the same rounding noise). A
+# missing sum or a wrong split moves them by order 1; the fp32 run holds
+# the arithmetic itself to TP_FP32_TOL.
+TP_BF16_FACTOR = 2.0
+
+
+def _tp_data():
+    """384 normal + 384 OE + 128 test raw 256x256 uint8 images (the
+    acceptance stack's input size)."""
+    import numpy as np
+    from eoe_tpu_torch.datasets.bases import ArraySource, CombinedDataset, GenericADDataset
+    rng, hw = np.random.default_rng(SEED + 7), TRAIN_HW
+    x, xo, xt = (rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8)
+                 for n in (TP_N, TP_N, TP_TEST))
+    kw = dict(root="", train_specs=ACCEPTANCE_SPECS, test_specs=CLIP_TEST_SPECS, n_classes=2,
+              raw_shape=(hw, hw, 3))
+    normal = GenericADDataset(ArraySource(x, np.zeros(TP_N)),
+                              ArraySource(xt, np.arange(TP_TEST) % 2),
+                              normal_classes=(0,), nominal_label=0, **kw)
+    oe = GenericADDataset(ArraySource(xo, np.ones(TP_N)), None, normal_classes=(1,),
+                          nominal_label=1, **kw)
+    return CombinedDataset(normal, oe)
+
+
+def tp_child(tmp: str, tag: str):
+    """One rank of phase tp (EOE_TPU_DISTRIBUTED=1 names it) on a 1 x 2 mesh,
+    the model axis: ``_tp_runs``, printed as one "TP {json}" line."""
+    import torch
+    from eoe_tpu_torch.parallel import mesh as meshlib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshlib.init_distributed()
+    try:
+        record = _tp_runs(tmp, tag, meshlib.make_mesh(meshlib.MeshConfig(data=1, model=TP_RANKS)))
+        print("TP " + json.dumps(record), flush=True)
+    finally:
+        meshlib.leave()
+
+
+def _tp_runs(tmp: str, tag: str, mesh) -> dict:
+    """``ClipTrainer.run`` of ViT-B/32 from seed 0's weights on ``_tp_data``,
+    3 steps on the per-step loop and one eval batch, in fp32 and then in
+    bf16, each counted and traced (paths ``tp_<tag>_fp32`` and
+    ``tp_<tag>``), on ``mesh`` or in this process (None). By dtype: the
+    launch counts, the fused kernels' calls by heads and rows, losses, step
+    ms, scores, the run directory."""
+    import torch
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32
+    from eoe_tpu_torch.ops import attention as A
+    from eoe_tpu_torch.training import Trainer
+    from eoe_tpu_torch.training.clip import ClipTrainer
+    from eoe_tpu_torch.utils.logger import Logger
+
+    calls, step_ms = Counter(), []
+    fwd, bwd, train_step = A._fwd_kernel, A._bwd_kernel, Trainer.train_step
+
+    def tally(kind, launch):
+        def recorded(qkv, *args):
+            heads, causal = args[-2:]
+            calls[f"{kind} H={heads} n={qkv.shape[0]}{' causal' if causal else ''}"] += 1
+            return launch(qkv, *args)
+        return recorded
+
+    def timed_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    A._fwd_kernel, A._bwd_kernel = tally("fwd", fwd), tally("bwd", bwd)
+    Trainer.train_step = timed_step
+    eager = _Eager()
+    eager.__enter__()
+    try:
+        weights = CLIP(VIT_B32, generator=torch.Generator().manual_seed(SEED)).state_dict()
+        ds = _tp_data()
+        record = {"case": tag, "mesh": None if mesh is None else mesh.note}
+        for name in TP_DTYPES:
+            calls.clear()
+            step_ms.clear()
+            logdir = os.path.join(tmp, f"{tag}_{name}")
+            logger = Logger(logdir, noname=True, active=mesh is None or mesh.model_rank == 0,
+                            tensorboard=False, archive_source=False)
+            tr = ClipTrainer(None, ACCEPTANCE_SPECS, [], dataset="cifar10",
+                             oe_dataset="cifar100", datapath="", logger=logger, epochs=1,
+                             lr=1e-4, wdk=1e-3, milestones=[], batch_size=BATCH,
+                             compute_dtype=torch.bfloat16 if name == "bf16" else torch.float32,
+                             mesh=mesh, clip_state_dict=weights, clip_config=VIT_B32)
+            tr.ds = ds
+            path = f"tp_{tag}" + ("" if name == "bf16" else f"_{name}")
+            _zero_counts(path)
+            t0 = time.perf_counter()
+            _, res = tr.run(run_classes=[0])
+            seconds = time.perf_counter() - t0
+            counts = _counts()
+            record[name] = {
+                "path": path, "counts": counts, "calls": dict(calls),
+                "losses": list(tr.step_losses), "step_ms": list(step_ms), "seconds": seconds,
+                "auroc": res["cls_aucs"][0][0], "traced": TRACED[path], "logdir": logdir,
+                "scores": _scores(logdir) if logger.active else None,
+                "held": None if tr._tp is None or tr._tp[1] is None else
+                sum(p.numel() for p in tr._tp[1].parameters())}
+            del tr
+            torch.cuda.empty_cache()
+        return record
+    finally:
+        A._fwd_kernel, A._bwd_kernel, Trainer.train_step = fwd, bwd, train_step
+        eager.__exit__()
+
+
+def _tp_group(tmp: str, tags: list, envs: list) -> list:
+    """``tp_child`` in one process per tag, together; their records."""
+    records = _children("tp", tmp, tags, envs)
+    for tag, got in zip(tags, records):
+        check(len(got) == 1, f"tp: {tag} reported {len(got)} records")
+    return [got[0] for got in records]
+
+
+def _tp_params(logdir: str) -> dict:
+    import torch
+    return torch.load(os.path.join(logdir, "snapshots", "snapshot_cls0_it0.pt"),
+                      map_location="cpu", weights_only=True)["params"]
+
+
+def _param_err(p: dict, ref: dict, p_init: dict) -> float:
+    """The largest distance of a trained tensor of ``p`` from ``ref``'s, of
+    ``ref``'s change from ``p_init``."""
+    return max(float((p[k].float() - v.float()).abs().max()
+                     / (v.float() - p_init[k]).abs().max())
+               for k, v in ref.items() if (v.float() - p_init[k]).abs().max())
+
+
+def _tp_hold(name: str, one: dict, got: list, p_init: dict, one32: dict) -> str:
+    """One dtype's holds of the ranks against one process (``phase_tp``);
+    bf16 also against one process's fp32 run ``one32``. Returns what was
+    held, for the phase's line."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.models.clip import VIT_B32
+    layers, text, steps = VIT_B32.vision_layers, VIT_B32.transformer_layers, TP_N // BATCH
+
+    def calls(h, ht):
+        return {f"fwd H={ht} n=2 causal": text, f"fwd H={h} n={2 * BATCH}": layers * steps,
+                f"fwd H={h} n={TP_TEST}": layers, f"bwd H={h} n={2 * BATCH}": layers * steps}
+
+    expected = {"fwd": text + layers * (steps + 1), "bwd": layers * steps,
+                **augment_counts(2 * steps + PREVIEW_CALLS, stats=True)}
+    if name == "fp32":
+        expected["bwd_resident"] = layers * steps
+    check(one["calls"] == calls(VIT_B32.vision_heads, VIT_B32.transformer_heads),
+          f"tp {name} one process: fused calls {one['calls']}")
+    check_counts(one["counts"], expected, f"tp {name} one process")
+    h, ht = VIT_B32.vision_heads // TP_RANKS, VIT_B32.transformer_heads // TP_RANKS
+    l_tol = TP_LOSS_TOL if name == "bf16" else TP_FP32_TOL
+    for i, r in enumerate(got):
+        check(r["calls"] == calls(h, ht), f"tp {name} rank {i}: fused calls {r['calls']}")
+        # the preview is written where the logger writes: world rank 0
+        check_counts(r["counts"], {**expected, **augment_counts(
+            2 * steps + (PREVIEW_CALLS if r["scores"] is not None else 0), stats=True)},
+            f"tp {name} rank {i}")
+        check(len(r["losses"]) == steps and r["losses"] == got[0]["losses"],
+              f"tp {name} rank {i}: losses {r['losses']}, rank 0's {got[0]['losses']}")
+        l_err = max(abs(x - y) / abs(y) for x, y in zip(r["losses"], one["losses"]))
+        check(l_err <= l_tol, f"tp {name} rank {i}: losses {r['losses']} against one "
+                              f"process's {one['losses']} (tol {l_tol:.3g})")
+    p_one, p_tp = _tp_params(one["logdir"]), _tp_params(got[0]["logdir"])
+    check(p_tp.keys() == p_one.keys() and all(p_tp[k].shape == v.shape for k, v in p_one.items()),
+          f"tp {name}: the snapshot is not whole")
+    for k, v in p_one.items():   # the untrained text tower: equal, bit for bit
+        if not (v.float() - p_init[k]).abs().max():
+            check(torch.equal(p_tp[k], v), f"tp {name}: the untrained {k} differs")
+    r0 = got[0]
+    d_auc, d_score, held = _tie_or_close(r0["auroc"], one["auroc"], r0["scores"], one["scores"])
+    if name == "fp32":
+        p_err = max(float((p_tp[k] - v).abs().max()) for k, v in p_one.items())
+        check(p_err <= TP_FP32_TOL, f"tp fp32: parameters {p_err:.3g} apart (tol "
+                                    f"{TP_FP32_TOL})")
+        check(held, f"tp fp32: AUROC {r0['auroc']} against {one['auroc']}, scores {d_score} "
+                    f"apart (tol {DP_SCORE_TOL})")
+        return (f"losses {l_err:.3g} apart, parameters {p_err:.3g}, scores {d_score:.3g}, "
+                f"AUROC {r0['auroc']:.6f} vs {one['auroc']:.6f}")
+    p32 = _tp_params(one32["logdir"])
+    e_tp, e_one = _param_err(p_tp, p32, p_init), _param_err(p_one, p32, p_init)
+    s32 = np.asarray(one32["scores"])
+    s_tp = float(np.abs(np.asarray(r0["scores"]) - s32).max())
+    s_one = float(np.abs(np.asarray(one["scores"]) - s32).max())
+    check(e_tp <= TP_BF16_FACTOR * e_one,
+          f"tp bf16: trained parameters {e_tp:.3g} of their fp32 change from one process's "
+          f"fp32 run, one process's bf16 {e_one:.3g} (at most {TP_BF16_FACTOR}x)")
+    check(s_tp <= TP_BF16_FACTOR * s_one,
+          f"tp bf16: scores {s_tp:.3g} from one process's fp32 run, one process's bf16 "
+          f"{s_one:.3g} (at most {TP_BF16_FACTOR}x)")
+    return (f"losses {l_err:.3g} apart; from one process's fp32 run, trained parameters "
+            f"{e_tp:.3g} of their change (one process's bf16 {e_one:.3g}), scores {s_tp:.3g} "
+            f"({s_one:.3g}); ranks and process {_param_err(p_tp, p_one, p_init):.3g} and "
+            f"{d_score:.3g} apart, AUROC {r0['auroc']:.6f} vs {one['auroc']:.6f} (fp32 "
+            f"{one32['auroc']:.6f})")
+
+
+def phase_tp(card: str) -> dict:
+    """The model axis: ``ClipTrainer.run`` of ViT-B/32 (3 steps of 128 +
+    128 on the acceptance stack, one eval batch of 128) in this process,
+    then on a 1 x 2 mesh of two ranks sharing the one card over gloo
+    (``tp_child``), in fp32 and in bf16 (``_tp_runs``). Each rank: the fused forward and
+    backward on its 6 of the 12 image heads and 4 of the 8 causal text heads
+    (the prompt centre), as many launches as one process's, equal to its
+    trace. fp32: losses and the snapshot's parameters (world rank 0's,
+    gathered whole) within ``TP_FP32_TOL`` of the process's, scores and
+    AUROC 1e-4 or a tie. bf16: losses within ``TP_LOSS_TOL``; trained
+    parameters and scores no further from the process's fp32 run than
+    ``TP_BF16_FACTOR`` times the process's bf16 run. The untrained text
+    tower equal bit for bit. On two or more cards the ranks run again over
+    NCCL, a card each."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32
+    from eoe_tpu_torch.parallel.mesh import free_port
+
+    tmp = tempfile.mkdtemp(prefix="eoe_tp_")
+    try:
+        base = {k: v for k, v in os.environ.items() if not k.startswith("EOE_TPU_")}
+        base.update(PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+
+        def ranks(tags):
+            addr = f"localhost:{free_port()}"
+            return [dict(base, EOE_TPU_DISTRIBUTED="1", EOE_TPU_COORD_ADDR=addr,
+                         EOE_TPU_NUM_PROCESSES=str(TP_RANKS), EOE_TPU_PROCESS_ID=str(i))
+                    for i in range(len(tags))]
+
+        t0 = time.perf_counter()
+        one = _tp_runs(tmp, "one", None)
+        t_one = time.perf_counter() - t0
+        tags = [f"rank{i}" for i in range(TP_RANKS)]
+        t0 = time.perf_counter()
+        got = _tp_group(tmp, tags, ranks(tags))
+        t_ranks = time.perf_counter() - t0
+        p_init = CLIP(VIT_B32, generator=torch.Generator().manual_seed(SEED)).state_dict()
+        steps = TP_N // BATCH
+        for name in TP_DTYPES:
+            held = _tp_hold(name, one[name], [r[name] for r in got], p_init, one["fp32"])
+            TRACED.update({r[name]["path"]: r[name]["traced"] for r in got})
+            r0, o = got[0][name], one[name]
+            step_one = float(np.median(o["step_ms"][1:]))
+            step_ranks = [float(np.median(r[name]["step_ms"][1:])) for r in got]
+            print(f"tp {name} ClipTrainer.run ViT-B/32, {steps} steps of {BATCH}+{BATCH}: "
+                  f"{got[0]['mesh']}; each rank holds {r0['held']:,} parameters of the "
+                  f"model's copy; fused calls per rank {r0['calls']}; step {step_one:.1f} ms in "
+                  f"one process, {[round(x, 1) for x in step_ranks]} ms per rank ({TP_RANKS} "
+                  f"ranks on one card, gloo through the host; traced runs, medians of steps "
+                  f"2-{steps}); losses {r0['losses']} vs {o['losses']}; {held}; launches per "
+                  f"rank {r0['counts']}; run {r0['seconds']:.1f} s vs {o['seconds']:.1f} s "
+                  f"[{card}]")
+        print(f"tp: one process {t_one:.1f} s, {TP_RANKS} ranks {t_ranks:.1f} s [{card}]")
+        cards = torch.cuda.device_count()
+        if cards >= TP_RANKS:   # NCCL, a card a rank
+            tags = [f"nccl{i}" for i in range(TP_RANKS)]
+            nccl = _tp_group(tmp, tags, ranks(tags))
+            check("collectives on nccl" in nccl[0]["mesh"], f"tp: {nccl[0]['mesh']}")
+            for name in TP_DTYPES:
+                _tp_hold(name, one[name], [r[name] for r in nccl], p_init, one["fp32"])
+                step = [float(np.median(r[name]["step_ms"][1:])) for r in nccl]
+                print(f"tp {name} over NCCL, a card a rank: step {[round(x, 1) for x in step]} "
+                      f"ms per rank against {float(np.median(one[name]['step_ms'][1:])):.1f} "
+                      f"ms in one process on one card; {nccl[0]['mesh']} [{card}]")
+        else:
+            print(f"tp over NCCL: not run ({cards} card; it needs {TP_RANKS})")
+        return {r[name]["path"]: r[name]["counts"] for r in [one, *got] for name in TP_DTYPES}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _read_json(logdir: str, name: str) -> dict:
     with open(os.path.join(logdir, f"{name}.json")) as f:
         return json.load(f)
@@ -4337,6 +4650,7 @@ def main():
     paths["import"] = timed("import", phase_import, card)
     timed("pool", phase_pool, card)
     paths.update(timed("dp", phase_dp, card))
+    paths.update(timed("tp", phase_tp, card))
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}
@@ -4375,18 +4689,25 @@ def main():
     main_shape = (*SHAPES[0], "torch.bfloat16")            # the training shape
     flash_shape = (*FLASH_SHAPES[0], "torch.bfloat16")     # the image tower, as trained
     f32_shape, f32_flash = (*SHAPES[0], "torch.float32"), (*FLASH_SHAPES[0], "torch.float32")
+
+    def rank_heads(table):
+        """A kernel's rows at a rank's heads (phase tp), bf16 and fp32."""
+        return {table[(*shape, dt)]["shape"]: fp32(table[(*shape, dt)])
+                for shape in RANK_SHAPES for dt in ("torch.bfloat16", "torch.float32")}
+
     source = "eoe_tpu_torch/csrc/fused_qkv_attention.cu"
     kernels = [
         {"name": "fused_qkv_attention", "route": "cuda", "source": source,
          "replaces": "eoe_tpu/ops/attention.py:216", "launches": paths["training"]["fwd"],
          "launches_by_path": by_path("fwd"), "variants_by_path": variants_by_path("fwd"),
          "traced_by_path": traced_by_path("fused_qkv_fwd"),
-         **rows[main_shape], "fp32": fp32(rows[f32_shape])},
+         **rows[main_shape], "fp32": fp32(rows[f32_shape]), "rank_heads": rank_heads(rows)},
         {"name": "fused_qkv_attention_bwd", "route": "cuda", "source": source,
          "replaces": "eoe_tpu/ops/attention.py:294", "launches": paths["training"]["bwd"],
          "launches_by_path": by_path("bwd"), "variants_by_path": variants_by_path("bwd"),
          "traced_by_path": traced_by_path("fused_qkv_bwd"),
-         **bwd_rows[main_shape], "fp32": fp32(bwd_rows[f32_shape])},
+         **bwd_rows[main_shape], "fp32": fp32(bwd_rows[f32_shape]),
+         "rank_heads": rank_heads(bwd_rows)},
         {"name": "flash_attention", "route": "cuda",
          "source": "eoe_tpu_torch/csrc/flash_attention.cu",
          "replaces": "eoe_tpu/ops/attention.py:41",
@@ -4440,5 +4761,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-child"]:   # one process of phase dp
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         dp_child(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--tp-child"]:   # one process of phase tp
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        tp_child(*sys.argv[2:4])
     else:
         main()

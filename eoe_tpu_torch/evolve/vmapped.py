@@ -19,11 +19,12 @@ The fitness is the mean AUROC over ``args.iterations`` seeds of
 candidate gives. Candidates train ``chunk`` at a time, or as many as the
 card holds where that is fewer (``training.vmapped_seeds.members_per_program``,
 from one step of one and of two candidates; under a data mesh the least
-over the ranks). Under a data mesh of several ranks a chunk whose size the
-data size divides is split over the ranks, each training its
-``local_rows`` of the candidates with no collective, and the fitnesses are
-gathered (``trainer._last_vmap_sharded``); any other chunk runs whole on
-every rank. Every rank then holds every fitness and makes the same GA
+over the ranks). Under a data mesh of several ranks without a model axis
+a chunk whose size the data size divides is split over the ranks, each
+training its ``local_rows`` of the candidates with no collective, and the
+fitnesses are gathered (``trainer._last_vmap_sharded``); any other chunk,
+and every chunk under a model axis, runs whole on every rank, as in the
+JAX package. Every rank then holds every fitness and makes the same GA
 decisions. Needs the pinned, resident dataset that ``evolve_trainer``
 builds. Where ``trainer.resident_epoch`` holds (the card, or
 ``EOE_TPU_CPU_SCAN=1``; one process), a chunk trains every (epoch, step)
@@ -114,8 +115,7 @@ class VmappedEvaluator:
             for start in range(0, len(individuals), per):
                 chunk = individuals[start:start + per]
                 n_chunk = len(chunk)
-                shard = trainer._last_vmap_sharded = \
-                    mesh is not None and n_chunk % mesh.data == 0
+                shard = trainer._last_vmap_sharded = meshlib.splits(mesh, n_chunk)
                 lo, hi = meshlib.local_rows(mesh if shard else None, n_chunk)
                 chunk = chunk[lo:hi]
                 k = len(chunk)

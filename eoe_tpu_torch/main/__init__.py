@@ -244,7 +244,7 @@ def data_parallel(main: Callable) -> Callable:
     return run
 
 
-def _make_mesh(devices: Optional[int], device=None) -> Optional[meshlib.DataMesh]:
+def _make_mesh(devices: Optional[int], device=None) -> Optional[meshlib.Mesh]:
     """The data mesh of ``-d devices``, as the JAX package's ``_make_mesh``:
     its devices are the ranks of the process group (``EOE_TPU_DISTRIBUTED=1``
     or ``data_parallel``'s), every one by default; 1 or less, and one

@@ -21,6 +21,13 @@ and v into ``(n, heads, s, d)``, calls ``attention_fn(q, k, v, mask)`` (e.g.
 ``flash_attention``) and skips the fused route; the text tower passes its
 additive causal mask. A model takes one of the two hooks, not both.
 
+Under a model axis (``parallel.mesh.shard_module``) a block holds its
+rank's heads and MLP features (the JAX package's Megatron split): the
+kernels, or ``attention_fn``, run on the rank's heads (the JAX package
+takes ``default_attention`` there, since its split of ``qkv`` is not by
+heads), and ``attn_out`` and ``mlp_down`` sum their partial products over
+the model ranks in fp32 before their biases (``_dense_split_in``).
+
 The ResNet tower's batch norm is ``models.layers.BatchNorm`` (Flax's:
 momentum 0.9, the biased batch variance into the averages), in train mode
 with the module (``model.train()``), as the JAX tower with ``train=True``
@@ -38,6 +45,7 @@ from torch import nn
 
 from eoe_tpu_torch.models.layers import BatchNorm, Conv
 from eoe_tpu_torch.ops.attention import default_attention, fused_qkv_attention, fused_qkv_ok
+from eoe_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 
 QkvAttention = Callable[[torch.Tensor, int, bool], torch.Tensor]
 AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]],
@@ -84,6 +92,34 @@ def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+# Under a model axis (``tp``, the mesh) a product's partial sums cross the
+# ranks: they are taken in fp32, from the operands rounded to the compute
+# dtype (an fp32 product of bf16 values is exact), and the sum is rounded
+# once, where ``_dense`` rounds its product once. So a rank's partial
+# product of a layer split along its inputs (its forward) and of a layer
+# split along its outputs (its input gradient) is never rounded before the
+# model ranks' sum; the products run as fp32 GEMMs in bf16 training.
+
+
+def _dense_split_out(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, tp) -> torch.Tensor:
+    """``_dense``, or under a model axis a layer split along its outputs:
+    the whole input, whose gradient is summed over the model ranks."""
+    if tp is None:
+        return _dense(x, layer, dtype)
+    x = copy_to_model(x.to(dtype).float(), tp)
+    return F.linear(x, layer.weight.to(dtype).float(), layer.bias.to(dtype).float()).to(dtype)
+
+
+def _dense_split_in(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, tp) -> torch.Tensor:
+    """``_dense``, or under a model axis a layer split along its inputs:
+    this rank's partial product, summed over the model ranks, plus the
+    whole bias once."""
+    if tp is None:
+        return _dense(x, layer, dtype)
+    part = F.linear(x.to(dtype).float(), layer.weight.to(dtype).float())
+    return (reduce_from_model(part, tp) + layer.bias.to(dtype).float()).to(dtype)
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator):
     # flax's lecun_normal: a normal truncated at two standard deviations,
     # rescaled to variance 1/fan_in
@@ -106,7 +142,12 @@ class LayerNormF32(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Joint ``qkv`` in-projection, separate ``attn_out`` out-projection."""
+    """Joint ``qkv`` in-projection, separate ``attn_out`` out-projection.
+    Under a model axis (``tp``, set by ``parallel.mesh.shard_module``) the
+    module holds ``heads / model`` heads: its ``qkv`` rows are this rank's
+    q, k and v slices, its ``attn_out`` columns their outputs."""
+
+    tp = None
 
     def __init__(self, width: int, heads: int, dtype: torch.dtype,
                  qkv_attention: Optional[QkvAttention] = None,
@@ -125,18 +166,27 @@ class MultiHeadAttention(nn.Module):
                 causal: bool = False) -> torch.Tensor:
         n, s, d = x.shape
         hd = d // self.heads
-        qkv = _dense(x, self.qkv, self.dtype)
+        heads = self.heads // (1 if self.tp is None else self.tp.model)   # this rank's
+        qkv = _dense_split_out(x, self.qkv, self.dtype, self.tp)
         if self.attention_fn is None and (mask is None or causal):
             if self.qkv_attention is not None:
-                return _dense(self.qkv_attention(qkv, self.heads, causal), self.attn_out, self.dtype)
-            if fused_qkv_ok(n, s, self.heads, hd, qkv):
-                return _dense(fused_qkv_attention(qkv, self.heads, causal), self.attn_out, self.dtype)
-        q, k, v = (t.reshape(n, s, self.heads, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+                return self._out(self.qkv_attention(qkv, heads, causal))
+            if fused_qkv_ok(n, s, heads, hd, qkv):
+                return self._out(fused_qkv_attention(qkv, heads, causal))
+        q, k, v = (t.reshape(n, s, heads, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
         attn = (self.attention_fn or default_attention)(q, k, v, mask)
-        return _dense(attn.transpose(1, 2).reshape(n, s, d), self.attn_out, self.dtype)
+        return self._out(attn.transpose(1, 2).reshape(n, s, heads * hd))
+
+    def _out(self, attn: torch.Tensor) -> torch.Tensor:
+        return _dense_split_in(attn, self.attn_out, self.dtype, self.tp)
 
 
 class ResidualAttentionBlock(nn.Module):
+    """Pre-LN attention and QuickGELU MLP; under a model axis (``tp``) the
+    MLP's hidden features are split over the model ranks."""
+
+    tp = None
+
     def __init__(self, width: int, heads: int, dtype: torch.dtype,
                  qkv_attention: Optional[QkvAttention] = None,
                  attention_fn: Optional[AttentionFn] = None):
@@ -151,8 +201,8 @@ class ResidualAttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 causal: bool = False) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), mask, causal)
-        h = _dense(self.ln_2(x), self.mlp_up, self.dtype)
-        return x + _dense(quick_gelu(h), self.mlp_down, self.dtype)
+        h = _dense_split_out(self.ln_2(x), self.mlp_up, self.dtype, self.tp)
+        return x + _dense_split_in(quick_gelu(h), self.mlp_down, self.dtype, self.tp)
 
 
 class TransformerStack(nn.Module):

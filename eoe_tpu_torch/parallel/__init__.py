@@ -1,7 +1,7 @@
-"""The data axis of the device mesh: the port of eoe_tpu/parallel/."""
+"""The (data, model) device mesh: the port of eoe_tpu/parallel/."""
 
 from eoe_tpu_torch.parallel.mesh import (  # noqa: F401
-    DataMesh,
+    Mesh,
     MeshConfig,
     all_reduce_sum,
     gather_rows,

@@ -19,6 +19,12 @@ architecture (a ViT, or a ModifiedResNet such as RN50) read from its shapes
 ``state_dict`` instead (``clip_state_dict=``, with ``clip_config=``). A
 ResNet tower's batch-norm averages come with the weights, are copied in
 anew for every class-seed, move in the train step and serve eval.
+
+Under a model axis (``mesh.model`` above 1) both towers are split, as the
+JAX package's ``param_shardings`` splits the whole tree: the prompt centre
+runs the frozen text tower through the rank's heads. The JAX package sends
+CLIP to its plain attention there, since its split of ``qkv`` is not by
+heads; the port's is, so the fused kernels run on each rank's heads.
 """
 
 import os

@@ -41,8 +41,8 @@ trains only its head: the feature model's parameters get no gradient and no
 decay, while its batch statistics still update. ``load`` takes a full
 snapshot, a feature-model-only state dict of a ``CustomNet``, or a
 trunk-only snapshot (a strict subset of the model's top-level modules; the
-rest keeps its fresh init). Not ported, being JAX dispatch machinery or
-later work: the jit cache, the model axis of a mesh and the HLO dump.
+rest keeps its fresh init). Not ported, being JAX dispatch machinery: the
+jit cache and the HLO dump.
 
 The resident epoch (``training.graphs``), the counterpart of the JAX
 package's ``lax.scan`` epochs: where both train halves are resident and
@@ -56,18 +56,30 @@ and replayed, uncaptured on the CPU. One download per epoch either way.
 ``images_seen``, ``train_seconds`` and ``images_per_second`` count the
 epochs of ``train_cls``, as in the JAX package.
 
-``mesh`` (a ``parallel.mesh.DataMesh`` of several ranks, one process each)
+``mesh`` (a ``parallel.mesh.Mesh`` of several ranks, one process each)
 trains data-parallel with the numbers of one process on the global batch:
-every rank runs the same sampler plan and uploads only its ``local_rows`` of
-each half-batch; the augmentations draw for the global half-batch from the
-shared generator and apply the rank's rows of the draws; batch norm takes
+every rank runs the same sampler plan and uploads only its data index's
+``local_rows`` of each half-batch; the augmentations draw for the global
+half-batch from the shared generator and apply the rank's rows of the
+draws; batch norm takes
 the global batch's statistics; each rank's loss is scaled so that DDP's mean
 of the ranks' gradients is the gradient of the global masked mean. The
 per-step losses, scores, labels and weights and the test scores are gathered
 in global order, so every rank logs, retries and decides alike. The DSVDD
 centre and the preview are computed whole on every rank. The seed grid
 shards its seeds over the ranks where their count divides the data size
-(``_last_vmap_sharded``), and runs whole on every rank otherwise.
+and there is no model axis (``_last_vmap_sharded``), and runs whole on
+every rank otherwise.
+
+Under a model axis (``mesh.model`` above 1) every class-seed's weights are
+drawn whole on every rank and cut to the rank's shards (``place_params``:
+a copy of the model that holds them, made once; ``self.model`` stays whole
+for the stacked engines): the CLIP encoders' Megatron split of
+``parallel.mesh.param_shardings``, the rest replicated. The model ranks of a
+data index see the same rows and draws; DDP runs over the data group. A
+snapshot holds the full parameters and optimizer state (gathered over the
+model group on every rank), and a load cuts them again. Any mesh of several
+ranks trains on the per-step loop.
 
 Deviation: the sampler's seed comes from a numpy ``SeedSequence`` of
 (seed, class, seed index) instead of a JAX key, and augmentations draw from
@@ -75,6 +87,7 @@ one ``torch.Generator`` per class-seed; the JAX package's random streams are
 not reproduced.
 """
 
+import copy
 import time
 import warnings
 from dataclasses import dataclass
@@ -190,11 +203,12 @@ class Trainer:
                  oe_limit_classes: Union[int, float] = INF, msms: Sequence = (),
                  workers: int = 0, seed: int = 0, nominal_label: int = 0,
                  compute_dtype: torch.dtype = torch.float32, device=None,
-                 mesh: Optional[meshlib.DataMesh] = None):
+                 mesh: Optional[meshlib.Mesh] = None):
         assert ad_mode in AD_MODES, f"AD mode {ad_mode} unknown. Known modes are {AD_MODES}."
         self.mesh = mesh
         self.device = resolve_device(mesh.device if mesh is not None else device)
         self._ddp = None   # (trainable parameters' ids, DDP wrapper), built once
+        self._tp = None    # under a model axis: (param_shardings, the sharded copy or None)
         self._last_vmap_sharded = False   # the last vmapped program's seeds were split
         self.model = model if model is None else with_compute_dtype(model, compute_dtype)
         self.objective: Objective = OBJECTIVES[objective] if isinstance(objective, str) \
@@ -293,17 +307,53 @@ class Trainer:
 
     def init_state(self, seed: int, ds, steps_per_epoch: int) -> TrainState:
         self.init_weights(seed)
-        model = self.model.to(self.device)
+        model = self.place_params(self.model).to(self.device)
         params = self._mark_trainable(model)
         return TrainState(model, self.make_optimizer(params, steps_per_epoch),
                           self._data_parallel(model, params))
 
-    def _dp_mesh(self) -> Optional[meshlib.DataMesh]:
-        """The mesh when it has several ranks, else None."""
+    def place_params(self, model: torch.nn.Module) -> torch.nn.Module:
+        """``model`` as this rank holds it: under a model axis where a rule of
+        ``param_shardings`` applies, a copy (made once) loaded with this
+        rank's shards of ``model``'s weights; ``model`` itself otherwise."""
+        if self.mesh is None or self.mesh.model == 1:
+            return model
+        if self._tp is None:
+            shardings = meshlib.param_shardings(self.mesh, model)
+            held = None
+            if any(shardings.values()):
+                held = copy.deepcopy(model)
+                meshlib.shard_module(held, self.mesh, shardings)
+            self._tp = (shardings, held)
+        shardings, held = self._tp
+        if held is None:
+            return model
+        held.load_state_dict(meshlib.shard_params(self.mesh, model.state_dict(), shardings))
+        return held
+
+    def _shardings(self, state: TrainState) -> Optional[dict]:
+        """``param_shardings`` of a state whose model holds shards, else None."""
+        return self._tp[0] if self._tp is not None and state.model is self._tp[1] else None
+
+    def _opt_tensors(self, model: torch.nn.Module, opt_state: dict, shardings: dict, fn) -> dict:
+        """``opt_state`` (``ScheduledOptimizer.state_dict``) with each split
+        parameter's per-parameter tensors (momentum, moments) through
+        ``fn(tensor, split, mesh)`` (``parallel.mesh.shard_tensor`` or
+        ``gather_tensor``); the state's indices follow the trainable
+        parameters in their order."""
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        inner = opt_state["optimizer"]
+        state = {i: {k: fn(v, shardings[names[i]], self.mesh) if torch.is_tensor(v) and v.dim()
+                     and shardings[names[i]] else v for k, v in st.items()}
+                 for i, st in inner["state"].items()}
+        return {**opt_state, "optimizer": {**inner, "state": state}}
+
+    def _dp_mesh(self) -> Optional[meshlib.Mesh]:
+        """The mesh when its data axis has several ranks, else None."""
         return self.mesh if self.mesh is not None and self.mesh.data > 1 else None
 
     def _data_parallel(self, model: torch.nn.Module, params: list):
-        """The model's DDP wrapper over the mesh's group, built once for a
+        """The model's DDP wrapper over the mesh's data group, built once for a
         set of trainable parameters (their values are drawn alike on every
         rank, so DDP broadcasts nothing; the batch-norm averages move alike,
         so it syncs no buffer). None without a mesh of several ranks, and
@@ -636,18 +686,19 @@ class Trainer:
         (run_seeds, n_test) or None without ``test``, each seed's host state
         for its snapshot or None with the logger off), or None: the caller
         then trains the seeds sequentially. Under a data mesh of several
-        ranks whose size divides ``run_seeds``, each rank trains its
-        ``local_rows`` of the seeds, with no collective in a step, and the
-        results are gathered (``_last_vmap_sharded``); otherwise every rank
-        runs every seed. The ranks take the least of their program sizes,
-        and a card running out of memory raises there."""
+        ranks whose size divides ``run_seeds``, without a model axis, each
+        rank trains its ``local_rows`` of the seeds, with no collective in a
+        step, and the results are gathered (``_last_vmap_sharded``);
+        otherwise every rank runs every seed on the whole model. The ranks
+        take the least of their program sizes, and a card running out of
+        memory raises there."""
         from eoe_tpu_torch.training import vmapped_seeds as V
 
         oe_set = ds.oe.train_set if isinstance(ds, CombinedDataset) else None
         if not (_is_resident(ds.train_set) and (oe_set is None or _is_resident(oe_set))):
             return None
         mesh = self._dp_mesh()
-        self._last_vmap_sharded = shard = mesh is not None and run_seeds % mesh.data == 0
+        self._last_vmap_sharded = shard = meshlib.splits(mesh, run_seeds)
         lo, hi = meshlib.local_rows(mesh if shard else None, run_seeds)
         seeds = [_seed(self.seed, c, it, 0) for it in range(lo, hi)]
         per = meshlib.all_reduce_min(mesh, V.seeds_per_program(self, ds, cstr, seeds))
@@ -735,8 +786,10 @@ class Trainer:
     def resident_epoch(self, ds) -> bool:
         """Whether ``train_cls`` trains ``ds`` through the resident epoch:
         both train halves resident and ``graphs.scan_ok``, as in the JAX
-        package, and one process (the stacked engines ask the same)."""
-        if self._per_step or self._dp_mesh() is not None or not graphs.scan_ok(self.device):
+        package, and one process: no mesh of several ranks on either axis
+        (the stacked engines ask the same)."""
+        multi = self.mesh is not None and self.mesh.size > 1
+        if self._per_step or multi or not graphs.scan_ok(self.device):
             return False
         oe_set = ds.oe.train_set if isinstance(ds, CombinedDataset) else None
         return _is_resident(ds.train_set) and (
@@ -985,8 +1038,15 @@ class Trainer:
 
     def snapshot(self, name: str, state: TrainState, epoch: int,
                  ds_statistics: Optional[dict]) -> str:
-        return self._write_snapshot(name, state.model.state_dict(),
-                                    state.optimizer.state_dict(), epoch, ds_statistics)
+        """Writes the full parameters and optimizer state: under a model axis
+        gathered over the model group first, on every rank (collective)."""
+        params, opt_state = state.model.state_dict(), state.optimizer.state_dict()
+        shardings = self._shardings(state)
+        if shardings is not None:
+            params = meshlib.gather_params(self.mesh, params, shardings)
+            opt_state = self._opt_tensors(state.model, opt_state, shardings,
+                                          meshlib.gather_tensor)
+        return self._write_snapshot(name, params, opt_state, epoch, ds_statistics)
 
     def _write_snapshot(self, name: str, params: dict, opt_state: dict, epoch: int,
                         ds_statistics: Optional[dict]) -> str:
@@ -1040,9 +1100,15 @@ class Trainer:
             missing = sorted({k.split(".")[0] for k, _ in model.named_parameters()} - stored)
             self.logger.print(f"Loaded trunk-only snapshot; fresh init kept for {missing}")
             return state, 0
-        model.load_state_dict(payload["params"])
-        if optimizer and payload.get("opt_state"):
-            state.optimizer.load_state_dict(payload["opt_state"])
+        params, opt_state = payload["params"], payload.get("opt_state")
+        shardings = self._shardings(state)
+        if shardings is not None:   # a full snapshot, cut to this rank's shards
+            params = meshlib.shard_params(self.mesh, params, shardings)
+            if opt_state:
+                opt_state = self._opt_tensors(model, opt_state, shardings, meshlib.shard_tensor)
+        model.load_state_dict(params)
+        if optimizer and opt_state:
+            state.optimizer.load_state_dict(opt_state)
         epoch = int(payload.get("epoch", 0))
         self.logger.print(f"Loaded snapshot at epoch {epoch}")
         return state, epoch

@@ -35,7 +35,9 @@ a program runs on one rank with no collective, and its per-member results
 are gathered over the ranks before they are logged. Where the seeds do not
 divide over the ranks, every rank runs every seed: the JAX package then
 shards each member's batch over the devices, which a collective inside
-``torch.func.vmap`` cannot do.
+``torch.func.vmap`` cannot do. Under a model axis neither package shards
+the seeds: every rank runs every seed on the whole model (``self.model``,
+never the trainer's sharded copy).
 """
 
 import os
@@ -219,7 +221,7 @@ def stacked_step(trainer, ds, stack: StackedState, xn, ln, xo, lo, w, generators
 
 def train_cls_vmapped_seeds(trainer, ds, cls: int, clsstr: str, n_seeds: int,
                             seeds: Sequence[int], first: int = 0,
-                            mesh: Optional[meshlib.DataMesh] = None
+                            mesh: Optional[meshlib.Mesh] = None
                             ) -> Tuple[StackedState, List[Optional[M.ROC]]]:
     """Train ``n_seeds`` members of class ``cls`` at once, member k from seed
     ``seeds[k]`` as ``Trainer.train_cls`` trains that seed: its init, its

@@ -119,6 +119,33 @@ def test_fused_qkv_attention_bwd_matches_ref(cuda, case, dtype):
     assert (dqkv.float() - ref.float()).abs().max().item() <= _bwd_tol(dtype, ref)
 
 
+# a model-axis rank's heads at the training batch: ViT-B/32's 12 over two
+# ranks, and the text tower's 8 (causal)
+RANK_CASES = [(256, 50, 6, 64, False), (64, 77, 4, 64, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RANK_CASES)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_fused_pair_on_a_rank_heads(cuda, case, dtype, atol):
+    """The forward and backward kernels on one rank's heads against their
+    plain versions."""
+    n, s, h, d, causal = case
+    g = torch.Generator(device=cuda).manual_seed(2)
+    qkv = torch.randn(n, s, 3 * h * d, generator=g, device=cuda).to(dtype)
+    dout = torch.randn(n, s, h * d, generator=g, device=cuda).to(dtype)
+    before = (A.fused_qkv_attention.launches, A.fused_qkv_attention.bwd_launches)
+    out = A.fused_qkv_attention(qkv, h, causal)
+    dqkv = A._bwd_kernel(qkv, dout, h, causal)
+    torch.cuda.synchronize()
+    assert (A.fused_qkv_attention.launches, A.fused_qkv_attention.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = A.fused_qkv_attention_ref(qkv, h, causal)
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+    dref = A.fused_qkv_attention_bwd_ref(qkv, dout, h, causal)
+    assert (dqkv.float() - dref.float()).abs().max().item() <= _bwd_tol(dtype, dref)
+
+
 @pytest.mark.cuda
 def test_attention_gradient_through_the_kernels(cuda):
     """One ViT-B/32 attention layer in fp32: its input and weight gradients
@@ -610,7 +637,7 @@ def test_all_reduce_batchnorm_matches_native(cuda, shape):
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{meshlib.free_port()}",
                                 world_size=1, rank=0)
     try:
-        mesh = meshlib.DataMesh(dist.group.WORLD, "gloo", 0, 1, cuda)
+        mesh = meshlib.Mesh(dist.group.WORLD, "gloo", 0, 1, cuda)
         for on_mesh in (False, True):
             bn = BatchNorm(shape[1], eps=1e-5).to(cuda).train()
             with torch.no_grad():

@@ -202,8 +202,8 @@ def _env(**extra) -> dict:
     return env
 
 
-def _launch(args, envs, timeout=240):
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *args], env=env,
+def _launch(args, envs, timeout=240, script=__file__):
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(script), *args], env=env,
                               cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for env in envs]
     outs = []
@@ -287,15 +287,17 @@ def test_spawn_count_reads_only_devices(monkeypatch):
 def test_local_rows_are_contiguous_blocks(n, data, want):
     """JAX's ``_local_row_range`` of a leading-axis sharding, uneven splits
     included."""
-    from eoe_tpu_torch.parallel.mesh import DataMesh, local_rows
-    assert [local_rows(DataMesh(None, "gloo", r, data, torch.device("cpu")), n)
+    from eoe_tpu_torch.parallel.mesh import Mesh, local_rows
+    assert [local_rows(Mesh(None, "gloo", r, data, torch.device("cpu")), n)
             for r in range(data)] == want
     assert local_rows(None, n) == (0, n)
 
 
-def test_model_axis_is_not_ported():
+def test_model_axis_needs_its_ranks():
+    """A 1 x 2 mesh needs two ranks; one process has one (the model axis
+    itself: tests/test_torch_tensor_parallel.py)."""
     from eoe_tpu_torch.parallel import MeshConfig, make_mesh
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs 2"):
         make_mesh(MeshConfig(data=1, model=2), "cpu")
 
 

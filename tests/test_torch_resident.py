@@ -11,7 +11,6 @@ choice, and the trainer's throughput and epoch helpers.
 """
 
 import argparse
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +27,7 @@ from eoe_tpu_torch.datasets import bases as B
 from eoe_tpu_torch.evolve.vmapped import VmappedEvaluator
 from eoe_tpu_torch.models import CNN32
 from eoe_tpu_torch.models.convert import to_flax_numpy
+from eoe_tpu_torch.parallel.mesh import Mesh
 from eoe_tpu_torch.training import TRAINER, graphs
 from eoe_tpu_torch.training import trainer as T
 from eoe_tpu_torch.training import vmapped_seeds as V
@@ -264,12 +264,14 @@ class _Streamed(B.ArraySource):
 
 @pytest.mark.parametrize("case,want", [("resident", True), ("streamed_normal", False),
                                        ("streamed_oe", False), ("mesh", False),
-                                       ("per_step", False), ("cpu_default", False)])
+                                       ("model_axis", False), ("per_step", False),
+                                       ("cpu_default", False)])
 def test_resident_path_choice(monkeypatch, case, want):
     """JAX's condition (both halves resident and ``scan_ok``, :787-789) in
-    one process; a data mesh of several ranks, a streamed half, the CPU
-    without ``EOE_TPU_CPU_SCAN=1`` and the eager control take the
-    per-step loop."""
+    one process; a data mesh of several ranks, a model axis of several
+    ranks (1 x 2: no data axis, and still collectives a capture cannot
+    take), a streamed half, the CPU without ``EOE_TPU_CPU_SCAN=1`` and the
+    eager control take the per-step loop."""
     _force(monkeypatch, case != "cpu_default")
     tr = _trainer(SPECS)
     ds = tr.ds
@@ -277,7 +279,9 @@ def test_resident_path_choice(monkeypatch, case, want):
         sub = ds.normal.train_set if case == "streamed_normal" else ds.oe.train_set
         sub.source = _Streamed(sub.source.images, sub.source.targets)
     elif case == "mesh":
-        tr.mesh = SimpleNamespace(data=2)
+        tr.mesh = Mesh(None, "gloo", 0, 2, torch.device("cpu"))
+    elif case == "model_axis":
+        tr.mesh = Mesh(None, "gloo", 0, 1, torch.device("cpu"), model=2)
     elif case == "per_step":
         tr._per_step = True
     assert tr.resident_epoch(ds) is want
