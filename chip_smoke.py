@@ -131,7 +131,7 @@ layers of later slices, see their docstrings), then
      with both times;
  20. dp: the data axis (``parallel.mesh``), one process and then two ranks
      sharing the card (EOE_TPU_DISTRIBUTED=1, gloo: NCCL refuses two ranks
-     on a device), all on the per-step loop (a data mesh takes no graph),
+     on a device), all on the per-step loop (``_Eager``),
      each process running (a)-(d) of ``dp_child``: (a)
      ``train_clip_cifar`` ViT-B/32 bf16 HSC, 4 steps of 128 + 128 (64 + 64
      a rank): each rank's losses within 2^-8 of the process's, scores and
@@ -152,7 +152,20 @@ layers of later slices, see their docstrings), then
      ``tp_rank0`` and ``tp_rank1``); losses within 2^-8 of the process's,
      the gathered snapshot's change of each trained tensor within 2^-4 of
      its max, scores and AUROC 1e-4 or a tie; step ms per rank. On two or
-     more cards the ranks run again over NCCL, a card each.
+     more cards the ranks run again over NCCL, a card each;
+ 22. dp_graph: the resident epoch under a mesh (``phase_dp_graph``). One
+     card: (a) a CNN32 fp32 step of the data-parallel code on a one-rank
+     NCCL group, captured with its collectives and replayed, bit for bit
+     the same steps uncaptured; (b) two gloo ranks sharing the card on a
+     grid of 3 CNN32 seeds (2 + 1 members, each rank's programs replayed
+     from graphs) against one process. Two or more cards: (c) two NCCL
+     ranks, ViT-B/32 bf16 and CNN32 fp32 at 128 + 128 a rank on the graph
+     path against the per-step loop and one process, the NCCL, fused and
+     augmentation kernels of each rank's trace equal to the counts, a
+     rank's step ms both ways; (d) the tiny CLIP on 2 x 1 and, on four
+     cards, 2 x 2 meshes. It prints which parts ran, with the card count.
+     ``python3 chip_smoke.py --phase dp_graph`` runs the card, the build and
+     this phase alone (also resident, dp or tp), without the result lines.
 Each path's launch counts (every kernel's) are set to 0 just before it and
 read just after. The augmentation counts are held on the training paths of
 phases 5-9 and reported on the others. The counters count where a wrapper
@@ -197,7 +210,11 @@ PATH_DTYPES = {"serving": "fp32", "training": "bf16", "training_fp32": "fp32",
                "dp_vmap": "fp32", "dp_evolve": "fp32", "resident_cnn32": "fp32",
                "resident_clip": "bf16", "resident_vmapped": "fp32", "resident_evolve": "fp32",
                "resident_io": "fp32", "tp_one": "bf16", "tp_rank0": "bf16", "tp_rank1": "bf16",
-               "tp_one_fp32": "fp32", "tp_rank0_fp32": "fp32", "tp_rank1_fp32": "fp32"}
+               "tp_one_fp32": "fp32", "tp_rank0_fp32": "fp32", "tp_rank1_fp32": "fp32",
+               "dp_graph_capture": "fp32", "dp_graph_grid_rank0": "fp32",
+               "dp_graph_grid_rank1": "fp32", "dp_graph_cnn_nccl-rank0": "fp32",
+               "dp_graph_cnn_nccl-rank1": "fp32", "dp_graph_vit_nccl-rank0": "bf16",
+               "dp_graph_vit_nccl-rank1": "bf16"}
 BATCH = 128
 SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
@@ -4593,6 +4610,539 @@ def phase_tp(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase dp_graph
+
+DPG_RANKS = 2
+DPG_FP32_TOL = 1e-5          # fp32 losses (relative) and parameters
+DPG_BF16_TOL = 2 ** -8       # bf16 losses (relative)
+DPG_SEEDS = 3                # a grid that two ranks do not divide: 2 + 1
+DPG_VIT_STEPS, DPG_CONV_STEPS = 4, 8      # an epoch's steps of 256 + 256 (128 + 128 a rank)
+DPG_EPOCHS = 2
+DPG_GRID_N, DPG_GRID_EPOCHS = 4 * BATCH, 2
+# tests/test_parallel.py's tiny CLIP: heads that a model axis of two divides
+DPG_TINY = dict(embed_dim=32, image_resolution=16, vision_layers=1, vision_width=64,
+                vision_patch_size=8, context_length=16, vocab_size=64, transformer_width=32,
+                transformer_heads=2, transformer_layers=1, vision_heads_override=2)
+DPG_TINY_SPECS = [{"op": "random_hflip"}, {"op": "clip_pil_preprocessing", "resolution": 16},
+                  {"op": "clip_tensor_preprocessing"}]
+DPG_TINY_B, DPG_TINY_N = 16, 64
+
+
+class _Collectives:
+    """Within: every ``torch.distributed.all_reduce`` on an NCCL group
+    counted: those of eager code (``eager``) and those a capture records,
+    by runner (``graphs``: [runner, calls of its eager first step, calls
+    its graph recorded]). A trace of the run should show ``expected()``
+    NCCL kernels: one a call, a graph's once a replay."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        from eoe_tpu_torch.training import graphs
+        self.eager, self.graphs = 0, []
+        self.saved = dist.all_reduce, graphs.ResidentSteps._eager, graphs.ResidentSteps._capture
+        all_reduce, eager, capture = self.saved
+        me = self
+
+        def counted(tensor, *args, group=None, **kwargs):
+            if dist.get_backend(group) == "nccl":
+                if torch.cuda.is_current_stream_capturing():
+                    me.graphs[-1][2] += 1
+                else:
+                    me.eager += 1
+            return all_reduce(tensor, *args, group=group, **kwargs)
+
+        def first(runner, n):
+            before = me.eager
+            eager(runner, n)
+            me.graphs.append([runner, (me.eager - before) // n, 0])
+
+        def recorded(runner, rates):
+            check(runner.captures == 0, "dp_graph: a runner captured twice (a milestone)")
+            capture(runner, rates)
+
+        dist.all_reduce, graphs.ResidentSteps._eager = counted, first
+        graphs.ResidentSteps._capture = recorded
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        from eoe_tpu_torch.training import graphs
+        dist.all_reduce, graphs.ResidentSteps._eager, graphs.ResidentSteps._capture = self.saved
+
+    def expected(self) -> int:
+        return self.eager + sum(r.replays * calls for r, _, calls in self.graphs)
+
+
+class _Uncaptured:
+    """Within: ``graphs.ResidentSteps`` runs its steps as they are, eagerly
+    on the current stream, over the same buffers and counter (the CPU's way
+    on the card): the eager control of a captured step."""
+
+    def __enter__(self):
+        from eoe_tpu_torch.training import graphs
+        self.saved = graphs.ResidentSteps.__init__
+
+        def init(runner, *args, **kwargs):
+            self.saved(runner, *args, **kwargs)
+            runner.captured = False
+
+        graphs.ResidentSteps.__init__ = init
+
+    def __exit__(self, *exc):
+        from eoe_tpu_torch.training import graphs
+        graphs.ResidentSteps.__init__ = self.saved
+
+
+def _dpg_train(tr, ds, per_step: bool, trace: str = None) -> dict:
+    """``train_cls`` of class 0, seed 0 through the resident epoch or the
+    per-step loop (``per_step``), then the test scores: its losses, the
+    last epoch's ms a step (global images a step over the epoch's img/s),
+    scores, AUROC, the full parameters (gathered over a model axis) and the
+    launch counts. With ``trace`` (a path) under ``torch.profiler``: the
+    port's kernels in the trace held against the counters, the NCCL kernels
+    against the collectives' calls (``_Collectives``)."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.parallel import mesh as meshlib
+    from eoe_tpu_torch.training import graphs
+    tr._per_step = per_step
+    tr.step_losses, tr.epoch_rates = [], []
+    runners, init = [], graphs.ResidentSteps.__init__
+
+    def kept(runner, *args, **kwargs):
+        init(runner, *args, **kwargs)
+        runners.append(runner)
+
+    graphs.ResidentSteps.__init__ = kept
+    try:
+        with _Collectives() as calls:
+            prof = _trace_start() if trace else None
+            _zero_counts()
+            state, _ = tr.train_cls(ds, 0, "airplane", 0, seed=SEED)
+            torch.cuda.synchronize()
+            counts = _counts()
+            if prof is not None:
+                _trace_stop(prof)
+    finally:
+        graphs.ResidentSteps.__init__ = init
+    record = {"losses": list(tr.step_losses), "counts": counts,
+              "step_ms": 1e3 * 2 * tr.batch_size / tr.epoch_rates[-1],
+              "captured": sum(r.captures for r in runners if r.captured),
+              "replays": sum(r.replays for r in runners if r.captured),
+              "collectives": {"eager": calls.eager,
+                              "graphs": [[step, rec] for _, step, rec in calls.graphs]}}
+    if prof is not None:
+        record["traced"] = hold_traced(prof, counts, f"dp_graph {trace}", trace)
+        nccl = [n for n in device_event_names(prof) if "nccl" in n.lower()]
+        record["nccl"] = {"traced": len(nccl), "counted": calls.expected(),
+                          "kernels": sorted({n[:90] for n in nccl})}
+    scores = tr.eval_scores(state, ds)
+    roc, _ = tr.eval_cls(state, ds, 0, "airplane", 1, scores=scores)
+    params, shardings = state.model.state_dict(), tr._shardings(state)
+    if shardings is not None:
+        params = meshlib.gather_params(tr.mesh, params, shardings)
+    record.update(scores=np.asarray(scores, np.float64).tolist(), auroc=roc.auc,
+                  params={k: v.detach().float().cpu().clone() for k, v in params.items()})
+    return record
+
+
+def _dpg_conv(mesh, batch: int, n: int, epochs: int):
+    """CNN32 fp32 HSC with SGD on CIFAR_SPECS, ``n`` + ``n`` raw 32x32
+    images, and its data."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.models import CNN32
+    from eoe_tpu_torch.training import TRAINER
+    from eoe_tpu_torch.training.optim import make_optimizer
+    ds, _ = _pinned(np.random.default_rng(SEED), 32, n, 2 * BATCH, CIFAR_SPECS, ["normalize"])
+    tr = TRAINER["hsc"](model=CNN32(), train_specs=CIFAR_SPECS, test_specs=["normalize"],
+                        dataset="cifar10", oe_dataset="cifar100", datapath="", logger=None,
+                        epochs=epochs, lr=1e-4, wdk=1e-3, milestones=[], batch_size=batch,
+                        compute_dtype=torch.float32, mesh=mesh)
+    tr.make_optimizer = lambda params, steps: make_optimizer("sgd", params, 1e-4, 1e-3, [],
+                                                             steps)
+    tr.ds = ds
+    return tr, ds
+
+
+def _dpg_vit(mesh):
+    """ViT-B/32 bf16 HSC (SGD, the CLIP default) on the acceptance stack at
+    256 + 256 a step (128 + 128 a rank of two), and its data."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.models.clip import CLIP, VIT_B32
+    from eoe_tpu_torch.training import TRAINER
+    n = DPG_VIT_STEPS * 2 * BATCH
+    ds, _ = _pinned(np.random.default_rng(SEED), TRAIN_HW, n, 2 * BATCH, ACCEPTANCE_SPECS,
+                    CLIP_TEST_SPECS)
+    tr = TRAINER["hsc"](model=CLIP(VIT_B32, dtype=torch.bfloat16), train_specs=ACCEPTANCE_SPECS,
+                        test_specs=CLIP_TEST_SPECS, dataset="cifar10", oe_dataset="cifar100",
+                        datapath="", logger=None, epochs=DPG_EPOCHS, lr=1e-4, wdk=1e-3,
+                        milestones=[], batch_size=2 * BATCH, compute_dtype=torch.bfloat16,
+                        mesh=mesh)
+    tr.ds = ds
+    return tr, ds
+
+
+def _dpg_tiny(mesh) -> dict:
+    """The tiny CLIP in fp32 (HSC, SGD, a random flip), 2 epochs of 4 steps
+    of 16 + 16, on the resident path: losses and the full parameters."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.models.clip import CLIP, ClipConfig
+    from eoe_tpu_torch.training import Trainer
+    ds, _ = _pinned(np.random.default_rng(SEED), 16, DPG_TINY_N, DPG_TINY_B, DPG_TINY_SPECS,
+                    DPG_TINY_SPECS[1:])
+    cfg = ClipConfig(**DPG_TINY)
+    weights = CLIP(cfg, generator=torch.Generator().manual_seed(SEED)).state_dict()
+    tr = Trainer(model=CLIP(cfg), objective="hsc", train_specs=DPG_TINY_SPECS,
+                 test_specs=DPG_TINY_SPECS[1:], dataset="cifar10", oe_dataset="cifar100",
+                 datapath="", logger=None, epochs=DPG_EPOCHS, lr=1e-3, wdk=0.0, milestones=[],
+                 batch_size=DPG_TINY_B, mesh=mesh)
+    tr.init_weights = lambda seed: tr.model.load_state_dict(weights)
+    out = _dpg_train(tr, ds, False)
+    return {k: out[k] for k in ("losses", "params", "captured", "replays")}
+
+
+def _dpg_grid(tmp: str, tag: str, mesh) -> dict:
+    """``Trainer.run`` of CNN32 fp32 with SGD, ``DPG_SEEDS`` seeds vmapped on
+    the pinned CIFAR stack: each seed's AUROC and test scores, the losses,
+    the members of each stacked program and how many graphs they
+    captured."""
+    import torch
+    from eoe_tpu_torch.training import graphs
+    from eoe_tpu_torch.training import vmapped_seeds as V
+    from eoe_tpu_torch.utils.logger import Logger
+    logdir = os.path.join(tmp, f"grid_{tag}")
+    tr, _ = _dpg_conv(mesh, BATCH, DPG_GRID_N, DPG_GRID_EPOCHS)
+    tr.logger = Logger(logdir, noname=True, tensorboard=False, archive_source=False)
+    stacks, members = [], V._train_members   # the programs' members (not the memory probe's)
+    runners, init = [], graphs.ResidentSteps.__init__
+
+    def kept(runner, *args, **kwargs):
+        init(runner, *args, **kwargs)
+        runners.append(runner)
+
+    def program(trainer, ds, clsstr, seeds, first):
+        stacks.append(len(seeds))
+        return members(trainer, ds, clsstr, seeds, first)
+
+    graphs.ResidentSteps.__init__, V._train_members = kept, program
+    try:
+        _zero_counts()
+        _, res = tr.run(run_classes=[0], run_seeds=DPG_SEEDS, vmap_seeds=True)
+        torch.cuda.synchronize()
+        counts = _counts()
+    finally:
+        graphs.ResidentSteps.__init__, V._train_members = init, members
+    tr.logger.drain()
+    return {"aucs": res["cls_aucs"][0], "losses": list(tr.step_losses), "stacks": stacks,
+            "captures": [r.captures for r in runners], "sharded": tr._last_vmap_sharded,
+            "vmapped": tr._last_grid_vmapped, "counts": counts,
+            "scores": [_scores(logdir, it) for it in range(DPG_SEEDS)]}
+
+
+def _dpg_capture() -> dict:
+    """One CNN32 fp32 step of 128 + 128 (SGD, CIFAR_SPECS) of the data-parallel
+    code on a one-rank NCCL group: a mesh of data 2 whose group holds this
+    rank alone, so that every collective of a rank of two (the weights'
+    total, batch norm's sums forward and backward, the gradient sum) runs on
+    an NCCL communicator of one rank, whose sum is its input. On one
+    trainer: three steps (an eager first step, then one captured and
+    replayed twice), traced; the per-step loop with DDP; the three steps
+    captured again (DDP's wrapper, which holds the parameters' gradient
+    accumulators, dropped first); the three steps uncaptured
+    (``_Uncaptured``)."""
+    import torch
+    import torch.distributed as dist
+    from eoe_tpu_torch.parallel import mesh as meshlib
+    meshlib._init_group(f"localhost:{meshlib.free_port()}", 1, 0)
+    try:
+        dev = torch.device("cuda", 0)
+        mesh = meshlib.Mesh(dist.new_group([0], backend="nccl"), "nccl", 0, 2, dev,
+                            note="one rank of a data mesh of two, on a one-rank NCCL group")
+        tr, ds = _dpg_conv(mesh, BATCH, 3 * BATCH, 1)
+        out = {"graph": _dpg_train(tr, ds, False, "dp_graph_capture"),
+               "ddp": _dpg_train(tr, ds, True), "graph_after_ddp": _dpg_train(tr, ds, False)}
+        with _Uncaptured():
+            out["eager"] = _dpg_train(tr, ds, False)
+        return out
+    finally:
+        meshlib.leave()
+
+
+def dpg_child(tmp: str, tag: str):
+    """One process of phase dp_graph, ``tag`` = "<case>-<label>": capture
+    (``_dpg_capture``), grid (``_dpg_grid``, a rank of two sharing the
+    card), nccl (a rank of two on its own card: ViT-B/32 and CNN32 on the
+    graph path, traced, and on the per-step loop; the tiny CLIP on a 2 x 1
+    mesh) or tiny22 (a rank of a 2 x 2 mesh of four cards). Printed as one
+    "DPG {json}" line; tensors under ``<tmp>/<tag>.pt``."""
+    import torch
+    from eoe_tpu_torch.parallel import mesh as meshlib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    case = tag.split("-")[0]
+    if case == "capture":
+        record = _dpg_capture()
+    else:
+        meshlib.init_distributed()
+        try:
+            if case == "grid":
+                record = _dpg_grid(tmp, tag, meshlib.make_mesh(meshlib.MeshConfig(data=DPG_RANKS)))
+            elif case == "tiny22":
+                record = {"tiny22": _dpg_tiny(meshlib.make_mesh(
+                    meshlib.MeshConfig(data=2, model=2)))}
+            else:
+                mesh = meshlib.make_mesh(meshlib.MeshConfig(data=DPG_RANKS))
+                record = {"mesh": mesh.note, "tiny21": _dpg_tiny(mesh)}
+                for name, build in (("cnn", _dpg_conv), ("vit", _dpg_vit)):
+                    tr, ds = build(mesh) if name == "vit" else build(
+                        mesh, 2 * BATCH, DPG_CONV_STEPS * 2 * BATCH, DPG_EPOCHS)
+                    record[name] = {
+                        "graph": _dpg_train(tr, ds, False, f"dp_graph_{name}_{tag}"),
+                        "eager": _dpg_train(tr, ds, True),
+                        "graph_untraced": _dpg_train(tr, ds, False)}
+                    del tr, ds
+                    torch.cuda.empty_cache()
+        finally:
+            meshlib.leave()
+    torch.save(record, os.path.join(tmp, f"{tag}.pt"))
+    print("DPG " + json.dumps({"case": tag}), flush=True)
+
+
+def _dpg_group(tmp: str, tags: list, envs: list) -> list:
+    """``dpg_child`` in one process per tag, together; their records."""
+    import torch
+    _children("dpg", tmp, tags, envs)
+    return [torch.load(os.path.join(tmp, f"{tag}.pt"), weights_only=False) for tag in tags]
+
+
+def _dpg_err(a: dict, b: dict) -> float:
+    return max(float((a[k] - v).abs().max()) for k, v in b.items())
+
+
+def _dpg_rel(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def phase_dp_graph(card: str) -> dict:
+    """The resident epoch under a mesh (``training.graphs``, NCCL steps as
+    CUDA graphs) and the seed grid split unevenly over the ranks. One card:
+    (a) one CNN32 fp32 step of the data-parallel code captured on a one-rank
+    NCCL group (``_dpg_capture``): its collectives recorded in the graph,
+    three steps bit for bit the uncaptured steps' with SGD and the steps
+    captured again on the trainer after a per-step run with DDP, the port's
+    kernels in the trace equal to the counters, and the NCCL kernels the
+    trace shows (a one-rank sum in place launches none); (b) two gloo ranks
+    sharing the card on a grid of 3 CNN32 seeds (``_dpg_grid``): 2 + 1
+    members, each rank's programs captured as graphs, every seed's AUROC
+    1e-4 or a tie and the losses 1e-5 of one process's. Two or more cards:
+    (c) two NCCL ranks, a card each, CNN32 fp32 (batch norm's global sums)
+    and ViT-B/32 bf16 at 128 + 128 a rank, each on the graph path, traced,
+    and on the per-step loop: graph against per-step losses 1e-5 and
+    parameters 1e-5 in fp32, losses 2^-8 in bf16; ranks against one process
+    at phase dp's holds; the NCCL, fused and augmentation kernels of each
+    rank's trace equal to the counts; a rank's step ms both ways; (d) the
+    tiny CLIP on a 2 x 1 mesh and, on four cards, a 2 x 2 mesh on the graph
+    path against one process (losses and parameters 1e-5). The parameters of
+    (c)'s CNN32 are held to one process's as phase resident holds CNN32's
+    state, each tensor over max(1, |max|). The holds of (c) and (d) are all
+    made before the phase fails on any of them."""
+    import shutil
+    import tempfile
+
+    import torch
+    from eoe_tpu_torch.parallel.mesh import free_port
+
+    tmp = tempfile.mkdtemp(prefix="eoe_dpg_")
+    try:
+        base = {k: v for k, v in os.environ.items() if not k.startswith("EOE_TPU_")}
+        base.update(PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+
+        def ranks(tags):
+            addr = f"localhost:{free_port()}"
+            return [dict(base, EOE_TPU_DISTRIBUTED="1", EOE_TPU_COORD_ADDR=addr,
+                         EOE_TPU_NUM_PROCESSES=str(len(tags)), EOE_TPU_PROCESS_ID=str(i))
+                    for i in range(len(tags))]
+
+        cards, ran, paths = torch.cuda.device_count(), [], {}
+        # (a)
+        cap = _dpg_group(tmp, ["capture"], [base])[0]
+        g, e, g2 = cap["graph"], cap["eager"], cap["graph_after_ddp"]
+        steps = [s for s, _ in g["collectives"]["graphs"]]
+        recorded = [r for _, r in g["collectives"]["graphs"]]
+        check(g["captured"] == 1 and g["replays"] == 2 and e["captured"] == 0,
+              f"dp_graph (a): {g['captured']} graphs replayed {g['replays']} times")
+        check(recorded == steps and recorded[0] > 0,
+              f"dp_graph (a): the graph recorded {recorded} NCCL collectives, an eager step "
+              f"{steps}")
+        for label, run in (("uncaptured", e), ("captured after the DDP run", g2)):
+            check(g["losses"] == run["losses"] and all(torch.equal(g["params"][k], v)
+                                                       for k, v in run["params"].items()),
+                  f"dp_graph (a): graph and {label} steps differ: losses {g['losses']} vs "
+                  f"{run['losses']}, parameters {_dpg_err(g['params'], run['params']):.3g} apart")
+        check(g2["captured"] == 1 and g2["replays"] == 2,
+              f"dp_graph (a): after the DDP run {g2['captured']} graphs, {g2['replays']} replays")
+        check(g2["counts"] == e["counts"] == cap["ddp"]["counts"]
+              and e["counts"]["augment"] == 2 * 3,
+              f"dp_graph (a): launches {g2['counts']} captured vs {e['counts']} uncaptured vs "
+              f"{cap['ddp']['counts']} with DDP (the first run's add the pipelines' first calls)")
+        paths["dp_graph_capture"] = g["counts"]
+        TRACED["dp_graph_capture"] = g["traced"]
+        print(f"dp_graph (a) CNN32 fp32 step of 128+128 on a one-rank NCCL group as rank 0 of "
+              f"a data mesh of two: {recorded[0]} NCCL collectives in the captured step (the "
+              f"weights' total, batch norm's sums forward and backward, the gradient sum), as "
+              f"in an eager step; 3 steps (1 eager, 1 graph replayed 2x) bit for bit the "
+              f"uncaptured steps and the steps captured again after a per-step run with DDP "
+              f"(losses {g['losses']}); NCCL kernels in the trace "
+              f"{g['nccl']['traced']} for {g['nccl']['counted']} calls (a one-rank sum in place "
+              f"launches none); port kernels traced {g['traced']['augment_apply']} [{card}]")
+        ran.append("a capture on a one-rank NCCL group")
+        # (b)
+        one = _dpg_grid(tmp, "one", None)
+        got = _dpg_group(tmp, [f"grid-rank{i}" for i in range(DPG_RANKS)],
+                         ranks([f"grid-rank{i}" for i in range(DPG_RANKS)]))
+        check(one["stacks"] == [DPG_SEEDS] and one["vmapped"] and not one["sharded"],
+              f"dp_graph (b) one process: {one['stacks']}")
+        for i, (r, share) in enumerate(zip(got, (2, 1))):
+            check(r["vmapped"] and r["sharded"] and r["stacks"] == [share],
+                  f"dp_graph (b) rank {i}: programs of {r['stacks']} members, not {share}")
+            check(r["captures"] and all(r["captures"]),
+                  f"dp_graph (b) rank {i}: its programs captured {r['captures']} graphs")
+            check(r["aucs"] == got[0]["aucs"] and r["losses"] == got[0]["losses"],
+                  f"dp_graph (b) rank {i}: logs other seeds' numbers than rank 0")
+            for k in range(DPG_SEEDS):
+                d_auc, d_score, held = _tie_or_close(r["aucs"][k], one["aucs"][k],
+                                                     r["scores"][k], one["scores"][k])
+                check(held, f"dp_graph (b) rank {i} seed {k}: AUROC {r['aucs'][k]} against "
+                            f"{one['aucs'][k]}, scores {d_score} apart")
+            l_err = _dpg_rel(r["losses"], one["losses"])
+            check(l_err <= DPG_FP32_TOL, f"dp_graph (b) rank {i}: losses {l_err:.3g} rel from "
+                                         f"one process's (tol {DPG_FP32_TOL})")
+        paths.update({f"dp_graph_grid_rank{i}": r["counts"] for i, r in enumerate(got)})
+        print(f"dp_graph (b) a grid of {DPG_SEEDS} CNN32 seeds (SGD, {DPG_GRID_N}+{DPG_GRID_N} "
+              f"images, {DPG_GRID_EPOCHS} epochs) on two gloo ranks sharing the card: members "
+              f"{[r['stacks'] for r in got]}, graphs a runner {[r['captures'] for r in got]}; "
+              f"AUROCs {got[0]['aucs']} vs {one['aucs']} in one process, losses {l_err:.3g} rel "
+              f"[{card}]")
+        ran.append("an uneven seed grid on two gloo ranks sharing the card")
+        failed = []
+        if cards >= DPG_RANKS:
+            paths.update(_dpg_nccl(card, tmp, ranks, failed))
+            ran.append("two NCCL ranks (ViT-B/32, CNN32, a 2 x 1 tiny CLIP)")
+            if cards >= 4:
+                tags = [f"tiny22-rank{i}" for i in range(4)]
+                got = _dpg_group(tmp, tags, ranks(tags))
+                one = _dpg_tiny(None)
+                for i, r in enumerate(got):
+                    r = r["tiny22"]
+                    l_err, p_err = _dpg_rel(r["losses"], one["losses"]), _dpg_err(r["params"],
+                                                                                   one["params"])
+                    if not (r["captured"] and l_err <= DPG_FP32_TOL and p_err <= DPG_FP32_TOL):
+                        failed.append(f"dp_graph (d) 2 x 2 rank {i}: {r['captured']} graphs, "
+                                      f"losses {l_err:.3g}, parameters {p_err:.3g} from one "
+                                      f"process's")
+                print(f"dp_graph (d) tiny CLIP fp32 on a 2 x 2 mesh of four NCCL ranks, graph "
+                      f"path: losses {l_err:.3g} rel and parameters {p_err:.3g} from one "
+                      f"process's [{card}]")
+                ran.append("a 2 x 2 tiny CLIP on four NCCL ranks")
+        not_run = ([] if cards >= DPG_RANKS else
+                   ["(c) and the 2 x 1 mesh of (d): two NCCL ranks need two cards"]) + (
+            [] if cards >= 4 else ["the 2 x 2 mesh of (d): it needs four cards"])
+        print(f"dp_graph on {cards} card(s): ran {'; '.join(ran)}; not run: "
+              f"{'; '.join(not_run) or 'nothing'}")
+        check(not failed, "; ".join(failed))
+        return paths
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _dpg_nccl(card: str, tmp: str, ranks, failed: list) -> dict:
+    """(c) and the 2 x 1 part of (d) of ``phase_dp_graph``: two NCCL ranks
+    against one process. A hold that fails is added to ``failed`` (the
+    phase fails after its lines are printed: a run on several cards is
+    dear)."""
+    tags = [f"nccl-rank{i}" for i in range(DPG_RANKS)]
+    got = _dpg_group(tmp, tags, ranks(tags))
+    check("collectives on nccl" in got[0]["mesh"], f"dp_graph (c): {got[0]['mesh']}")
+    one = {}
+    for name, build in (("cnn", _dpg_conv), ("vit", _dpg_vit)):
+        tr, ds = build(None) if name == "vit" else build(None, 2 * BATCH,
+                                                         DPG_CONV_STEPS * 2 * BATCH, DPG_EPOCHS)
+        one[name] = _dpg_train(tr, ds, False)
+        del tr, ds
+    one["tiny"] = _dpg_tiny(None)
+
+    def hold(cond: bool, msg: str):
+        if not cond:
+            failed.append(msg)
+
+    paths = {}
+    for name, bf16 in (("cnn", False), ("vit", True)):
+        tol = DPG_BF16_TOL if bf16 else DPG_FP32_TOL
+        lines = []
+        for i, r in enumerate(got):
+            g, e, u, o = r[name]["graph"], r[name]["eager"], r[name]["graph_untraced"], one[name]
+            what = f"dp_graph (c) {name} rank {i}"
+            hold(g["captured"] >= 1 and g["replays"] > 0 and e["captured"] == 0,
+                 f"{what}: {g['captured']} graphs, {g['replays']} replays")
+            hold(g["nccl"]["traced"] == g["nccl"]["counted"] > 0,
+                 f"{what}: NCCL kernels in the trace {g['nccl']}")
+            for way, run in (("per-step", e), ("one process", o), ("untraced graph", u)):
+                l_err = _dpg_rel(g["losses"], run["losses"])
+                hold(l_err <= tol, f"{what}: graph losses {l_err:.3g} rel from the {way} run's "
+                                   f"(tol {tol:.3g})")
+            held = ""
+            if not bf16:
+                # per-step: the same ranks, every tensor to 1e-5; one process:
+                # each tensor over max(1, |max|) (``_state_err``, as phase
+                # resident holds CNN32's state): the batch-norm averages reach
+                # about 5, and two ranks' global sums add in another order
+                p_err, o_err = _dpg_err(g["params"], e["params"]), _state_err(g["params"],
+                                                                               o["params"])
+                worst = max(o["params"], key=lambda k: float((g["params"][k]
+                                                             - o["params"][k]).abs().max()))
+                hold(p_err <= DPG_FP32_TOL, f"{what}: parameters {p_err:.3g} from per-step's")
+                hold(o_err <= DPG_FP32_TOL, f"{what}: parameters {o_err:.3g} of max(1, |max|) "
+                                            f"from one process's")
+                held = (f"parameters {p_err:.3g} from per-step, {o_err:.3g} of max(1, |max|) "
+                        f"from one process (largest apart: {worst}, "
+                        f"{float((g['params'][worst] - o['params'][worst]).abs().max()):.3g} of "
+                        f"|max| {float(o['params'][worst].abs().max()):.3g}); ")
+            d_auc, d_score, tie = _tie_or_close(g["auroc"], o["auroc"], g["scores"], o["scores"])
+            hold(tie, f"{what}: AUROC {g['auroc']} against one process's {o['auroc']}, scores "
+                      f"{d_score} apart")
+            hold(u["counts"] == e["counts"], f"{what}: launches {u['counts']} graph vs "
+                                             f"{e['counts']} per-step")
+            path = f"dp_graph_{name}_nccl-rank{i}"
+            paths[path] = g["counts"]
+            TRACED[path] = g["traced"]
+            captured = g["collectives"]["graphs"][0][1] if g["collectives"]["graphs"] else None
+            lines.append(f"rank {i}: step {u['step_ms']:.2f} ms graph vs {e['step_ms']:.2f} "
+                         f"per-step; losses {_dpg_rel(g['losses'], e['losses']):.3g} rel from "
+                         f"per-step, {_dpg_rel(g['losses'], o['losses']):.3g} from one process; "
+                         f"{held}AUROC {g['auroc']:.6f} vs {o['auroc']:.6f}, scores "
+                         f"{d_score:.3g} apart; NCCL kernels traced {g['nccl']['traced']} for "
+                         f"{g['nccl']['counted']} calls ({g['nccl']['kernels']}); collectives in "
+                         f"a captured step {captured}; fused and augmentation kernels traced "
+                         f"{ {k: v['traced'] for k, v in g['traced'].items() if v['traced']} }")
+        print(f"dp_graph (c) {name} {'bf16 ViT-B/32' if bf16 else 'fp32 CNN32'} at 128+128 a "
+              f"rank, two NCCL ranks: one process (256+256) {one[name]['step_ms']:.2f} ms a "
+              f"step; " + "; ".join(lines) + f" [{card}]")
+    for i, r in enumerate(got):
+        t, o = r["tiny21"], one["tiny"]
+        l_err, p_err = _dpg_rel(t["losses"], o["losses"]), _dpg_err(t["params"], o["params"])
+        hold(t["captured"] and l_err <= DPG_FP32_TOL and p_err <= DPG_FP32_TOL,
+             f"dp_graph (d) 2 x 1 rank {i}: {t['captured']} graphs, losses {l_err:.3g}, "
+             f"parameters {p_err:.3g} from one process's")
+    print(f"dp_graph (d) tiny CLIP fp32 on a 2 x 1 mesh of two NCCL ranks, graph path: losses "
+          f"{l_err:.3g} rel and parameters {p_err:.3g} from one process's [{card}]")
+    return paths
+
+
 def _read_json(logdir: str, name: str) -> dict:
     with open(os.path.join(logdir, f"{name}.json")) as f:
         return json.load(f)
@@ -4622,6 +5172,14 @@ def main():
 
     card = timed("card", phase_card)
     timed("build", phase_build)
+    if "--phase" in sys.argv:   # one phase alone: its holds and lines, no result lines
+        alone = {"resident": phase_resident, "dp": phase_dp, "tp": phase_tp,
+                 "dp_graph": phase_dp_graph}
+        name = sys.argv[sys.argv.index("--phase") + 1]
+        check(name in alone, f"--phase takes one of {sorted(alone)}")
+        timed(name, alone[name], card)
+        print(f"phase {name} alone: total {time.perf_counter() - t_start:.1f} s")
+        return
     rows = timed("kernels", phase_kernels, card)
     bwd_rows = timed("kernels_bwd", phase_kernels_bwd, card)
     group_rows, group_bwd_rows = timed("kernels_group", phase_kernels_group, card)
@@ -4651,6 +5209,7 @@ def main():
     timed("pool", phase_pool, card)
     paths.update(timed("dp", phase_dp, card))
     paths.update(timed("tp", phase_tp, card))
+    paths.update(timed("dp_graph", phase_dp_graph, card))
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}
@@ -4764,5 +5323,8 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--tp-child"]:   # one process of phase tp
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         tp_child(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--dpg-child"]:   # one process of phase dp_graph
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        dpg_child(*sys.argv[2:4])
     else:
         main()

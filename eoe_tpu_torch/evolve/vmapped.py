@@ -20,16 +20,19 @@ candidate gives. Candidates train ``chunk`` at a time, or as many as the
 card holds where that is fewer (``training.vmapped_seeds.members_per_program``,
 from one step of one and of two candidates; under a data mesh the least
 over the ranks). Under a data mesh of several ranks without a model axis
-a chunk whose size the data size divides is split over the ranks, each
-training its ``local_rows`` of the candidates with no collective, and the
-fitnesses are gathered (``trainer._last_vmap_sharded``); any other chunk,
-and every chunk under a model axis, runs whole on every rank, as in the
-JAX package. Every rank then holds every fitness and makes the same GA
-decisions. Needs the pinned, resident dataset that ``evolve_trainer``
-builds. Where ``trainer.resident_epoch`` holds (the card, or
-``EOE_TPU_CPU_SCAN=1``; one process), a chunk trains every (epoch, step)
-pair through ``training.graphs.ResidentSteps`` over the plans of every
-epoch packed on the device, as the JAX package's ``train_full`` scans them.
+every chunk is split over the ranks (``trainer._last_vmap_sharded``), each
+training its ``local_rows`` of the candidates with no collective: an
+uneven share where the data size does not divide the chunk, none where the
+chunk is shorter than the ranks (the JAX package runs such a chunk whole on
+every device; a candidate's numbers are one process's either way). The
+fitnesses are gathered, so every rank holds every fitness and makes the
+same GA decisions. Under a model axis every chunk runs whole on every
+rank, as in the JAX package. Needs the pinned, resident dataset that
+``evolve_trainer`` builds. Where ``trainer.resident_epoch(ds,
+stacked=True)`` holds (the card under any mesh, or
+``EOE_TPU_CPU_SCAN=1``), a chunk trains every (epoch, step) pair through
+``training.graphs.ResidentSteps`` over the plans of every epoch packed on
+the device, as the JAX package's ``train_full`` scans them.
 """
 
 from typing import Dict, List, Sequence
@@ -112,32 +115,33 @@ class VmappedEvaluator:
             mesh = trainer._dp_mesh()
             per = meshlib.all_reduce_min(
                 mesh, members_per_program(trainer, ("candidates", oesize), self.chunk, probe))
+            shard = trainer._last_vmap_sharded = meshlib.splits(mesh)
             for start in range(0, len(individuals), per):
-                chunk = individuals[start:start + per]
-                n_chunk = len(chunk)
-                shard = trainer._last_vmap_sharded = meshlib.splits(mesh, n_chunk)
+                n_chunk = len(individuals[start:start + per])
                 lo, hi = meshlib.local_rows(mesh if shard else None, n_chunk)
-                chunk = chunk[lo:hi]
-                k = len(chunk)
-                stack = trainer.init_states_stacked([seed] * k, sampler.steps)
-                center = self._center(it, stack, clsstr)
-                center = trainer.center = None if center is None else \
-                    center.expand(k, *center.shape)
-                Xo = pool(chunk)
-                # one generator for every candidate: the draws of each
-                # candidate's sequential run are the same
-                generator = torch.Generator(device=device).manual_seed(_seed(seed, 2))
-                if trainer.resident_epoch(ds) and trainer.epochs > 0:
-                    self._train_resident(stack, epoch_plans, sampler.steps, Xn, Ln, Xo,
-                                         generator, center, rt_stats)
-                else:
-                    for plan in plans:
-                        for s in range(sampler.steps):
-                            self._step(stack, plan[:, s], Xn, Ln, Xo, generator, center,
-                                       rt_stats)
-                scores = torch.cat([stack.scores(x, center) for x in test_x], 1)
-                aucs = torch.func.vmap(auroc_torch, in_dims=(None, 0))(
-                    kept_labels, scores[:, keep])
+                chunk = individuals[start + lo:start + hi]
+                aucs = torch.zeros(0, device=device)   # a rank's empty share of a short chunk
+                if chunk:
+                    k = len(chunk)
+                    stack = trainer.init_states_stacked([seed] * k, sampler.steps)
+                    center = self._center(it, stack, clsstr)
+                    center = trainer.center = None if center is None else \
+                        center.expand(k, *center.shape)
+                    Xo = pool(chunk)
+                    # one generator for every candidate: the draws of each
+                    # candidate's sequential run are the same
+                    generator = torch.Generator(device=device).manual_seed(_seed(seed, 2))
+                    if trainer.resident_epoch(ds, stacked=True) and trainer.epochs > 0:
+                        self._train_resident(stack, epoch_plans, sampler.steps, Xn, Ln, Xo,
+                                             generator, center, rt_stats)
+                    else:
+                        for plan in plans:
+                            for s in range(sampler.steps):
+                                self._step(stack, plan[:, s], Xn, Ln, Xo, generator, center,
+                                           rt_stats)
+                    scores = torch.cat([stack.scores(x, center) for x in test_x], 1)
+                    aucs = torch.func.vmap(auroc_torch, in_dims=(None, 0))(
+                        kept_labels, scores[:, keep])
                 if shard:
                     aucs = meshlib.gather_rows(mesh, aucs, n_chunk)
                 fitness[start:start + n_chunk, it] = aucs.cpu().numpy()

@@ -416,11 +416,13 @@ def _draw_inputs(cache: dict, images: torch.Tensor, run: Callable) -> list:
     """(shape, dtype) of what each draw of a compiled function sees, from
     one image taken through it once per input shape: ``run(x, generator,
     record)`` applies the function, calling ``record`` on the input of
-    each stage that draws."""
+    each stage that draws. ``images`` may be a stand-in without memory
+    (``_rows``); the image taken through is a copy with its own, which the
+    card's crop kernel needs."""
     key = (tuple(images.shape[1:]), images.dtype, images.device)
     if key not in cache:
         out = []
-        run(images[:1], torch.Generator(device=images.device),
+        run(images[:1].contiguous(), torch.Generator(device=images.device),
             lambda x: out.append((tuple(x.shape[1:]), x.dtype)))
         cache[key] = out
     return cache[key]

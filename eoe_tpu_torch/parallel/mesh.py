@@ -22,9 +22,12 @@ and each axis is a set of ``torch.distributed`` process groups:
     index owns (``shard_batch``'s rows; every model rank of it owns the
     same rows), ``gather_rows`` puts the data axis's rows back in global
     order, ``all_reduce_sum`` is a sum over the data axis whose gradient is
-    the sum of the ranks' gradients (global batch-norm statistics), and
+    the sum of the ranks' gradients (global batch-norm statistics),
     ``active`` marks the block in which batch norm takes its statistics
-    over the global batch;
+    over the global batch, and ``all_reduce_grads`` sums a step's
+    gradients over the data axis in DDP's place (the resident epoch, whose
+    CUDA graphs capture the collectives on NCCL); ``splits`` says whether
+    seeds and GA candidates split over the data axis;
   * the model axis is the JAX package's Megatron split of the CLIP
     encoders (``_TP_RULES``, ``param_shardings``): ``qkv`` and ``mlp_up``
     split their outputs, ``attn_out`` and ``mlp_down`` their inputs.
@@ -253,12 +256,17 @@ def all_reduce_min(mesh: Optional[Mesh], value: int) -> int:
     return int(t.item())
 
 
-def splits(mesh: Optional[Mesh], n: int) -> bool:
-    """Whether ``n`` independent programs (seeds, GA candidates) split over
-    the data axis: ``data`` divides ``n`` and there is no model axis, where
-    the JAX package shards them (eoe_tpu/training/vmapped_seeds.py:117-118,
-    eoe_tpu/evolve/vmapped.py:163). Otherwise every rank runs them all."""
-    return mesh is not None and mesh.data > 1 and mesh.model == 1 and n % mesh.data == 0
+def splits(mesh: Optional[Mesh]) -> bool:
+    """Whether independent programs (seeds, GA candidates) split over the
+    data axis: a data axis of several ranks and no model axis. Each rank
+    then runs its ``local_rows`` of them, none on some ranks where they are
+    fewer than the ranks. The JAX package shards them where ``data``
+    divides their count and otherwise splits each one's batch over the data
+    axis (eoe_tpu/training/vmapped_seeds.py:117-118,
+    eoe_tpu/evolve/vmapped.py:163); a program here holds no collective, so
+    an uneven split gives one process's numbers. Under a model axis every
+    rank runs them all, as in the JAX package."""
+    return mesh is not None and mesh.data > 1 and mesh.model == 1
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -274,6 +282,21 @@ class _AllReduceSum(torch.autograd.Function):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
         return g, None
+
+
+def all_reduce_grads(params: Sequence[torch.nn.Parameter], mesh: Mesh):
+    """Sum the gradients of ``params`` over the data axis as DDP does: each
+    gradient times 1 / data, then summed over the data group, in one
+    all-reduce of a flat buffer per dtype. The step of the resident epoch
+    calls it in DDP's place after its backward; with no host
+    synchronisation in it, a CUDA graph captures it on NCCL."""
+    grads = [p.grad for p in params if p.grad is not None]
+    for dtype in dict.fromkeys(g.dtype for g in grads):
+        same = [g for g in grads if g.dtype == dtype]
+        flat = torch.cat([g.reshape(-1) for g in same]).mul_(1.0 / mesh.data)
+        dist.all_reduce(flat, group=mesh.group)
+        for g, part in zip(same, flat.split([g.numel() for g in same])):
+            g.copy_(part.view_as(g))
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -24,7 +24,11 @@ Under a model axis (``mesh.model`` above 1) both towers are split, as the
 JAX package's ``param_shardings`` splits the whole tree: the prompt centre
 runs the frozen text tower through the rank's heads. The JAX package sends
 CLIP to its plain attention there, since its split of ``qkv`` is not by
-heads; the port's is, so the fused kernels run on each rank's heads.
+heads; the port's is, so the fused kernels run on each rank's heads. Where
+each rank owns a card (NCCL), the resident epoch captures the step with the
+model axis's sums in it: the graph holds the rank's sharded copy of the
+model (``Trainer.place_params``, loaded in place for every class-seed),
+while ``self.model`` stays whole.
 """
 
 import os

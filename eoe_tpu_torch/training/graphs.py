@@ -39,12 +39,23 @@ such a step:
   allocated in it. A graph is bound to the addresses of its tensors: a new
   class-seed, a NaN retry or a load builds a new runner.
 
+Under a mesh of several ranks (``scan_ok``'s ``mesh``) the step holds the
+mesh's collectives: the data axis's gradient sum
+(``parallel.mesh.all_reduce_grads``, in DDP's place), batch norm's global
+sums and the model axis's two products' sums. Where each rank owns a card
+they run on NCCL, which a graph captures: the first eager step makes every
+communicator, and where a process group exists the capture is
+thread-local, so that the group's watchdog threads may query their events
+meanwhile. Every rank captures and replays its steps in one order. Ranks
+that share a card run gloo through the host, which no graph captures: their
+step stays on the per-step loop. A stacked program (seeds, GA candidates)
+holds no collective and takes the graphs under any mesh.
+
 Off the card (``EOE_TPU_CPU_SCAN=1``), the same step runs uncaptured over the
-same buffers and counter. The trainers keep their per-step loop for a
-streamed half, for a data mesh of several ranks (DDP's bucketed all-reduce
-over gloo cannot be captured; the JAX package scans under a mesh too), on
-the CPU without ``EOE_TPU_CPU_SCAN=1``, and where ``trainer._per_step`` is
-set (the eager control of the tests and ``chip_smoke.py``).
+same buffers and counter, on gloo ranks too. The trainers keep their
+per-step loop for a streamed half, for ranks that share a card, on the CPU
+without ``EOE_TPU_CPU_SCAN=1``, and where ``trainer._per_step`` is set (the
+eager control of the tests and ``chip_smoke.py``).
 """
 
 import os
@@ -54,6 +65,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 PLAN_BYTES = 64 << 20      # the most that one upload of every epoch's plans holds
 # steps a graph holds without EOE_TPU_CHUNK (0: the whole epoch, the JAX
@@ -64,10 +76,15 @@ PLAN_BYTES = 64 << 20      # the most that one upload of every epoch's plans hol
 DEFAULT_CHUNK = 1
 
 
-def scan_ok(device) -> bool:
-    """Whether the resident epoch is taken on ``device``: on the card, and on
-    the CPU where ``EOE_TPU_CPU_SCAN=1`` forces it (for the tests)."""
-    return torch.device(device).type == "cuda" or os.environ.get("EOE_TPU_CPU_SCAN") == "1"
+def scan_ok(device, mesh=None) -> bool:
+    """Whether the resident epoch is taken on ``device`` by a step that runs
+    the collectives of ``mesh`` (a ``parallel.mesh.Mesh``, or None for a
+    step without any): on the CPU where ``EOE_TPU_CPU_SCAN=1`` forces it
+    (for the tests), and on the card where the collectives can be captured,
+    on NCCL (one card a rank) or with one rank."""
+    if torch.device(device).type != "cuda":
+        return os.environ.get("EOE_TPU_CPU_SCAN") == "1"
+    return mesh is None or mesh.size == 1 or mesh.backend == "nccl"
 
 
 def chunk_steps(steps: int) -> int:
@@ -221,7 +238,8 @@ class ResidentSteps:
         t1 = time.perf_counter()
         try:
             with torch.cuda.stream(self._stream):
-                graph.capture_begin()
+                graph.capture_begin(capture_error_mode="thread_local" if dist.is_initialized()
+                                    else "global")
                 try:
                     for _ in range(self.chunk):
                         self.step()

@@ -46,13 +46,14 @@ jit cache and the HLO dump.
 
 The resident epoch (``training.graphs``), the counterpart of the JAX
 package's ``lax.scan`` epochs: where both train halves are resident and
-``graphs.scan_ok`` holds (the card, or ``EOE_TPU_CPU_SCAN=1``), in one
-process, every remaining epoch's plan moves to the device packed as int32
-once (one epoch at a time above 64 MiB) and each step reads its row at a
-device counter, gathers its halves there, runs ``train_step`` unchanged and
-writes (loss, scores, labels, weights) into a per-epoch buffer: on the card
-captured as CUDA graphs of ``EOE_TPU_CHUNK`` steps (``graphs.chunk_steps``)
-and replayed, uncaptured on the CPU. One download per epoch either way.
+``graphs.scan_ok`` holds (the card, where a mesh's ranks each own a card,
+or ``EOE_TPU_CPU_SCAN=1``), every remaining epoch's plan moves to the device
+packed as int32 once (one epoch at a time above 64 MiB) and each step reads
+its row at a device counter, gathers its halves there, runs ``train_step``
+unchanged and writes (loss, scores, labels, weights) into a per-epoch
+buffer: on the card captured as CUDA graphs of ``EOE_TPU_CHUNK`` steps
+(``graphs.chunk_steps``) and replayed, uncaptured on the CPU. One download
+per epoch either way, after the mesh's gathers.
 ``images_seen``, ``train_seconds`` and ``images_per_second`` count the
 epochs of ``train_cls``, as in the JAX package.
 
@@ -62,14 +63,16 @@ every rank runs the same sampler plan and uploads only its data index's
 ``local_rows`` of each half-batch; the augmentations draw for the global
 half-batch from the shared generator and apply the rank's rows of the
 draws; batch norm takes
-the global batch's statistics; each rank's loss is scaled so that DDP's mean
-of the ranks' gradients is the gradient of the global masked mean. The
-per-step losses, scores, labels and weights and the test scores are gathered
-in global order, so every rank logs, retries and decides alike. The DSVDD
-centre and the preview are computed whole on every rank. The seed grid
-shards its seeds over the ranks where their count divides the data size
-and there is no model axis (``_last_vmap_sharded``), and runs whole on
-every rank otherwise.
+the global batch's statistics; each rank's loss is scaled so that the mean
+of the ranks' gradients is the gradient of the global masked mean: DDP's on
+the per-step loop, the step's own flat all-reduce on the resident epoch
+(``parallel.mesh.all_reduce_grads``, captured with the step where the ranks
+run NCCL). The per-step losses, scores, labels and weights and the test
+scores are gathered in global order at the end of an epoch, so every rank
+logs, retries and decides alike. The DSVDD centre and the preview are
+computed whole on every rank. Without a model axis the seed grid splits its
+seeds over the ranks (``_last_vmap_sharded``), unevenly where the data size
+does not divide them.
 
 Under a model axis (``mesh.model`` above 1) every class-seed's weights are
 drawn whole on every rank and cut to the rank's shards (``place_params``:
@@ -78,8 +81,10 @@ for the stacked engines): the CLIP encoders' Megatron split of
 ``parallel.mesh.param_shardings``, the rest replicated. The model ranks of a
 data index see the same rows and draws; DDP runs over the data group. A
 snapshot holds the full parameters and optimizer state (gathered over the
-model group on every rank), and a load cuts them again. Any mesh of several
-ranks trains on the per-step loop.
+model group on every rank), and a load cuts them again. A mesh whose ranks
+each own a card (NCCL) trains through the resident epoch, its collectives
+captured in the graphs; ranks that share a card (gloo through the host,
+which a graph cannot capture) train on the per-step loop.
 
 Deviation: the sampler's seed comes from a numpy ``SeedSequence`` of
 (seed, class, seed index) instead of a JAX key, and augmentations draw from
@@ -88,6 +93,7 @@ not reproduced.
 """
 
 import copy
+import gc
 import time
 import warnings
 from dataclasses import dataclass
@@ -144,11 +150,15 @@ class Result:
 @dataclass
 class TrainState:
     """The model (holding the parameters, on the device) and its optimizer,
-    which counts the updates; under a data mesh ``ddp``, the model's
-    ``DistributedDataParallel`` wrapper that the train step runs."""
+    which counts the updates; under a data mesh either ``ddp``, the model's
+    ``DistributedDataParallel`` wrapper that the train step runs (the
+    per-step loop), or ``sum_grads``: the step sums the data axis's
+    gradients itself after its backward (``parallel.mesh.all_reduce_grads``;
+    the resident epoch, whose graphs capture it)."""
     model: torch.nn.Module
     optimizer: ScheduledOptimizer
     ddp: Optional[torch.nn.Module] = None
+    sum_grads: bool = False
 
 
 def _seed(*parts: int) -> int:
@@ -306,11 +316,24 @@ class Trainer:
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
 
     def init_state(self, seed: int, ds, steps_per_epoch: int) -> TrainState:
+        """Fresh weights and optimizer for a class-seed; under a data mesh
+        DDP for the per-step loop, the step's own gradient sum for the
+        resident epoch (``resident_epoch``)."""
         self.init_weights(seed)
         model = self.place_params(self.model).to(self.device)
         params = self._mark_trainable(model)
-        return TrainState(model, self.make_optimizer(params, steps_per_epoch),
-                          self._data_parallel(model, params))
+        optimizer = self.make_optimizer(params, steps_per_epoch)
+        if self._dp_mesh() is None or not params:
+            return TrainState(model, optimizer)
+        if self.resident_epoch(ds):
+            if self._ddp is not None:
+                # the DDP wrapper of an earlier per-step class-seed holds the
+                # parameters' gradient accumulators, made on the stream it
+                # ran on, which a capture on another stream cannot take
+                self._ddp = None
+                gc.collect()
+            return TrainState(model, optimizer, sum_grads=True)
+        return TrainState(model, optimizer, self._data_parallel(model, params))
 
     def place_params(self, model: torch.nn.Module) -> torch.nn.Module:
         """``model`` as this rank holds it: under a model axis where a rule of
@@ -473,7 +496,8 @@ class Trainer:
         a data mesh of several ranks the halves are this rank's
         ``local_rows`` of half-batches of ``batch_size`` rows, and the loss
         returned is this rank's share of the global masked mean (the ranks'
-        shares sum to it)."""
+        shares sum to it). No host synchronisation: a CUDA graph captures
+        it, collectives included (``graphs.scan_ok``)."""
         if xo is not None:
             labels, weights = torch.cat([ln, lo]), torch.cat([w, w])
         else:
@@ -505,6 +529,9 @@ class Trainer:
             state.optimizer.zero_grad()
             if loss.requires_grad:   # False where every parameter is frozen
                 scaled.backward()
+                if state.sum_grads:
+                    meshlib.all_reduce_grads([p for p in state.model.parameters()
+                                              if p.requires_grad], mesh)
         state.optimizer.step()
         with torch.no_grad():
             scores = self.objective.score(feats, center, **self._loss_kwargs(x)).reshape(-1)
@@ -686,50 +713,48 @@ class Trainer:
         (run_seeds, n_test) or None without ``test``, each seed's host state
         for its snapshot or None with the logger off), or None: the caller
         then trains the seeds sequentially. Under a data mesh of several
-        ranks whose size divides ``run_seeds``, without a model axis, each
-        rank trains its ``local_rows`` of the seeds, with no collective in a
-        step, and the results are gathered (``_last_vmap_sharded``);
-        otherwise every rank runs every seed on the whole model. The ranks
-        take the least of their program sizes, and a card running out of
-        memory raises there."""
+        ranks without a model axis (``_last_vmap_sharded``) a program holds
+        that many seeds a rank and each rank trains its ``local_rows`` of
+        them, an uneven share where the data size does not divide them, with
+        no collective in a step; every member's results are gathered in seed
+        order before anything is logged. Under a model axis every rank runs
+        every seed on the whole model. The ranks take the least of their
+        program sizes, and a card running out of memory raises there."""
         from eoe_tpu_torch.training import vmapped_seeds as V
 
         oe_set = ds.oe.train_set if isinstance(ds, CombinedDataset) else None
         if not (_is_resident(ds.train_set) and (oe_set is None or _is_resident(oe_set))):
             return None
-        mesh = self._dp_mesh()
-        self._last_vmap_sharded = shard = meshlib.splits(mesh, run_seeds)
-        lo, hi = meshlib.local_rows(mesh if shard else None, run_seeds)
-        seeds = [_seed(self.seed, c, it, 0) for it in range(lo, hi)]
-        per = meshlib.all_reduce_min(mesh, V.seeds_per_program(self, ds, cstr, seeds))
-        if per < min(2, len(seeds)):
+        dp = self._dp_mesh()
+        self._last_vmap_sharded = shard = meshlib.splits(dp)
+        mesh, ranks = (dp, dp.data) if shard else (None, 1)
+        seeds = [_seed(self.seed, c, it, 0) for it in range(run_seeds)]
+        most = -(-run_seeds // ranks)   # the largest share of a rank
+        per = meshlib.all_reduce_min(dp, V.seeds_per_program(self, ds, cstr, seeds[:most]))
+        if per < min(2, most):
             self.logger.print(f"two seeds of cls {c} do not fit on the card as one program; "
                               f"training them sequentially")
             return None
-        rocs, scores, members = {}, {}, {}   # by seed index
-        caught = (NanGradientsError,) if mesh is not None else \
+        rocs, scores, members = [], [], []   # in seed order
+        caught = (NanGradientsError,) if dp is not None else \
             (NanGradientsError, torch.cuda.OutOfMemoryError)
         try:
-            for first in range(0, len(seeds), per):
-                chunk = seeds[first:first + per]
+            for first in range(0, run_seeds, per * ranks):
+                n = min(per * ranks, run_seeds - first)
                 stack, chunk_rocs = V.train_cls_vmapped_seeds(
-                    self, ds, c, cstr, len(chunk), chunk, first=lo + first,
-                    mesh=mesh if shard else None)
-                # the chunk's seed indices on every rank, in rank order
-                its = [r * (hi - lo) + first + k for r in range(mesh.data if shard else 1)
-                       for k in range(len(chunk))]
-                rocs.update(zip(its, chunk_rocs))
+                    self, ds, c, cstr, n, seeds[first:first + n], first=first, mesh=mesh)
+                rocs.extend(chunk_rocs)
+                lo, hi = meshlib.local_rows(mesh, n)
                 if test:
-                    sc = V.eval_scores_vmapped(self, ds, stack, len(chunk))
-                    if shard:
-                        sc = meshlib.gather_rows(mesh, torch.from_numpy(sc).to(self.device),
-                                                 len(its)).cpu().numpy()
-                    scores.update(zip(its, sc))
+                    sc = V.eval_scores_vmapped(self, ds, stack, hi - lo)
+                    scores.extend(meshlib.gather_rows(
+                        mesh, torch.from_numpy(sc).to(self.device), n).cpu().numpy())
                 if shard:   # the snapshots' state of every rank's seeds
-                    got = meshlib.gather_objects(mesh, stack.host_members())
-                    members.update(zip(its, [m for part in got for m in part]))
+                    got = meshlib.gather_objects(mesh, [] if stack is None else
+                                                 stack.host_members())
+                    members.extend(m for part in got for m in part)
                 elif self.logger.active:   # the snapshots' state, one download
-                    members.update(zip(its, stack.host_members()))
+                    members.extend(stack.host_members())
                 del stack
         except caught as e:
             what = "Gradients got NaN" if isinstance(e, NanGradientsError) else \
@@ -739,10 +764,8 @@ class Trainer:
             return None
         sharded = " (seed axis sharded over the data mesh)" if shard else ""
         self.logger.print(f"trained {run_seeds} seeds of cls {c} vmapped{sharded}"
-                          + (f", {per} per program" if per < hi - lo else ""))
-        return ([rocs[i] for i in range(run_seeds)],
-                np.stack([scores[i] for i in range(run_seeds)]) if test else None,
-                [members[i] for i in range(run_seeds)] if members else None)
+                          + (f", {per} per program" if per < most else ""))
+        return rocs, np.stack(scores) if test else None, members or None
 
     def _build_dataset(self, c: int, rng: np.random.Generator, cur_load: Optional[str]):
         """The pinned dataset, or the normal (+ OE) dataset of class ``c`` by
@@ -783,13 +806,17 @@ class Trainer:
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
-    def resident_epoch(self, ds) -> bool:
+    def resident_epoch(self, ds, stacked: bool = False) -> bool:
         """Whether ``train_cls`` trains ``ds`` through the resident epoch:
         both train halves resident and ``graphs.scan_ok``, as in the JAX
-        package, and one process: no mesh of several ranks on either axis
-        (the stacked engines ask the same)."""
-        multi = self.mesh is not None and self.mesh.size > 1
-        if self._per_step or multi or not graphs.scan_ok(self.device):
+        package, which scans under any mesh. Its step runs the mesh's
+        collectives, so on the card the mesh's ranks must each own a card
+        (NCCL, which a graph captures); ranks that share one (gloo through
+        the host) keep the per-step loop. A ``stacked`` program (the seeds
+        or GA candidates) holds no collective and takes it under any mesh.
+        An evaluation-only dataset (no train split) trains nothing."""
+        mesh = None if stacked else self.mesh
+        if self._per_step or ds.train_set is None or not graphs.scan_ok(self.device, mesh):
             return False
         oe_set = ds.oe.train_set if isinstance(ds, CombinedDataset) else None
         return _is_resident(ds.train_set) and (
@@ -835,11 +862,10 @@ class Trainer:
                 if runner is not None:
                     plans.load(ep - start_epoch)
                     runner.run(sampler.steps)
-                    arr = ep_out.cpu().numpy()   # one download per epoch
-                    L = (arr.shape[1] - 1) // 3
-                    ep_losses, ep_scores = arr[:, 0], arr[:, 1:1 + L].reshape(-1)
-                    ep_labels = arr[:, 1 + L:1 + 2 * L].reshape(-1).astype(np.int64)
-                    ep_weights = arr[:, 1 + 2 * L:].reshape(-1)
+                    n_halves = 2 if Xo is not None else 1
+                    ep_losses, ep_scores, ep_labels, ep_weights = self._epoch_outputs(
+                        ep_out[:, 0], ep_out[:, 1:].reshape(sampler.steps, 3, n_halves, -1)
+                        .transpose(0, 1))
                 else:
                     ep_losses, ep_scores, ep_labels, ep_weights = self._train_epoch_steps(
                         state, ds, sampler, (Xn, Ln, Xo, Lo), generator, center, rt_stats)
@@ -882,34 +908,43 @@ class Trainer:
                 lo = self._to_device(Lo[idx_o[s, r0:r1]])
             outs.append(self.train_step(state, ds, xn, ln, xo, lo, w_s,
                                         generator, center, rt_stats))
-        # one download per epoch: a per-step sync would stall the card.
-        # Each step's (scores, labels, weights) as (half, row); a mesh sums
-        # the ranks' loss shares and gathers the rows in global order
-        ep_losses = torch.stack([o[0] for o in outs])
         n_halves = 2 if has_oe else 1
-        rest = torch.stack([torch.stack([o[i].float().reshape(n_halves, -1) for o in outs])
-                            for i in (1, 2, 3)])
+        return self._epoch_outputs(torch.stack([o[0] for o in outs]), torch.stack([
+            torch.stack([o[i].float().reshape(n_halves, -1) for o in outs]) for i in (1, 2, 3)]))
+
+    def _epoch_outputs(self, losses: torch.Tensor, rest: torch.Tensor):
+        """An epoch's outputs on the device, downloaded once (a per-step sync
+        would stall the card): every step's loss (steps,) and its (scores,
+        labels, weights) as (3, steps, half, row) of this rank's rows. A
+        mesh sums the ranks' loss shares and gathers the rows in global
+        order, as the JAX package downloads once an epoch. Returns (losses,
+        scores, labels, weights) in numpy."""
+        mesh = self._dp_mesh()
         if mesh is not None:
-            ep_losses = meshlib.all_reduce_sum(ep_losses, mesh)
+            losses = meshlib.all_reduce_sum(losses, mesh)
             rest = meshlib.gather_rows(mesh, rest, self.batch_size, dim=3)
         ep_scores, ep_labels, ep_weights = rest.reshape(3, -1).cpu().numpy()
-        return ep_losses.cpu().numpy(), ep_scores, ep_labels.astype(np.int64), ep_weights
+        return losses.cpu().numpy(), ep_scores, ep_labels.astype(np.int64), ep_weights
 
     def make_train_epoch_resident(self, state: TrainState, ds, halves, plans, steps: int,
                                   generator: torch.Generator, center, rt_stats):
         """The resident epoch's runner (``graphs.ResidentSteps``) and its
         per-epoch output buffer (steps, 1 + 3L): each step reads its plan
-        row of ``plans`` (``graphs.DevicePlans``) at a device counter,
-        gathers its halves from the resident ``halves`` (Xn, Ln, Xo, Lo),
-        runs ``train_step`` and writes [loss, scores, labels, weights] into
-        row ``counter % steps``."""
+        row of ``plans`` (``graphs.DevicePlans``) at a device counter, takes
+        this rank's ``local_rows`` of it (all of it in one process), gathers
+        its halves from the resident ``halves`` (Xn, Ln, Xo, Lo), runs
+        ``train_step`` (under a data mesh with the global batch's draws,
+        batch-norm sums and gradient sum) and writes [loss share, scores,
+        labels, weights] of its rows into row ``counter % steps``. Every
+        rank draws the same global plans."""
         Xn, Ln, Xo, Lo = halves
-        L = (2 if Xo is not None else 1) * self.batch_size
+        r0, r1 = meshlib.local_rows(self._dp_mesh(), self.batch_size)
+        L = (2 if Xo is not None else 1) * (r1 - r0)
         out = torch.zeros(steps, 1 + 3 * L, device=self.device)
         cursor = torch.zeros(1, dtype=torch.int64, device=self.device)
 
         def step():
-            i_n, i_o, w = plans.row(cursor)
+            i_n, i_o, w = plans.row(cursor)[:, r0:r1]
             xn, ln = Xn.index_select(0, i_n), Ln.index_select(0, i_n)
             xo = lo = None
             if Xo is not None:

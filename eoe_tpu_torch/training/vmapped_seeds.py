@@ -20,8 +20,8 @@ index plans of every member move to the device once per epoch, and the last
 epoch's scores, labels and weights, with every step's losses, come back once
 at the end.
 
-Where ``trainer.resident_epoch`` holds (the card, or ``EOE_TPU_CPU_SCAN=1``;
-one process), the epochs take the resident path of ``training.graphs``, as
+Where ``trainer.resident_epoch`` holds (the card, or ``EOE_TPU_CPU_SCAN=1``),
+the epochs take the resident path of ``training.graphs``, as
 the JAX package scans them: every epoch's plans of every member move to the
 device packed as int32 once, and each step reads its row at a device
 counter, writes the members' losses and the epoch's outputs into static
@@ -29,15 +29,21 @@ buffers, and is replayed from captured CUDA graphs with every member's
 generator registered.
 
 ``EOE_TPU_TIMING=1`` prints the host-side phases of a vmapped class (init,
-upload, steps, download), as in the JAX package. Under a data mesh the
-trainer gives each rank its share of the seeds (``Trainer._try_vmap_seeds``);
-a program runs on one rank with no collective, and its per-member results
-are gathered over the ranks before they are logged. Where the seeds do not
-divide over the ranks, every rank runs every seed: the JAX package then
-shards each member's batch over the devices, which a collective inside
-``torch.func.vmap`` cannot do. Under a model axis neither package shards
-the seeds: every rank runs every seed on the whole model (``self.model``,
-never the trainer's sharded copy).
+centres, upload, steps), as in the JAX package. Under a data mesh a program
+is split over the ranks (``train_cls_vmapped_seeds``' ``mesh``): each rank
+trains its ``local_rows`` of the members with no collective, an uneven
+share where the data size does not divide them (3 seeds on 2 ranks train 2
++ 1) and none on some ranks where they are fewer than the ranks, and the
+per-member results are gathered in seed order over the ranks before they
+are logged. A member's numbers are one process's: it draws from its own
+generators. The JAX package shards the seeds where the data size divides
+them and otherwise splits each member's batch over the devices, which a
+collective inside ``torch.func.vmap`` cannot do and no seed needs. Under a
+model axis neither package shards the seeds: every rank runs every seed on
+the whole model (``self.model``, never the trainer's sharded copy). A rank's
+stacked program holds no collective, so it takes the resident path under
+any mesh (``trainer.resident_epoch(ds, stacked=True)``), gloo ranks sharing
+a card included.
 """
 
 import os
@@ -222,7 +228,7 @@ def stacked_step(trainer, ds, stack: StackedState, xn, ln, xo, lo, w, generators
 def train_cls_vmapped_seeds(trainer, ds, cls: int, clsstr: str, n_seeds: int,
                             seeds: Sequence[int], first: int = 0,
                             mesh: Optional[meshlib.Mesh] = None
-                            ) -> Tuple[StackedState, List[Optional[M.ROC]]]:
+                            ) -> Tuple[Optional[StackedState], List[Optional[M.ROC]]]:
     """Train ``n_seeds`` members of class ``cls`` at once, member k from seed
     ``seeds[k]`` as ``Trainer.train_cls`` trains that seed: its init, its
     sampler, its augmentation draws and its DSVDD centre. Member k logs as
@@ -230,86 +236,35 @@ def train_cls_vmapped_seeds(trainer, ds, cls: int, clsstr: str, n_seeds: int,
     the first program writes the class's preview. Returns the stacked state
     and each member's train ROC of the last epoch (None without anomalous
     samples). Raises ``NanGradientsError`` when a member's scores turned
-    NaN. With ``mesh`` every rank trains ``n_seeds`` members of its own
-    (``first`` its own); their losses, scores and ROCs are gathered in rank
-    order, logged and returned on every rank, and the NaN verdict is
-    theirs together."""
-    from eoe_tpu_torch.training.trainer import NanGradientsError, TrainState, _seed
+    NaN. With ``mesh`` the program is split over the data ranks: this rank
+    trains its ``local_rows`` of the members (an uneven share, or none: its
+    state is then None), with no collective in a step; the members' losses,
+    scores, labels and weights are gathered in member order before anything
+    is logged, so that every rank logs and returns what one process does and
+    the NaN verdict is theirs together."""
+    from eoe_tpu_torch.training.trainer import NanGradientsError
 
     assert len(seeds) == n_seeds
-    timing = os.environ.get("EOE_TPU_TIMING") == "1"
-
-    def phase(tag, t0):
-        if timing:
-            if trainer.device.type == "cuda":
-                torch.cuda.synchronize(trainer.device)
-            print(f"    [vmap-seeds] {tag}: {time.time() - t0:.2f}s", flush=True)
-        return time.time()
-
-    t = time.time()
-    combined = isinstance(ds, CombinedDataset)
-    train_set = ds.train_set
-    normal_ds = ds.normal if combined else ds
-    oe_set = ds.oe.train_set if combined else None
-    has_oe = combined and len(oe_set) > 0
-    B, device = trainer.batch_size, trainer.device
-    samplers = [BalancedEpochSampler(len(train_set), len(oe_set) if has_oe else 0, B,
-                                     _seed(s, 1)) for s in seeds]
-    steps = samplers[0].steps
-    stack = trainer.init_states_stacked(seeds, steps)
-    t = phase(f"init_states_stacked x{n_seeds}", t)
     if first == 0:
         trainer.write_train_preview(ds, cls, clsstr)
-        t = phase("preview", t)
-
-    # every member's centre under its own initial weights (DSVDD; CLIP's
-    # prompt centre is the same for every member)
-    centers = []
-    for k in range(n_seeds):
-        stack.load_member(trainer.model, k)
-        centers.append(trainer.prepare_metric(clsstr, ds, TrainState(trainer.model, None),
-                                              first + k))
-    center = trainer.center = torch.stack(centers) if centers[0] is not None else None
-    rt_stats = trainer._rt_stats(ds)
-    t = phase("prepare_metric", t)
-
-    Xn = trainer._to_device(train_set.gather_all())
-    Ln = trainer._to_device(normal_ds.binary_targets(train_set))
-    Xo = trainer._to_device(oe_set.gather_all()) if has_oe else None
-    Lo = trainer._to_device(ds.oe.binary_targets(oe_set)) if has_oe else None
-    generators = [torch.Generator(device=device).manual_seed(_seed(s, 2)) for s in seeds]
-    t = phase("data upload", t)
-
-    t0 = time.time()
+    lo, hi = meshlib.local_rows(mesh, n_seeds)
+    stack, packed, steps, t0 = _train_members(trainer, ds, clsstr, seeds[lo:hi], first + lo)
     if trainer.epochs == 0:
-        return stack, [None] * (n_seeds * (mesh.data if mesh is not None else 1))
-    halves = (Xn, Ln, Xo, Lo)
-    run = _epochs_resident if trainer.resident_epoch(ds) else _epochs_per_step
-    # (K, every step's loss + the last epoch's scores, labels and weights)
-    packed = run(trainer, ds, stack, samplers, halves, generators, center, rt_stats)
-    t = phase(f"steps x{trainer.epochs * steps}", t)
-    its = list(range(first, first + n_seeds))
-    if mesh is not None:   # every rank's members, each row with its seed index
-        ids = torch.arange(first, first + n_seeds, device=packed.device).to(packed.dtype)
-        packed = meshlib.gather_rows(mesh, torch.cat([packed, ids[:, None]], 1),
-                                     n_seeds * mesh.data)
-        its = [int(i) for i in packed[:, -1].round().tolist()]
-        packed = packed[:, :-1]
-    packed = packed.cpu().numpy()
-    t = phase("results download", t)
+        return stack, [None] * n_seeds
+    packed = meshlib.gather_rows(mesh, packed, n_seeds).cpu().numpy()
     dt = time.time() - t0
     n_loss = trainer.epochs * steps
     n_last = (packed.shape[1] - n_loss) // 3
     ep_losses = packed[:, :n_loss]
     scores, labels, weights = (packed[:, n_loss + i * n_last:n_loss + (i + 1) * n_last]
                                for i in range(3))
-    for k in range(len(its)):
+    for k in range(n_seeds):
         trainer.step_losses.extend(map(float, ep_losses[k]))
     n_imgs = int(weights.sum()) * trainer.epochs
     trainer.epoch_rates.append(n_imgs / max(dt, 1e-9))
     ep = trainer.epochs - 1
-    rocs = [None] * len(its)
-    for k, it in enumerate(its):
+    rocs = [None] * n_seeds
+    for k, it in enumerate(range(first, first + n_seeds)):
         keep = weights[k] > 0
         sc, lb = scores[k][keep], labels[k][keep]
         if np.isnan(sc).any():
@@ -327,9 +282,70 @@ def train_cls_vmapped_seeds(trainer, ds, cls: int, clsstr: str, n_seeds: int,
                 f"cls {cls} seed {it} epoch {e + 1}/{trainer.epochs}: loss {loss:.5f}"
                 + (f", train AUC {rocs[k].auc * 100:.2f}%"
                    if rocs[k] is not None and e == ep else ""))
-    trainer.logger.print(f"cls {cls}: {len(its)} seeds x {trainer.epochs} epochs in {dt:.2f} s, "
+    trainer.logger.print(f"cls {cls}: {n_seeds} seeds x {trainer.epochs} epochs in {dt:.2f} s, "
                          f"{n_imgs / max(dt, 1e-9):.0f} img/s")
     return stack, rocs
+
+
+def _train_members(trainer, ds, clsstr: str, seeds: Sequence[int], first: int):
+    """Train a stack of one member per seed of ``seeds`` (member k the seed
+    of index ``first + k``), with no collective. Returns (the stacked state,
+    the device tensor (K, every step's loss, then the last epoch's scores,
+    labels and weights), steps an epoch, the time the steps began); with no
+    seeds (a rank's empty share) no state and (0, ...) rows."""
+    from eoe_tpu_torch.training.trainer import TrainState, _seed
+
+    timing = os.environ.get("EOE_TPU_TIMING") == "1"
+
+    def phase(tag, t0):
+        if timing:
+            if trainer.device.type == "cuda":
+                torch.cuda.synchronize(trainer.device)
+            print(f"    [vmap-seeds] {tag}: {time.time() - t0:.2f}s", flush=True)
+        return time.time()
+
+    t = time.time()
+    combined = isinstance(ds, CombinedDataset)
+    train_set = ds.train_set
+    normal_ds = ds.normal if combined else ds
+    oe_set = ds.oe.train_set if combined else None
+    has_oe = combined and len(oe_set) > 0
+    B, device, K = trainer.batch_size, trainer.device, len(seeds)
+    steps = BalancedEpochSampler(len(train_set), len(oe_set) if has_oe else 0, B, 0).steps
+    if K == 0:
+        width = trainer.epochs * steps + 3 * steps * (2 if has_oe else 1) * B
+        return None, torch.zeros(0, width, device=device), steps, time.time()
+    samplers = [BalancedEpochSampler(len(train_set), len(oe_set) if has_oe else 0, B,
+                                     _seed(s, 1)) for s in seeds]
+    stack = trainer.init_states_stacked(seeds, steps)
+    t = phase(f"init_states_stacked x{K}", t)
+
+    # every member's centre under its own initial weights (DSVDD; CLIP's
+    # prompt centre is the same for every member)
+    centers = []
+    for k in range(K):
+        stack.load_member(trainer.model, k)
+        centers.append(trainer.prepare_metric(clsstr, ds, TrainState(trainer.model, None),
+                                              first + k))
+    center = trainer.center = torch.stack(centers) if centers[0] is not None else None
+    rt_stats = trainer._rt_stats(ds)
+    t = phase("prepare_metric", t)
+
+    Xn = trainer._to_device(train_set.gather_all())
+    Ln = trainer._to_device(normal_ds.binary_targets(train_set))
+    Xo = trainer._to_device(oe_set.gather_all()) if has_oe else None
+    Lo = trainer._to_device(ds.oe.binary_targets(oe_set)) if has_oe else None
+    generators = [torch.Generator(device=device).manual_seed(_seed(s, 2)) for s in seeds]
+    t = phase("data upload", t)
+
+    if trainer.epochs == 0:
+        return stack, None, steps, t
+    halves = (Xn, Ln, Xo, Lo)
+    run = _epochs_resident if trainer.resident_epoch(ds, stacked=True) else _epochs_per_step
+    packed = run(trainer, ds, stack, samplers, halves, generators, center, rt_stats)
+    phase(f"steps x{trainer.epochs * steps}", t)
+    return stack, packed, steps, t
+
 
 
 def _epochs_per_step(trainer, ds, stack: StackedState, samplers, halves, generators, center,
@@ -405,10 +421,14 @@ def _epochs_resident(trainer, ds, stack: StackedState, samplers, halves, generat
     return torch.cat([losses.t()] + list(last.permute(1, 2, 0, 3).reshape(3, K, -1)), 1)
 
 
-def eval_scores_vmapped(trainer, ds, states: StackedState, n_seeds: int) -> np.ndarray:
+def eval_scores_vmapped(trainer, ds, states: Optional[StackedState], n_seeds: int
+                        ) -> np.ndarray:
     """Every member's anomaly scores of the test split, (n_seeds, n_test):
     shared batches as ``Trainer.eval_scores`` builds them, each through the
-    test pipeline once and every member's model, one download at the end."""
+    test pipeline once and every member's model, one download at the end;
+    (0, n_test) without a state (a rank's empty share of a program)."""
+    if states is None:
+        return np.zeros((0, len(ds.test_set)), np.float32)
     assert states.n == n_seeds
     rt_stats = trainer._rt_stats(ds)
     outs = [states.scores(trainer._preprocess(ds, x, lb, None, False, "normal", rt_stats)
@@ -480,7 +500,7 @@ def probe_steps(trainer, ds, step: Callable[[], object], generators, optimizer):
     """A memory probe's step as its program runs it: on the resident path
     an eager step, a captured one-step graph and its replay (the runner is
     returned, its graph alive); else one eager step (None)."""
-    if not trainer.resident_epoch(ds):
+    if not trainer.resident_epoch(ds, stacked=True):
         step()
         return None
     runner = graphs.ResidentSteps(step, trainer.device, 1, generators, [optimizer])

@@ -8,10 +8,11 @@ branch, started with EOE_TPU_DISTRIBUTED=1 and the group's address, runs
 every case and saves rank 0's results. The cases: three train steps of CNN32
 (batch norm) and of a tiny CLIP whose last step's zero-weight tail lies on
 rank 1; a batch norm alone; ``Trainer.run``; the seed grid of 4 seeds
-(sharded) and of 3 (every rank runs all three); the evolve evaluator's
-chunks. A second launch runs ``train_cifar.main(["-d", "2", ...])``, whose
-spawned rank writes nothing. The held steps update with SGD, as in
-tests/test_torch_conv_trainer.py. The worker imports no jax.
+(2 + 2), of 3 (2 + 1) and of 5 (3 + 2); the evolve evaluator's chunks,
+split over the ranks whatever their size. A second launch runs
+``train_cifar.main(["-d", "2", ...])``, whose spawned rank writes nothing.
+The held steps update with SGD, as in tests/test_torch_conv_trainer.py.
+The worker imports no jax.
 """
 
 import json
@@ -144,6 +145,9 @@ def _bn(mesh=None) -> dict:
 
 
 def _grid_trainer(mesh=None, epochs=2):
+    """CNN32 on the module's data, 2 epochs of SGD with a milestone between
+    them; ``stacks`` records the members of every stacked program it
+    makes."""
     from eoe_tpu_torch.datasets import bases as B
     from eoe_tpu_torch.models import CNN32
     from eoe_tpu_torch.training import TRAINER
@@ -154,6 +158,9 @@ def _grid_trainer(mesh=None, epochs=2):
     tr.make_optimizer = lambda params, steps: make_optimizer(
         "sgd", params, 1e-3, COMMON["wdk"], [1], steps)
     tr.ds = _combined(B, SPECS, SPECS)
+    tr.stacks, stacked = [], tr.init_states_stacked
+    tr.init_states_stacked = lambda seeds, steps: (tr.stacks.append(len(seeds)),
+                                                   stacked(seeds, steps))[1]
     return tr
 
 
@@ -161,7 +168,8 @@ def _run(mesh=None, seeds=1, vmap=False) -> dict:
     tr = _grid_trainer(mesh)
     _, res = tr.run(run_classes=[0], run_seeds=seeds, vmap_seeds=vmap)
     return {"aucs": res["cls_aucs"][0], "losses": list(tr.step_losses),
-            "sharded": tr._last_vmap_sharded, "vmapped": tr._last_grid_vmapped}
+            "sharded": tr._last_vmap_sharded, "vmapped": tr._last_grid_vmapped,
+            "stacks": tr.stacks}
 
 
 def _evolve(mesh=None) -> dict:
@@ -169,13 +177,14 @@ def _evolve(mesh=None) -> dict:
     from eoe_tpu_torch.evolve.vmapped import VmappedEvaluator
     tr = _grid_trainer(mesh, epochs=1)
     ev = VmappedEvaluator(tr, argparse.Namespace(classes=[0], iterations=2), chunk=2)
-    return {"fits": ev.evaluate_population(INDIVIDUALS), "sharded": tr._last_vmap_sharded}
+    return {"fits": ev.evaluate_population(INDIVIDUALS), "sharded": tr._last_vmap_sharded,
+            "stacks": tr.stacks}
 
 
 def _cases(mesh=None) -> dict:
     return {"cnn": _steps("cnn", mesh), "clip": _steps("clip", mesh), "bn": _bn(mesh),
             "run": _run(mesh), "vmap4": _run(mesh, 4, True), "vmap3": _run(mesh, 3, True),
-            "evolve": _evolve(mesh)}
+            "vmap5": _run(mesh, 5, True), "evolve": _evolve(mesh)}
 
 
 def _spawned(tmp: str) -> dict:
@@ -484,12 +493,11 @@ def test_trainer_run_matches_one_process(ranks, single):
     assert not got["vmapped"] and ranks[1]["run"]["losses"] == got["losses"]
 
 
-def test_trainer_run_matches_jax_data_mesh(ranks, tmp_path, monkeypatch):
-    """``Trainer.run`` on two ranks against the JAX package's ``Trainer.run``
-    on a data=2 mesh, from the port's initial weights and sampler plans (the
-    JAX trainer's init and sampler seed patched to them; the packages' own
-    random streams differ): each epoch's loss within 2e-3 relative, the
-    AUROC within 0.01."""
+def jax_data_mesh_run(tmp_path, monkeypatch):
+    """The JAX package's ``Trainer.run`` of ``_run``'s case on a data=2 mesh,
+    from the port's initial weights and sampler plans (the JAX trainer's
+    init and sampler seed patched to them; the packages' own random streams
+    differ): each epoch's loss and the AUROCs."""
     import jax
     import jax.numpy as jnp
     from eoe_tpu.datasets import bases as JB
@@ -523,12 +531,23 @@ def test_trainer_run_matches_jax_data_mesh(ranks, tmp_path, monkeypatch):
         opt_state=jt.make_optimizer(steps).init(init["params"]), step=jnp.zeros((), jnp.int32))
     jt.ds = _combined(JB, SPECS, SPECS)
     _, res = jt.run(run_classes=[0], run_seeds=1)
-    jax_losses = [v for _, v in logger._scalars["training_cls0_seed0_loss"]]
+    return [v for _, v in logger._scalars["training_cls0_seed0_loss"]], res["cls_aucs"][0]
+
+
+def epoch_losses(losses: list, epochs: int = 2) -> list:
+    """Every epoch's mean of a run's step losses."""
+    steps = len(losses) // epochs
+    return [float(np.mean(losses[e * steps:(e + 1) * steps])) for e in range(epochs)]
+
+
+def test_trainer_run_matches_jax_data_mesh(ranks, tmp_path, monkeypatch):
+    """``Trainer.run`` on two ranks against the JAX package's ``Trainer.run``
+    on a data=2 mesh (``jax_data_mesh_run``): each epoch's loss within 2e-3
+    relative, the AUROC within 0.01."""
+    jax_losses, jax_aucs = jax_data_mesh_run(tmp_path, monkeypatch)
     got = ranks[0]["run"]
-    steps = len(got["losses"]) // 2
-    ours = [float(np.mean(got["losses"][e * steps:(e + 1) * steps])) for e in range(2)]
-    np.testing.assert_allclose(ours, jax_losses, rtol=2e-3)
-    np.testing.assert_allclose(got["aucs"], res["cls_aucs"][0], atol=0.01)
+    np.testing.assert_allclose(epoch_losses(got["losses"]), jax_losses, rtol=2e-3)
+    np.testing.assert_allclose(got["aucs"], jax_aucs, atol=0.01)
 
 
 def test_seed_grid_shards_over_ranks(ranks, single):
@@ -542,20 +561,31 @@ def test_seed_grid_shards_over_ranks(ranks, single):
     assert ranks[1]["vmap4"]["aucs"] == got["aucs"]
 
 
-def test_indivisible_seed_grid_replicates(ranks, single):
-    """3 seeds on 2 ranks: every rank trains all three, as one process."""
-    got, want = ranks[0]["vmap3"], single["vmap3"]
-    assert got["vmapped"] and not got["sharded"] and len(got["aucs"]) == 3
-    np.testing.assert_allclose(got["aucs"], want["aucs"], atol=2e-3)
+@pytest.mark.parametrize("seeds, shares", [(3, [2, 1]), (5, [3, 2])])
+def test_indivisible_seed_grid_splits_unevenly(ranks, single, seeds, shares):
+    """3 seeds on 2 ranks train 2 + 1, 5 train 3 + 2, each rank's share as
+    one stacked program; every rank logs every seed's AUROC and losses, and
+    those are one process's."""
+    got, want = ranks[0][f"vmap{seeds}"], single[f"vmap{seeds}"]
+    assert want["stacks"] == [seeds] and not want["sharded"]
+    for rank, share in zip(ranks, shares):
+        r = rank[f"vmap{seeds}"]
+        assert r["vmapped"] and r["sharded"] and r["stacks"] == [share]
+        assert len(r["aucs"]) == seeds and r["aucs"] == got["aucs"]
+        assert r["losses"] == got["losses"]
+    np.testing.assert_allclose(got["aucs"], want["aucs"], atol=TOL)
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=TOL)
 
 
 def test_evolve_chunks_shard_over_ranks(ranks, single):
-    """Five candidates in chunks of two: the full chunks split over the
-    ranks, the last runs on both; the fitnesses are one process's, on
-    both ranks."""
+    """Five candidates in chunks of two, over two iterations: every chunk
+    splits over the ranks, the last one (of one candidate) too, so no rank
+    trains a whole chunk; the fitnesses are one process's, on both
+    ranks."""
     got, want = ranks[0]["evolve"], single["evolve"]
-    assert not got["sharded"]   # the last chunk, of one candidate
+    assert got["sharded"] and not want["sharded"]
+    assert want["stacks"] == [2, 2, 1] * 2
+    assert got["stacks"] == [1, 1, 1] * 2 and ranks[1]["evolve"]["stacks"] == [1, 1] * 2
     np.testing.assert_allclose(got["fits"], want["fits"], atol=TOL)
     assert ranks[1]["evolve"]["fits"] == got["fits"]
 

@@ -263,15 +263,16 @@ class _Streamed(B.ArraySource):
 
 
 @pytest.mark.parametrize("case,want", [("resident", True), ("streamed_normal", False),
-                                       ("streamed_oe", False), ("mesh", False),
-                                       ("model_axis", False), ("per_step", False),
+                                       ("streamed_oe", False), ("mesh", True),
+                                       ("model_axis", True), ("per_step", False),
                                        ("cpu_default", False)])
 def test_resident_path_choice(monkeypatch, case, want):
-    """JAX's condition (both halves resident and ``scan_ok``, :787-789) in
-    one process; a data mesh of several ranks, a model axis of several
-    ranks (1 x 2: no data axis, and still collectives a capture cannot
-    take), a streamed half, the CPU without ``EOE_TPU_CPU_SCAN=1`` and the
-    eager control take the per-step loop."""
+    """JAX's condition (both halves resident and ``scan_ok``, :787-789),
+    which holds under any mesh: on the CPU under ``EOE_TPU_CPU_SCAN=1`` a
+    data mesh and a model axis (1 x 2) of gloo ranks take the resident epoch
+    with their collectives in the step; a streamed half, the CPU without
+    ``EOE_TPU_CPU_SCAN=1`` and the eager control take the per-step loop. On
+    the card, tests/test_torch_mesh_resident.py."""
     _force(monkeypatch, case != "cpu_default")
     tr = _trainer(SPECS)
     ds = tr.ds
