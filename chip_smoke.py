@@ -4618,6 +4618,7 @@ DPG_BF16_TOL = 2 ** -8       # bf16 losses (relative)
 DPG_SEEDS = 3                # a grid that two ranks do not divide: 2 + 1
 DPG_VIT_STEPS, DPG_CONV_STEPS = 4, 8      # an epoch's steps of 256 + 256 (128 + 128 a rank)
 DPG_EPOCHS = 2
+DPG_CONV_MILESTONES = [1]    # (c)'s CNN32: a new rate in epoch 2, captured again on both ranks
 DPG_GRID_N, DPG_GRID_EPOCHS = 4 * BATCH, 2
 # tests/test_parallel.py's tiny CLIP: heads that a model axis of two divides
 DPG_TINY = dict(embed_dim=32, image_resolution=16, vision_layers=1, vision_width=64,
@@ -4630,16 +4631,17 @@ DPG_TINY_B, DPG_TINY_N = 16, 64
 
 class _Collectives:
     """Within: every ``torch.distributed.all_reduce`` on an NCCL group
-    counted: those of eager code (``eager``) and those a capture records,
-    by runner (``graphs``: [runner, calls of its eager first step, calls
-    its graph recorded]). A trace of the run should show ``expected()``
-    NCCL kernels: one a call, a graph's once a replay."""
+    counted: those of eager code (``eager``), those of an eager step of
+    each runner (``steps``: {runner: calls}) and those each capture records,
+    a milestone's capture again included (``captures``: [runner, calls,
+    the runner's replays before it]). A trace of the run should show
+    ``expected()`` NCCL kernels: one a call, a graph's once a replay."""
 
     def __enter__(self):
         import torch
         import torch.distributed as dist
         from eoe_tpu_torch.training import graphs
-        self.eager, self.graphs = 0, []
+        self.eager, self.steps, self.captures = 0, {}, []
         self.saved = dist.all_reduce, graphs.ResidentSteps._eager, graphs.ResidentSteps._capture
         all_reduce, eager, capture = self.saved
         me = self
@@ -4647,7 +4649,7 @@ class _Collectives:
         def counted(tensor, *args, group=None, **kwargs):
             if dist.get_backend(group) == "nccl":
                 if torch.cuda.is_current_stream_capturing():
-                    me.graphs[-1][2] += 1
+                    me.captures[-1][1] += 1
                 else:
                     me.eager += 1
             return all_reduce(tensor, *args, group=group, **kwargs)
@@ -4655,10 +4657,10 @@ class _Collectives:
         def first(runner, n):
             before = me.eager
             eager(runner, n)
-            me.graphs.append([runner, (me.eager - before) // n, 0])
+            me.steps[runner] = (me.eager - before) // n
 
         def recorded(runner, rates):
-            check(runner.captures == 0, "dp_graph: a runner captured twice (a milestone)")
+            me.captures.append([runner, 0, runner.replays])
             capture(runner, rates)
 
         dist.all_reduce, graphs.ResidentSteps._eager = counted, first
@@ -4670,8 +4672,16 @@ class _Collectives:
         from eoe_tpu_torch.training import graphs
         dist.all_reduce, graphs.ResidentSteps._eager, graphs.ResidentSteps._capture = self.saved
 
+    def graphs(self) -> list:
+        """[calls of an eager step of its runner, calls recorded] a capture."""
+        return [[self.steps.get(runner), calls] for runner, calls, _ in self.captures]
+
     def expected(self) -> int:
-        return self.eager + sum(r.replays * calls for r, _, calls in self.graphs)
+        total = self.eager
+        for i, (runner, calls, start) in enumerate(self.captures):
+            end = next((s for r, _, s in self.captures[i + 1:] if r is runner), runner.replays)
+            total += calls * (end - start)
+        return total
 
 
 class _Uncaptured:
@@ -4730,8 +4740,7 @@ def _dpg_train(tr, ds, per_step: bool, trace: str = None) -> dict:
               "step_ms": 1e3 * 2 * tr.batch_size / tr.epoch_rates[-1],
               "captured": sum(r.captures for r in runners if r.captured),
               "replays": sum(r.replays for r in runners if r.captured),
-              "collectives": {"eager": calls.eager,
-                              "graphs": [[step, rec] for _, step, rec in calls.graphs]}}
+              "collectives": {"eager": calls.eager, "graphs": calls.graphs()}}
     if prof is not None:
         record["traced"] = hold_traced(prof, counts, f"dp_graph {trace}", trace)
         nccl = [n for n in device_event_names(prof) if "nccl" in n.lower()]
@@ -4747,9 +4756,10 @@ def _dpg_train(tr, ds, per_step: bool, trace: str = None) -> dict:
     return record
 
 
-def _dpg_conv(mesh, batch: int, n: int, epochs: int):
+def _dpg_conv(mesh, batch: int, n: int, epochs: int, milestones=()):
     """CNN32 fp32 HSC with SGD on CIFAR_SPECS, ``n`` + ``n`` raw 32x32
-    images, and its data."""
+    images, the learning rate cut tenfold at each epoch of ``milestones``,
+    and its data."""
     import numpy as np
     import torch
     from eoe_tpu_torch.models import CNN32
@@ -4758,10 +4768,10 @@ def _dpg_conv(mesh, batch: int, n: int, epochs: int):
     ds, _ = _pinned(np.random.default_rng(SEED), 32, n, 2 * BATCH, CIFAR_SPECS, ["normalize"])
     tr = TRAINER["hsc"](model=CNN32(), train_specs=CIFAR_SPECS, test_specs=["normalize"],
                         dataset="cifar10", oe_dataset="cifar100", datapath="", logger=None,
-                        epochs=epochs, lr=1e-4, wdk=1e-3, milestones=[], batch_size=batch,
-                        compute_dtype=torch.float32, mesh=mesh)
-    tr.make_optimizer = lambda params, steps: make_optimizer("sgd", params, 1e-4, 1e-3, [],
-                                                             steps)
+                        epochs=epochs, lr=1e-4, wdk=1e-3, milestones=list(milestones),
+                        batch_size=batch, compute_dtype=torch.float32, mesh=mesh)
+    tr.make_optimizer = lambda params, steps: make_optimizer("sgd", params, 1e-4, 1e-3,
+                                                             list(milestones), steps)
     tr.ds = ds
     return tr, ds
 
@@ -4805,11 +4815,13 @@ def _dpg_tiny(mesh) -> dict:
     return {k: out[k] for k in ("losses", "params", "captured", "replays")}
 
 
-def _dpg_grid(tmp: str, tag: str, mesh) -> dict:
+def _dpg_grid(tmp: str, tag: str, mesh, trace: str = None) -> dict:
     """``Trainer.run`` of CNN32 fp32 with SGD, ``DPG_SEEDS`` seeds vmapped on
     the pinned CIFAR stack: each seed's AUROC and test scores, the losses,
     the members of each stacked program and how many graphs they
-    captured."""
+    captured. With ``trace`` (a path) under ``torch.profiler``: the port's
+    kernels in the trace, the replays' included, held against the
+    counters."""
     import torch
     from eoe_tpu_torch.training import graphs
     from eoe_tpu_torch.training import vmapped_seeds as V
@@ -4830,17 +4842,31 @@ def _dpg_grid(tmp: str, tag: str, mesh) -> dict:
 
     graphs.ResidentSteps.__init__, V._train_members = kept, program
     try:
+        prof = _trace_start() if trace else None
         _zero_counts()
         _, res = tr.run(run_classes=[0], run_seeds=DPG_SEEDS, vmap_seeds=True)
         torch.cuda.synchronize()
         counts = _counts()
+        if prof is not None:
+            _trace_stop(prof)
     finally:
         graphs.ResidentSteps.__init__, V._train_members = init, members
     tr.logger.drain()
-    return {"aucs": res["cls_aucs"][0], "losses": list(tr.step_losses), "stacks": stacks,
-            "captures": [r.captures for r in runners], "sharded": tr._last_vmap_sharded,
-            "vmapped": tr._last_grid_vmapped, "counts": counts,
-            "scores": [_scores(logdir, it) for it in range(DPG_SEEDS)]}
+    record = {"aucs": res["cls_aucs"][0], "losses": list(tr.step_losses), "stacks": stacks,
+              "captures": [r.captures for r in runners], "sharded": tr._last_vmap_sharded,
+              "vmapped": tr._last_grid_vmapped, "counts": counts,
+              "scores": [_scores(logdir, it) for it in range(DPG_SEEDS)]}
+    if prof is not None:
+        record["traced"] = hold_traced(prof, counts, f"dp_graph {trace}", trace)
+    return record
+
+
+def _own_grads(params, mesh):
+    """A faulty gradient sum: each rank keeps its own share (DDP's 1 / data
+    and no all-reduce), the control that shows (c)'s holds fail one."""
+    for p in params:
+        if p.grad is not None:
+            p.grad.mul_(1.0 / mesh.data)
 
 
 def _dpg_capture() -> dict:
@@ -4891,7 +4917,8 @@ def dpg_child(tmp: str, tag: str):
         meshlib.init_distributed()
         try:
             if case == "grid":
-                record = _dpg_grid(tmp, tag, meshlib.make_mesh(meshlib.MeshConfig(data=DPG_RANKS)))
+                record = _dpg_grid(tmp, tag, meshlib.make_mesh(meshlib.MeshConfig(data=DPG_RANKS)),
+                                   "dp_graph_grid_" + tag.split("-")[1])
             elif case == "tiny22":
                 record = {"tiny22": _dpg_tiny(meshlib.make_mesh(
                     meshlib.MeshConfig(data=2, model=2)))}
@@ -4900,11 +4927,18 @@ def dpg_child(tmp: str, tag: str):
                 record = {"mesh": mesh.note, "tiny21": _dpg_tiny(mesh)}
                 for name, build in (("cnn", _dpg_conv), ("vit", _dpg_vit)):
                     tr, ds = build(mesh) if name == "vit" else build(
-                        mesh, 2 * BATCH, DPG_CONV_STEPS * 2 * BATCH, DPG_EPOCHS)
+                        mesh, 2 * BATCH, DPG_CONV_STEPS * 2 * BATCH, DPG_EPOCHS,
+                        DPG_CONV_MILESTONES)
                     record[name] = {
                         "graph": _dpg_train(tr, ds, False, f"dp_graph_{name}_{tag}"),
                         "eager": _dpg_train(tr, ds, True),
                         "graph_untraced": _dpg_train(tr, ds, False)}
+                    if name == "cnn":
+                        summed, meshlib.all_reduce_grads = meshlib.all_reduce_grads, _own_grads
+                        try:
+                            record[name]["own_grads"] = _dpg_train(tr, ds, False)
+                        finally:
+                            meshlib.all_reduce_grads = summed
                     del tr, ds
                     torch.cuda.empty_cache()
         finally:
@@ -4939,13 +4973,17 @@ def phase_dp_graph(card: str) -> dict:
     trace shows (a one-rank sum in place launches none); (b) two gloo ranks
     sharing the card on a grid of 3 CNN32 seeds (``_dpg_grid``): 2 + 1
     members, each rank's programs captured as graphs, every seed's AUROC
-    1e-4 or a tie and the losses 1e-5 of one process's. Two or more cards:
-    (c) two NCCL ranks, a card each, CNN32 fp32 (batch norm's global sums)
-    and ViT-B/32 bf16 at 128 + 128 a rank, each on the graph path, traced,
-    and on the per-step loop: graph against per-step losses 1e-5 and
-    parameters 1e-5 in fp32, losses 2^-8 in bf16; ranks against one process
-    at phase dp's holds; the NCCL, fused and augmentation kernels of each
-    rank's trace equal to the counts; a rank's step ms both ways; (d) the
+    1e-4 or a tie and the losses 1e-5 of one process's, each rank's run
+    traced. Two or more cards: (c) two NCCL ranks, a card each, CNN32 fp32
+    (batch norm's global sums; a milestone between its epochs, so that
+    both ranks capture their step again) and ViT-B/32 bf16 at 128 + 128 a
+    rank, each on the graph path, traced, and on the per-step loop: graph
+    against per-step losses 1e-5 and parameters 1e-5 in fp32, losses 2^-8
+    in bf16; ranks against one process at phase dp's holds; every capture's
+    NCCL collectives those of an eager step, and the NCCL, fused and
+    augmentation kernels of each rank's trace equal to the counts; CNN32
+    trained with each rank's own gradients in the sum's place fails the
+    hold against one process (the control); a rank's step ms both ways; (d) the
     tiny CLIP on a 2 x 1 mesh and, on four cards, a 2 x 2 mesh on the graph
     path against one process (losses and parameters 1e-5). The parameters of
     (c)'s CNN32 are held to one process's as phase resident holds CNN32's
@@ -5022,11 +5060,15 @@ def phase_dp_graph(card: str) -> dict:
             l_err = _dpg_rel(r["losses"], one["losses"])
             check(l_err <= DPG_FP32_TOL, f"dp_graph (b) rank {i}: losses {l_err:.3g} rel from "
                                          f"one process's (tol {DPG_FP32_TOL})")
-        paths.update({f"dp_graph_grid_rank{i}": r["counts"] for i, r in enumerate(got)})
+        for i, r in enumerate(got):
+            paths[f"dp_graph_grid_rank{i}"] = r["counts"]
+            TRACED[f"dp_graph_grid_rank{i}"] = r["traced"]
         print(f"dp_graph (b) a grid of {DPG_SEEDS} CNN32 seeds (SGD, {DPG_GRID_N}+{DPG_GRID_N} "
               f"images, {DPG_GRID_EPOCHS} epochs) on two gloo ranks sharing the card: members "
               f"{[r['stacks'] for r in got]}, graphs a runner {[r['captures'] for r in got]}; "
-              f"AUROCs {got[0]['aucs']} vs {one['aucs']} in one process, losses {l_err:.3g} rel "
+              f"AUROCs {got[0]['aucs']} vs {one['aucs']} in one process, losses {l_err:.3g} rel; "
+              f"each rank's run traced, launches equal to the counters "
+              f"{[{k: v['traced'] for k, v in r['traced'].items() if v['traced']} for r in got]} "
               f"[{card}]")
         ran.append("an uneven seed grid on two gloo ranks sharing the card")
         failed = []
@@ -5070,8 +5112,8 @@ def _dpg_nccl(card: str, tmp: str, ranks, failed: list) -> dict:
     check("collectives on nccl" in got[0]["mesh"], f"dp_graph (c): {got[0]['mesh']}")
     one = {}
     for name, build in (("cnn", _dpg_conv), ("vit", _dpg_vit)):
-        tr, ds = build(None) if name == "vit" else build(None, 2 * BATCH,
-                                                         DPG_CONV_STEPS * 2 * BATCH, DPG_EPOCHS)
+        tr, ds = build(None) if name == "vit" else build(
+            None, 2 * BATCH, DPG_CONV_STEPS * 2 * BATCH, DPG_EPOCHS, DPG_CONV_MILESTONES)
         one[name] = _dpg_train(tr, ds, False)
         del tr, ds
     one["tiny"] = _dpg_tiny(None)
@@ -5087,8 +5129,15 @@ def _dpg_nccl(card: str, tmp: str, ranks, failed: list) -> dict:
         for i, r in enumerate(got):
             g, e, u, o = r[name]["graph"], r[name]["eager"], r[name]["graph_untraced"], one[name]
             what = f"dp_graph (c) {name} rank {i}"
-            hold(g["captured"] >= 1 and g["replays"] > 0 and e["captured"] == 0,
-                 f"{what}: {g['captured']} graphs, {g['replays']} replays")
+            # CNN32's milestone: a graph a learning rate, captured again on both ranks
+            graphs_want = 1 + (0 if bf16 else len(DPG_CONV_MILESTONES))
+            hold(g["captured"] == u["captured"] == graphs_want and g["replays"] > 0
+                 and e["captured"] == 0,
+                 f"{what}: {g['captured']} graphs (untraced {u['captured']}, want "
+                 f"{graphs_want}), {g['replays']} replays")
+            hold(all(step == rec > 0 for step, rec in g["collectives"]["graphs"]),
+                 f"{what}: NCCL collectives [an eager step's, recorded] a capture "
+                 f"{g['collectives']['graphs']}")
             hold(g["nccl"]["traced"] == g["nccl"]["counted"] > 0,
                  f"{what}: NCCL kernels in the trace {g['nccl']}")
             for way, run in (("per-step", e), ("one process", o), ("untraced graph", u)):
@@ -5105,13 +5154,19 @@ def _dpg_nccl(card: str, tmp: str, ranks, failed: list) -> dict:
                                                                                o["params"])
                 worst = max(o["params"], key=lambda k: float((g["params"][k]
                                                              - o["params"][k]).abs().max()))
+                # the control: each rank's own gradient share in the sum's place
+                w_err = _state_err(r[name]["own_grads"]["params"], o["params"])
                 hold(p_err <= DPG_FP32_TOL, f"{what}: parameters {p_err:.3g} from per-step's")
                 hold(o_err <= DPG_FP32_TOL, f"{what}: parameters {o_err:.3g} of max(1, |max|) "
                                             f"from one process's")
+                hold(w_err > DPG_FP32_TOL, f"{what}: a rank's own gradients in the sum's place "
+                                           f"train parameters {w_err:.3g} of max(1, |max|) "
+                                           f"from one process's: the hold would pass them")
                 held = (f"parameters {p_err:.3g} from per-step, {o_err:.3g} of max(1, |max|) "
                         f"from one process (largest apart: {worst}, "
                         f"{float((g['params'][worst] - o['params'][worst]).abs().max()):.3g} of "
-                        f"|max| {float(o['params'][worst].abs().max()):.3g}); ")
+                        f"|max| {float(o['params'][worst].abs().max()):.3g}), each rank's own "
+                        f"gradients in the sum's place {w_err:.3g}; ")
             d_auc, d_score, tie = _tie_or_close(g["auroc"], o["auroc"], g["scores"], o["scores"])
             hold(tie, f"{what}: AUROC {g['auroc']} against one process's {o['auroc']}, scores "
                       f"{d_score} apart")
@@ -5120,14 +5175,14 @@ def _dpg_nccl(card: str, tmp: str, ranks, failed: list) -> dict:
             path = f"dp_graph_{name}_nccl-rank{i}"
             paths[path] = g["counts"]
             TRACED[path] = g["traced"]
-            captured = g["collectives"]["graphs"][0][1] if g["collectives"]["graphs"] else None
+            captured = [rec for _, rec in g["collectives"]["graphs"]]
             lines.append(f"rank {i}: step {u['step_ms']:.2f} ms graph vs {e['step_ms']:.2f} "
                          f"per-step; losses {_dpg_rel(g['losses'], e['losses']):.3g} rel from "
                          f"per-step, {_dpg_rel(g['losses'], o['losses']):.3g} from one process; "
                          f"{held}AUROC {g['auroc']:.6f} vs {o['auroc']:.6f}, scores "
                          f"{d_score:.3g} apart; NCCL kernels traced {g['nccl']['traced']} for "
                          f"{g['nccl']['counted']} calls ({g['nccl']['kernels']}); collectives in "
-                         f"a captured step {captured}; fused and augmentation kernels traced "
+                         f"each captured step {captured}; fused and augmentation kernels traced "
                          f"{ {k: v['traced'] for k, v in g['traced'].items() if v['traced']} }")
         print(f"dp_graph (c) {name} {'bf16 ViT-B/32' if bf16 else 'fp32 CNN32'} at 128+128 a "
               f"rank, two NCCL ranks: one process (256+256) {one[name]['step_ms']:.2f} ms a "
@@ -5207,7 +5262,8 @@ def main():
     paths["clip_rn50"] = timed("clip_rn50", phase_clip_rn50, card)
     paths["import"] = timed("import", phase_import, card)
     timed("pool", phase_pool, card)
-    paths.update(timed("dp", phase_dp, card))
+    per_step = timed("dp", phase_dp, card)   # phase dp's ranks: the per-step loop, untraced
+    paths.update(per_step)
     paths.update(timed("tp", phase_tp, card))
     paths.update(timed("dp_graph", phase_dp_graph, card))
 
@@ -5302,10 +5358,11 @@ def main():
             **aug_rows[("acceptance", "uint8")][key],
             "stacks": {f"{s} {d}": row[key] for (s, d), row in aug_rows.items() if row[key]},
             "steps": {f"{s} {d}": row["step"] for (s, d), row in aug_rows.items()}})
-    missing = sorted(p for p in paths if not p.startswith("dp_") and p not in TRACED)
+    missing = sorted(p for p in paths if p not in per_step and p not in TRACED)
     check(not missing, f"counted paths without a traced run: {missing}")
     print(f"traced counted runs (the port's kernels in the trace = the counters): "
-          f"{sorted(TRACED)}; per-rank dp paths untraced (per-step loop, child processes); "
+          f"{sorted(TRACED)}; untraced: phase dp's {sorted(per_step)} (eager steps on the "
+          f"per-step loop, counted where a wrapper launches); "
           f"ending and reading the traces took {sum(TRACE_SECONDS):.1f} s of host time, the "
           f"longest {max(TRACE_SECONDS):.1f} s")
     print(f"phases (s): {seconds}")

@@ -8,7 +8,8 @@ branch, started with EOE_TPU_DISTRIBUTED=1 and the group's address, runs
 every case and saves rank 0's results. The cases: three train steps of CNN32
 (batch norm) and of a tiny CLIP whose last step's zero-weight tail lies on
 rank 1; a batch norm alone; ``Trainer.run``; the seed grid of 4 seeds
-(2 + 2), of 3 (2 + 1) and of 5 (3 + 2); the evolve evaluator's chunks,
+(2 + 2), of 3 (2 + 1), of 5 (3 + 2) and of 5 in programs of 2 a rank
+(2 + 2, then 1 + none); the evolve evaluator's chunks,
 split over the ranks whatever their size. A second launch runs
 ``train_cifar.main(["-d", "2", ...])``, whose spawned rank writes nothing.
 The held steps update with SGD, as in tests/test_torch_conv_trainer.py.
@@ -164,9 +165,18 @@ def _grid_trainer(mesh=None, epochs=2):
     return tr
 
 
-def _run(mesh=None, seeds=1, vmap=False) -> dict:
+def _run(mesh=None, seeds=1, vmap=False, per=None) -> dict:
+    """``Trainer.run`` of the grid; ``per`` fixes the seeds a program holds
+    a rank (the memory probe's answer)."""
+    from eoe_tpu_torch.training import vmapped_seeds as V
     tr = _grid_trainer(mesh)
-    _, res = tr.run(run_classes=[0], run_seeds=seeds, vmap_seeds=vmap)
+    probe = V.seeds_per_program
+    if per is not None:
+        V.seeds_per_program = lambda *args: per
+    try:
+        _, res = tr.run(run_classes=[0], run_seeds=seeds, vmap_seeds=vmap)
+    finally:
+        V.seeds_per_program = probe
     return {"aucs": res["cls_aucs"][0], "losses": list(tr.step_losses),
             "sharded": tr._last_vmap_sharded, "vmapped": tr._last_grid_vmapped,
             "stacks": tr.stacks}
@@ -182,9 +192,12 @@ def _evolve(mesh=None) -> dict:
 
 
 def _cases(mesh=None) -> dict:
-    return {"cnn": _steps("cnn", mesh), "clip": _steps("clip", mesh), "bn": _bn(mesh),
-            "run": _run(mesh), "vmap4": _run(mesh, 4, True), "vmap3": _run(mesh, 3, True),
-            "vmap5": _run(mesh, 5, True), "evolve": _evolve(mesh)}
+    out = {"cnn": _steps("cnn", mesh), "clip": _steps("clip", mesh), "bn": _bn(mesh),
+           "run": _run(mesh), "vmap4": _run(mesh, 4, True), "vmap3": _run(mesh, 3, True),
+           "vmap5": _run(mesh, 5, True), "evolve": _evolve(mesh)}
+    if mesh is not None:   # 5 seeds in programs of 2 a rank: 2 + 2, then 1 + none
+        out["vmap5_per2"] = _run(mesh, 5, True, per=2)
+    return out
 
 
 def _spawned(tmp: str) -> dict:
@@ -561,16 +574,23 @@ def test_seed_grid_shards_over_ranks(ranks, single):
     assert ranks[1]["vmap4"]["aucs"] == got["aucs"]
 
 
-@pytest.mark.parametrize("seeds, shares", [(3, [2, 1]), (5, [3, 2])])
+@pytest.mark.parametrize("seeds, shares", [(3, [[2], [1]]), (5, [[3], [2]]),
+                                           (5, [[2, 1], [2]])])
 def test_indivisible_seed_grid_splits_unevenly(ranks, single, seeds, shares):
     """3 seeds on 2 ranks train 2 + 1, 5 train 3 + 2, each rank's share as
-    one stacked program; every rank logs every seed's AUROC and losses, and
-    those are one process's."""
-    got, want = ranks[0][f"vmap{seeds}"], single[f"vmap{seeds}"]
+    one stacked program; 5 in programs of 2 a rank train 2 + 2, then 1 on
+    rank 0 and nothing on rank 1 (an empty share: no program, no scores,
+    its gathers of no rows). Every rank logs every seed's AUROC and losses,
+    and those are one process's."""
+    # ``shares``: each rank's programs' members; several programs: of
+    # shares[0][0] seeds a rank (``_run``'s ``per``)
+    per = shares[0][0] if len(shares[0]) > 1 else None
+    case = f"vmap{seeds}" + (f"_per{per}" if per else "")
+    got, want = ranks[0][case], single[f"vmap{seeds}"]
     assert want["stacks"] == [seeds] and not want["sharded"]
-    for rank, share in zip(ranks, shares):
-        r = rank[f"vmap{seeds}"]
-        assert r["vmapped"] and r["sharded"] and r["stacks"] == [share]
+    for rank, members in zip(ranks, shares):
+        r = rank[case]
+        assert r["vmapped"] and r["sharded"] and r["stacks"] == members
         assert len(r["aucs"]) == seeds and r["aucs"] == got["aucs"]
         assert r["losses"] == got["losses"]
     np.testing.assert_allclose(got["aucs"], want["aucs"], atol=TOL)
