@@ -268,6 +268,8 @@ def _zero_counts(trace: str = None):
 
 def _trace_start():
     import torch
+    from eoe_tpu_torch.utils.profiling import clear_spans
+    clear_spans()   # the program's span records of the traces before
     torch.cuda.synchronize()
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
     prof.start()
@@ -1736,7 +1738,7 @@ def _resident_timed(label: str, ways: dict, order: list, run, logdir: str,
     the launches its trace shows held against its counts; the graph way's
     are path ``resident_<label>``'s traced launches."""
     import torch
-    from eoe_tpu_torch.utils.profiling import device_seconds
+    from eoe_tpu_torch.utils.profiling import clear_spans, device_seconds
     out = {}
     for way in order:
         with ways[way]():
@@ -1745,6 +1747,7 @@ def _resident_timed(label: str, ways: dict, order: list, run, logdir: str,
             torch.cuda.synchronize()
             seconds, busy = time.perf_counter() - t0, None
             if profiled and way not in out:
+                clear_spans()
                 with torch.profiler.profile(
                         activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                     run(way, "profiled")

@@ -25,6 +25,7 @@ import torch
 from eoe_tpu_torch.device import resolve_device
 from eoe_tpu_torch.ops.losses import OBJECTIVES, Objective
 from eoe_tpu_torch.ops.preprocess import DatasetStats, compile_pipeline
+from eoe_tpu_torch.utils.profiling import span
 
 
 class AnomalyScorer:
@@ -74,18 +75,27 @@ class AnomalyScorer:
 
     def score(self, images: np.ndarray) -> np.ndarray:
         """Score (n, h, w, c) uint8 or float images; any n (the last chunk is
-        padded to the batch size by repeating its last image)."""
+        padded to the batch size by repeating its last image). Traced, the
+        request's span counts its ``images``, the ``slots`` computed
+        (padding included), its ``batches`` and ``upload_bytes``."""
         images = np.asarray(images)
         if images.ndim == 3:
             images = images[None]
         n = len(images)
         B = self.batch_size
         outs = []
-        for i in range(0, n, B):
-            chunk = images[i: i + B]
-            if len(chunk) < B:
-                chunk = np.concatenate(
-                    [chunk, np.repeat(chunk[-1:], B - len(chunk), axis=0)])
-            outs.append(self._score_batch(torch.from_numpy(chunk).to(self.device)))
-        # one download instead of one per batch
-        return torch.cat(outs).cpu().numpy()[:n]
+        with span("eoe.serve.request", images=n) as request:
+            for i in range(0, n, B):
+                chunk = images[i: i + B]
+                if len(chunk) < B:
+                    with span("eoe.serve.pad"):
+                        chunk = np.concatenate(
+                            [chunk, np.repeat(chunk[-1:], B - len(chunk), axis=0)])
+                with span("eoe.serve.upload", bytes=chunk.nbytes):
+                    x = torch.from_numpy(chunk).to(self.device)
+                with span("eoe.serve.batch"):
+                    outs.append(self._score_batch(x))
+                request.add(slots=len(chunk), batches=1, upload_bytes=chunk.nbytes)
+            # one download instead of one per batch
+            with span("eoe.serve.download"):
+                return torch.cat(outs).cpu().numpy()[:n]

@@ -67,6 +67,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from eoe_tpu_torch.utils.profiling import span
+
 PLAN_BYTES = 64 << 20      # the most that one upload of every epoch's plans holds
 # steps a graph holds without EOE_TPU_CHUNK (0: the whole epoch, the JAX
 # package's default). One: its capture costs one step of host time and only
@@ -196,8 +198,10 @@ class ResidentSteps:
         """The next ``n`` steps, a whole number of chunks."""
         assert n % self.chunk == 0, (n, self.chunk)
         if not self.captured:
-            for _ in range(n):
-                self.step()
+            for _ in range(n // self.chunk):
+                with span("eoe.train.chunk", steps=self.chunk):
+                    for _ in range(self.chunk):
+                        self.step()
             return
         done = min(n, self._eager_left)
         if done:
@@ -207,7 +211,8 @@ class ResidentSteps:
             rates = [opt.rates(self.chunk) for opt in self.optimizers]
             if self.graph is None or rates != self._rates:
                 self._capture(rates)
-            self.graph.replay()
+            with span("eoe.train.chunk", steps=self.chunk):
+                self.graph.replay()
             self.replays += 1
             for opt in self.optimizers:
                 opt.count += self.chunk

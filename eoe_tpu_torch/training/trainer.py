@@ -114,6 +114,7 @@ from eoe_tpu_torch.parallel import mesh as meshlib
 from eoe_tpu_torch.training import graphs
 from eoe_tpu_torch.training.optim import ScheduledOptimizer, make_optimizer
 from eoe_tpu_torch.utils.logger import Logger
+from eoe_tpu_torch.utils.profiling import span
 
 AD_MODES = ("one_vs_rest", "leave_one_out", "fifty_fifty")
 
@@ -858,19 +859,24 @@ class Trainer:
         cls_roc = None
         try:
             for ep in range(start_epoch, self.epochs):
-                t0 = time.time()
-                if runner is not None:
-                    plans.load(ep - start_epoch)
-                    runner.run(sampler.steps)
-                    n_halves = 2 if Xo is not None else 1
-                    ep_losses, ep_scores, ep_labels, ep_weights = self._epoch_outputs(
-                        ep_out[:, 0], ep_out[:, 1:].reshape(sampler.steps, 3, n_halves, -1)
-                        .transpose(0, 1))
-                else:
-                    ep_losses, ep_scores, ep_labels, ep_weights = self._train_epoch_steps(
-                        state, ds, sampler, (Xn, Ln, Xo, Lo), generator, center, rt_stats)
-                cls_roc = self._log_epoch(cls, it, ep, t0, ep_losses, ep_scores, ep_labels,
-                                          ep_weights, cls_roc)
+                t0 = time.perf_counter_ns()
+                with span("eoe.train.epoch", epoch=ep, steps=sampler.steps) as epoch:
+                    epoch.stamp(t0)
+                    if runner is not None:
+                        with span("eoe.train.plan_load", epoch=ep):
+                            plans.load(ep - start_epoch)
+                        runner.run(sampler.steps)
+                        n_halves = 2 if Xo is not None else 1
+                        ep_losses, ep_scores, ep_labels, ep_weights = self._epoch_outputs(
+                            ep_out[:, 0], ep_out[:, 1:].reshape(sampler.steps, 3, n_halves, -1)
+                            .transpose(0, 1))
+                    else:
+                        ep_losses, ep_scores, ep_labels, ep_weights = self._train_epoch_steps(
+                            state, ds, sampler, (Xn, Ln, Xo, Lo), generator, center, rt_stats)
+                    seen = self.images_seen
+                    cls_roc = self._log_epoch(cls, it, ep, t0, ep_losses, ep_scores, ep_labels,
+                                              ep_weights, cls_roc)
+                    epoch.add(images=self.images_seen - seen)
         finally:
             if runner is not None:
                 runner.close()
@@ -920,11 +926,13 @@ class Trainer:
         order, as the JAX package downloads once an epoch. Returns (losses,
         scores, labels, weights) in numpy."""
         mesh = self._dp_mesh()
-        if mesh is not None:
-            losses = meshlib.all_reduce_sum(losses, mesh)
-            rest = meshlib.gather_rows(mesh, rest, self.batch_size, dim=3)
-        ep_scores, ep_labels, ep_weights = rest.reshape(3, -1).cpu().numpy()
-        return losses.cpu().numpy(), ep_scores, ep_labels.astype(np.int64), ep_weights
+        with span("eoe.train.download"):
+            if mesh is not None:
+                losses = meshlib.all_reduce_sum(losses, mesh)
+                rest = meshlib.gather_rows(mesh, rest, self.batch_size, dim=3)
+            ep_scores, ep_labels, ep_weights = rest.reshape(3, -1).cpu().numpy()
+            losses = losses.cpu().numpy()
+        return losses, ep_scores, ep_labels.astype(np.int64), ep_weights
 
     def make_train_epoch_resident(self, state: TrainState, ds, halves, plans, steps: int,
                                   generator: torch.Generator, center, rt_stats):
@@ -959,34 +967,36 @@ class Trainer:
         return graphs.ResidentSteps(step, self.device, graphs.chunk_steps(steps), [generator],
                                     [state.optimizer]), out
 
-    def _log_epoch(self, cls: int, it: int, ep: int, t0: float, ep_losses, ep_scores,
+    def _log_epoch(self, cls: int, it: int, ep: int, t0: int, ep_losses, ep_scores,
                    ep_labels, ep_weights, cls_roc):
-        """The epoch's accounting and logs after its download; raises
+        """The epoch's accounting and logs after its download, the epoch
+        having started at ``t0`` (``time.perf_counter_ns``); raises
         ``NanGradientsError`` on NaN scores. Returns the class ROC so far."""
-        self.step_losses.extend(map(float, ep_losses))
-        dt = time.time() - t0
-        n_imgs = int(ep_weights.sum())
-        self.images_seen += n_imgs
-        self.train_seconds += dt
-        self.epoch_rates.append(n_imgs / max(dt, 1e-9))
-        keep = ep_weights > 0
-        ep_scores, ep_labels = ep_scores[keep], ep_labels[keep]
-        if np.isnan(ep_scores).sum() > 0:
-            raise NanGradientsError()
-        self.logger.hist(f"Training: CLS{cls} SEED{it} anomaly_scores normal",
-                         ep_scores[ep_labels == 0], ep)
-        if (ep_labels == 1).sum() > 0:
-            self.logger.hist(f"Training: CLS{cls} SEED{it} anomaly_scores anomalous",
-                             ep_scores[ep_labels == 1], ep)
-            cls_roc = M.roc_curve(ep_labels, ep_scores)
-            self.logger.add_scalar(f"Training: CLS{cls} SEED{it} AUC", cls_roc.auc * 100, ep)
-        self.logger.add_scalar(f"training_cls{cls}_seed{it}_loss",
-                               float(ep_losses.mean()), ep)
-        self.logger.print(
-            f"cls {cls} seed {it} epoch {ep + 1}/{self.epochs}: loss {ep_losses.mean():.5f}"
-            + (f", train AUC {cls_roc.auc * 100:.2f}%" if cls_roc is not None else "")
-            + f", {n_imgs / max(dt, 1e-9):.0f} img/s")
-        return cls_roc
+        with span("eoe.train.log", epoch=ep):
+            self.step_losses.extend(map(float, ep_losses))
+            dt = (time.perf_counter_ns() - t0) * 1e-9
+            n_imgs = int(ep_weights.sum())
+            self.images_seen += n_imgs
+            self.train_seconds += dt
+            self.epoch_rates.append(n_imgs / max(dt, 1e-9))
+            keep = ep_weights > 0
+            ep_scores, ep_labels = ep_scores[keep], ep_labels[keep]
+            if np.isnan(ep_scores).sum() > 0:
+                raise NanGradientsError()
+            self.logger.hist(f"Training: CLS{cls} SEED{it} anomaly_scores normal",
+                             ep_scores[ep_labels == 0], ep)
+            if (ep_labels == 1).sum() > 0:
+                self.logger.hist(f"Training: CLS{cls} SEED{it} anomaly_scores anomalous",
+                                 ep_scores[ep_labels == 1], ep)
+                cls_roc = M.roc_curve(ep_labels, ep_scores)
+                self.logger.add_scalar(f"Training: CLS{cls} SEED{it} AUC", cls_roc.auc * 100, ep)
+            self.logger.add_scalar(f"training_cls{cls}_seed{it}_loss",
+                                   float(ep_losses.mean()), ep)
+            self.logger.print(
+                f"cls {cls} seed {it} epoch {ep + 1}/{self.epochs}: loss {ep_losses.mean():.5f}"
+                + (f", train AUC {cls_roc.auc * 100:.2f}%" if cls_roc is not None else "")
+                + f", {n_imgs / max(dt, 1e-9):.0f} img/s")
+            return cls_roc
 
     def write_train_preview(self, ds, cls: int, clsstr: str):
         """``training_cls{cls}-{clsstr}_preview.png``, which the first seed of
