@@ -17,7 +17,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      augmentation kernels (stats, apply) against their plain versions at
      the crop steps of the acceptance, ImageNet-30 and CIFAR-10 stacks, one
      half-batch of 128 raw images in uint8 and in fp32, each kernel's
-     registers and spills first (``phase_augment``);
+     registers and spills first (``phase_augment``); then cbam: CBAM's
+     gate and block-tail kernels (``ops.cbam``) against their plain
+     versions at WideResNet's stage-1 shape (256, 56, 56, 64) in fp32 and
+     bf16, each timed beside its plain version and its bound, and a
+     block's CBAM and tail, forward and backward, against the plain chain
+     (``phase_cbam``);
   4. serving (the first slice): CLIP ViT-B/32 anomaly scoring at full width
      with random weights from seed 0: the CIFAR-10 one-vs-rest prompt
      centre, then three requests (256, 100 and 37 raw 32x32 uint8 images)
@@ -165,7 +170,8 @@ layers of later slices, see their docstrings), then
      rank's step ms both ways; (d) the tiny CLIP on 2 x 1 and, on four
      cards, 2 x 2 meshes. It prints which parts ran, with the card count.
      ``python3 chip_smoke.py --phase dp_graph`` runs the card, the build and
-     this phase alone (also resident, dp or tp), without the result lines.
+     this phase alone (also resident, dp, tp or cbam), without the result
+     lines.
 Each path's launch counts (every kernel's) are set to 0 just before it and
 read just after. The augmentation counts are held on the training paths of
 phases 5-9 and reported on the others. The counters count where a wrapper
@@ -235,13 +241,14 @@ def _counts() -> dict:
     (tensor cores, fp32 register tiles; the rest took the CUDA cores) and the
     augmentation kernels' (apply, stats). Ends a trace that ``_zero_counts``
     started and holds it against these counts."""
-    from eoe_tpu_torch.ops import augment
+    from eoe_tpu_torch.ops import augment, cbam
     from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention as fl
     counts = {"fwd": fq.launches, "bwd": fq.bwd_launches, "group_fwd": fq.group_launches,
               "group_bwd": fq.group_bwd_launches, "bwd_resident": fq.resident_bwd_launches,
               "bwd_recompute": fq.recompute_bwd_launches, "flash": fl.launches,
               "flash_tc": fl.tc_launches, "flash_tile": fl.tile_launches,
-              "augment": augment.launches, "augment_stats": augment.stats_launches}
+              "augment": augment.launches, "augment_stats": augment.stats_launches,
+              "cbam": cbam.launches, "cbam_bwd": cbam.bwd_launches}
     if _TRACE:
         prof, path = _TRACE.pop("prof"), _TRACE.pop("path")
         _trace_stop(prof)
@@ -255,12 +262,13 @@ def _zero_counts(trace: str = None):
     ``torch.profiler`` (the card's activity, no trace written; its times
     carry the profiler's cost), and that ``_counts()`` holds the launches
     the trace shows against the counters (``hold_traced``)."""
-    from eoe_tpu_torch.ops import augment
+    from eoe_tpu_torch.ops import augment, cbam
     from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention as fl
     fq.launches = fq.bwd_launches = fq.group_launches = fq.group_bwd_launches = 0
     fq.resident_bwd_launches = fq.recompute_bwd_launches = 0
     fl.launches = fl.tc_launches = fl.tile_launches = 0
     augment.launches = augment.stats_launches = 0
+    cbam.launches = cbam.bwd_launches = 0
     if trace is not None:
         check(not _TRACE, f"{trace}: the trace of {_TRACE.get('path')} was not ended")
         _TRACE.update(path=trace, prof=_trace_start())
@@ -321,6 +329,11 @@ TRACED_FAMILIES = {
                "flash_tile_kernel", "flash_tile_stream_kernel"), ("flash",)),
     "augment_apply": (("augment_apply_kernel",), ("augment",)),
     "augment_stats": (("augment_stats_kernel",), ("augment_stats",)),
+    # a CBAM wrapper's pool call launches its two stages, the others one kernel
+    "cbam_fwd": (("cbam_channel_pool_kernel", "cbam_channel_pool_finish_kernel",
+                  "cbam_spatial_pool_kernel", "cbam_gate_kernel"), ("cbam",)),
+    "cbam_bwd": (("cbam_gate_bwd_kernel", "cbam_channel_bwd_kernel",
+                  "cbam_channel_bwd_finish_kernel", "cbam_input_bwd_kernel"), ("cbam_bwd",)),
 }
 # a kernel's identifier in a demangled device-event name: the first name
 # followed by its template arguments or parameters that is unqualified or in
@@ -355,7 +368,8 @@ def hold_traced(prof, counts: dict, what: str, path: str = None) -> dict:
     out = {fam: {"traced": sum(seen[s] for s in symbols),
                  "counted": sum(counts[k] for k in keys)}
            for fam, (symbols, keys) in TRACED_FAMILIES.items()}
-    ours = {n[:120] for n in names if any(t in n for t in ("fused_qkv", "flash_", "augment_"))}
+    ours = {n[:120] for n in names
+            if any(t in n for t in ("fused_qkv", "flash_", "augment_", "cbam_"))}
     check(all(v["traced"] == v["counted"] for v in out.values()),
           f"{what}: the trace's launches differ from the counters': {out}; device names "
           f"seen {sorted(ours)[:12]}")
@@ -392,15 +406,19 @@ def bwd_design(before: dict, after: dict) -> str:
 
 
 AUGMENT_KEYS = ("augment", "augment_stats")
+CBAM_KEYS = ("cbam", "cbam_bwd")
 
 
 def check_counts(counts: dict, expected: dict, what: str):
     """Each kernel named in ``expected`` launched that many times, every
     other kernel not at all. The augmentation kernels are held only where
     ``expected`` names one of them (the paths whose pipeline calls are
-    counted here: the training phases, ``augment_counts``); elsewhere their
-    launches are reported."""
-    held = [k for k in counts if k not in AUGMENT_KEYS or any(a in expected for a in AUGMENT_KEYS)]
+    counted here: the training phases, ``augment_counts``), the CBAM kernels
+    likewise; elsewhere their launches are reported, and every traced run
+    holds them to the trace."""
+    reported = {k for keys in (AUGMENT_KEYS, CBAM_KEYS)
+                if not any(a in expected for a in keys) for k in keys}
+    held = [k for k in counts if k not in reported]
     got = {k: counts[k] for k in held}
     want = {k: expected.get(k, 0) for k in held}
     check(got == want, f"{what}: launches {got}, expected {want}")
@@ -481,8 +499,8 @@ def ptxas_summary(log: str) -> list:
 
 
 def phase_build():
-    from eoe_tpu_torch.ops import _build, attention, augment
-    sources = (attention.SOURCE, attention.FLASH_SOURCE, augment.SOURCE)
+    from eoe_tpu_torch.ops import _build, attention, augment, cbam
+    sources = (attention.SOURCE, attention.FLASH_SOURCE, augment.SOURCE, cbam.SOURCE)
 
     def build(source):
         t0 = time.perf_counter()
@@ -495,6 +513,7 @@ def phase_build():
     attention._library()
     attention._flash_library()
     augment._library()
+    cbam._library()
     print(f"build: {', '.join(f'{src} in {t:.1f} s' for src, t in zip(sources, seconds))}; "
           f"{time.perf_counter() - t0:.1f} s in all")
     for source in sources:
@@ -961,6 +980,188 @@ def phase_augment(card: str) -> dict:
                   f"{step_bound[0]:.4f}, err {step_err:.3g}); gathers exact [{card}]")
             del x, idx, out_k, out_r, step_k, step_r, gather_k, gather_r, noise
             torch.cuda.empty_cache()
+    return rows
+
+
+CBAM_SHAPE = (256, 64, 56, 56)   # WideResNet's stage 1 at the benchmark's 128 + 128 rows
+
+
+def _cbam_block_inputs(dtype, g):
+    """A CBAM of stage 1's width computing in ``dtype``, in train mode (the
+    spatial BN's scale drawn off its zero start, as the benchmark's weights
+    are), and o, the residual and the output's gradient, NHWC in memory."""
+    import torch
+    from eoe_tpu_torch.models.cbam import CBAM
+    n, c, h, w = CBAM_SHAPE
+    m = CBAM(c, 16, dtype=dtype).cuda().train()
+    with torch.no_grad():
+        m.spatial_gate.spatial_bn.weight.fill_(0.8)
+
+    def act():
+        return torch.randn(n, h, w, c, generator=g, device="cuda").to(dtype).permute(0, 3, 1, 2)
+    return m, act(), act(), act()
+
+
+def phase_cbam(card: str) -> dict:
+    """CBAM's kernels (``ops.cbam``, ``csrc/cbam.cu``) at WideResNet's stage-1
+    shape (256, 64, 56, 56) in fp32 and bf16: K1-K3 and B1-B3 each against
+    its plain version on the same inputs (maxima, tie counts, the residual's
+    gradient exact; sums to 1e-5 of their largest value in fp32, 2^-7 in
+    bf16), each timed beside its plain version and its bound (the bytes it
+    must move over the HBM bandwidth); then a BasicBlock's whole CBAM and
+    tail, forward and backward, through the kernels against the plain
+    composition (``relu(cbam(o) + residual)`` under autograd): in fp32 the
+    output as the kernels' sums, at most one ReLU in a million on the other
+    side of 0, the gradients' relative L2 errors 1e-3; in bf16 (where the
+    plain chain rounds after every op) the gradients against the same
+    Functions with the plain versions, relative L2 2^-5, and both chains'
+    distance from the fp32 chain reported; both timed, and the launches (4
+    each way). First each kernel's registers and
+    spills, from the build's ptxas report."""
+    import copy
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+    from eoe_tpu_torch.ops import _build
+    from eoe_tpu_torch.ops import cbam as C
+
+    for line in ptxas_summary(_build.build_log(C.SOURCE)):
+        print(f"cbam ptxas: {line}")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    n, c, h, w = CBAM_SHAPE
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+        m, o, r, gy = _cbam_block_inputs(dtype, g)
+        a_bytes = o.numel() * o.element_size()
+        pix = n * h * w
+        cg = torch.rand(n, c, generator=g, device="cuda")
+        sg = torch.rand(n, h * w, generator=g, device="cuda")
+        gc = torch.randn(n, 2, h, w, generator=g, device="cuda").to(dtype)
+        gmx, gavg = torch.randn_like(cg), torch.randn_like(cg)
+        avg, mx, mx_ties = C.channel_pool(o)
+        comp, cmax, ties = C.spatial_pool(o, cg)
+        (y,) = C.gate(o, cg, sg, r)
+        _, gx1, _ = C.gate_bwd(gy, y, o, cg, sg)
+        # (name, kernel call, plain call, bytes it must move, outputs held exactly)
+        cases = [
+            ("channel_pool (K1)", lambda: C.channel_pool(o), lambda: C.channel_pool_ref(o),
+             a_bytes, (1, 2)),
+            ("spatial_pool (K2)", lambda: C.spatial_pool(o, cg),
+             lambda: C.spatial_pool_ref(o, cg), a_bytes + pix * (2 * o.element_size() + 8),
+             (1, 2)),
+            ("gate (K3)", lambda: C.gate(o, cg, sg, r), lambda: C.gate_ref(o, cg, sg, r),
+             3 * a_bytes, (0,) if dtype == torch.float32 else ()),
+            ("gate_bwd (B1)", lambda: C.gate_bwd(gy, y, o, cg, sg),
+             lambda: C.gate_bwd_ref(gy, y, o, cg, sg), 5 * a_bytes + 4 * pix, (0,)),
+            ("channel_bwd (B2)", lambda: C.channel_bwd(gx1, o, cg, gc, cmax, ties),
+             lambda: C.channel_bwd_ref(gx1, o, cg, gc, cmax, ties), 2 * a_bytes, ()),
+            ("input_bwd (B3)",
+             lambda: C.input_bwd(gx1, o, cg, gc, cmax, ties, mx, mx_ties, gmx, gavg),
+             lambda: C.input_bwd_ref(gx1, o, cg, gc, cmax, ties, mx, mx_ties, gmx, gavg),
+             3 * a_bytes, ()),
+        ]
+        kernels = {}
+        for name, kern, plain, nbytes, exact in cases:
+            got, want = kern(), plain()
+            errs = []
+            for i, (a, b) in enumerate(zip(got, want)):
+                if i in exact:
+                    check(torch.equal(a, b), f"cbam {name} {dtype}: output {i} differs from "
+                          f"its plain version at {(a != b).sum().item()} places")
+                    errs.append(0.0)
+                else:
+                    err = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                    check(err <= tol, f"cbam {name} {dtype}: output {i} {err:.3g} of its max "
+                          f"from its plain version (tol {tol:.3g})")
+                    errs.append(err)
+            kernels[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
+                             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                             "max_rel_err": max(errs)}
+        # a block's CBAM and tail, forward and backward, against the plain chain
+        ref_m = copy.deepcopy(m)
+        xi = o.detach().clone().requires_grad_()
+        ri = r.detach().clone().requires_grad_()
+        params, ref_params = list(m.parameters()), list(ref_m.parameters())
+
+        def fused():
+            return torch.autograd.grad(m.gate_tail(xi, ri), [xi, ri, *params], gy)
+
+        def plain():
+            return torch.autograd.grad(F.relu(ref_m(xi) + ri), [xi, ri, *ref_params], gy)
+
+        check(m.takes_kernels(xi, ri), f"cbam {dtype}: the block does not take the kernels")
+        before = (C.launches, C.bwd_launches)
+        got, want = fused(), plain()
+        launched = (C.launches - before[0], C.bwd_launches - before[1])
+        check(launched == (4, 4), f"cbam {dtype}: a block launched {launched}, expected (4, 4)")
+        with torch.no_grad():
+            y_k, y_p = m.gate_tail(o, r), F.relu(ref_m(o) + r)
+        y_err = ((y_k.float() - y_p.float()).abs().max() / y_p.float().abs().max()).item()
+        flips = int(((y_k > 0) != (y_p > 0)).sum())
+        names = ["o", "residual"] + [k for k, _ in m.named_parameters()]
+
+        def rel_l2(xs, ys):
+            return {k: ((a.float() - b.float()).norm() / b.float().norm()).item()
+                    for k, a, b in zip(names, xs, ys)}
+        # a ReLU whose input lies within a rounding of 0 may take the other
+        # side (cg and sg differ in their last bits: the sums' order), and
+        # moves whole values of the gradients there: relative L2 errors
+        errs = rel_l2(got, want)
+        chain_err = max(errs.values())
+        if dtype == torch.float32:
+            check(y_err <= tol and flips <= 1e-6 * y_p.numel() and chain_err <= 1e-3,
+                  f"cbam {dtype}: the block's output {y_err:.3g} of its max from the plain "
+                  f"chain's (tol {tol:.3g}), {flips} ReLUs on the other side; its gradients' "
+                  f"relative L2 errors {errs} (tol 1e-3)")
+            vs_fp32 = ""
+        else:
+            # the plain chain rounds to bf16 after every op, the kernels once:
+            # the kernels held to the same Functions with their plain
+            # versions (fp32 inside, as the kernels); both chains' distance
+            # from the chain in fp32 on the same inputs reported
+            orig = C.gate_tail
+            C.gate_tail = functools.partial(orig, impl=C.REF)
+            try:
+                same = fused()
+            finally:
+                C.gate_tail = orig
+            err_ref = rel_l2(got, same)
+            check(max(err_ref.values()) <= 2.0 ** -5, f"cbam {dtype}: the kernels' gradients "
+                  f"from their plain versions' (relative L2): {err_ref} (tol 2^-5)")
+            ref32 = copy.deepcopy(ref_m)
+            for mod in ref32.modules():
+                if hasattr(mod, "dtype"):
+                    mod.dtype = None
+            x32, r32 = xi.detach().float().requires_grad_(), ri.detach().float().requires_grad_()
+            exact = torch.autograd.grad(F.relu(ref32(x32) + r32),
+                                        [x32, r32, *ref32.parameters()], gy.float())
+            err_k, err_p = rel_l2(got, exact), rel_l2(want, exact)
+            vs_fp32 = (f"; from their plain versions {max(err_ref.values()):.3g}; relative L2 "
+                       f"from the fp32 chain, kernels {err_k}, plain chain {err_p}")
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: m.gate_tail(o, r), iters=10)
+            fwd_plain = time_ms(lambda: F.relu(ref_m(o) + r), iters=10)
+        both_ms, both_plain = time_ms(fused, iters=10), time_ms(plain, iters=10)
+        chain_bytes = 7 * a_bytes   # read o, r, gy and o again; write y, go, the residual's
+        row = {"shape": f"({n}, {h}, {w}, {c}) NHWC", "kernels": kernels,
+               "chain_fwd_ms": fwd_ms, "chain_fwd_plain_ms": fwd_plain,
+               "chain_ms": both_ms, "chain_plain_ms": both_plain,
+               "chain_bound_ms": chain_bytes / HBM_BYTES_PER_S * 1e3,
+               "chain_rel_l2_err": chain_err, "forward_rel_err": y_err, "relu_flips": flips,
+               "launches": launched}
+        rows[str(dtype)] = row
+        txt = "; ".join(f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound "
+                        f"{v['bound_ms']:.4f}, err {v['max_rel_err']:.3g})"
+                        for k, v in kernels.items())
+        print(f"cbam {dtype} {row['shape']}: {txt}; block forward {fwd_ms:.4f} ms (plain "
+              f"{fwd_plain:.4f}), forward + backward {both_ms:.4f} ms (plain {both_plain:.4f}, "
+              f"the chain's bound {row['chain_bound_ms']:.4f}), forward err {y_err:.3g}, "
+              f"gradients' relative L2 err {chain_err:.3g}{vs_fp32}, {flips} ReLU flips, "
+              f"launches {launched} [{card}]")
+        del m, ref_m, o, r, gy, xi, ri, got, want
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -5232,7 +5433,7 @@ def main():
     timed("build", phase_build)
     if "--phase" in sys.argv:   # one phase alone: its holds and lines, no result lines
         alone = {"resident": phase_resident, "dp": phase_dp, "tp": phase_tp,
-                 "dp_graph": phase_dp_graph}
+                 "dp_graph": phase_dp_graph, "cbam": phase_cbam}
         name = sys.argv[sys.argv.index("--phase") + 1]
         check(name in alone, f"--phase takes one of {sorted(alone)}")
         timed(name, alone[name], card)
@@ -5243,6 +5444,7 @@ def main():
     group_rows, group_bwd_rows = timed("kernels_group", phase_kernels_group, card)
     flash_rows = timed("kernels_flash", phase_kernels_flash, card)
     aug_rows = timed("augment", phase_augment, card)
+    cbam_rows = timed("cbam", phase_cbam, card)
     paths = {"serving": timed("serving", phase_slice, card)}
     import numpy as np
     data = _combined(np.random.default_rng(SEED), ACCEPTANCE_SPECS)
@@ -5361,6 +5563,14 @@ def main():
             **aug_rows[("acceptance", "uint8")][key],
             "stacks": {f"{s} {d}": row[key] for (s, d), row in aug_rows.items() if row[key]},
             "steps": {f"{s} {d}": row["step"] for (s, d), row in aug_rows.items()}})
+    cbam_source = "eoe_tpu_torch/csrc/cbam.cu"
+    for name, count, family in (("cbam", "cbam", "cbam_fwd"), ("cbam_bwd", "cbam_bwd", "cbam_bwd")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": cbam_source,
+            "replaces": "eoe_tpu_torch/models/cbam.py's composition (XLA fuses it on the TPU)",
+            "launches": paths["wrn_training"][count], "launches_by_path": by_path(count),
+            "traced_by_path": traced_by_path(family),
+            "rows": {dt: row for dt, row in cbam_rows.items()}})
     missing = sorted(p for p in paths if p not in per_step and p not in TRACED)
     check(not missing, f"counted paths without a traced run: {missing}")
     print(f"traced counted runs (the port's kernels in the trace = the counters): "

@@ -6,6 +6,12 @@ and max-pooled features, summed, through a sigmoid. Spatial gate: a 7x7
 conv (no bias, Flax's default lecun-normal init) over [channel max, channel
 mean], then BN with a zero-initialised scale, eps 1e-5 and Flax momentum
 0.99, no ReLU.
+
+``CBAM.gate_tail`` is a BasicBlock's ``relu(cbam(x) + residual)``. For the
+configuration WideResNet builds (avg and max pools, the spatial gate) on
+fp32 or bf16 CUDA tensors it runs ``ops.cbam.gate_tail``, the gates and the
+tail as CUDA kernels around this module's own MLP, conv and BN; otherwise,
+and on the CPU, the plain composition of the modules below.
 """
 
 from typing import Optional, Sequence
@@ -14,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from eoe_tpu_torch.models.layers import BatchNorm, Conv, ConvModel, Dense, torch_linear
+from eoe_tpu_torch.ops import cbam as cbam_ops
 
 
 class ChannelGate(ConvModel):
@@ -61,8 +68,34 @@ class CBAM(ConvModel):
         super().__init__()
         self.channel_gate = ChannelGate(gate_channels, reduction_ratio, pool_types, dtype)
         self.spatial_gate = None if no_spatial else SpatialGate(dtype)
+        self.fusable = cbam_ops.fusable(gate_channels, pool_types, not no_spatial)
         self.reset_parameters(torch.Generator().manual_seed(0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.channel_gate(x)
         return x if self.spatial_gate is None else self.spatial_gate(x)
+
+    def gate_tail(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        """``relu(self(x) + residual)``, a BasicBlock's tail: through the
+        kernels where ``takes_kernels``, else the plain composition."""
+        if self.takes_kernels(x, residual):
+            return self.fused_gate_tail(x, residual)
+        return F.relu(self(x) + residual)
+
+    def takes_kernels(self, x: torch.Tensor, residual: torch.Tensor) -> bool:
+        """A CUDA input and residual of one dtype, fp32 or bf16, that the
+        module computes in (so that the plain composition's output has the
+        input's dtype too)."""
+        return (self.fusable and x.is_cuda and x.dtype in (torch.float32, torch.bfloat16)
+                and residual.dtype == x.dtype and self._compute_dtype(x) == x.dtype)
+
+    def _compute_dtype(self, x: torch.Tensor) -> torch.dtype:
+        return self.channel_gate.mlp_hidden.dtype or torch.promote_types(x.dtype, torch.float32)
+
+    def fused_gate_tail(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        """``ops.cbam.gate_tail`` around this module's MLP, conv and BN: the
+        kernels on a CUDA tensor, their plain versions on a CPU one."""
+        cg, sg = self.channel_gate, self.spatial_gate
+        mlp = (cg.mlp_hidden.weight, cg.mlp_hidden.bias, cg.mlp_out.weight, cg.mlp_out.bias)
+        return cbam_ops.gate_tail(x, residual, mlp, self._compute_dtype(x),
+                                  lambda c: sg.spatial_bn(sg.spatial_conv(c)))

@@ -57,7 +57,7 @@ class BasicBlock(ConvModel):
         out = self.bn2(self.conv2(out))
         residual = self.down_bn(self.down_conv(x)) if self.downsample else x
         if self.cbam is not None:
-            out = self.cbam(out)
+            return self.cbam.gate_tail(out, residual)
         return F.relu(out + residual)
 
 

@@ -143,13 +143,14 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
 
 def _launch_counters() -> List[Tuple[object, str]]:
     """Every kernel launch counter of the port: (owner, attribute)."""
-    from eoe_tpu_torch.ops import augment
+    from eoe_tpu_torch.ops import augment, cbam
     from eoe_tpu_torch.ops.attention import flash_attention, fused_qkv_attention
     return ([(fused_qkv_attention, a) for a in (
         "launches", "bwd_launches", "group_launches", "group_bwd_launches",
         "resident_bwd_launches", "recompute_bwd_launches")]
         + [(flash_attention, a) for a in ("launches", "tc_launches", "tile_launches")]
-        + [(augment, "launches"), (augment, "stats_launches")])
+        + [(augment, "launches"), (augment, "stats_launches")]
+        + [(cbam, "launches"), (cbam, "bwd_launches")])
 
 
 def read_launches() -> List[int]:
