@@ -220,7 +220,7 @@ PATH_DTYPES = {"serving": "fp32", "training": "bf16", "training_fp32": "fp32",
                "dp_graph_capture": "fp32", "dp_graph_grid_rank0": "fp32",
                "dp_graph_grid_rank1": "fp32", "dp_graph_cnn_nccl-rank0": "fp32",
                "dp_graph_cnn_nccl-rank1": "fp32", "dp_graph_vit_nccl-rank0": "bf16",
-               "dp_graph_vit_nccl-rank1": "bf16"}
+               "dp_graph_vit_nccl-rank1": "bf16", "vitl14_training": "bf16"}
 BATCH = 128
 SLEEP_CYCLES = 50_000_000     # ~30 ms of the card's clock: time to queue a timed run
 
@@ -242,13 +242,15 @@ def _counts() -> dict:
     augmentation kernels' (apply, stats). Ends a trace that ``_zero_counts``
     started and holds it against these counts."""
     from eoe_tpu_torch.ops import augment, cbam
-    from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention as fl
+    from eoe_tpu_torch.ops.attention import (default_attention, fused_qkv_attention as fq,
+                                             flash_attention as fl, long_qkv_attention as lq)
     counts = {"fwd": fq.launches, "bwd": fq.bwd_launches, "group_fwd": fq.group_launches,
               "group_bwd": fq.group_bwd_launches, "bwd_resident": fq.resident_bwd_launches,
               "bwd_recompute": fq.recompute_bwd_launches, "flash": fl.launches,
               "flash_tc": fl.tc_launches, "flash_tile": fl.tile_launches,
               "augment": augment.launches, "augment_stats": augment.stats_launches,
-              "cbam": cbam.launches, "cbam_bwd": cbam.bwd_launches}
+              "cbam": cbam.launches, "cbam_bwd": cbam.bwd_launches, "long": lq.launches,
+              "long_bwd": lq.bwd_launches, "default_cuda": default_attention.cuda_calls}
     if _TRACE:
         prof, path = _TRACE.pop("prof"), _TRACE.pop("path")
         _trace_stop(prof)
@@ -263,12 +265,14 @@ def _zero_counts(trace: str = None):
     carry the profiler's cost), and that ``_counts()`` holds the launches
     the trace shows against the counters (``hold_traced``)."""
     from eoe_tpu_torch.ops import augment, cbam
-    from eoe_tpu_torch.ops.attention import fused_qkv_attention as fq, flash_attention as fl
+    from eoe_tpu_torch.ops.attention import (default_attention, fused_qkv_attention as fq,
+                                             flash_attention as fl, long_qkv_attention as lq)
     fq.launches = fq.bwd_launches = fq.group_launches = fq.group_bwd_launches = 0
     fq.resident_bwd_launches = fq.recompute_bwd_launches = 0
     fl.launches = fl.tc_launches = fl.tile_launches = 0
     augment.launches = augment.stats_launches = 0
     cbam.launches = cbam.bwd_launches = 0
+    lq.launches = lq.bwd_launches = default_attention.cuda_calls = 0
     if trace is not None:
         check(not _TRACE, f"{trace}: the trace of {_TRACE.get('path')} was not ended")
         _TRACE.update(path=trace, prof=_trace_start())
@@ -334,6 +338,10 @@ TRACED_FAMILIES = {
                   "cbam_spatial_pool_kernel", "cbam_gate_kernel"), ("cbam",)),
     "cbam_bwd": (("cbam_gate_bwd_kernel", "cbam_channel_bwd_kernel",
                   "cbam_channel_bwd_finish_kernel", "cbam_input_bwd_kernel"), ("cbam_bwd",)),
+    # the long attention's backward launches its two kernels, one of each a call
+    "long_fwd": (("long_fwd_kernel",), ("long",)),
+    "long_bwd_dq": (("long_bwd_dq_kernel",), ("long_bwd",)),
+    "long_bwd_dkdv": (("long_bwd_dkdv_kernel",), ("long_bwd",)),
 }
 # a kernel's identifier in a demangled device-event name: the first name
 # followed by its template arguments or parameters that is unqualified or in
@@ -369,7 +377,7 @@ def hold_traced(prof, counts: dict, what: str, path: str = None) -> dict:
                  "counted": sum(counts[k] for k in keys)}
            for fam, (symbols, keys) in TRACED_FAMILIES.items()}
     ours = {n[:120] for n in names
-            if any(t in n for t in ("fused_qkv", "flash_", "augment_", "cbam_"))}
+            if any(t in n for t in ("fused_qkv", "flash_", "augment_", "cbam_", "long_"))}
     check(all(v["traced"] == v["counted"] for v in out.values()),
           f"{what}: the trace's launches differ from the counters': {out}; device names "
           f"seen {sorted(ours)[:12]}")
@@ -407,6 +415,7 @@ def bwd_design(before: dict, after: dict) -> str:
 
 AUGMENT_KEYS = ("augment", "augment_stats")
 CBAM_KEYS = ("cbam", "cbam_bwd")
+DEFAULT_KEYS = ("default_cuda",)   # default_attention's calls on the card
 
 
 def check_counts(counts: dict, expected: dict, what: str):
@@ -414,9 +423,10 @@ def check_counts(counts: dict, expected: dict, what: str):
     other kernel not at all. The augmentation kernels are held only where
     ``expected`` names one of them (the paths whose pipeline calls are
     counted here: the training phases, ``augment_counts``), the CBAM kernels
-    likewise; elsewhere their launches are reported, and every traced run
-    holds them to the trace."""
-    reported = {k for keys in (AUGMENT_KEYS, CBAM_KEYS)
+    and ``default_attention``'s calls on the card likewise; elsewhere their
+    launches are reported, and every traced run holds the kernels to the
+    trace."""
+    reported = {k for keys in (AUGMENT_KEYS, CBAM_KEYS, DEFAULT_KEYS)
                 if not any(a in expected for a in keys) for k in keys}
     held = [k for k in counts if k not in reported]
     got = {k: counts[k] for k in held}
@@ -1165,6 +1175,89 @@ def phase_cbam(card: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------- long attention
+
+# ViT-L/14's image tower in training: 128 + 128 rows, 257 tokens, 16 heads of 64
+LONG_SHAPE = (256, 257, 16, 64)
+
+
+def phase_long_attention(card: str) -> dict:
+    """The long attention pair at ViT-L/14's training shape against its
+    plain versions (output within 2e-2, a bf16 rounding; the backward, from
+    the kernel's own output and statistics, within 2^-5 of its largest
+    value, as the fused backward's card test), timed: the forward kernel,
+    the backward's two kernels, their bounds (``attention_bound_ms``), the
+    plain versions on the card and autograd of ``default_attention``."""
+    import torch
+    from eoe_tpu_torch.ops import attention as A
+
+    n, s, h, d = LONG_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    qkv = torch.randn(n, s, 3 * h * d, generator=g, device="cuda").bfloat16()
+    dout = torch.randn(n, s, h * d, generator=g, device="cuda").bfloat16()
+    out, stats = A._long_fwd_kernel(qkv, h)
+    ref, _ = A.long_qkv_attention_fwd_ref(qkv, h)
+    err = (out.float() - ref.float()).abs().max().item()
+    check(err <= 2e-2, f"long_qkv_attention forward: max abs err {err}")
+    dqkv = A._long_bwd_kernel(qkv, out, stats, dout, h)
+    dref = A.long_qkv_attention_bwd_ref(qkv, out, stats, dout, h)
+    berr = (dqkv.float() - dref.float()).abs().max().item()
+    btol = 2 ** -5 * dref.float().abs().max().item()
+    check(berr <= btol, f"long_qkv_attention backward: max abs err {berr} > {btol}")
+    check(torch.equal(dqkv, A._long_bwd_kernel(qkv, out, stats, dout, h)),
+          "long_qkv_attention backward: two runs differ")
+    del ref, dref
+
+    def plain_pair():
+        x = qkv.detach().requires_grad_(True)
+        q, k, v = (t.reshape(n, s, h, d).transpose(1, 2) for t in x.chunk(3, dim=-1))
+        A.default_attention(q, k, v, None).transpose(1, 2).reshape(n, s, h * d).backward(dout)
+
+    fwd_ms = time_ms(lambda: A._long_fwd_kernel(qkv, h))
+    bwd_ms = time_ms(lambda: A._long_bwd_kernel(qkv, out, stats, dout, h))
+    plain_fwd = time_ms(lambda: A.long_qkv_attention_fwd_ref(qkv, h), iters=5)
+    plain_bwd = time_ms(lambda: A.long_qkv_attention_bwd_ref(qkv, out, stats, dout, h), iters=5)
+    default_ms = time_ms(plain_pair, iters=5)
+    rows = {}
+    for key, ms, plain, backward, e in (("fwd", fwd_ms, plain_fwd, False, err),
+                                        ("bwd", bwd_ms, plain_bwd, True, berr)):
+        bound, by = attention_bound_ms(n, s, h, d, False, "torch.bfloat16", backward)
+        rows[key] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, max_abs_err=e,
+                         roofline_pct=100 * bound / ms, shape=f"n={n} s={s} H={h} d={d} bf16")
+        print(f"kernel long_qkv_attention {key} n={n} s={s} H={h} d={d} bf16: max_abs_err "
+              f"{e:.3g} kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"{100 * bound / ms:.1f}% of it [{card}]")
+    print(f"long_qkv_attention: default_attention forward + backward under autograd "
+          f"{default_ms:.4f} ms against the pair's {fwd_ms + bwd_ms:.4f} ms [{card}]")
+    rows["default_ms"] = default_ms
+    return rows
+
+
+def phase_vitl14(card: str) -> dict:
+    """ViT-L/14 at its published widths trained in bf16 (the HSC objective,
+    the acceptance stack, 128 + 128 a step, the resident epoch's graphs),
+    counted and traced: 24 long forward and backward launches a step, 24
+    forward a test batch, no call of ``default_attention`` on the card; the
+    step's memory peak."""
+    import numpy as np
+    import torch
+    from eoe_tpu_torch.models.clip import CLIP, VIT_L14
+
+    layers = VIT_L14.vision_layers
+    data = _combined(np.random.default_rng(SEED), ACCEPTANCE_SPECS)
+    torch.cuda.reset_peak_memory_stats()
+    counts = _train_bf16(card, "vitl14", "vitl14_training",
+                         CLIP(VIT_L14, dtype=torch.bfloat16), data, 1,
+                         lambda steps, evals: {"long": layers * (steps + evals),
+                                               "long_bwd": layers * steps, "default_cuda": 0},
+                         model_name="ViT-L/14")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"vitl14: memory peak {peak} bytes ({peak / 2 ** 30:.2f} GiB) of train_cls and "
+          f"eval_cls at {BATCH} + {BATCH} [{card}]")
+    counts["peak_bytes"] = peak
+    return counts
+
+
 def phase_slice(card: str) -> dict:
     import numpy as np
     import torch
@@ -1310,7 +1403,8 @@ def _trainer(model, train_specs, logger, dtype, epochs=TRAIN_EPOCHS):
                           batch_size=BATCH, compute_dtype=dtype)
 
 
-def _train_bf16(card, label, trace, model, data, epochs, expected, serve_model=None) -> dict:
+def _train_bf16(card, label, trace, model, data, epochs, expected, serve_model=None,
+                model_name="ViT-B/32") -> dict:
     """``train_cls`` of ``epochs`` epochs and ``eval_cls`` on the acceptance
     set, counted: ``expected(steps, eval_batches)`` gives each attention
     kernel's launches; the augmentation kernels launch twice for each
@@ -1357,7 +1451,7 @@ def _train_bf16(card, label, trace, model, data, epochs, expected, serve_model=N
         check(eval_scores.shape == (TRAIN_TEST,) and np.isfinite(eval_scores).all(),
               f"{label}: eval_cls gave bad scores")
         rates = [round(r, 1) for r in trainer.epoch_rates]
-        print(f"{label} hsc bf16 ViT-B/32: {steps} steps of {BATCH}+{BATCH} images in "
+        print(f"{label} hsc bf16 {model_name}: {steps} steps of {BATCH}+{BATCH} images in "
               f"{t_train:.2f} s; img/s per epoch {rates}; losses "
               f"{[round(x, 5) for x in losses]}; train AUROC {roc.auc:.4f}, eval of "
               f"{TRAIN_TEST} in {t_eval:.2f} s, synthetic AUROC {eroc.auc:.4f}; launches "
@@ -5433,7 +5527,8 @@ def main():
     timed("build", phase_build)
     if "--phase" in sys.argv:   # one phase alone: its holds and lines, no result lines
         alone = {"resident": phase_resident, "dp": phase_dp, "tp": phase_tp,
-                 "dp_graph": phase_dp_graph, "cbam": phase_cbam}
+                 "dp_graph": phase_dp_graph, "cbam": phase_cbam,
+                 "long_attention": phase_long_attention, "vitl14": phase_vitl14}
         name = sys.argv[sys.argv.index("--phase") + 1]
         check(name in alone, f"--phase takes one of {sorted(alone)}")
         timed(name, alone[name], card)
@@ -5445,6 +5540,7 @@ def main():
     flash_rows = timed("kernels_flash", phase_kernels_flash, card)
     aug_rows = timed("augment", phase_augment, card)
     cbam_rows = timed("cbam", phase_cbam, card)
+    long_rows = timed("long_attention", phase_long_attention, card)
     paths = {"serving": timed("serving", phase_slice, card)}
     import numpy as np
     data = _combined(np.random.default_rng(SEED), ACCEPTANCE_SPECS)
@@ -5455,6 +5551,8 @@ def main():
     del data
     paths["conv_training"] = timed("conv_training", phase_conv_training, card)
     paths["wrn_training"] = timed("wrn_training", phase_wrn_training, card)
+    paths["vitl14_training"] = timed("vitl14", phase_vitl14, card)
+    paths["vitl14_training"].pop("peak_bytes")
     paths.update(timed("resident", phase_resident, card))
     timed("filters", phase_filters, card)
     paths["cli_clip"], paths["cli_conv"] = timed("cli", phase_cli, card)
@@ -5571,6 +5669,15 @@ def main():
             "launches": paths["wrn_training"][count], "launches_by_path": by_path(count),
             "traced_by_path": traced_by_path(family),
             "rows": {dt: row for dt, row in cbam_rows.items()}})
+    for name, count, family, row in (("long_qkv_attention", "long", "long_fwd", "fwd"),
+                                     ("long_qkv_attention_bwd", "long_bwd", "long_bwd_dkdv",
+                                      "bwd")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "eoe_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "eoe_tpu_torch/ops/attention.py's default_attention at 128 < s <= 1024 "
+                        "(the JAX package runs its default_attention there)",
+            "launches": paths["vitl14_training"][count], "launches_by_path": by_path(count),
+            "traced_by_path": traced_by_path(family), **long_rows[row]})
     missing = sorted(p for p in paths if p not in per_step and p not in TRACED)
     check(not missing, f"counted paths without a traced run: {missing}")
     print(f"traced counted runs (the port's kernels in the trace = the counters): "

@@ -17,6 +17,13 @@
 // all -inf gives NaN, as the JAX kernel does; a row with one finite logit is
 // finite.
 //
+// The same source holds the long attention (ops/attention.py,
+// long_qkv_attention), which the image tower of ViT-L/14 (s = 257) runs on
+// the normal path: its forward is the tensor-core stream below under a name
+// of its own (long_fwd_kernel), which also writes each row's max and sum of
+// exp; its backward is a pair of kernels of its own (see "the long
+// attention's backward").
+//
 // Layout: q, k, v and out are read and written through their own (n, h, s)
 // strides with d contiguous, so the caller passes the head-split views of a
 // joint projection as they are and gets its output back in (n, s, h, d)
@@ -316,18 +323,28 @@ __device__ __forceinline__ void for_each_tile(int n_tiles, Load load, Body body)
   }
 }
 
+// The grid is one-dimensional, the query tiles of one (image, head) next to
+// each other, so that the blocks streaming the same K and V run together and
+// find them in L2. With `stats`, each row's final max and sum of exp (pass 1's
+// m and l, from which pass 2 forms P) go to stats[(b * heads + h) * s + row]:
+// the long attention's backward recomputes P from them.
 template <int D>
-__global__ void __launch_bounds__(2 * kTcRows)
-flash_tc_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const float* __restrict__ mask,
-                       bf16* __restrict__ out, Layout lay, int heads, int s, int d, float scale) {
+__device__ __forceinline__ void flash_tc_stream(const bf16* __restrict__ q,
+                                                const bf16* __restrict__ k,
+                                                const bf16* __restrict__ v,
+                                                const float* __restrict__ mask,
+                                                bf16* __restrict__ out, float2* __restrict__ stats,
+                                                const Layout& lay, int heads, int s, int d,
+                                                float scale) {
   constexpr int P = TcDims<D>::kPitch, NT = 2 * kTcRows, NB = kKeyTile / 16;
   extern __shared__ __align__(16) uint32_t smem_tc[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_tc);   // kTcRows query rows
   bf16* Ks = Qs + kTcRows * P;                    // two tiles of kKeyTile keys
   bf16* Vs = Ks + 2 * kKeyTile * P;
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const int q0 = blockIdx.y * kTcRows;
+  const int q_tiles = (s + kTcRows - 1) / kTcRows;
+  const int bh = blockIdx.x / q_tiles;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.x % q_tiles * kTcRows;
   const bf16* kb = k + b * lay.k.n + h * lay.k.h;
   const bf16* vb = v + b * lay.v.n + h * lay.v.h;
   tile_load<bf16, D, P, NT>(Qs, q + b * lay.q.n + h * lay.q.h + q0 * lay.q.s, lay.q.s,
@@ -367,6 +384,12 @@ flash_tc_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     m_hi = fmaxf(m_hi, mt_hi);
   });
 
+  if (stats != nullptr && lane % 4 == 0) {
+    float2* st = stats + (size_t)bh * s;
+    if (r_lo < s) st[r_lo] = make_float2(m_lo, l_lo);
+    if (r_lo + 8 < s) st[r_lo + 8] = make_float2(m_hi, l_hi);
+  }
+
   // ---- pass 2: the logits again, P rounded, P.V
   const float n_lo = flash_norm(l_lo), n_hi = flash_norm(l_hi);
   float o[D / 8][4];
@@ -383,6 +406,291 @@ flash_tc_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   });
   tc_store_rows<D>(o, Qs + row0 * P, out + b * lay.out.n + h * lay.out.h, lay.out.s, q0 + row0,
                    s, d);
+}
+
+// flash_attention's stream: a mask, no statistics.
+template <int D>
+__global__ void __launch_bounds__(2 * kTcRows)
+flash_tc_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const float* __restrict__ mask,
+                       bf16* __restrict__ out, Layout lay, int heads, int s, int d, float scale) {
+  flash_tc_stream<D>(q, k, v, mask, out, nullptr, lay, heads, s, d, scale);
+}
+
+// The long attention's forward: the same stream over the joint projection's
+// views, no mask, the statistics written. A kernel of its own name, so that
+// a trace tells it from flash_attention's.
+template <int D>
+__global__ void __launch_bounds__(2 * kTcRows)
+long_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ out, float2* __restrict__ stats,
+                Layout lay, int heads, int s, float scale) {
+  flash_tc_stream<D>(q, k, v, nullptr, out, stats, lay, heads, s, D, scale);
+}
+
+// ---------------------------------------------------------------- the long attention's backward
+//
+// The backward of long_qkv_attention (ops/attention.py): bf16 on the tensor
+// cores, d in (64, 128), no mask, 128 < S <= 1024, in the FlashAttention-2
+// order. The forward (long_fwd_kernel: the stream on the head-split views of
+// the joint projection) saved each row's max m and sum l; with n = 1 / l, P is
+// recomputed tile by tile as the forward's pass 2 forms it,
+// P = exp(x - m) * n with x = (q.k) * d^-1/2, and rounded to bf16 where it
+// multiplies (dV = round(P)^T . dO). dP = dO . V^T; dS = P * (dP - delta)
+// with the fp32 P and delta = rowsum(dO * O) in fp32, rounded to bf16 for
+// dQ = dS . K * d^-1/2 and dK = dS^T . Q * d^-1/2. No atomics: two kernels,
+// each output row written by one block, so that two runs give the same bits.
+//   long_bwd_dq_kernel: a block per 64 query rows (a warp per 16), K and V
+//     streamed in 64-key tiles; it also writes delta for the second kernel;
+//   long_bwd_dkdv_kernel: a block per 64 key rows (a warp per 16, which
+//     holds dK and dV of its rows in registers), Q, dO and the rows' m, n
+//     and delta streamed in 64-query tiles; S^T = K . Q^T and
+//     dP^T = V . dO^T are formed key-major, so that P^T and dS^T pass from
+//     the accumulators into the A operands of dV and dK without shared
+//     memory.
+// Both write into one (n, S, 3 H d) d(qkv) laid out as the projection: dQ,
+// dK and dV in its three column blocks.
+//
+// What bounds it: it reads qkv, O, dO and writes d(qkv) (9 H d elements a
+// row, 7 of them compulsory) and does 5 products of 2 S^2 d operations an
+// (image, head) once, plus QK^T and dP again in the second kernel: at
+// S = 257, d = 64 about 60 operations a byte, under the ~295 at which the
+// tensor cores would be the limit.
+
+constexpr int kBwdRows = 64;    // the rows a block owns: a warp per 16
+constexpr int kBwdTile = 64;    // the other side's rows, streamed a tile at a time
+
+// Query (or key) rows of 16 * NC at a time within a streamed tile: D = 128
+// takes 32, so that two accumulators of 16 x 128 and the products' tiles
+// stay in registers.
+template <int D>
+struct BwdChunk {
+  static constexpr int kTiles = D == 64 ? 4 : 2;   // n-tiles of 16 in a chunk
+  static constexpr int kRows = 16 * kTiles;
+};
+
+template <int D>
+constexpr size_t long_bwd_smem() {
+  return (size_t)6 * kBwdRows * TcDims<D>::kPitch * sizeof(bf16) +
+         (size_t)2 * kBwdTile * sizeof(float4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(2 * kBwdRows)
+long_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
+                   const bf16* __restrict__ dout, const float2* __restrict__ stats,
+                   float* __restrict__ delta, bf16* __restrict__ dqkv, int heads, int s,
+                   float scale) {
+  constexpr int P = TcDims<D>::kPitch, NT = 2 * kBwdRows;
+  constexpr int NK = BwdChunk<D>::kTiles, KC = BwdChunk<D>::kRows;
+  extern __shared__ __align__(16) uint32_t smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);   // the block's query rows
+  bf16* Gs = Qs + kBwdRows * P;                   // their dO rows
+  bf16* Ks = Gs + kBwdRows * P;                   // two tiles of keys
+  bf16* Vs = Ks + 2 * kBwdTile * P;
+  const int q_tiles = (s + kBwdRows - 1) / kBwdRows;
+  const int bh = blockIdx.x / q_tiles;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.x % q_tiles * kBwdRows;
+  const int width = heads * D;
+  const long long row = 3LL * width;
+  const bf16* qb = qkv + (long long)b * s * row + h * D;     // q of row 0; k, v width apart
+  const long long ob = (long long)b * s * width + h * D;     // row 0 of O and dO
+  tile_load<bf16, D, P, NT>(Qs, qb + q0 * row, row, kBwdRows, s - q0, D);
+  tile_load<bf16, D, P, NT>(Gs, dout + ob + (long long)q0 * width, width, kBwdRows, s - q0, D);
+  cp_async_commit();
+  const int n_tiles = (s + kBwdTile - 1) / kBwdTile;
+  auto load_kv = [&](int t, int buf) {
+    const bf16* src = qb + (long long)t * kBwdTile * row;
+    tile_load<bf16, D, P, NT>(Ks + buf * kBwdTile * P, src + width, row, kBwdTile,
+                              s - t * kBwdTile, D);
+    tile_load<bf16, D, P, NT>(Vs + buf * kBwdTile * P, src + 2 * width, row, kBwdTile,
+                              s - t * kBwdTile, D);
+  };
+
+  const int lane = threadIdx.x % 32;
+  const int row0 = threadIdx.x / 32 * 16;
+  const int g = lane / 4;
+  const int r_lo = q0 + row0 + g, r_hi = r_lo + 8;
+
+  // delta of the warp's 16 rows: two lanes a row, half the columns each,
+  // straight from O and dO in global memory; written for the dK/dV kernel
+  float dl;
+  {
+    const int r = q0 + row0 + lane / 2, c0 = lane % 2 * (D / 2);
+    float acc = 0.f;
+    if (r < s) {
+      const uint4* o4 = reinterpret_cast<const uint4*>(out + ob + (long long)r * width + c0);
+      const uint4* g4 = reinterpret_cast<const uint4*>(dout + ob + (long long)r * width + c0);
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        const uint4 ov = o4[c], gv = g4[c];
+        const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+        const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc = fmaf(to_f32(oe[e]), to_f32(ge[e]), acc);
+      }
+    }
+    dl = acc + __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (r < s && lane % 2 == 0) delta[(size_t)bh * s + r] = dl;
+  }
+  const float dl_lo = __shfl_sync(0xffffffffu, dl, 2 * g);
+  const float dl_hi = __shfl_sync(0xffffffffu, dl, 2 * g + 16);
+  // the rows' m and n = 1 / l; padding rows take n = 0, so their P is 0
+  float m_lo = 0.f, n_lo = 0.f, m_hi = 0.f, n_hi = 0.f;
+  if (r_lo < s) {
+    const float2 st = stats[(size_t)bh * s + r_lo];
+    m_lo = st.x, n_lo = flash_norm(st.y);
+  }
+  if (r_hi < s) {
+    const float2 st = stats[(size_t)bh * s + r_hi];
+    m_hi = st.x, n_hi = flash_norm(st.y);
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  for_each_tile(n_tiles, load_kv, [&](int t, int buf) {
+#pragma unroll
+    for (int c = 0; c < kBwdTile / KC; ++c) {
+      const bf16* kt = Ks + (buf * kBwdTile + c * KC) * P;
+      const bf16* vt = Vs + (buf * kBwdTile + c * KC) * P;
+      float x[2 * NK][4], dp[2 * NK][4];
+      mma_abt<D, NK, P>(x, Qs + row0 * P, kt);       // S = Q . K^T
+      mma_abt<D, NK, P>(dp, Gs + row0 * P, vt);      // dP = dO . V^T
+      uint32_t ds[NK][4];                            // round(dS) as the A operand of dS . K
+#pragma unroll
+      for (int nt = 0; nt < 2 * NK; ++nt) {
+        float d[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = t * kBwdTile + c * KC + nt * 8 + 2 * (lane % 4) + (e & 1);
+          const float p = key < s ? flash_prob(__fmul_rn(x[nt][e], scale), e < 2 ? m_lo : m_hi,
+                                               e < 2 ? n_lo : n_hi)
+                                  : 0.f;
+          d[e] = __fmul_rn(p, __fsub_rn(dp[nt][e], e < 2 ? dl_lo : dl_hi));
+        }
+        ds[nt / 2][(nt % 2) * 2] = pack_bf16(d[0], d[1]);
+        ds[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(d[2], d[3]);
+      }
+      mma_av<D, NK, P>(acc, ds, kt);                 // dQ += dS . K
+    }
+  });
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] *= scale;
+  // the warp's own Q rows are free now: stage dQ there
+  tc_store_rows<D>(acc, Qs + row0 * P, dqkv + (long long)b * s * row + h * D, row, q0 + row0,
+                   s, D);
+}
+
+template <int D>
+__global__ void __launch_bounds__(2 * kBwdRows)
+long_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                     const float2* __restrict__ stats, const float* __restrict__ delta,
+                     bf16* __restrict__ dqkv, int heads, int s, float scale) {
+  constexpr int P = TcDims<D>::kPitch, NT = 2 * kBwdRows;
+  constexpr int NQ = BwdChunk<D>::kTiles, QC = BwdChunk<D>::kRows;
+  extern __shared__ __align__(16) uint32_t smem_tc[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_tc);   // the block's key rows
+  bf16* Vs = Ks + kBwdRows * P;
+  bf16* Qs = Vs + kBwdRows * P;                   // two tiles of queries
+  bf16* Gs = Qs + 2 * kBwdTile * P;               // and of their dO rows
+  float4* Ls = reinterpret_cast<float4*>(Gs + 2 * kBwdTile * P);   // (m, n, delta) a query
+  const int k_tiles = (s + kBwdRows - 1) / kBwdRows;
+  const int bh = blockIdx.x / k_tiles;
+  const int b = bh / heads, h = bh % heads;
+  const int k0 = blockIdx.x % k_tiles * kBwdRows;
+  const int width = heads * D;
+  const long long row = 3LL * width;
+  const bf16* qb = qkv + (long long)b * s * row + h * D;
+  const bf16* gb = dout + (long long)b * s * width + h * D;
+  tile_load<bf16, D, P, NT>(Ks, qb + width + k0 * row, row, kBwdRows, s - k0, D);
+  tile_load<bf16, D, P, NT>(Vs, qb + 2 * width + k0 * row, row, kBwdRows, s - k0, D);
+  cp_async_commit();
+  const int n_tiles = (s + kBwdTile - 1) / kBwdTile;
+  auto load_q = [&](int t, int buf) {
+    const int r0 = t * kBwdTile;
+    tile_load<bf16, D, P, NT>(Qs + buf * kBwdTile * P, qb + r0 * row, row, kBwdTile, s - r0, D);
+    tile_load<bf16, D, P, NT>(Gs + buf * kBwdTile * P, gb + (long long)r0 * width, width,
+                              kBwdTile, s - r0, D);
+    // padding rows take n = 0: their P, and so their dS, is 0
+    for (int i = threadIdx.x; i < kBwdTile; i += NT) {
+      const int r = r0 + i;
+      float4 l = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < s) {
+        const float2 st = stats[(size_t)bh * s + r];
+        l = make_float4(st.x, flash_norm(st.y), delta[(size_t)bh * s + r], 0.f);
+      }
+      Ls[buf * kBwdTile + i] = l;
+    }
+  };
+
+  const int lane = threadIdx.x % 32;
+  const int row0 = threadIdx.x / 32 * 16;
+  float dv[D / 8][4], dk[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[t][e] = dk[t][e] = 0.f;
+  for_each_tile(n_tiles, load_q, [&](int t, int buf) {
+#pragma unroll
+    for (int c = 0; c < kBwdTile / QC; ++c) {
+      const bf16* qt = Qs + (buf * kBwdTile + c * QC) * P;
+      const bf16* gt = Gs + (buf * kBwdTile + c * QC) * P;
+      const float4* lt = Ls + buf * kBwdTile + c * QC;
+      float x[2 * NQ][4], dp[2 * NQ][4];
+      mma_abt<D, NQ, P>(x, Ks + row0 * P, qt);       // S^T = K . Q^T
+      mma_abt<D, NQ, P>(dp, Vs + row0 * P, gt);      // dP^T = V . dO^T
+      uint32_t pt[NQ][4], dst[NQ][4];                // round(P^T), round(dS^T) as A operands
+#pragma unroll
+      for (int nt = 0; nt < 2 * NQ; ++nt) {
+        float p[4], d[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 l = lt[nt * 8 + 2 * (lane % 4) + (e & 1)];   // the column's query
+          p[e] = flash_prob(__fmul_rn(x[nt][e], scale), l.x, l.y);
+          d[e] = __fmul_rn(p[e], __fsub_rn(dp[nt][e], l.z));
+        }
+        pt[nt / 2][(nt % 2) * 2] = pack_bf16(p[0], p[1]);
+        pt[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+        dst[nt / 2][(nt % 2) * 2] = pack_bf16(d[0], d[1]);
+        dst[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(d[2], d[3]);
+      }
+      mma_av<D, NQ, P>(dv, pt, gt);                  // dV += P^T . dO
+      mma_av<D, NQ, P>(dk, dst, qt);                 // dK += dS^T . Q
+    }
+  });
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[t][e] *= scale;
+  // the warp's own K and V rows are free now: stage dK and dV there
+  bf16* dst = dqkv + (long long)b * s * row + h * D;
+  tc_store_rows<D>(dk, Ks + row0 * P, dst + width, row, k0 + row0, s, D);
+  tc_store_rows<D>(dv, Vs + row0 * P, dst + 2 * width, row, k0 + row0, s, D);
+}
+
+template <int D>
+cudaError_t launch_long_bwd(const bf16* qkv, const bf16* out, const bf16* dout,
+                            const float2* stats, float* delta, bf16* dqkv, int n, int heads,
+                            int s, float scale, cudaStream_t st) {
+  static std::atomic<bool> raised_dq[kMaxDevices], raised_dkdv[kMaxDevices];
+  constexpr size_t smem = long_bwd_smem<D>();
+  cudaError_t err = allow_smem(long_bwd_dq_kernel<D>, smem, smem, raised_dq);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(long_bwd_dkdv_kernel<D>, smem, smem, raised_dkdv);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)n * heads * ((s + kBwdRows - 1) / kBwdRows);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  long_bwd_dq_kernel<D><<<(unsigned)blocks, 2 * kBwdRows, smem, st>>>(
+      qkv, out, dout, stats, delta, dqkv, heads, s, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  long_bwd_dkdv_kernel<D><<<(unsigned)blocks, 2 * kBwdRows, smem, st>>>(
+      qkv, dout, stats, delta, dqkv, heads, s, scale);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- fp32 on register tiles
@@ -729,6 +1037,30 @@ cudaError_t with_dim(int d, Fn fn) {
   return fn(std::integral_constant<int, 128>{});
 }
 
+// 128 < S: the two-pass stream, flash_attention's (`stats` null) or the long
+// attention's forward (`stats` given, no mask, d = D).
+template <int D>
+cudaError_t launch_stream(const bf16* q, const bf16* k, const bf16* v, const float* mask,
+                          bf16* out, float2* stats, const Layout& lay, int n, int heads, int s,
+                          int d, float scale, cudaStream_t st) {
+  static std::atomic<bool> raised_flash[kMaxDevices], raised_long[kMaxDevices];
+  constexpr size_t smem = (size_t)(kTcRows + 4 * kKeyTile) * TcDims<D>::kPitch * sizeof(bf16);
+  cudaError_t err = stats == nullptr
+                        ? allow_smem(flash_tc_stream_kernel<D>, smem, smem, raised_flash)
+                        : allow_smem(long_fwd_kernel<D>, smem, smem, raised_long);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)n * heads * ((s + kTcRows - 1) / kTcRows);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (stats == nullptr)
+    flash_tc_stream_kernel<D><<<(unsigned)blocks, 2 * kTcRows, smem, st>>>(q, k, v, mask, out,
+                                                                            lay, heads, s, d,
+                                                                            scale);
+  else
+    long_fwd_kernel<D><<<(unsigned)blocks, 2 * kTcRows, smem, st>>>(q, k, v, out, stats, lay,
+                                                                     heads, s, scale);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* mask, void* out,
                       const Layout& lay, int n, int heads, int s, int d, float scale,
                       cudaStream_t st) {
@@ -741,14 +1073,10 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
   return with_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
     constexpr int P = TcDims<D>::kPitch;
-    if (s > 128) {
-      static std::atomic<bool> raised[kMaxDevices];
-      auto kernel = flash_tc_stream_kernel<D>;
-      constexpr size_t smem = (size_t)(kTcRows + 4 * kKeyTile) * P * sizeof(bf16);
-      cudaError_t err = allow_smem(kernel, smem, smem, raised);
-      if (err != cudaSuccess) return err;
-      return args(kernel, dim3(n * heads, (s + kTcRows - 1) / kTcRows), 2 * kTcRows, smem);
-    }
+    if (s > 128)
+      return launch_stream<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                              static_cast<const bf16*>(v), mask, static_cast<bf16*>(out), nullptr,
+                              lay, n, heads, s, d, scale, st);
     auto small = [&](auto tiles) {
       constexpr int KT = decltype(tiles)::value;   // the sequence padded to 16 * KT rows
       constexpr int QW = KT;                       // warps of 16 query rows a block
@@ -837,4 +1165,47 @@ extern "C" int eoe_flash_attention_fwd(const void* q, const void* k, const void*
   if (dtype == 0)
     return (int)launch_for_dim<float>(q, k, v, mask, out, lay, n, heads, s, d, scale, st);
   return (int)launch_for_dim<bf16>(q, k, v, mask, out, lay, n, heads, s, d, scale, st);
+}
+
+// The long attention (ops/attention.py, long_qkv_attention): bf16 only, no
+// mask, d = 64 or 128, 128 < s <= 1024; qkv (n, s, 3 * heads * d) laid out
+// [q | k | v] with heads contiguous inside each, 16-byte aligned. The
+// forward writes out (n, s, heads * d) and stats (n, heads, s) float2, each
+// row's max and sum of exp; the backward takes qkv, out, dout (n, s,
+// heads * d), stats and a scratch delta (n, heads, s) float, and writes
+// dqkv (n, s, 3 * heads * d); scale is d^-1/2. Return a cudaError_t (0 on
+// success); launch on `stream`, which must belong to the current device; do
+// not synchronise.
+static bool long_shape_ok(int n, int heads, int s, int d) {
+  return n >= 1 && heads >= 1 && s > 128 && s <= kMaxSeq && (d == 64 || d == 128);
+}
+
+extern "C" int eoe_long_attention_fwd(const void* qkv, void* out, void* stats, int n, int heads,
+                                      int s, int d, float scale, void* stream) {
+  if (!long_shape_ok(n, heads, s, d)) return (int)cudaErrorInvalidValue;
+  const long long row = 3LL * heads * d, width = (long long)heads * d;
+  const Strides in{s * row, d, row};
+  const Layout lay{in, in, in, {s * width, d, width}};
+  const bf16* q = static_cast<const bf16*>(qkv);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return launch_stream<D>(q, q + width, q + 2 * width, nullptr, static_cast<bf16*>(out),
+                            static_cast<float2*>(stats), lay, n, heads, s, d, scale, st);
+  };
+  return (int)(d == 64 ? run(std::integral_constant<int, 64>{})
+                       : run(std::integral_constant<int, 128>{}));
+}
+
+extern "C" int eoe_long_attention_bwd(const void* qkv, const void* out, const void* dout,
+                                      const void* stats, void* delta, void* dqkv, int n,
+                                      int heads, int s, int d, float scale, void* stream) {
+  if (!long_shape_ok(n, heads, s, d)) return (int)cudaErrorInvalidValue;
+  auto args = [&](auto launch) {
+    return launch(static_cast<const bf16*>(qkv), static_cast<const bf16*>(out),
+                  static_cast<const bf16*>(dout), static_cast<const float2*>(stats),
+                  static_cast<float*>(delta), static_cast<bf16*>(dqkv), n, heads, s, scale,
+                  static_cast<cudaStream_t>(stream));
+  };
+  return (int)(d == 64 ? args(launch_long_bwd<64>) : args(launch_long_bwd<128>));
 }

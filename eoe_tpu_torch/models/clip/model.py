@@ -11,9 +11,12 @@ takes their channels-last NCHW view for its convolutions.
 Parameters stay fp32; ``dtype`` is the compute dtype. Every dense layer casts
 its input, weight and bias to ``dtype`` explicitly, as Flax ``nn.Dense(dtype=)``
 does (no autocast). Attention runs through the fused-QKV CUDA kernels when
-they apply (``fused_qkv_ok``: on the card) and the mask is none or causal,
-forward and, in training, backward (``fused_qkv_attention`` is an autograd
-Function); else, as on the CPU, through ``default_attention``.
+they apply (``fused_qkv_ok``: on the card, s <= 128) and the mask is none or
+causal, forward and, in training, backward (``fused_qkv_attention`` is an
+autograd Function); a longer bf16 sequence without a mask (ViT-L/14's 257
+tokens) through the long attention pair (``long_qkv_ok``,
+``long_qkv_attention``); else, as on the CPU and in fp32, through
+``default_attention``.
 ``qkv_attention`` replaces the kernels by another function of the same
 signature, e.g. their plain versions ``fused_qkv_attention_ref``.
 ``attention_fn`` is the JAX model's hook: when set, every block splits q, k
@@ -44,7 +47,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from eoe_tpu_torch.models.layers import BatchNorm, Conv
-from eoe_tpu_torch.ops.attention import default_attention, fused_qkv_attention, fused_qkv_ok
+from eoe_tpu_torch.ops.attention import (default_attention, fused_qkv_attention, fused_qkv_ok,
+                                         long_qkv_attention, long_qkv_ok)
 from eoe_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 
 QkvAttention = Callable[[torch.Tensor, int, bool], torch.Tensor]
@@ -80,12 +84,43 @@ class ClipConfig:
 
 
 VIT_B32 = ClipConfig()
+# OpenAI's ViT-L/14 (clip/model.py): 24 blocks of width 1024 (16 heads of 64)
+# over 14-px patches, 257 tokens at 224 px; a text tower of width 768
+VIT_L14 = ClipConfig(embed_dim=768, vision_layers=24, vision_width=1024, vision_patch_size=14,
+                     transformer_width=768, transformer_heads=12)
 RN50 = ClipConfig(embed_dim=1024, vision_layers=(3, 4, 6, 3), vision_width=64,
                   vision_patch_size=None)
 
 
+class _QuickGelu(torch.autograd.Function):
+    """QuickGELU, x * sigmoid(1.702 x), saving its input alone: autograd's
+    composition keeps the input and the sigmoid, two tensors of the MLP's
+    width, in every block (ViT-L/14's tower at 128 + 128 images peaks 11 GiB
+    higher with them, over 70 GiB of an H100's 80). The forward is the
+    composition's arithmetic. With t = 1.702 x,
+    QuickGELU is silu(t) / 1.702, so its derivative is silu's at t: the
+    backward recomputes t and takes ``silu_backward`` (g s (1 + t (1 - s)),
+    s = sigmoid(t), in fp32 and rounded once), two elementwise passes where
+    autograd's composition takes five."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return x * torch.sigmoid(1.702 * x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.ops.aten.silu_backward(g, 1.702 * x)
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
+    return _QuickGelu.apply(x)
 
 
 def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -173,6 +208,8 @@ class MultiHeadAttention(nn.Module):
                 return self._out(self.qkv_attention(qkv, heads, causal))
             if fused_qkv_ok(n, s, heads, hd, qkv):
                 return self._out(fused_qkv_attention(qkv, heads, causal))
+            if long_qkv_ok(n, s, heads, hd, qkv, masked=mask is not None):
+                return self._out(long_qkv_attention(qkv, heads))
         q, k, v = (t.reshape(n, s, heads, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
         attn = (self.attention_fn or default_attention)(q, k, v, mask)
         return self._out(attn.transpose(1, 2).reshape(n, s, heads * hd))

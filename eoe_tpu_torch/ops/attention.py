@@ -64,13 +64,19 @@ GROUP_GRID = os.environ.get("EOE_TPU_ATTN_GROUP_GRID", "0") == "1"
 def default_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       mask: Optional[torch.Tensor]) -> torch.Tensor:
     """(n, heads, s, d) scaled dot-product attention; logits and softmax in
-    fp32, probabilities cast to v's dtype (eoe_tpu/models/clip/model.py:83)."""
+    fp32, probabilities cast to v's dtype (eoe_tpu/models/clip/model.py:83).
+    ``default_attention.cuda_calls`` counts its calls on CUDA tensors."""
+    if q.is_cuda:
+        default_attention.cuda_calls += 1
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("nhqd,nhkd->nhqk", q.float(), k.float()) * scale
     if mask is not None:
         logits = logits + mask
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("nhqk,nhkd->nhqd", probs, v)
+
+
+default_attention.cuda_calls = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -278,6 +284,10 @@ def _flash_library() -> ctypes.CDLL:
                                             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, P,
                                             ctypes.POINTER(I)]
     lib.eoe_flash_attention_fwd.restype = I
+    lib.eoe_long_attention_fwd.argtypes = [P, P, P, I, I, I, I, ctypes.c_float, P]
+    lib.eoe_long_attention_fwd.restype = I
+    lib.eoe_long_attention_bwd.argtypes = [P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P]
+    lib.eoe_long_attention_bwd.restype = I
     lib.eoe_cuda_error_string.argtypes = [I]
     lib.eoe_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -531,3 +541,195 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
 flash_attention.tile_launches = 0
+
+
+# ---------------------------------------------------------------- long attention
+
+
+def long_qkv_ok(n: int, s: int, heads: int, d: int, sample: Optional[torch.Tensor] = None,
+                masked: bool = False) -> bool:
+    """Whether the long attention pair applies on the normal path: the fused
+    kernels' switch ``EOE_TPU_FUSED_ATTN`` is on, no mask, a bf16
+    projection (``sample``) on a CUDA device, ``MAX_SEQ < s <=
+    MAX_SINGLE_BLOCK`` and d in (64, 128). fp32 keeps ``default_attention``."""
+    if os.environ.get("EOE_TPU_FUSED_ATTN", "1") != "1" or masked:
+        return False
+    if sample is None or not sample.is_cuda or sample.dtype != torch.bfloat16:
+        return False
+    return n >= 1 and heads >= 1 and MAX_SEQ < s <= MAX_SINGLE_BLOCK and d in (64, 128)
+
+
+def _long_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The flash kernel's logits: q and k in fp32, scaled after the product."""
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+
+
+def long_qkv_attention_fwd_ref(qkv: torch.Tensor, heads: int):
+    """Plain PyTorch version of the long attention's forward, with the flash
+    kernel's numerics (``flash_attention_ref``): the output (n, s, H*d) and
+    each row's fp32 max and sum of exp, (n, H, s, 2)."""
+    n, s, F = qkv.shape
+    q, k, v = _split_heads(qkv, heads)
+    logits = _long_logits(q, k)
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    l = e.sum(dim=-1, keepdim=True)
+    p = (e / l).to(qkv.dtype)
+    out = torch.matmul(p.float(), v.float()).to(qkv.dtype)
+    return out.transpose(1, 2).reshape(n, s, F // 3), torch.cat([m, l], dim=-1)
+
+
+def long_qkv_attention_bwd_ref(qkv: torch.Tensor, out: torch.Tensor, stats: torch.Tensor,
+                               dout: torch.Tensor, heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the long attention's backward kernels, in
+    the FlashAttention-2 order: P recomputed from the saved max m and sum l
+    as exp(x - m) * (1 / l) and rounded to the input dtype for
+    dv = round(P)^T.dout; dp = dout.v^T; dS = P * (dp - delta) with the fp32
+    P and delta = rowsum(dout * out) in fp32, rounded to the input dtype for
+    dq = dS.k * d^-1/2 and dk = dS^T.q * d^-1/2. Returns d(qkv) packed
+    [dq | dk | dv] as the projection."""
+    n, s, F = qkv.shape
+    D = F // 3
+    d = D // heads
+    scale = d ** -0.5
+    q, k, v = _split_heads(qkv, heads)
+    g = dout.reshape(n, s, heads, d).transpose(1, 2).float()
+    o = out.reshape(n, s, heads, d).transpose(1, 2).float()
+    p = torch.exp(_long_logits(q, k) - stats[..., :1]) * (1.0 / stats[..., 1:])
+    delta = (g * o).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.to(qkv.dtype).float().transpose(-1, -2), g)
+    dp = torch.matmul(g, v.float().transpose(-1, -2))
+    ds = (p * (dp - delta)).to(qkv.dtype).float()
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dqkv = torch.stack([dq, dk, dv])                      # (3, n, h, s, d)
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(n, s, F).to(qkv.dtype)
+
+
+class _LongAttention(torch.autograd.Function):
+    """The forward function: returns the output and the rows' statistics
+    (not differentiable) and saves ``qkv``, the output and the statistics,
+    nothing else. Its backward is ``_LongAttentionBwd``, a Function of its
+    own, so that ``torch.func`` transforms reach the backward kernels
+    through its vmap rule. Both rules fold the vmapped members into the
+    image axis and launch once, as ``_QkvAttention``'s do."""
+
+    @staticmethod
+    def forward(qkv, heads, fwd, bwd):
+        return fwd(qkv, heads)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        qkv, heads, _fwd, bwd = inputs
+        out, stats = output
+        ctx.mark_non_differentiable(stats)
+        ctx.save_for_backward(qkv, out, stats)
+        ctx.heads, ctx.bwd = heads, bwd
+
+    @staticmethod
+    def backward(ctx, dout, _dstats):
+        qkv, out, stats = ctx.saved_tensors
+        return _LongAttentionBwd.apply(qkv, out, stats, dout, ctx.heads, ctx.bwd), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, qkv, heads, fwd, bwd):
+        K = info.batch_size
+        out, stats = _LongAttention.apply(_fold(qkv, in_dims[0], K), heads, fwd, bwd)
+        return ((out.reshape(K, -1, *out.shape[1:]), stats.reshape(K, -1, *stats.shape[1:])),
+                (0, 0))
+
+
+class _LongAttentionBwd(torch.autograd.Function):
+    """The backward function: d(qkv) from ``qkv``, the output, the
+    statistics and ``dout``, with the same folding vmap rule. Not
+    differentiable again."""
+
+    @staticmethod
+    def forward(qkv, out, stats, dout, heads, bwd):
+        return bwd(qkv, out, stats, dout.contiguous(), heads)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, _g):
+        raise RuntimeError("long_qkv_attention is differentiable once")
+
+    @staticmethod
+    def vmap(info, in_dims, qkv, out, stats, dout, heads, bwd):
+        K = info.batch_size
+        folded = (_fold(t, d, K) for t, d in zip((qkv, out, stats, dout), in_dims))
+        got = _LongAttentionBwd.apply(*folded, heads, bwd)
+        return got.reshape(K, -1, *got.shape[1:]), 0
+
+
+def _long_fwd_kernel(qkv: torch.Tensor, heads: int):
+    n, s, F = qkv.shape
+    d = F // 3 // heads
+    _check_card_tensor(qkv, "qkv")
+    out = torch.empty((n, s, F // 3), dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty((n, heads, s, 2), dtype=torch.float32, device=qkv.device)
+    lib = _flash_library()
+    with torch.cuda.device(qkv.device):
+        err = lib.eoe_long_attention_fwd(qkv.data_ptr(), out.data_ptr(), stats.data_ptr(), n,
+                                         heads, s, d, d ** -0.5,
+                                         torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "long_qkv_attention")
+    long_qkv_attention.launches += 1
+    return out, stats
+
+
+def _long_bwd_kernel(qkv: torch.Tensor, out: torch.Tensor, stats: torch.Tensor,
+                     dout: torch.Tensor, heads: int) -> torch.Tensor:
+    n, s, F = qkv.shape
+    d = F // 3 // heads
+    _check_bwd_args(qkv, dout)
+    _check_card_tensor(out, "out")
+    if out.shape != dout.shape or stats.shape != (n, heads, s, 2) \
+            or stats.dtype != torch.float32 or not stats.is_contiguous():
+        raise ValueError(f"long_qkv_attention backward: out {tuple(out.shape)} and stats "
+                         f"{tuple(stats.shape)} {stats.dtype} do not match qkv {tuple(qkv.shape)}")
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((n, heads, s), dtype=torch.float32, device=qkv.device)
+    lib = _flash_library()
+    with torch.cuda.device(qkv.device):
+        err = lib.eoe_long_attention_bwd(qkv.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                                         stats.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), n,
+                                         heads, s, d, d ** -0.5,
+                                         torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "long_qkv_attention backward")
+    long_qkv_attention.bwd_launches += 1
+    return dqkv
+
+
+def long_qkv_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Multi-head self-attention without a mask over the joint projection
+    ``qkv`` (n, s, 3*H*d) for ``MAX_SEQ < s <= MAX_SINGLE_BLOCK`` and d in
+    (64, 128), differentiable in ``qkv``; returns (n, s, H*d) as
+    ``fused_qkv_attention`` does. The forward is the flash kernel's
+    tensor-core stream (``flash_attention``'s numerics: P normalised before
+    it is rounded), which also writes each row's max and sum of exp; the
+    backward is its own pair of kernels (``csrc/flash_attention.cu``),
+    which recompute P from them; it saves ``qkv``, the output and the
+    statistics alone. On the card it takes bf16 only; on a CPU tensor (any
+    float dtype) the plain versions ``long_qkv_attention_fwd_ref`` and
+    ``long_qkv_attention_bwd_ref`` run. ``long_qkv_attention.launches`` and
+    ``.bwd_launches`` count the forward's and the backward's launches (the
+    backward's two kernels count as one)."""
+    n, s, F = qkv.shape
+    d = F // 3 // heads
+    if d not in (64, 128) or 3 * heads * d != F or not MAX_SEQ < s <= MAX_SINGLE_BLOCK:
+        raise ValueError(f"long_qkv_attention takes d in (64, 128) and {MAX_SEQ} < s <= "
+                         f"{MAX_SINGLE_BLOCK}; got heads={heads}, d={F / 3 / heads:g}, s={s}")
+    if qkv.device.type == "cpu":
+        fwd, bwd = long_qkv_attention_fwd_ref, long_qkv_attention_bwd_ref
+    elif qkv.dtype != torch.bfloat16:
+        raise ValueError(f"long_qkv_attention takes bfloat16 on the card, got {qkv.dtype}")
+    else:
+        fwd, bwd = _long_fwd_kernel, _long_bwd_kernel
+    return _LongAttention.apply(qkv, heads, fwd, bwd)[0]
+
+
+long_qkv_attention.launches = 0
+long_qkv_attention.bwd_launches = 0

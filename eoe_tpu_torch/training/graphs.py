@@ -144,11 +144,14 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
 def _launch_counters() -> List[Tuple[object, str]]:
     """Every kernel launch counter of the port: (owner, attribute)."""
     from eoe_tpu_torch.ops import augment, cbam
-    from eoe_tpu_torch.ops.attention import flash_attention, fused_qkv_attention
+    from eoe_tpu_torch.ops.attention import (default_attention, flash_attention,
+                                             fused_qkv_attention, long_qkv_attention)
     return ([(fused_qkv_attention, a) for a in (
         "launches", "bwd_launches", "group_launches", "group_bwd_launches",
         "resident_bwd_launches", "recompute_bwd_launches")]
         + [(flash_attention, a) for a in ("launches", "tc_launches", "tile_launches")]
+        + [(long_qkv_attention, "launches"), (long_qkv_attention, "bwd_launches"),
+           (default_attention, "cuda_calls")]
         + [(augment, "launches"), (augment, "stats_launches")]
         + [(cbam, "launches"), (cbam, "bwd_launches")])
 

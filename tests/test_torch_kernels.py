@@ -959,3 +959,109 @@ def test_out_of_memory_in_a_capture_ends_it(cuda):
     torch.cuda.synchronize()
     assert fine.replays == 2 and x[0].item() == 2 ** 4
     fine.close()
+
+
+# ---------------------------------------------------------------- long attention
+
+# ViT-L/14's image tower (s = 257), its 336-px sequence, and the longest
+# sequence at d = 128
+LONG_CASES = [(8, 257, 16, 64), (4, 577, 16, 64), (2, 1024, 8, 128)]
+
+
+def _long_inputs(case, cuda, seed=3):
+    n, s, h, d = case
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(n, s, 3 * h * d, generator=g, device=cuda).bfloat16()
+    dout = torch.randn(n, s, h * d, generator=g, device=cuda).bfloat16()
+    return qkv, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LONG_CASES)
+def test_long_attention_kernels_match_ref(cuda, case):
+    """The forward against its plain version (output to one bf16 rounding,
+    2e-2 as the fused kernels'; the rows' max to fp32 rounding of a sum
+    order, their sum of exp to 1e-5 relative), the backward from the
+    kernel's own output and statistics against its plain version from the
+    same (``_bwd_tol``), and both through autograd against
+    ``default_attention``'s gradient."""
+    n, s, h, d = case
+    qkv, dout = _long_inputs(case, cuda)
+    before = (A.long_qkv_attention.launches, A.long_qkv_attention.bwd_launches)
+    out, stats = A._long_fwd_kernel(qkv, h)
+    dqkv = A._long_bwd_kernel(qkv, out, stats, dout, h)
+    torch.cuda.synchronize()
+    assert (A.long_qkv_attention.launches, A.long_qkv_attention.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref, ref_stats = A.long_qkv_attention_fwd_ref(qkv, h)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert torch.allclose(stats[..., 0], ref_stats[..., 0], rtol=0, atol=1e-4)
+    assert torch.allclose(stats[..., 1], ref_stats[..., 1], rtol=1e-5, atol=0)
+    dref = A.long_qkv_attention_bwd_ref(qkv, out, stats, dout, h)
+    assert dqkv.shape == dref.shape and dqkv.dtype == torch.bfloat16
+    assert (dqkv.float() - dref.float()).abs().max().item() <= _bwd_tol(torch.bfloat16, dref)
+    x = qkv.clone().requires_grad_(True)
+    A.long_qkv_attention(x, h).backward(dout)
+    y = qkv.clone().requires_grad_(True)
+    q, k, v = (t.reshape(n, s, h, d).transpose(1, 2) for t in y.chunk(3, dim=-1))
+    A.default_attention(q, k, v, None).transpose(1, 2).reshape(n, s, h * d).backward(dout)
+    assert (x.grad.float() - y.grad.float()).abs().max().item() <= _bwd_tol(torch.bfloat16,
+                                                                           y.grad)
+
+
+@pytest.mark.cuda
+def test_long_attention_rejects(cuda):
+    """The route refuses a mask, fp32 and sequences outside 128 < s <= 1024;
+    the Function refuses fp32 on the card and the lengths outside it."""
+    qkv = torch.zeros(2, 257, 3 * 128, device=cuda, dtype=torch.bfloat16)
+    assert A.long_qkv_ok(2, 257, 2, 64, qkv)
+    assert not A.long_qkv_ok(2, 257, 2, 64, qkv, masked=True)
+    assert not A.long_qkv_ok(2, 257, 2, 64, qkv.float())
+    assert not A.long_qkv_ok(2, 128, 2, 64, qkv[:, :128])
+    assert not A.long_qkv_ok(2, 1025, 2, 64, qkv)
+    with pytest.raises(ValueError, match="bfloat16 on the card"):
+        A.long_qkv_attention(qkv.float(), 2)
+    for s in (128, 1025):
+        with pytest.raises(ValueError, match="128 < s <= 1024"):
+            A.long_qkv_attention(torch.zeros(1, s, 3 * 128, device=cuda, dtype=torch.bfloat16),
+                                 2)
+
+
+@pytest.mark.cuda
+def test_long_attention_backward_is_deterministic(cuda):
+    """No atomics: two backward runs give the same bits."""
+    qkv, dout = _long_inputs(LONG_CASES[0], cuda, seed=4)
+    out, stats = A._long_fwd_kernel(qkv, 16)
+    a = A._long_bwd_kernel(qkv, out, stats, dout, 16)
+    b = A._long_bwd_kernel(qkv, out, stats, dout, 16)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_long_attention_under_a_cuda_graph(cuda):
+    """The pair, forward and backward, captured in a CUDA graph and replayed
+    on new inputs gives what the eager calls give."""
+    case = (4, 257, 16, 64)
+    qkv, dout = _long_inputs(case, cuda, seed=5)
+    x = qkv.clone().requires_grad_(True)
+    g_in = dout.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm up outside the capture
+        A.long_qkv_attention(x, 16).backward(g_in)
+    torch.cuda.current_stream().wait_stream(side)
+    x.grad = None
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.long_qkv_attention(x, 16)
+        out.backward(g_in)
+    new_qkv, new_dout = _long_inputs(case, cuda, seed=6)
+    with torch.no_grad():
+        x.copy_(new_qkv)
+    g_in.copy_(new_dout)
+    graph.replay()
+    torch.cuda.synchronize()
+    y = new_qkv.clone().requires_grad_(True)
+    want = A.long_qkv_attention(y, 16)
+    want.backward(new_dout)
+    assert torch.equal(out, want) and torch.equal(x.grad, y.grad)
